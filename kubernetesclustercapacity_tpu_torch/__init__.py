@@ -1,0 +1,63 @@
+"""kubernetesclustercapacity_tpu_torch — the PyTorch / CUDA port.
+
+Counterpart of ``kubernetesclustercapacity_tpu/__init__.py``.  Given a pod
+spec and a replica count, compute how many replicas a Kubernetes cluster
+can still schedule — for S what-if specs at once (the capacity sweep) —
+on an NVIDIA H100.  The JAX package beside this one is the reference the
+port is held against; the port imports ``torch`` and numpy, never JAX and
+nothing of the JAX package.
+
+Layer map:
+
+===========  ===============================================================
+L4 CLI       :mod:`.cli` (``-grid`` sweep; the six reference flags)
+L3 codecs    :mod:`.utils.quantity`
+L2 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
+             :mod:`.scenario`, :mod:`.masks`
+L1 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel in
+             ``csrc/sweep_fit.cu``), :mod:`.ops.fit` (the exact int64
+             program), :mod:`.devcache` (device-resident columns)
+===========  ===============================================================
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the host (``device="cpu"``); without a card they raise.  int64 is native in
+PyTorch, so no global switch is needed.
+"""
+
+__version__ = "0.4.0"
+
+from kubernetesclustercapacity_tpu_torch.utils import quantity  # noqa: F401
+from kubernetesclustercapacity_tpu_torch.snapshot import (  # noqa: F401
+    ClusterSnapshot,
+    GroupedSnapshot,
+    grouped_for_dispatch,
+    load_snapshot,
+    snapshot_from_fixture,
+    synthetic_snapshot,
+)
+from kubernetesclustercapacity_tpu_torch.fixtures import (  # noqa: F401
+    load_fixture,
+    save_fixture,
+    synthetic_fixture,
+)
+from kubernetesclustercapacity_tpu_torch.scenario import (  # noqa: F401
+    Scenario,
+    ScenarioError,
+    ScenarioGrid,
+    random_scenario_grid,
+    scenario_from_flags,
+)
+from kubernetesclustercapacity_tpu_torch.masks import (  # noqa: F401
+    implicit_taint_mask,
+)
+from kubernetesclustercapacity_tpu_torch.ops.fit import (  # noqa: F401
+    fit_per_node,
+    sweep_grid,
+    sweep_grid_grouped,
+)
+from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (  # noqa: F401
+    sweep_auto,
+    sweep_fused,
+    sweep_fused_plain,
+    sweep_snapshot_auto,
+)

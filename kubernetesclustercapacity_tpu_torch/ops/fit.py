@@ -1,0 +1,292 @@
+"""The exact int64 capacity fit: the reference's per-node loop as tensor math.
+
+Counterpart of ``kubernetesclustercapacity_tpu/ops/fit.py`` (``_trunc_div``,
+``fit_per_node``, ``_apply_mode``, ``sweep_grid``, ``sweep_grid_grouped``
+and the grouped expansion), as plain PyTorch on whatever device the
+tensors live on.  The reference computes one scenario with a sequential Go
+loop (``ClusterCapacity.go:105-140``); here the scenario axis is a batch
+dimension written out, processed in ``[S_chunk, N]`` blocks so memory stays
+bounded at any S.
+
+Bit-exactness notes:
+
+* CPU math is Go ``uint64`` on int64 bit patterns.  PyTorch has no usable
+  unsigned 64-bit ``//``, ``<=`` or ``-``, so they are emulated: unsigned
+  compare flips the sign bit and compares signed, subtraction wraps
+  identically, and unsigned division splits on the top bits
+  (:func:`_u64_div`).
+* Memory math is Go ``int64``: subtraction wraps, and division truncates
+  toward zero where ``//`` floors (:func:`_trunc_div`).
+* The reference's pod cap (Q1) OVERWRITES the fit with
+  ``alloc_pods - pods_count`` (possibly negative) only when
+  ``fit >= alloc_pods``.
+* Sums wrap mod 2^64, as in Go and XLA.
+
+Modes: ``"reference"`` is bug-compatible; ``"strict"`` is the corrected
+3-way min with remaining pod slots, clamped at 0, unhealthy nodes zeroed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kubernetesclustercapacity_tpu_torch import devcache as _devcache
+
+__all__ = [
+    "fit_per_node",
+    "sweep_grid",
+    "sweep_grid_grouped",
+    "sweep_grid_staged",
+    "sweep_grouped_staged",
+]
+
+_INT64_MIN = -(1 << 63)
+_INT64_MAX = (1 << 63) - 1
+
+#: Cells per ``[S_chunk, N]`` block of the scenario batch (int64: 32 MiB a
+#: temporary).
+BLOCK_CELLS = 1 << 22
+
+
+def _u64_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a <= b`` on the uint64 values of int64 bit patterns."""
+    return (a ^ _INT64_MIN) <= (b ^ _INT64_MIN)
+
+
+def _u64_div(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``a / d`` on uint64 values of int64 bit patterns, ``d != 0``.
+
+    * ``d``'s top bit set: the quotient is ``a >=u d`` (0 or 1);
+    * ``a``'s top bit clear: both are non-negative, so ``//`` is exact;
+    * otherwise ``q = ((a >>> 1) // d) << 1`` leaves a remainder in
+      ``[0, 2d)``, and one fixup adds the last unit.
+
+    Every branch divides by a positive divisor, so no branch can trap.
+    """
+    d_top = d < 0
+    d_pos = torch.where(d_top, 1, d)
+    q_low = a // d_pos
+    q_high = (((a >> 1) & _INT64_MAX) // d_pos) << 1
+    q_high = q_high + _u64_le(d_pos, a - q_high * d_pos).to(torch.int64)
+    q = torch.where(a < 0, q_high, q_low)
+    return torch.where(d_top, _u64_le(d, a).to(torch.int64), q)
+
+
+def _trunc_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """Go int64 division: truncate toward zero (``//`` floors negatives).
+
+    Floor-division plus a remainder correction rather than ``abs``:
+    ``abs(INT64_MIN)`` wraps back to INT64_MIN, and wrapped memory
+    headrooms can land exactly there.
+    """
+    q = num // den
+    r = num - q * den
+    fixup = ((r != 0) & ((num < 0) != (den < 0))).to(q.dtype)
+    return q + fixup
+
+
+def fit_per_node(
+    alloc_cpu: torch.Tensor,
+    alloc_mem: torch.Tensor,
+    alloc_pods: torch.Tensor,
+    used_cpu: torch.Tensor,
+    used_mem: torch.Tensor,
+    pods_count: torch.Tensor,
+    healthy: torch.Tensor,
+    cpu_req: torch.Tensor,
+    mem_req: torch.Tensor,
+    *,
+    mode: str = "reference",
+    node_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-node replica fit, int64.
+
+    Node columns are ``[N]`` int64 (``healthy`` bool); ``cpu_req`` and
+    ``mem_req`` are int64 tensors that broadcast against them — a scalar
+    for one scenario, ``[S, 1]`` for a batch (giving ``[S, N]``).  A zero
+    request divides by 1 (the grid layer rejects zeros first, as the
+    reference would panic).  ``node_mask`` (``[N]`` bool) zeroes
+    constraint-infeasible nodes after the mode epilogue.
+    """
+    # CPU: Go uint64 compare/divide on the raw bit patterns (:119-123).
+    cpu_fit = torch.where(
+        _u64_le(alloc_cpu, used_cpu),
+        0,
+        _u64_div(alloc_cpu - used_cpu, torch.where(cpu_req == 0, 1, cpu_req)),
+    )
+    # Memory: Go int64 wrap-around subtraction + truncating div (:125-129).
+    mem_fit = torch.where(
+        alloc_mem <= used_mem,
+        0,
+        _trunc_div(alloc_mem - used_mem, torch.where(mem_req == 0, 1, mem_req)),
+    )
+    fit = torch.minimum(cpu_fit, mem_fit)  # findMin (:159-164)
+    fit = _apply_mode(fit, alloc_pods, pods_count, healthy, mode)
+    if node_mask is not None:
+        fit = torch.where(node_mask, fit, 0)
+    return fit
+
+
+def _apply_mode(fit, alloc_pods, pods_count, healthy, mode: str):
+    """The pod-count epilogue."""
+    if mode == "reference":
+        # Q1: conditional overwrite — only when fit >= allocatablePods, and
+        # the replacement ignores that cpu/mem may bind tighter (:134-136).
+        return torch.where(fit >= alloc_pods, alloc_pods - pods_count, fit)
+    if mode == "strict":
+        slots = torch.clamp_min(alloc_pods - pods_count, 0)
+        fit = torch.clamp_min(torch.minimum(fit, slots), 0)
+        return torch.where(healthy, fit, 0)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, *, mode, node_mask,
+           return_fits):
+    n = int(cols[0].shape[0])
+    s = int(cpu_reqs.shape[0])
+    step = max(1, BLOCK_CELLS // max(n, 1))
+    totals, fits_out = [], []
+    for lo in range(0, s, step):
+        fits = fit_per_node(
+            *cols,
+            cpu_reqs[lo:lo + step, None],
+            mem_reqs[lo:lo + step, None],
+            mode=mode,
+            node_mask=node_mask,
+        )
+        totals.append((fits if counts is None else fits * counts).sum(dim=1))
+        if return_fits:
+            fits_out.append(fits)
+    device = cols[0].device
+    if totals:
+        totals = torch.cat(totals)
+    else:
+        totals = torch.zeros(0, dtype=torch.int64, device=device)
+    schedulable = totals >= replicas
+    if not return_fits:
+        return totals, schedulable
+    if fits_out:
+        fits = torch.cat(fits_out)
+    else:
+        fits = torch.zeros((0, n), dtype=torch.int64, device=device)
+    return totals, schedulable, fits
+
+
+def sweep_grid(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+    node_mask: torch.Tensor | None = None,
+    return_per_node: bool = False,
+):
+    """S scenarios against N nodes: ``(totals[S], schedulable[S])`` tensors,
+    plus ``fits[S, N]`` with ``return_per_node``.  Inputs are tensors on
+    one device: the seven ``[N]`` node columns, ``[S]`` int64 requests and
+    replicas, and an optional shared ``[N]`` bool ``node_mask``."""
+    return _sweep(
+        (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+         healthy),
+        None, cpu_reqs, mem_reqs, replicas,
+        mode=mode, node_mask=node_mask, return_fits=return_per_node,
+    )
+
+
+def sweep_grid_grouped(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    counts, cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+    return_per_group: bool = False,
+):
+    """S scenarios against G node-shape GROUPS weighted by ``counts[G]``.
+
+    A group's fit is every member's fit (identical inputs), so the
+    cluster total is ``Σ_g count_g · fit_g`` — bit-exact against the
+    per-node sum even on wrapped carriers, since int64 multiply and add
+    are both mod 2^64.  Returns ``(totals[S], schedulable[S])`` and, with
+    ``return_per_group``, ``fits[S, G]``.
+    """
+    return _sweep(
+        (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+         healthy),
+        counts, cpu_reqs, mem_reqs, replicas,
+        mode=mode, node_mask=None, return_fits=return_per_group,
+    )
+
+
+def _scenario_tensors(cpu_reqs, mem_reqs, replicas, device):
+    return tuple(
+        _devcache.to_device(np.asarray(a, dtype=np.int64), device)
+        for a in (cpu_reqs, mem_reqs, replicas)
+    )
+
+
+def sweep_grid_staged(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+    node_mask=None,
+    return_per_node: bool = False,
+    snapshot=None,
+    device="cuda",
+):
+    """:func:`sweep_grid` on numpy inputs, numpy results.
+
+    When ``snapshot`` is given the node columns come device-resident from
+    :mod:`..devcache` (no per-request upload); the positional arrays are
+    then not re-staged.
+    """
+    device = _devcache.resolve_device(device)
+    if snapshot is not None:
+        cols = _devcache.CACHE.exact_tensors(snapshot, device)
+    else:
+        cols = _devcache.stage_exact(
+            (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem,
+             pods_count, healthy),
+            device,
+        )
+    mask = None
+    if node_mask is not None:
+        mask = _devcache.to_device(np.asarray(node_mask, dtype=bool), device)
+    out = sweep_grid(
+        *cols, *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
+        mode=mode, node_mask=mask, return_per_node=return_per_node,
+    )
+    return tuple(o.cpu().numpy() for o in out)
+
+
+def sweep_grouped_staged(
+    grouped,
+    cpu_reqs,
+    mem_reqs,
+    replicas,
+    *,
+    mode: str = "reference",
+    node_mask=None,
+    return_per_node: bool = False,
+    device="cuda",
+):
+    """The exact sweep over ``G`` group rows instead of ``N`` node rows,
+    numpy in and out, with per-node fits expanded back through the
+    group index where asked.
+
+    ``node_mask`` folds into the per-group counts (a masked node's fit is
+    zero in every mode, so dropping it from its group's count is the same
+    sum); per-group fits stay mask-independent and the per-node expansion
+    re-applies the mask.
+    """
+    device = _devcache.resolve_device(device)
+    cols = _devcache.CACHE.grouped_exact_tensors(grouped, device)
+    counts = _devcache.to_device(grouped.effective_counts(node_mask), device)
+    out = sweep_grid_grouped(
+        *cols, counts,
+        *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
+        mode=mode, return_per_group=return_per_node,
+    )
+    out = tuple(o.cpu().numpy() for o in out)
+    if not return_per_node:
+        return out
+    fits = grouped.expand(out[2])
+    if node_mask is not None:
+        fits = np.where(np.asarray(node_mask, dtype=bool)[None, :], fits, 0)
+    return out[0], out[1], fits

@@ -1,0 +1,162 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to fall back to the host when CUDA is asked for
+and absent."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from kubernetesclustercapacity_tpu_torch import cli as t_cli
+from kubernetesclustercapacity_tpu_torch.ops import fused_fit as tf
+from kubernetesclustercapacity_tpu_torch.scenario import random_scenario_grid
+from kubernetesclustercapacity_tpu_torch.snapshot import synthetic_snapshot
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PORT = os.path.join(REPO, "kubernetesclustercapacity_tpu_torch")
+JAX_PACKAGE = "kubernetesclustercapacity_tpu"
+
+
+def _forbidden(module: str) -> bool:
+    # Exact name or dotted prefix: "kubernetesclustercapacity_tpu_torch"
+    # also starts with "kubernetesclustercapacity_tpu".
+    return any(
+        module == banned or module.startswith(banned + ".")
+        for banned in ("jax", "jaxlib", JAX_PACKAGE)
+    )
+
+
+def _imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _port_files():
+    out = []
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_the_scan_is_not_vacuous():
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert len(names) >= 15
+    assert "kubernetesclustercapacity_tpu_torch/ops/fused_fit.py" in names
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, REPO)
+)
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_forbidden_matcher_is_exact():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden(JAX_PACKAGE) and _forbidden(JAX_PACKAGE + ".ops.fit")
+    assert not _forbidden("kubernetesclustercapacity_tpu_torch")
+    assert not _forbidden("kubernetesclustercapacity_tpu_torch.ops")
+    assert not _forbidden("jaxtyping_like")
+
+
+_BLOCKED_RUN = textwrap.dedent(
+    """
+    import importlib.abc, io, contextlib, json, sys
+
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "kubernetesclustercapacity_tpu" or name.startswith(
+                "kubernetesclustercapacity_tpu."
+            ):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+
+    import kubernetesclustercapacity_tpu_torch as kt
+    from kubernetesclustercapacity_tpu_torch import cli
+
+    snap = kt.synthetic_snapshot(1500, seed=1, shapes=5)
+    totals, sched, name = kt.sweep_snapshot_auto(
+        snap, kt.random_scenario_grid(32, seed=2), device="cpu"
+    )
+    fx = kt.synthetic_fixture(20, seed=3, taint_frac=0.5)
+    fx_path = sys.argv[1]
+    kt.save_fixture(fx, fx_path)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-snapshot", fx_path, "-semantics", "strict",
+                       "-grid", "8", "-device", "cpu"])
+    loaded = sorted(
+        m for m in sys.modules
+        if m == "kubernetesclustercapacity_tpu"
+        or m.startswith("kubernetesclustercapacity_tpu.")
+        or (m.split(".")[0] in ("jax", "jaxlib")
+            and sys.modules[m] is not None)
+    )
+    print(json.dumps({"name": name, "total": int(totals.sum()), "rc": rc,
+                      "cli_kernel": json.loads(buf.getvalue())["kernel"],
+                      "loaded": loaded}))
+    """
+)
+
+
+def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
+    script = tmp_path / "blocked.py"
+    script.write_text(_BLOCKED_RUN)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, str(script), str(tmp_path / "fx.json")],
+        capture_output=True, text=True, cwd=str(tmp_path), env=env,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert doc == {
+        "name": "plain_i32_rcp_fused_grouped",
+        "total": doc["total"],
+        "rc": 0,
+        "cli_kernel": "plain_i32_rcp_fused",
+        "loaded": [],
+    }
+    assert doc["total"] > 0
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    snap = synthetic_snapshot(50, seed=1)
+    grid = random_scenario_grid(4, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tf.sweep_snapshot_auto(snap, grid)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tf.sweep_auto(
+            snap, grid.cpu_request_milli, grid.mem_request_bytes,
+            grid.replicas,
+        )
+
+
+def test_cli_default_device_raises_without_cuda(no_cuda, capsys):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cli.main(["-snapshot", "tests/fixtures/kind-3node.json",
+                    "-grid", "4"])
+    assert capsys.readouterr().out == ""
