@@ -4,12 +4,15 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``kubernetesclustercapacity_tpu_torch/
-csrc``, holds every variant against its plain PyTorch version on the card,
-drives the ``-grid`` capacity sweep end to end through the port's CLI at the
-north-star size (10,000 nodes x 1,000 scenarios, and 100,000 nodes in the
-grouped form), checks every total against the exact int64 program on the
-card and on the host, and times the kernel beside its bound.  Any failure
+It builds the port's CUDA kernels from ``kubernetesclustercapacity_tpu_torch/
+csrc`` (B1 ``sweep_fit.cu`` and B2 ``sweep_multi.cu``, one ``nvcc`` each,
+started together), holds every variant of each against its plain PyTorch
+version on the card, drives the ``-grid`` capacity sweep end to end through
+the port's CLI at the north-star size (10,000 nodes x 1,000 scenarios, and
+100,000 nodes in the grouped form) and the R-resource sweep of BASELINE
+config 4 (``-extended-request``, 4 resources) through the CLI and the
+library call, checks every total against the exact int64 program on the
+card and on the host, and times each kernel beside its bound.  Any failure
 raises, so the script exits nonzero without its final line.  It needs a
 CUDA device and the package beside it; it imports nothing of JAX.
 
@@ -19,6 +22,7 @@ Output: phase lines, one JSON line per timed kernel variant, a
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import itertools
@@ -44,7 +48,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 LANES_PER_SM = 128
 TIMED_LAUNCHES = 100
 WARMUP_LAUNCHES = 10
-HOLD_S = 0.05  # how long the stream is held while timed launches queue up
+HOLD_S = 0.05  # the shortest hold of the stream while timed calls queue up
+GIB = 1 << 30
+MIB = 1 << 20
 
 # The least work the function needs per (scenario, node) cell, however a
 # kernel computes it; the rcp and divide variants compute the same
@@ -336,28 +342,47 @@ def phase_exact_adversarial(fit) -> None:
 
 
 def device_ms(fn, clock_hz: float,
-              launches: int = TIMED_LAUNCHES) -> tuple[float, bool]:
+              launches: int = TIMED_LAUNCHES) -> tuple[float, int]:
     """Median device time of one of ``launches`` calls, each bracketed by
     CUDA events, after warm-up.  A sleep kernel holds the stream while the
     host enqueues the calls, so the card runs them back to back and each
     event pair brackets the call's own kernels, not the host's launch
-    cadence.  Returns the median and whether the hold outlasted the
-    enqueueing (if not, the later pairs may include host gaps)."""
+    cadence.  The hold is sized from an untimed pass (twice the host's
+    time to enqueue the calls it covers, at least :data:`HOLD_S`), and a
+    hold that ran out before its calls were queued (the host was slower,
+    or the launch queue filled and blocked it) is thrown away and retried
+    with half as many calls per hold.  Returns the median and the calls
+    per hold that held."""
     for _ in range(WARMUP_LAUNCHES):
         fn()
     torch.cuda.synchronize()
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(launches)]
-    torch.cuda._sleep(int(HOLD_S * clock_hz))
-    held = torch.cuda.Event()
-    held.record()
-    for start, end in pairs:
-        start.record()
+    t0 = time.perf_counter()
+    for _ in range(launches):
         fn()
-        end.record()
-    hold_ok = not held.query()
+    enqueue_s = (time.perf_counter() - t0) / launches
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs), hold_ok
+    times: list[float] = []
+    per_hold = launches
+    while len(times) < launches:
+        k = min(per_hold, launches - len(times))
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(k)]
+        torch.cuda._sleep(int(max(HOLD_S, 2 * k * enqueue_s) * clock_hz))
+        held = torch.cuda.Event()
+        held.record()
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        hold_ok = not held.query()
+        torch.cuda.synchronize()
+        if hold_ok:
+            times += [s.elapsed_time(e) for s, e in pairs]
+        elif per_hold > 1:
+            per_hold //= 2
+        else:
+            raise AssertionError("one call outlasted a hold sized for it")
+    return statistics.median(times), per_hold
 
 
 def host_call_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
@@ -433,8 +458,9 @@ def phase_times(pkg, ff, device, identity: str, clock_hz: float,
     for v, data, path in timed:
         ops = v.operands(data, device)
         n, s = int(ops[0].shape[0]), int(ops[6].shape[0])
-        ms, hold_ok = device_ms(bare_launch(ff, ops, v.strict, sms), clock_hz)
-        plain_ms, plain_hold_ok = device_ms(
+        ms, hold_calls = device_ms(bare_launch(ff, ops, v.strict, sms),
+                                   clock_hz)
+        plain_ms, plain_hold_calls = device_ms(
             lambda: ff.sweep_fused_plain(*ops, strict=v.strict), clock_hz)
         wrapper_host_ms = host_call_ms(
             lambda: ff.sweep_fused(*ops, strict=v.strict))
@@ -443,8 +469,8 @@ def phase_times(pkg, ff, device, identity: str, clock_hz: float,
             "kernel": v.name, "shape": f"{n}x{s}", "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "wrapper_host_ms": wrapper_host_ms,
-            "hold_outlasted_enqueue": {"kernel": hold_ok,
-                                       "plain": plain_hold_ok},
+            "calls_per_hold": {"kernel": hold_calls,
+                               "plain": plain_hold_calls},
             "ops_per_cell": v.ops_per_cell(), "cells": cells,
             "launches": launches.get(path, 0) if path else 0,
             "main_path": path, "library_ms": None, "gpu": identity,
@@ -492,24 +518,25 @@ def phase_end_to_end(pkg, ff) -> dict:
         f"proofs alone take {out['eligibility_ms']:.4f} ms; forced through "
         f"the exact int64 program {out['exact_end_to_end_ms']:.4f} ms "
         "(host clock, 20 runs each)")
-    out.update(phase_trace(snap, grid, ff, out["end_to_end_ms"]))
+    out.update(phase_trace(
+        lambda: ff.sweep_snapshot_auto(snap, grid, device="cuda"),
+        "sweep_fit_kernel", out["end_to_end_ms"]))
     return out
 
 
-def phase_trace(snap, grid, ff, end_to_end_ms: float,
+def phase_trace(call, kernel_key: str, end_to_end_ms: float,
                 runs: int = 20) -> dict:
-    """Where a 10k x 1k sweep's device time goes: torch.profiler over
-    ``runs`` warm sweep_snapshot_auto calls, device time per sweep by
-    kernel or copy (the sweep kernel's own as ``kernel_trace_ms``), and
-    the card's busy share, that device time over the unprofiled
-    end-to-end median."""
+    """Where a sweep's device time goes: torch.profiler over ``runs`` warm
+    calls of ``call``, device time per sweep by kernel or copy (the kernel
+    whose name holds ``kernel_key`` as ``kernel_trace_ms``), and the card's
+    busy share, that device time over the unprofiled end-to-end median."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
-            ff.sweep_snapshot_auto(snap, grid, device="cuda")
+            call()
         torch.cuda.synchronize()
     per_name: dict[str, float] = {}
     for ev in prof.events():
@@ -519,10 +546,9 @@ def phase_trace(snap, grid, ff, end_to_end_ms: float,
     if not per_name:
         raise AssertionError("the profiler recorded no device activity")
     device_ms = sum(per_name.values())
-    kernel_ms = sum(ms for name, ms in per_name.items()
-                    if "sweep_fit_kernel" in name)
+    kernel_ms = sum(ms for name, ms in per_name.items() if kernel_key in name)
     if not kernel_ms:
-        raise AssertionError("the trace shows no sweep_fit kernel")
+        raise AssertionError(f"the trace shows no {kernel_key}")
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"trace of {runs} sweeps: {device_ms:.4f} ms of device work per "
         f"sweep, busy share {device_ms / end_to_end_ms:.3f} of the "
@@ -532,6 +558,436 @@ def phase_trace(snap, grid, ff, end_to_end_ms: float,
             "kernel_trace_ms": kernel_ms,
             "device_busy_share": device_ms / end_to_end_ms,
             "device_ms_by_name": dict(top)}
+
+
+# --- Kernel B2, the R-resource sweep (BASELINE config 4) -----------------
+
+
+class MultiVariant:
+    """One of B2's 8 static variants (rcp x strict x mask; R is a
+    runtime argument)."""
+
+    def __init__(self, rcp: bool, strict: bool, mask: bool):
+        self.rcp, self.strict, self.mask = rcp, strict, mask
+
+    @property
+    def name(self) -> str:
+        parts = ["rcp" if self.rcp else "div",
+                 "strict" if self.strict else "reference"]
+        if self.mask:
+            parts.append("mask")
+        return "sweep_multi[" + ",".join(parts) + "]"
+
+    def bound(self, ops: tuple, sms: int, clock_hz: float):
+        """The least time the card could take on ``ops``, in ms, what
+        bounds it, and the operations counted.  Per cell of a scenario
+        with ``a`` active rows (request > 0): ``a`` quotients and ``a - 1``
+        mins (none when ``a`` is 0: the fit is the constant INT32_MAX), the
+        epilogue (reference 2, strict 1) and the accumulate; over the
+        nodes whose mask is not 0, at the issue rate of
+        :meth:`Variant.bound`.  Bytes: the 2R + 2 (+ mask) int32 node
+        columns and the R request (and reciprocal) rows read once, the
+        int64 totals written once, over the memory rate."""
+        alloc, _, _, _, reqs, _, mask = ops
+        r, n = (int(d) for d in alloc.shape)
+        s = int(reqs.shape[1])
+        live = n if mask is None else int((mask != 0).sum())
+        active = (reqs > 0).sum(dim=0)
+        per_cell = ((2 * active - 1).clamp_min(0)
+                    + EPILOGUE_OPS[self.strict] + 1)
+        ops_total = live * int(per_cell.sum())
+        nbytes = ((2 * r + 2 + int(self.mask)) * 4 * n
+                  + r * 4 * s * (2 if self.rcp else 1) + 8 * s)
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        ops_s = ops_total / (sms * LANES_PER_SM * clock_hz)
+        if ops_s >= bytes_s:
+            return ops_s * 1e3, "operations", ops_total
+        return bytes_s * 1e3, "bytes", ops_total
+
+
+MULTI_VARIANTS = [MultiVariant(*bits)
+                  for bits in itertools.product((False, True), repeat=3)]
+
+
+def multi_rows(n: int, s: int, n_res: int, seed: int) -> dict:
+    """Seeded R-resource inputs in their native units, rcp-eligible: cpu
+    milli, memory bytes, ephemeral-storage bytes, GPUs, 2 MiB hugepages
+    and an FPGA count, in that order.  Some nodes are over-committed,
+    pods_count can exceed alloc_pods, rows past memory request 0 (the
+    row is inactive) at random, and scenario 0 requests nothing."""
+    rng = np.random.default_rng(seed)
+    cores = rng.choice(np.array([2, 4, 8, 16, 32, 64]), size=n)
+    units = [
+        (cores * 1000, lambda k: rng.integers(50, 4000, k)),
+        ((cores * 4096 - rng.integers(0, 256, n)) * MIB,
+         lambda k: rng.integers(64, 8192, k) * MIB),
+        (rng.integers(50, 500, n) * GIB,
+         lambda k: rng.integers(0, 20, k) * GIB),
+        (rng.integers(0, 9, n), lambda k: rng.integers(0, 3, k)),
+        (rng.integers(0, 64, n) * 2 * MIB,
+         lambda k: rng.integers(0, 4, k) * 2 * MIB),
+        (rng.integers(0, 4, n), lambda k: rng.integers(0, 2, k)),
+    ][:n_res]
+    alloc = np.stack([a for a, _ in units]).astype(np.int64)
+    used = (alloc * rng.random(alloc.shape) * 1.1).astype(np.int64)
+    used -= used % np.array([1, 1024, 1024, 1, 1024, 1][:n_res])[:, None]
+    reqs = np.stack([draw(s) for _, draw in units], axis=1).astype(np.int64)
+    reqs[0, :] = 0
+    return {"alloc": alloc, "used": used, "reqs": reqs,
+            "ap": np.full(n, 110, dtype=np.int64),
+            "pc": rng.integers(0, 130, n).astype(np.int64),
+            "mask": rng.random(n) < 0.85}
+
+
+def multi_edge_rows() -> list[dict]:
+    """B2's reciprocal-division edge inputs on two unscaled rows: dividends
+    on and one off multiples of the divisor at the largest eligible
+    quotient (2^20), a divisor at 2^29 with the wrapping fixup product
+    (dividend at int32 max), all-inactive scenarios and zero requests on
+    one row (as zero GPU requests)."""
+    q, d0, d1, n = 1 << 20, 997, 1031, 64
+    boundary = np.stack([
+        np.array([q * d0, q * d0 - 1, q * d0 + 1, (q - 1) * d0] * (n // 4)),
+        np.array([q * d1, q * d1 - 1, q * d1 + 1, (q - 1) * d1] * (n // 4)),
+    ]).astype(np.int64)
+    wrap = np.stack([np.full(n, (1 << 31) - 1), np.full(n, 1 << 20)])
+    cases = [
+        (boundary, [[d0, d1], [d0 + 1, d1], [d0, 0], [0, d1], [0, 0]]),
+        (wrap, [[1 << 29, 1], [(1 << 29) - 1, 1], [1 << 29, 0], [0, 0]]),
+    ]
+    return [{"alloc": alloc, "used": np.zeros_like(alloc),
+             "reqs": np.array(reqs, dtype=np.int64),
+             "ap": np.full(n, 1 << 30, dtype=np.int64),
+             "pc": np.zeros(n, dtype=np.int64),
+             "mask": np.ones(n, dtype=bool)} for alloc, reqs in cases]
+
+
+def wide_multi_rows(n: int, s: int, n_res: int, seed: int) -> dict:
+    """Unscaled R-resource inputs with more rows than one shared-memory
+    pass of B2 holds.  Each scenario but the first (all inactive) requests
+    1-4 random rows, so the rows that bind fall in different passes; some
+    nodes are over-committed."""
+    rng = np.random.default_rng(seed)
+    alloc = rng.integers(0, 1 << 24, (n_res, n)).astype(np.int64)
+    used = (alloc * rng.random((n_res, n)) * 1.1).astype(np.int64)
+    reqs = np.zeros((s, n_res), dtype=np.int64)
+    for i in range(1, s):
+        rows = rng.choice(n_res, int(rng.integers(1, 5)), replace=False)
+        reqs[i, rows] = rng.integers(1 << 10, 1 << 14, rows.size)
+    return {"alloc": alloc, "used": used, "reqs": reqs,
+            "ap": np.full(n, 1 << 14, dtype=np.int64),
+            "pc": rng.integers(0, 130, n).astype(np.int64),
+            "mask": rng.random(n) < 0.85}
+
+
+def multi_operands(fm, data: dict, v: MultiVariant, device) -> tuple:
+    scales = fm.multi_row_scales(data["alloc"], data["used"], data["reqs"])
+    if scales is None or not fm.rcp_multi_eligible(
+            data["alloc"], data["used"], data["reqs"], scales):
+        raise AssertionError("multi test data is not rcp-eligible")
+    return fm.stage_multi_operands(
+        data["alloc"], data["used"], data["ap"], data["pc"], data["reqs"],
+        scales, data["mask"] if v.mask else None, use_rcp=v.rcp,
+        device=device)
+
+
+def phase_multi_kernel_vs_plain(fm, device) -> tuple[int, int]:
+    """All 8 variants of B2 at R in {1, 2, 4, 6}, at 10k x 1k and two
+    ragged shapes, at R = 1534 and 3100 (rows staged in passes), and on
+    the rcp edge inputs: kernel totals must equal
+    the plain version's exactly (tolerance 0: integer totals).  Returns
+    the kernel calls made and the largest |kernel - plain| seen."""
+    cases = []
+    for n_res in (1, 2, 4, 6):
+        for n, s in ((10_000, 1_000), (1, 1), (2049, 257)):
+            cases.append((multi_rows(n, s, n_res, seed=n + s + n_res),
+                          f"R={n_res} {n}x{s}"))
+    for n_res in (1534, 3100):  # past one pass of the shared tile
+        cases.append((wide_multi_rows(333, 130, n_res, seed=n_res),
+                      f"R={n_res} 333x130"))
+    cases += [(d, f"rcp-edge-{i}") for i, d in enumerate(multi_edge_rows())]
+    calls = max_err = 0
+    before = fm.LAUNCHES
+    for data, label in cases:
+        for v in MULTI_VARIANTS:
+            ops = multi_operands(fm, data, v, device)
+            got = fm.sweep_multi(*ops, strict=v.strict)
+            calls += 1
+            torch.cuda.synchronize()
+            want = fm.sweep_multi_plain(*ops, strict=v.strict)
+            err = int((got - want).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(
+                    f"{v.name} at {label}: kernel differs from plain "
+                    f"(max |diff| {err})")
+    log(f"kernel == plain: sweep_multi, 8 variants at {len(cases)} input "
+        f"sets (R in 1, 2, 4, 6; 10000x1000, 1x1, 2049x257; R in 1534, "
+        f"3100 at 333x130; rcp edges)")
+    if fm.LAUNCHES - before != calls:
+        raise AssertionError(
+            f"sweep_multi LAUNCHES rose by {fm.LAUNCHES - before}, "
+            f"expected {calls}")
+    return calls, max_err
+
+
+def config4_fixture(pkg, n: int = 10_000):
+    """``synthetic_fixture(n, seed=5, taint_frac=0.1)`` with GPUs (0-8)
+    and ephemeral storage (50-500 Gi) on every node, and every fourth pod
+    replaced by one that requests storage (1-10 Gi) and, on a GPU node,
+    one GPU."""
+    fixture = pkg.synthetic_fixture(n, seed=5, taint_frac=0.1)
+    rng = np.random.default_rng(12)
+    gpus = {}
+    for node, g, e in zip(fixture["nodes"], rng.integers(0, 9, n),
+                          rng.integers(50, 501, n)):
+        node["allocatable"]["nvidia.com/gpu"] = str(int(g))
+        node["allocatable"]["ephemeral-storage"] = f"{int(e)}Gi"
+        gpus[node["name"]] = int(g)
+    pods = fixture["pods"][::4]
+    for pod, e in zip(pods, rng.integers(1, 11, len(pods))):
+        gpu = "1" if gpus.get(pod.get("nodeName", ""), 0) else "0"
+        pod["containers"] = [{"resources": {"requests": {
+            "cpu": "250m", "memory": "256Mi", "nvidia.com/gpu": gpu,
+            "ephemeral-storage": f"{int(e)}Gi"}}}]
+    return fixture
+
+
+def bench_config4(pkg, n: int = 10_000, s: int = 1_000) -> tuple:
+    """BASELINE config 4 as ``bench.py`` builds it, on the port's
+    ``synthetic_snapshot(n)``: cpu and memory rows, ephemeral storage of
+    50-500 GiB with 0-50 GiB used, 0-8 GPUs with none used; scenarios of
+    the random cpu/memory grid with 1-19 GiB of storage and 0-2 GPUs
+    (zeros make the GPU row inactive).  Returns sweep_multi_auto's
+    positional arguments."""
+    snap = pkg.synthetic_snapshot(n, seed=0)
+    rng = np.random.default_rng(4)
+    alloc_rn = np.stack([snap.alloc_cpu_milli, snap.alloc_mem_bytes,
+                         rng.integers(50, 500, n) * GIB,
+                         rng.integers(0, 9, n)])
+    used_rn = np.stack([snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+                        rng.integers(0, 50, n) * GIB,
+                        np.zeros(n, dtype=np.int64)])
+    grid = pkg.random_scenario_grid(s, seed=1)
+    reqs = np.stack([grid.cpu_request_milli, grid.mem_request_bytes,
+                     rng.integers(1, 20, s) * GIB, rng.integers(0, 3, s)],
+                    axis=1)
+    return (alloc_rn, used_rn, snap.alloc_pods, snap.pods_count,
+            snap.healthy, reqs, grid.replicas)
+
+
+def check_multi_against_exact(fm, name: str, args: tuple, kw: dict,
+                              totals, schedulable) -> None:
+    """Totals and flags equal the exact int64 program forced on the card
+    (which must launch B2 0 times) and on the host."""
+    fm.LAUNCHES = 0
+    card = fm.sweep_multi_auto(*args, force_exact=True, device="cuda", **kw)
+    if fm.LAUNCHES != 0:
+        raise AssertionError(f"{name}: the forced exact program launched "
+                             f"sweep_multi {fm.LAUNCHES} times")
+    host = fm.sweep_multi_auto(*args, force_exact=True, device="cpu", **kw)
+    for other, what in ((card, "exact on the card"),
+                        (host, "exact on the host")):
+        if other[2] != "torch_int64_multi":
+            raise AssertionError(f"{name}: {what} took {other[2]}")
+        if not (np.array_equal(other[0], totals)
+                and np.array_equal(other[1], schedulable)):
+            raise AssertionError(f"{name}: totals differ from {what}")
+
+
+def phase_multi_paths(pkg, cli, ff, fm, tmp: str) -> dict:
+    """Path (e): BASELINE config 4 through the port's CLI on a strict
+    10k-node fixture with GPU and storage columns; path (f): the library
+    call on bench.py's config-4 data.  Each checked against the exact
+    program on the card and on the host, with B2's launches counted
+    around the path's own run.  Returns the launches and each path's
+    staged kernel operands (for the timing phase)."""
+    from kubernetesclustercapacity_tpu_torch.scenario import (
+        MultiResourceGrid,
+    )
+
+    out = {"launches": {}, "operands": {}}
+    e_npz = os.path.join(tmp, "e.npz")
+    t0 = time.perf_counter()
+    snap = pkg.snapshot_from_fixture(
+        config4_fixture(pkg), semantics="strict",
+        extended_resources=("ephemeral-storage", "nvidia.com/gpu"))
+    snap.save(e_npz)
+    log(f"path (e) fixture packed strict with GPU and storage columns in "
+        f"{time.perf_counter() - t0:.2f} s")
+    argv = ["-snapshot", e_npz, "-grid", "1000", "-semantics", "strict",
+            "-extended-request", "nvidia.com/gpu=1",
+            "-extended-request", "ephemeral-storage=10Gi", "-output", "json"]
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    doc = run_cli(cli, argv)
+    dt = time.perf_counter() - t0
+    out["launches"]["(e)"] = fm.LAUNCHES
+    if doc["kernel"] != "cuda_multi_i32_rcp_fused" or fm.LAUNCHES != 1 \
+            or ff.LAUNCHES != 0:
+        raise AssertionError(
+            f"(e): label {doc['kernel']}, sweep_multi launches "
+            f"{fm.LAUNCHES}, sweep_fit launches {ff.LAUNCHES}")
+    grid = pkg.random_scenario_grid(1000, seed=0)
+    mgrid = MultiResourceGrid.from_grid(grid, {
+        "nvidia.com/gpu": np.full(1000, 1, dtype=np.int64),
+        "ephemeral-storage": np.full(1000, 10 * GIB, dtype=np.int64)})
+    alloc_rn, used_rn = snap.resource_matrix(mgrid.resources)
+    mask = pkg.implicit_taint_mask(snap)
+    if mask is None:
+        raise AssertionError("(e): the strict fixture carries no taints")
+    args = (alloc_rn, used_rn, snap.alloc_pods, snap.pods_count,
+            snap.healthy, mgrid.requests, mgrid.replicas)
+    totals = np.asarray(doc["totals"])
+    check_multi_against_exact(fm, "(e)", args, {"node_masks": mask},
+                              totals, np.asarray(doc["schedulable"]))
+    if totals.shape != (1000,) or doc["extended_requests"] != {
+            "nvidia.com/gpu": 1, "ephemeral-storage": 10 * GIB}:
+        raise AssertionError("(e): unexpected JSON")
+    log(f"main path (e) config 4, 10k x 1k x 4 resources, strict, "
+        f"taint-masked, through the CLI: label {doc['kernel']}, launches "
+        f"{out['launches']['(e)']}, {dt:.3f} s, totals sum "
+        f"{int(totals.sum())}, p50 {doc['totals_p50']}, equal to the exact "
+        f"program on the card (0 launches) and on the host")
+    scales, _ = fm.fast_multi_eligible(alloc_rn, used_rn, snap.alloc_pods,
+                                        snap.pods_count, mgrid.requests)
+    out["operands"]["(e)"] = fm.stage_multi_operands(
+        alloc_rn, used_rn, snap.alloc_pods, snap.pods_count, mgrid.requests,
+        scales, np.asarray(snap.healthy) & mask, use_rcp=True,
+        device=torch.device("cuda", 0))
+
+    f_args = bench_config4(pkg)
+    fm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    totals, sched, label = fm.sweep_multi_auto(*f_args, mode="strict",
+                                               device="cuda")
+    dt = time.perf_counter() - t0
+    out["launches"]["(f)"] = fm.LAUNCHES
+    if label != "cuda_multi_i32_rcp_fused" or fm.LAUNCHES != 1:
+        raise AssertionError(f"(f): label {label}, launches {fm.LAUNCHES}")
+    check_multi_against_exact(fm, "(f)", f_args, {"mode": "strict"},
+                              totals, sched)
+    log(f"main path (f) config 4, bench.py data, 10k x 1k x 4 resources, "
+        f"strict, library call: label {label}, launches "
+        f"{out['launches']['(f)']}, {dt:.3f} s cold, totals sum "
+        f"{int(totals.sum())}, equal to the exact program on the card "
+        f"(0 launches) and on the host")
+    alloc_rn, used_rn, ap, pc, healthy, reqs, _ = f_args
+    scales, _ = fm.fast_multi_eligible(alloc_rn, used_rn, ap, pc, reqs)
+    out["operands"]["(f)"] = fm.stage_multi_operands(
+        alloc_rn, used_rn, ap, pc, reqs, scales, healthy, use_rcp=True,
+        device=torch.device("cuda", 0))
+    out["f_args"] = f_args
+    return out
+
+
+def bare_multi_launch(fm, ff, ops, strict: bool, sms: int):
+    """B2 through its C entry point with every argument prepared once
+    (the counterpart of :func:`bare_launch`)."""
+    alloc, used, ap, pc, reqs, rcps, mask = ops
+    r, n = (int(d) for d in alloc.shape)
+    s = int(reqs.shape[1])
+    totals = torch.zeros(s, dtype=torch.int64, device=alloc.device)
+    ptr = [None if t is None else t.data_ptr() for t in
+           (alloc, used, ap, pc, mask, reqs, rcps, totals)]
+    args = (*ptr, n, s, r, ff.node_chunk(n, s, sms), int(strict),
+            torch.cuda.current_stream().cuda_stream)
+    fn = fm._multi_fn()
+
+    def launch():
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"sweep_multi launch failed: CUDA error {rc}")
+
+    return launch
+
+
+def phase_multi_times(fm, ff, paths: dict, identity: str,
+                      clock_hz: float) -> list[dict]:
+    """B2's variant on paths (e) and (f) (rcp, strict, mask at R = 4), and
+    its int32-divide form on (f)'s operands, timed as
+    :func:`phase_times` times B1."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    v = MultiVariant(True, True, True)
+    f_ops = paths["operands"]["(f)"]
+    div_ops = f_ops[:5] + (None,) + f_ops[6:]
+    timed = [(v, paths["operands"]["(e)"], "(e)"), (v, f_ops, "(f)"),
+             (MultiVariant(False, True, True), div_ops, None)]
+    rows = []
+    for var, ops, path in timed:
+        r, n = (int(d) for d in ops[0].shape)
+        s = int(ops[4].shape[1])
+        ms, hold_calls = device_ms(
+            bare_multi_launch(fm, ff, ops, var.strict, sms), clock_hz)
+        plain_ms, plain_hold_calls = device_ms(
+            lambda: fm.sweep_multi_plain(*ops, strict=var.strict), clock_hz)
+        wrapper_host_ms = host_call_ms(
+            lambda: fm.sweep_multi(*ops, strict=var.strict))
+        bound_ms, bound_by, op_count = var.bound(ops, sms, clock_hz)
+        rows.append({
+            "kernel": var.name, "shape": f"{r}x{n}x{s}", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "wrapper_host_ms": wrapper_host_ms,
+            "calls_per_hold": {"kernel": hold_calls,
+                               "plain": plain_hold_calls},
+            "operations": op_count,
+            "launches": paths["launches"].get(path, 0) if path else 0,
+            "main_path": path, "library_ms": None, "gpu": identity,
+        })
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def phase_multi_end_to_end(fm, f_args: tuple) -> dict:
+    """Path (f)'s sweep_multi_auto, host-clocked to a synchronize (median
+    of 20 after warm-up; every call stages its operands anew), beside its
+    host eligibility proofs timed alone, the forced exact program, and a
+    profiler trace of the device busy share."""
+    alloc_rn, used_rn, ap, pc, _, reqs, _ = f_args
+
+    def proofs():
+        scales, _ = fm.fast_multi_eligible(alloc_rn, used_rn, ap, pc, reqs)
+        fm.rcp_multi_eligible(alloc_rn, used_rn, reqs, scales)
+
+    out = {
+        "end_to_end_ms": host_median_ms(
+            lambda: fm.sweep_multi_auto(*f_args, device="cuda")),
+        "eligibility_ms": host_median_ms(proofs),
+        "exact_end_to_end_ms": host_median_ms(
+            lambda: fm.sweep_multi_auto(*f_args, force_exact=True,
+                                        device="cuda")),
+    }
+    log(f"end to end sweep_multi_auto, config 4 10000x1000x4: median "
+        f"{out['end_to_end_ms']:.4f} ms, of which the host eligibility "
+        f"proofs alone take {out['eligibility_ms']:.4f} ms; forced through "
+        f"the exact int64 program {out['exact_end_to_end_ms']:.4f} ms "
+        "(host clock, 20 runs each)")
+    out.update(phase_trace(
+        lambda: fm.sweep_multi_auto(*f_args, device="cuda"),
+        "sweep_multi_kernel", out["end_to_end_ms"]))
+    return out
+
+
+def build_kernels(build, names: tuple[str, ...]) -> dict[str, float]:
+    """Build every kernel library at once, one nvcc process each; returns
+    each build's seconds (raises with nvcc's output if one fails)."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build.build(name)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
+
+
+def log_ptxas(build, name: str, pattern: str, variant_of) -> None:
+    variant = "?"
+    for line in build.ptxas_report(name).splitlines():
+        flags = re.search(pattern, line)
+        if flags:
+            variant = variant_of(*(bit == "1" for bit in flags.groups())).name
+        elif "registers" in line:
+            log(f"  {variant}: {line.split(':', 1)[1].strip()}")
 
 
 def main() -> int:
@@ -544,6 +1000,7 @@ def main() -> int:
     from kubernetesclustercapacity_tpu_torch.ops import _build
     from kubernetesclustercapacity_tpu_torch.ops import fit
     from kubernetesclustercapacity_tpu_torch.ops import fused_fit as ff
+    from kubernetesclustercapacity_tpu_torch.ops import fused_multi as fm
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("the port imported jax")
@@ -556,26 +1013,30 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    _build.library("sweep_fit")
-    log(f"build: csrc/sweep_fit.cu in {time.perf_counter() - t0:.2f} s "
-        f"({' '.join(_build.NVCC_FLAGS)})")
-    variant = "?"
-    for line in _build.ptxas_report("sweep_fit").splitlines():
-        flags = re.search(r"sweep_fit_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
-        if flags:
-            variant = Variant(*(bit == "1" for bit in flags.groups())).name
-        elif "registers" in line:
-            log(f"  {variant}: {line.split(':', 1)[1].strip()}")
+    seconds = build_kernels(_build, ("sweep_fit", "sweep_multi"))
+    log(f"build: csrc/sweep_fit.cu and csrc/sweep_multi.cu together in "
+        f"{time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"; {' '.join(_build.NVCC_FLAGS)})")
+    log_ptxas(_build, "sweep_fit",
+              r"sweep_fit_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", Variant)
+    log_ptxas(_build, "sweep_multi",
+              r"sweep_multi_kernelILb(\d)ELb(\d)ELb(\d)E", MultiVariant)
 
     calls, max_err = phase_kernel_vs_plain(ff, device)
+    multi_calls, multi_max_err = phase_multi_kernel_vs_plain(fm, device)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(pkg, cli, ff, tmp)
+        multi_paths = phase_multi_paths(pkg, cli, ff, fm, tmp)
     phase_exact_adversarial(fit)
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
     rows = phase_times(pkg, ff, device, identity, clock_hz, main_launches)
     e2e = phase_end_to_end(pkg, ff)
+    multi_rows_timed = phase_multi_times(fm, ff, multi_paths, identity,
+                                         clock_hz)
+    multi_e2e = phase_multi_end_to_end(fm, multi_paths["f_args"])
 
     head = rows[0]
     kernels = {"kernels": [{
@@ -596,6 +1057,25 @@ def main() -> int:
         "checked_calls": calls,
         "variants": rows,
         **e2e,
+        "gpu": identity,
+    }, {
+        "name": "sweep_multi",
+        "route": "cuda",
+        "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_multi.cu",
+        "replaces": "kubernetesclustercapacity_tpu/ops/pallas_multi.py:165",
+        "launches": sum(multi_paths["launches"].values()),
+        "max_abs_err": multi_max_err,
+        "ms": multi_rows_timed[0]["ms"],
+        "plain_ms": multi_rows_timed[0]["plain_ms"],
+        "bound_ms": multi_rows_timed[0]["bound_ms"],
+        "bound_by": multi_rows_timed[0]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "shape": multi_rows_timed[0]["shape"],
+        "variants_checked": len(MULTI_VARIANTS),
+        "checked_calls": multi_calls,
+        "variants": multi_rows_timed,
+        **multi_e2e,
         "gpu": identity,
     }]}
     print(json.dumps(kernels), flush=True)

@@ -10,13 +10,16 @@ nothing of the JAX package.
 Layer map:
 
 ===========  ===============================================================
-L4 CLI       :mod:`.cli` (``-grid`` sweep; the six reference flags)
+L4 CLI       :mod:`.cli` (``-grid`` sweep, ``-extended-request``; the six
+             reference flags)
 L3 codecs    :mod:`.utils.quantity`
 L2 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
              :mod:`.scenario`, :mod:`.masks`
 L1 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel in
-             ``csrc/sweep_fit.cu``), :mod:`.ops.fit` (the exact int64
-             program), :mod:`.devcache` (device-resident columns)
+             ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
+             R-resource sweep, ``csrc/sweep_multi.cu``), :mod:`.ops.fit`
+             (the exact int64 programs), :mod:`.devcache` (device-resident
+             columns)
 ===========  ===============================================================
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
@@ -41,6 +44,7 @@ from kubernetesclustercapacity_tpu_torch.fixtures import (  # noqa: F401
     synthetic_fixture,
 )
 from kubernetesclustercapacity_tpu_torch.scenario import (  # noqa: F401
+    MultiResourceGrid,
     Scenario,
     ScenarioError,
     ScenarioGrid,
@@ -52,12 +56,19 @@ from kubernetesclustercapacity_tpu_torch.masks import (  # noqa: F401
 )
 from kubernetesclustercapacity_tpu_torch.ops.fit import (  # noqa: F401
     fit_per_node,
+    fit_per_node_multi,
     sweep_grid,
     sweep_grid_grouped,
+    sweep_grid_multi,
 )
 from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (  # noqa: F401
     sweep_auto,
     sweep_fused,
     sweep_fused_plain,
     sweep_snapshot_auto,
+)
+from kubernetesclustercapacity_tpu_torch.ops.fused_multi import (  # noqa: F401
+    sweep_multi,
+    sweep_multi_auto,
+    sweep_multi_plain,
 )

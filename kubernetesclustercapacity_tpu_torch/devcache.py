@@ -75,8 +75,12 @@ def resolve_device(device) -> torch.device:
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A numpy array as a contiguous tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A numpy array as a contiguous tensor on ``device`` (read-only arrays,
+    such as a snapshot's memoized resource matrix, are copied first)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def stage_exact(arrays, device: torch.device) -> tuple[torch.Tensor, ...]:

@@ -1,9 +1,10 @@
 """The exact int64 capacity fit: the reference's per-node loop as tensor math.
 
 Counterpart of ``kubernetesclustercapacity_tpu/ops/fit.py`` (``_trunc_div``,
-``fit_per_node``, ``_apply_mode``, ``sweep_grid``, ``sweep_grid_grouped``
-and the grouped expansion), as plain PyTorch on whatever device the
-tensors live on.  The reference computes one scenario with a sequential Go
+``fit_per_node``, ``_apply_mode``, ``sweep_grid``, ``sweep_grid_grouped``,
+the grouped expansion, and the R-resource ``fit_per_node_multi`` /
+``sweep_grid_multi``), as plain PyTorch on whatever device the tensors
+live on.  The reference computes one scenario with a sequential Go
 loop (``ClusterCapacity.go:105-140``); here the scenario axis is a batch
 dimension written out, processed in ``[S_chunk, N]`` blocks so memory stays
 bounded at any S.
@@ -35,8 +36,11 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 
 __all__ = [
     "fit_per_node",
+    "fit_per_node_multi",
     "sweep_grid",
     "sweep_grid_grouped",
+    "sweep_grid_multi",
+    "sweep_grid_multi_staged",
     "sweep_grid_staged",
     "sweep_grouped_staged",
 ]
@@ -139,6 +143,132 @@ def _apply_mode(fit, alloc_pods, pods_count, healthy, mode: str):
         fit = torch.clamp_min(torch.minimum(fit, slots), 0)
         return torch.where(healthy, fit, 0)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def fit_per_node_multi(
+    alloc_rn: torch.Tensor,
+    used_rn: torch.Tensor,
+    alloc_pods: torch.Tensor,
+    pods_count: torch.Tensor,
+    healthy: torch.Tensor,
+    reqs: torch.Tensor,
+    *,
+    mode: str = "strict",
+    node_mask: torch.Tensor | None = None,
+    max_per_node: torch.Tensor | int | None = None,
+) -> torch.Tensor:
+    """R-resource fit (BASELINE config 4): ``min`` over resource rows, int64.
+
+    ``alloc_rn``/``used_rn`` are ``[R, N]`` int64 (rows in the caller's
+    resource order); ``reqs`` is ``[R]`` for one scenario (giving ``[N]``)
+    or ``[S, R]`` for a batch (giving ``[S, N]``).  A zero request means
+    "does not consume this resource": the row gives ``INT64_MAX`` and drops
+    out of the min.  Every row is plain int64 (not the uint64 CPU quirk of
+    :func:`fit_per_node`): subtraction wraps, division truncates, and a
+    negative request divides as-is.  The min is taken row by row, so the
+    batch never holds an ``[S, R, N]`` tensor.
+
+    ``node_mask`` (``[N]`` or ``[S, N]`` bool) zeroes constraint-infeasible
+    nodes; ``max_per_node`` (a scalar, or ``[S, 1]`` for a batch) clamps
+    per-node replicas, both after the mode epilogue.
+    """
+    fit = None
+    for r in range(alloc_rn.shape[0]):
+        req = reqs[..., r, None]
+        alloc, used = alloc_rn[r], used_rn[r]
+        fit_r = torch.where(
+            req == 0,
+            _INT64_MAX,
+            torch.where(
+                alloc <= used,
+                0,
+                _trunc_div(alloc - used, torch.where(req == 0, 1, req)),
+            ),
+        )
+        fit = fit_r if fit is None else torch.minimum(fit, fit_r)
+    fit = _apply_mode(fit, alloc_pods, pods_count, healthy, mode)
+    if max_per_node is not None:
+        fit = torch.minimum(fit, torch.as_tensor(
+            max_per_node, dtype=torch.int64, device=fit.device
+        ))
+    if node_mask is not None:
+        fit = torch.where(node_mask, fit, 0)
+    return fit
+
+
+def sweep_grid_multi(
+    alloc_rn, used_rn, alloc_pods, pods_count, healthy, reqs_sr, replicas, *,
+    mode: str = "strict",
+    node_masks: torch.Tensor | None = None,
+    max_per_node: torch.Tensor | int | None = None,
+    return_per_node: bool = False,
+):
+    """S scenarios × R resources: ``reqs_sr`` is ``[S, R]`` int64.
+
+    ``node_masks`` may be ``None``, a shared ``[N]`` or a per-scenario
+    ``[S, N]`` bool mask; ``max_per_node`` may be ``None``, a scalar or an
+    ``[S]`` int64 tensor.  Computed over ``[S_chunk, N]`` blocks; returns
+    ``(totals[S], schedulable[S])`` tensors, plus ``fits[S, N]`` with
+    ``return_per_node``.
+    """
+    n = int(alloc_rn.shape[1])
+    s = int(reqs_sr.shape[0])
+    step = max(1, BLOCK_CELLS // max(n, 1))
+    per_scenario_mask = node_masks is not None and node_masks.dim() == 2
+    per_scenario_cap = isinstance(max_per_node, torch.Tensor) and \
+        max_per_node.dim() == 1
+    totals, fits_out = [], []
+    for lo in range(0, s, step):
+        hi = lo + step
+        mask = node_masks[lo:hi] if per_scenario_mask else node_masks
+        cap = max_per_node[lo:hi, None] if per_scenario_cap else max_per_node
+        fits = fit_per_node_multi(
+            alloc_rn, used_rn, alloc_pods, pods_count, healthy,
+            reqs_sr[lo:hi], mode=mode, node_mask=mask, max_per_node=cap,
+        )
+        totals.append(fits.sum(dim=1))
+        if return_per_node:
+            fits_out.append(fits)
+    device = alloc_rn.device
+    totals = torch.cat(totals) if totals else torch.zeros(
+        0, dtype=torch.int64, device=device
+    )
+    schedulable = totals >= replicas
+    if not return_per_node:
+        return totals, schedulable
+    fits = torch.cat(fits_out) if fits_out else torch.zeros(
+        (0, n), dtype=torch.int64, device=device
+    )
+    return totals, schedulable, fits
+
+
+def sweep_grid_multi_staged(
+    alloc_rn, used_rn, alloc_pods, pods_count, healthy, reqs_sr, replicas, *,
+    mode: str = "strict",
+    node_masks=None,
+    max_per_node=None,
+    return_per_node: bool = False,
+    device="cuda",
+):
+    """:func:`sweep_grid_multi` on numpy inputs, numpy results; every
+    operand is staged to ``device`` per call."""
+    device = _devcache.resolve_device(device)
+
+    def put(a, dtype=np.int64):
+        return _devcache.to_device(np.asarray(a, dtype=dtype), device)
+
+    if max_per_node is not None:
+        cap = np.asarray(max_per_node, dtype=np.int64)
+        max_per_node = int(cap) if cap.ndim == 0 else put(cap)
+    out = sweep_grid_multi(
+        put(alloc_rn), put(used_rn), put(alloc_pods), put(pods_count),
+        put(healthy, bool), put(reqs_sr), put(replicas),
+        mode=mode,
+        node_masks=None if node_masks is None else put(node_masks, bool),
+        max_per_node=max_per_node,
+        return_per_node=return_per_node,
+    )
+    return tuple(o.cpu().numpy() for o in out)
 
 
 def _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, *, mode, node_mask,

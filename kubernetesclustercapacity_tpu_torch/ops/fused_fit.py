@@ -335,17 +335,25 @@ def sweep_fused_plain(
                 torch.where(ac <= uc, 0, (ac - uc) // c),
                 torch.where(am <= um, 0, (am - um) // m),
             )
-        if strict:
-            slots = torch.clamp_min(ap - pc, 0)
-            fit = torch.clamp_min(torch.minimum(fit, slots), 0)
-        else:
-            fit = torch.where(fit >= ap, ap - pc, fit)
-        if mask is not None:
-            fit = fit * mask
+        fit = plain_epilogue(fit, ap, pc, mask, strict)
         if counts is not None:
             fit = fit * counts
         out.append(fit.sum(dim=1, dtype=torch.int64))
     return torch.cat(out)
+
+
+def plain_epilogue(fit, ap, pc, mask, strict: bool) -> torch.Tensor:
+    """The mode epilogue and 0/1 lane mask on int32 ``[S_chunk, N]`` fits
+    (``pallas_fit._epilogue``): reference is the Q1 overwrite (may go
+    negative), strict clamps to the free pod slots and to 0."""
+    if strict:
+        slots = torch.clamp_min(ap - pc, 0)
+        fit = torch.clamp_min(torch.minimum(fit, slots), 0)
+    else:
+        fit = torch.where(fit >= ap, ap - pc, fit)
+    if mask is not None:
+        fit = fit * mask
+    return fit
 
 
 def _fused_label(device: torch.device, use_rcp: bool) -> str:

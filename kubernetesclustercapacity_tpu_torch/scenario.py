@@ -4,8 +4,8 @@ Counterpart of ``kubernetesclustercapacity_tpu/scenario.py`` (numpy only).
 The reference evaluates exactly ONE scenario per process run — the six CLI
 flags at ``ClusterCapacity.go:50-62`` parsed at ``:64-83``.  Here a scenario
 is a first-class value, and a :class:`ScenarioGrid` batches thousands of them
-into dense int64 arrays: the sweep's scenario axis.  ``MultiResourceGrid``
-is not ported yet.
+into dense int64 arrays: the sweep's scenario axis, and a
+:class:`MultiResourceGrid` carries R request rows per scenario.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from kubernetesclustercapacity_tpu_torch.utils.quantity import (
 __all__ = [
     "Scenario",
     "ScenarioGrid",
+    "MultiResourceGrid",
     "ScenarioError",
     "scenario_from_flags",
     "random_scenario_grid",
@@ -211,6 +212,77 @@ class ScenarioGrid:
             mem_request_bytes=int(self.mem_request_bytes[i]),
             replicas=int(self.replicas[i]),
         )
+
+
+@dataclass(frozen=True)
+class MultiResourceGrid:
+    """An R-resource what-if grid (BASELINE config 4's scenario axis).
+
+    ``resources`` names the request rows in order (``"cpu"`` in millicores,
+    ``"memory"`` in bytes, anything else an extended-resource column of the
+    snapshot, in its native unit); ``requests`` is ``[S, R]`` int64;
+    ``replicas`` is ``[S]``.
+    """
+
+    resources: tuple[str, ...]
+    requests: np.ndarray
+    replicas: np.ndarray
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "resources", tuple(self.resources))
+        if len(set(self.resources)) != len(self.resources):
+            # A duplicate would alias one snapshot column twice
+            # (resource_matrix maps by name): fail instead.
+            raise ScenarioError(
+                f"duplicate resource names in {self.resources!r}"
+            )
+        req = np.asarray(self.requests, dtype=np.int64)
+        rep = np.asarray(self.replicas, dtype=np.int64)
+        if req.ndim != 2 or req.shape[1] != len(self.resources):
+            raise ScenarioError(
+                f"requests must be [S, {len(self.resources)}], got {req.shape}"
+            )
+        if rep.shape != (req.shape[0],):
+            raise ScenarioError("replicas must be [S]")
+        object.__setattr__(self, "requests", req)
+        object.__setattr__(self, "replicas", rep)
+
+    @property
+    def size(self) -> int:
+        return int(self.requests.shape[0])
+
+    @classmethod
+    def from_grid(
+        cls, grid: ScenarioGrid, extended: dict | None = None
+    ) -> "MultiResourceGrid":
+        """Lift a 2-resource grid, optionally adding extended columns
+        (``{resource_name: [S] per-replica requests}``, in sorted name
+        order after cpu and memory)."""
+        extended = dict(extended or {})
+        names = ("cpu", "memory", *sorted(extended))
+        cols = [grid.cpu_request_milli, grid.mem_request_bytes]
+        for r in names[2:]:
+            col = np.asarray(extended[r], dtype=np.int64)
+            if col.shape != (grid.size,):
+                raise ScenarioError(f"extended column {r!r} must be [S]")
+            cols.append(col)
+        return cls(
+            resources=names,
+            requests=np.stack(cols, axis=1),
+            replicas=grid.replicas,
+        )
+
+    def validate(self) -> None:
+        """cpu/memory must be positive (the reference's zero-request panic,
+        SURVEY §2.4 Q8); extended requests may be 0 = "does not consume";
+        negative anything is rejected."""
+        if (self.requests < 0).any():
+            raise ScenarioError("requests must be >= 0")
+        for i, r in enumerate(self.resources):
+            if r in ("cpu", "memory") and (self.requests[:, i] == 0).any():
+                raise ScenarioError(f"all {r} requests must be > 0")
+        if (self.replicas < 0).any():
+            raise ScenarioError("all replicas must be >= 0")
 
 
 def random_scenario_grid(

@@ -128,6 +128,37 @@ class ClusterSnapshot:
     def n_nodes(self) -> int:
         return len(self.names)
 
+    def resource_matrix(
+        self, resources: tuple[str, ...] = ("cpu", "memory")
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``(alloc[R, N], used_req[R, N])`` for the R-resource sweep.
+
+        Row order follows ``resources``; ``"cpu"`` and ``"memory"`` name the
+        core columns, anything else must be a key of :attr:`extended`
+        (``KeyError`` otherwise).  Memoized per ``resources`` tuple on the
+        (immutable) snapshot; the cached matrices are read-only.
+        """
+        resources = tuple(resources)
+        cache = self.__dict__.setdefault("_matrix_cache", {})
+        hit = cache.get(resources)
+        if hit is not None:
+            return hit
+        alloc_rows, used_rows = [], []
+        for r in resources:
+            if r == "cpu":
+                alloc, used = self.alloc_cpu_milli, self.used_cpu_req_milli
+            elif r == "memory":
+                alloc, used = self.alloc_mem_bytes, self.used_mem_req_bytes
+            else:
+                alloc, used = self.extended[r]
+            alloc_rows.append(alloc)
+            used_rows.append(used)
+        alloc_rn, used_rn = np.stack(alloc_rows), np.stack(used_rows)
+        alloc_rn.setflags(write=False)
+        used_rn.setflags(write=False)
+        cache[resources] = (alloc_rn, used_rn)
+        return cache[resources]
+
     def grouped(self) -> "GroupedSnapshot":
         """The node-shape-compressed form: identical rows deduplicated
         into ``(shape, count)`` groups.

@@ -1,9 +1,11 @@
 """The port's ``-grid`` CLI against the JAX CLI: the same JSON and table
 output, byte for byte apart from the kernel label, on a fixture and on
-``.npz`` checkpoints in both semantics, and the same error lines."""
+``.npz`` checkpoints in both semantics, with and without
+``-extended-request`` (the R-resource sweep), and the same error lines."""
 
 import json
 
+import numpy as np
 import pytest
 
 from kubernetesclustercapacity_tpu import cli as j_cli
@@ -33,7 +35,37 @@ def npz_sources(tmp_path_factory):
     j_snapshot.snapshot_from_fixture(fx, semantics="strict").save(strict)
     inel = str(d / "unquantized.npz")
     j_snapshot.synthetic_snapshot(500, seed=5, kib_quantized=False).save(inel)
-    return {"synthetic": ref, "tainted": strict, "unquantized": inel}
+    gpu_fx = _with_extended(synthetic_fixture(300, seed=6, taint_frac=0.2,
+                                              unhealthy_frac=0.1))
+    gpu_json = str(d / "gpu.json")
+    with open(gpu_json, "w") as f:
+        json.dump(gpu_fx, f)
+    gpu_npz = str(d / "gpu.npz")
+    j_snapshot.snapshot_from_fixture(
+        gpu_fx, semantics="strict", extended_resources=EXTENDED,
+    ).save(gpu_npz)
+    return {"synthetic": ref, "tainted": strict, "unquantized": inel,
+            "gpu_json": gpu_json, "gpu_npz": gpu_npz}
+
+
+EXTENDED = ("ephemeral-storage", "nvidia.com/gpu")
+
+
+def _with_extended(fx):
+    """GPUs (0-8) and ephemeral storage (50-500 Gi) on every node, and
+    requests for them on some pods."""
+    rng = np.random.default_rng(7)
+    for node in fx["nodes"]:
+        node["allocatable"]["nvidia.com/gpu"] = str(rng.integers(0, 9))
+        node["allocatable"]["ephemeral-storage"] = \
+            f"{rng.integers(50, 501)}Gi"
+    for pod in fx["pods"][::3]:
+        pod["containers"] = [{"resources": {"requests": {
+            "cpu": "250m", "memory": "256Mi",
+            "nvidia.com/gpu": str(rng.integers(0, 3)),
+            "ephemeral-storage": f"{rng.integers(1, 20)}Gi",
+        }}}]
+    return fx
 
 
 SOURCES = [
@@ -121,3 +153,101 @@ def test_unported_surfaces_say_so(argv, needle, capsys):
     assert rc == 1
     assert needle in out and out.startswith("ERROR : ")
     assert out.rstrip().endswith("...exiting")
+
+
+EXT_SOURCES = [
+    ("gpu_json", ["-semantics", "strict",
+                  "-extended-request", "nvidia.com/gpu=2"]),
+    ("gpu_json", ["-semantics", "strict",
+                  "-extended-request", "nvidia.com/gpu=1",
+                  "-extended-request", "ephemeral-storage=10Gi"]),
+    ("gpu_npz", ["-extended-request", "nvidia.com/gpu=1",
+                 "-extended-request", "ephemeral-storage=10Gi"]),
+    ("gpu_npz", ["-extended-request", "ephemeral-storage=10Gi",
+                 "-kernel", "exact", "-seed", "4"]),
+    ("gpu_npz", ["-extended-request", "nvidia.com/gpu=0"]),
+    ("gpu_npz", ["-extended-resources", "nvidia.com/gpu"]),
+]
+
+
+@pytest.mark.parametrize("source,extra", EXT_SOURCES)
+def test_grid_extended_json_matches_jax(source, extra, npz_sources, capsys):
+    argv = ["-snapshot", npz_sources[source], "-grid", "64",
+            "-output", "json", *extra]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert j_rc == t_rc == 0
+    j_doc, t_doc = json.loads(j_out), json.loads(t_out)
+    assert t_doc.pop("kernel") == _label(j_doc.pop("kernel"))
+    assert t_doc == j_doc
+    assert t_out == j_out.replace(
+        json.loads(j_out)["kernel"], json.loads(t_out)["kernel"]
+    )
+
+
+@pytest.mark.parametrize("source,extra", EXT_SOURCES[1:3])
+def test_grid_extended_table_matches_jax(source, extra, npz_sources, capsys):
+    argv = ["-snapshot", npz_sources[source], "-grid", "64",
+            "-output", "table", *extra]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert j_rc == t_rc == 0
+    j_lines, t_lines = j_out.splitlines(), t_out.splitlines()
+    assert t_lines[:-1] == j_lines[:-1]
+    j_kernel = j_lines[-1].split()[1]
+    assert j_kernel.startswith("pallas_multi_")
+    assert t_lines[-1] == j_lines[-1].replace(j_kernel, _label(j_kernel))
+
+
+def test_grid_extended_on_the_gpu_fixture(tmp_path, capsys):
+    # tests/test_cli_report.py::TestExtendedRequestsCLI's fixture.
+    fx = synthetic_fixture(8, seed=13)
+    for n in fx["nodes"]:
+        n["allocatable"]["nvidia.com/gpu"] = "4"
+    path = str(tmp_path / "gpu.json")
+    with open(path, "w") as f:
+        json.dump(fx, f)
+    for extra in (["-grid", "6"], ["-grid", "5", "-seed", "3"]):
+        argv = ["-snapshot", path, "-semantics", "strict",
+                "-extended-request", "nvidia.com/gpu=2", "-output", "json",
+                *extra]
+        j_rc, j_out = _run(j_cli.main, argv, capsys)
+        t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+        assert j_rc == t_rc == 0
+        j_doc, t_doc = json.loads(j_out), json.loads(t_out)
+        assert t_doc.pop("kernel") == _label(j_doc.pop("kernel"))
+        assert t_doc == j_doc
+        assert t_doc["extended_requests"] == {"nvidia.com/gpu": 2}
+
+
+@pytest.mark.parametrize(
+    "source,extra",
+    [
+        ("gpu_json", ["-semantics", "strict",
+                      "-extended-request", "nvidia.com/gpu=not-a-qty"]),
+        ("gpu_json", ["-semantics", "strict",
+                      "-extended-request", "nvidia.com/gpu=-1"]),
+        ("gpu_json", ["-semantics", "strict",
+                      "-extended-request", "nvidia.com/gpu"]),
+        ("gpu_json", ["-extended-request", "nvidia.com/gpu=1"]),
+        ("tainted", ["-extended-request", "nvidia.com/gpu=1"]),
+        ("gpu_npz", ["-extended-request", "example.com/fpga=1"]),
+    ],
+    ids=["bad-quantity", "negative-quantity", "no-equals",
+         "reference-fixture", "npz-missing-column", "npz-unknown-column"],
+)
+def test_extended_error_lines_match_jax(source, extra, npz_sources, capsys):
+    argv = ["-snapshot", npz_sources[source], "-grid", "4", *extra]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert j_rc == t_rc == 1
+    assert t_out == j_out
+    assert t_out.startswith("ERROR")
+
+
+def test_extended_request_without_grid_says_not_ported(npz_sources, capsys):
+    rc, out = _run(t_cli.main, ["-snapshot", npz_sources["gpu_npz"],
+                                "-extended-request", "nvidia.com/gpu=1",
+                                "-device", "cpu"], capsys)
+    assert rc == 1
+    assert "single-spec report is not yet ported" in out

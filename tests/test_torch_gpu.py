@@ -1,4 +1,5 @@
-"""The CUDA sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA sweep kernels (B1 ``sweep_fit``, B2 ``sweep_multi``) against
+their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -18,6 +19,7 @@ from kubernetesclustercapacity_tpu_torch import (
     synthetic_snapshot,
 )
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as ff
+from kubernetesclustercapacity_tpu_torch.ops import fused_multi as fm
 
 pytestmark = pytest.mark.gpu
 
@@ -72,5 +74,97 @@ def test_snapshot_sweep_on_card_matches_host(cuda):
     host = sweep_snapshot_auto(snap, grid, device="cpu")
     exact = sweep_snapshot_auto(snap, grid, kernel="exact", device="cuda")
     assert card[2] == "cuda_i32_rcp_fused" and host[2] == "plain_i32_rcp_fused"
+    np.testing.assert_array_equal(card[0], host[0])
+    np.testing.assert_array_equal(card[0], exact[0])
+
+
+def _multi_operands(n, s, n_res, seed, device, rcp, mask):
+    """Eligible, row-scaled int32 operands of the R-resource kernel: some
+    nodes over-committed, Q1-negative pod columns, zero (inactive)
+    requests on every row past the first, and an all-inactive scenario."""
+    rng = np.random.default_rng(seed)
+    alloc = rng.integers(0, 2**24, (n_res, n)).astype(np.int32)
+    used = (alloc * rng.random((n_res, n)) * 1.1).astype(np.int32)
+    reqs = rng.integers(16, 2**12, (n_res, s)).astype(np.int32)
+    reqs[1:][rng.random((n_res - 1, s)) < 0.3] = 0
+    reqs[:, 0] = 0
+    host = [
+        alloc, used, np.full(n, 110, np.int32),
+        rng.integers(0, 130, n).astype(np.int32), reqs,
+        ff.scenario_reciprocals(np.maximum(reqs, 1)) if rcp else None,
+        (rng.random(n) < 0.8).astype(np.int32) if mask else None,
+    ]
+    return [None if a is None else torch.from_numpy(a).to(device)
+            for a in host]
+
+
+@pytest.mark.parametrize("n,s", [(1, 1), (2049, 257), (10_000, 1_000)])
+@pytest.mark.parametrize("n_res", [1, 2, 4, 6])
+@pytest.mark.parametrize(
+    "variant", list(itertools.product((False, True), repeat=3)),
+    ids=lambda v: "-".join(str(int(b)) for b in v),
+)
+def test_multi_kernel_matches_plain(cuda, variant, n_res, n, s):
+    rcp, strict, mask = variant
+    ops = _multi_operands(n, s, n_res, n + s + n_res, cuda, rcp, mask)
+    before = fm.LAUNCHES
+    got = fm.sweep_multi(*ops, strict=strict)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == before + 1
+    assert torch.equal(got, fm.sweep_multi_plain(*ops, strict=strict))
+
+
+@pytest.mark.parametrize("n_res", [1533, 1534, 3100])
+@pytest.mark.parametrize(
+    "variant", list(itertools.product((False, True), repeat=3)),
+    ids=lambda v: "-".join(str(int(b)) for b in v),
+)
+def test_multi_kernel_stages_rows_in_passes(cuda, variant, n_res):
+    """Past the R at which kBatch nodes of every row fill the shared
+    tile, the kernel stages the rows in passes; each scenario requests a
+    few random rows, so the binding rows fall in different passes."""
+    rcp, strict, mask = variant
+    n, s = 333, 130
+    rng = np.random.default_rng(n_res)
+    alloc = rng.integers(0, 1 << 24, (n_res, n)).astype(np.int32)
+    used = (alloc * rng.random((n_res, n)) * 1.1).astype(np.int32)
+    reqs = np.zeros((n_res, s), np.int32)
+    for i in range(1, s):
+        rows = rng.choice(n_res, int(rng.integers(1, 5)), replace=False)
+        reqs[rows, i] = rng.integers(1 << 10, 1 << 14, rows.size)
+    host = [
+        alloc, used, np.full(n, 1 << 14, np.int32),
+        rng.integers(0, 130, n).astype(np.int32), reqs,
+        ff.scenario_reciprocals(np.maximum(reqs, 1)) if rcp else None,
+        (rng.random(n) < 0.85).astype(np.int32) if mask else None,
+    ]
+    ops = [None if a is None else torch.from_numpy(a).to(cuda) for a in host]
+    got = fm.sweep_multi(*ops, strict=strict)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fm.sweep_multi_plain(*ops, strict=strict))
+
+
+def test_multi_sweep_on_card_matches_host(cuda):
+    rng = np.random.default_rng(5)
+    snap = synthetic_snapshot(10_000, seed=5)
+    n, s = snap.n_nodes, 1_000
+    gib = 1 << 30
+    alloc_rn = np.stack([snap.alloc_cpu_milli, snap.alloc_mem_bytes,
+                         rng.integers(50, 500, n) * gib,
+                         rng.integers(0, 9, n)])
+    used_rn = np.stack([snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+                        rng.integers(0, 50, n) * gib, np.zeros(n, np.int64)])
+    grid = random_scenario_grid(s, seed=6)
+    reqs = np.stack([grid.cpu_request_milli, grid.mem_request_bytes,
+                     rng.integers(1, 20, s) * gib, rng.integers(0, 3, s)],
+                    axis=1)
+    args = (alloc_rn, used_rn, snap.alloc_pods, snap.pods_count,
+            snap.healthy, reqs, grid.replicas)
+    card = fm.sweep_multi_auto(*args, device="cuda")
+    host = fm.sweep_multi_auto(*args, device="cpu")
+    exact = fm.sweep_multi_auto(*args, force_exact=True, device="cuda")
+    assert card[2] == "cuda_multi_i32_rcp_fused"
+    assert host[2] == "plain_multi_i32_rcp_fused"
+    assert exact[2] == "torch_int64_multi"
     np.testing.assert_array_equal(card[0], host[0])
     np.testing.assert_array_equal(card[0], exact[0])

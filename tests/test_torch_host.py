@@ -385,3 +385,129 @@ def test_resolve_source_matches(tmp_path):
         with pytest.raises(j_sources.SourceError) as je:
             j_sources.resolve_source(path, semantics)
         assert str(te.value) == str(je.value)
+
+
+def _extended_pair():
+    fx = j_fixtures.synthetic_fixture(60, seed=9, unhealthy_frac=0.1)
+    for i, node in enumerate(fx["nodes"]):
+        node["allocatable"]["nvidia.com/gpu"] = str(i % 9)
+        node["allocatable"]["ephemeral-storage"] = f"{50 + i}Gi"
+    fx["pods"][0]["containers"] = [{"resources": {"requests": {
+        "cpu": "1", "nvidia.com/gpu": "2", "ephemeral-storage": "3Gi"}}}]
+    ext = ("ephemeral-storage", "nvidia.com/gpu")
+    return (
+        t_snapshot.snapshot_from_fixture(fx, semantics="strict",
+                                         extended_resources=ext),
+        j_snapshot.snapshot_from_fixture(fx, semantics="strict",
+                                         extended_resources=ext),
+    )
+
+
+@pytest.mark.parametrize(
+    "resources",
+    [("cpu", "memory"), ("nvidia.com/gpu",),
+     ("cpu", "memory", "ephemeral-storage", "nvidia.com/gpu"),
+     ("ephemeral-storage", "cpu")],
+)
+def test_resource_matrix_matches(resources):
+    t, j = _extended_pair()
+    for got, want in zip(t.resource_matrix(resources),
+                         j.resource_matrix(resources)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        assert not got.flags.writeable
+    assert t.resource_matrix(resources) is t.resource_matrix(resources)
+
+
+def test_resource_matrix_missing_column_raises_like_jax():
+    t, j = _extended_pair()
+    with pytest.raises(KeyError) as te:
+        t.resource_matrix(("cpu", "example.com/fpga"))
+    with pytest.raises(KeyError) as je:
+        j.resource_matrix(("cpu", "example.com/fpga"))
+    assert str(te.value) == str(je.value)
+    assert t.resource_matrix()[0].shape == (2, t.n_nodes)
+
+
+def _outcome_of(build):
+    try:
+        grid = build()
+        grid.validate()
+        return ("ok", grid.resources, grid.requests.tolist(),
+                grid.replicas.tolist())
+    except Exception as e:  # noqa: BLE001 - the error IS the compared result
+        return (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize(
+    "resources,requests,replicas",
+    [
+        (("cpu", "memory", "nvidia.com/gpu"), [[100, 1024, 0]], [3]),
+        (("cpu", "memory"), [[100, 1024], [5, 7]], [0, 1]),
+        (("cpu", "cpu"), [[1, 1]], [1]),
+        (("cpu", "memory"), [[1, 1, 1]], [1]),
+        (("cpu", "memory"), [1, 1], [1]),
+        (("cpu", "memory"), [[1, 1]], [1, 2]),
+        (("cpu", "memory", "gpu"), [[1, 1, -1]], [1]),
+        (("cpu", "memory"), [[0, 1]], [1]),
+        (("cpu", "memory"), [[1, 0]], [1]),
+        (("gpu", "memory"), [[0, 5]], [1]),
+        (("cpu", "memory"), [[1, 1]], [-1]),
+    ],
+    ids=["ok", "ok-2", "duplicate", "width", "rank", "replicas-shape",
+         "negative", "zero-cpu", "zero-memory", "zero-extended",
+         "negative-replicas"],
+)
+def test_multi_resource_grid_matches(resources, requests, replicas):
+    def build(mod):
+        return lambda: mod.MultiResourceGrid(resources, requests, replicas)
+
+    assert _outcome_of(build(t_scenario)) == _outcome_of(build(j_scenario))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_multi_resource_grid_from_grid_matches(seed):
+    s = 16
+    rng = np.random.default_rng(seed)
+    extended = {"nvidia.com/gpu": rng.integers(0, 3, s),
+                "ephemeral-storage": rng.integers(1, 20, s) << 30}
+    t = t_scenario.MultiResourceGrid.from_grid(
+        t_scenario.random_scenario_grid(s, seed=seed), extended)
+    j = j_scenario.MultiResourceGrid.from_grid(
+        j_scenario.random_scenario_grid(s, seed=seed), extended)
+    assert t.resources == j.resources == (
+        "cpu", "memory", "ephemeral-storage", "nvidia.com/gpu")
+    np.testing.assert_array_equal(t.requests, j.requests)
+    np.testing.assert_array_equal(t.replicas, j.replicas)
+    assert t.size == j.size == s
+    for mod in (t_scenario, j_scenario):
+        with pytest.raises(mod.ScenarioError, match="must be \\[S\\]"):
+            mod.MultiResourceGrid.from_grid(
+                mod.random_scenario_grid(s, seed=seed), {"gpu": [1, 2]})
+
+
+def test_resolve_source_extended_matches(tmp_path):
+    fx_path = str(tmp_path / "gpu.json")
+    fx = j_fixtures.synthetic_fixture(30, seed=4)
+    for node in fx["nodes"]:
+        node["allocatable"]["nvidia.com/gpu"] = "4"
+    j_fixtures.save_fixture(fx, fx_path)
+    ext = ("nvidia.com/gpu",)
+    npz = str(tmp_path / "gpu.npz")
+    j_snapshot.snapshot_from_fixture(
+        fx, semantics="strict", extended_resources=ext).save(npz)
+    plain_npz = str(tmp_path / "plain.npz")
+    j_snapshot.snapshot_from_fixture(fx, semantics="strict").save(plain_npz)
+    for path, semantics in ((fx_path, "strict"), (npz, None),
+                            (npz, "strict")):
+        tf, ts, tsem = t_sources.resolve_source(path, semantics, ext)
+        jf, js, jsem = j_sources.resolve_source(path, semantics, ext)
+        assert tf == jf and tsem == jsem
+        _assert_same_snapshot(ts, js)
+    for path, semantics in ((fx_path, None), (fx_path, "reference"),
+                            (plain_npz, None)):
+        with pytest.raises(t_sources.SourceError) as te:
+            t_sources.resolve_source(path, semantics, ext)
+        with pytest.raises(j_sources.SourceError) as je:
+            j_sources.resolve_source(path, semantics, ext)
+        assert str(te.value) == str(je.value)

@@ -9,10 +9,12 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 from kubernetesclustercapacity_tpu_torch import cli as t_cli
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as tf
+from kubernetesclustercapacity_tpu_torch.ops import fused_multi as tm
 from kubernetesclustercapacity_tpu_torch.scenario import random_scenario_grid
 from kubernetesclustercapacity_tpu_torch.snapshot import synthetic_snapshot
 
@@ -52,6 +54,7 @@ def test_the_scan_is_not_vacuous():
     names = {os.path.relpath(p, REPO) for p in _port_files()}
     assert len(names) >= 15
     assert "kubernetesclustercapacity_tpu_torch/ops/fused_fit.py" in names
+    assert "kubernetesclustercapacity_tpu_torch/ops/fused_multi.py" in names
 
 
 @pytest.mark.parametrize(
@@ -101,6 +104,11 @@ _BLOCKED_RUN = textwrap.dedent(
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["-snapshot", fx_path, "-semantics", "strict",
                        "-grid", "8", "-device", "cpu"])
+    multi = io.StringIO()
+    with contextlib.redirect_stdout(multi):
+        rc += cli.main(["-snapshot", fx_path, "-semantics", "strict",
+                        "-grid", "8", "-device", "cpu",
+                        "-extended-request", "nvidia.com/gpu=0"])
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -110,6 +118,7 @@ _BLOCKED_RUN = textwrap.dedent(
     )
     print(json.dumps({"name": name, "total": int(totals.sum()), "rc": rc,
                       "cli_kernel": json.loads(buf.getvalue())["kernel"],
+                      "multi_kernel": json.loads(multi.getvalue())["kernel"],
                       "loaded": loaded}))
     """
 )
@@ -131,6 +140,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "total": doc["total"],
         "rc": 0,
         "cli_kernel": "plain_i32_rcp_fused",
+        "multi_kernel": "plain_multi_i32_rcp_fused",
         "loaded": [],
     }
     assert doc["total"] > 0
@@ -153,6 +163,16 @@ def test_default_device_raises_without_cuda(no_cuda):
             snap, grid.cpu_request_milli, grid.mem_request_bytes,
             grid.replicas,
         )
+
+
+def test_multi_default_device_raises_without_cuda(no_cuda):
+    snap = synthetic_snapshot(50, seed=1)
+    alloc_rn, used_rn = snap.resource_matrix()
+    args = (alloc_rn, used_rn, snap.alloc_pods, snap.pods_count,
+            snap.healthy, np.array([[100, 1 << 20]]), np.ones(1, np.int64))
+    for kw in ({}, {"force_exact": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tm.sweep_multi_auto(*args, **kw)
 
 
 def test_cli_default_device_raises_without_cuda(no_cuda, capsys):
