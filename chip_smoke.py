@@ -29,6 +29,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -399,27 +400,46 @@ def host_call_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
     return (time.perf_counter() - t0) * 1e3 / launches
 
 
-def bare_launch(ff, ops, strict: bool, sms: int):
-    """A callable that launches the kernel through its C entry point with
+def bare_launch(fn, ops, strict: bool, chunk: int):
+    """A callable that launches B1 through its C entry point ``fn`` with
     every argument prepared once, so the timing sees the kernel and not
     the wrapper's Python checks (``sweep_fused`` is timed on its own as
-    ``wrapper_host_ms``).  The totals are not re-zeroed between launches;
-    the work per launch is the same."""
+    ``wrapper_host_ms``), and the totals it adds into.  The totals are not
+    re-zeroed between launches; the work per launch is the same."""
     ac, am, ap, uc, um, pc, cr, mr, crr, mrr, mask, counts = ops
     n, s = int(ac.shape[0]), int(cr.shape[0])
     totals = torch.zeros(s, dtype=torch.int64, device=ac.device)
     ptr = [None if t is None else t.data_ptr() for t in
            (ac, am, ap, uc, um, pc, mask, counts, cr, mr, crr, mrr, totals)]
-    args = (*ptr, n, s, ff.node_chunk(n, s, sms), int(strict),
+    args = (*ptr, n, s, chunk, int(strict),
             torch.cuda.current_stream().cuda_stream)
-    fn = ff._sweep_fn()
 
     def launch():
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"sweep_fit launch failed: CUDA error {rc}")
 
-    return launch
+    return launch, totals
+
+
+def no_cell_ms(launcher, fn, ops, mask_at: int, strict: bool, chunk: int,
+               clock_hz: float) -> float | None:
+    """For a masked variant, the bare kernel's time on the same operands
+    with every mask 0: launch, scenario loads, staging and the end of the
+    block, and no cell.  None for a variant without a mask."""
+    if ops[mask_at] is None:
+        return None
+    dead = list(ops)
+    dead[mask_at] = torch.zeros_like(ops[mask_at])
+    launch, _ = launcher(fn, tuple(dead), strict, chunk)
+    return device_ms(launch, clock_hz)[0]
+
+
+def launch_floor_ms(clock_hz: float) -> float:
+    """:func:`device_ms` of a one-element fill: the time the timing method
+    gives a kernel that does next to nothing."""
+    t = torch.empty(1, device="cuda")
+    return device_ms(lambda: t.fill_(0), clock_hz)[0]
 
 
 def phase_times(pkg, ff, device, identity: str, clock_hz: float,
@@ -428,8 +448,9 @@ def phase_times(pkg, ff, device, identity: str, clock_hz: float,
     reference variant, at the main path's shapes: the bare kernel's device
     time (``ms``) and the plain version's (``plain_ms``), each the median
     of 100 CUDA-event-timed calls queued behind a held stream
-    (:func:`device_ms`), and the host time per call through the wrapper
-    (``wrapper_host_ms``)."""
+    (:func:`device_ms`), the masked variant's time with no live node
+    (``no_cell_ms``, :func:`no_cell_ms`), and the host time per call
+    through the wrapper (``wrapper_host_ms``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     big = eligible_data(10_000, 1_000, seed=7)
     grouped_snap = pkg.synthetic_snapshot(100_000, seed=2, shapes=48)
@@ -458,8 +479,11 @@ def phase_times(pkg, ff, device, identity: str, clock_hz: float,
     for v, data, path in timed:
         ops = v.operands(data, device)
         n, s = int(ops[0].shape[0]), int(ops[6].shape[0])
-        ms, hold_calls = device_ms(bare_launch(ff, ops, v.strict, sms),
-                                   clock_hz)
+        chunk = ff.node_chunk(n, s, sms)
+        launch, _ = bare_launch(ff._sweep_fn(), ops, v.strict, chunk)
+        ms, hold_calls = device_ms(launch, clock_hz)
+        dead_ms = no_cell_ms(bare_launch, ff._sweep_fn(), ops, 10, v.strict,
+                             chunk, clock_hz)
         plain_ms, plain_hold_calls = device_ms(
             lambda: ff.sweep_fused_plain(*ops, strict=v.strict), clock_hz)
         wrapper_host_ms = host_call_ms(
@@ -467,6 +491,7 @@ def phase_times(pkg, ff, device, identity: str, clock_hz: float,
         bound_ms, bound_by, cells = v.bound(ops, sms, clock_hz)
         rows.append({
             "kernel": v.name, "shape": f"{n}x{s}", "ms": ms,
+            "no_cell_ms": dead_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "wrapper_host_ms": wrapper_host_ms,
             "calls_per_hold": {"kernel": hold_calls,
@@ -612,7 +637,8 @@ MULTI_VARIANTS = [MultiVariant(*bits)
 def multi_rows(n: int, s: int, n_res: int, seed: int) -> dict:
     """Seeded R-resource inputs in their native units, rcp-eligible: cpu
     milli, memory bytes, ephemeral-storage bytes, GPUs, 2 MiB hugepages
-    and an FPGA count, in that order.  Some nodes are over-committed,
+    and an FPGA count, in that order, then device-plugin counts (0-15 per
+    node, 0-3 per request) past six rows.  Some nodes are over-committed,
     pods_count can exceed alloc_pods, rows past memory request 0 (the
     row is inactive) at random, and scenario 0 requests nothing."""
     rng = np.random.default_rng(seed)
@@ -627,10 +653,13 @@ def multi_rows(n: int, s: int, n_res: int, seed: int) -> dict:
         (rng.integers(0, 64, n) * 2 * MIB,
          lambda k: rng.integers(0, 4, k) * 2 * MIB),
         (rng.integers(0, 4, n), lambda k: rng.integers(0, 2, k)),
-    ][:n_res]
+    ] + [(rng.integers(0, 16, n), lambda k: rng.integers(0, 4, k))
+         for _ in range(max(0, n_res - 6))]
+    units = units[:n_res]
     alloc = np.stack([a for a, _ in units]).astype(np.int64)
     used = (alloc * rng.random(alloc.shape) * 1.1).astype(np.int64)
-    used -= used % np.array([1, 1024, 1024, 1, 1024, 1][:n_res])[:, None]
+    used -= used % np.array(([1, 1024, 1024, 1, 1024] + [1] * n_res)
+                            [:n_res])[:, None]
     reqs = np.stack([draw(s) for _, draw in units], axis=1).astype(np.int64)
     reqs[0, :] = 0
     return {"alloc": alloc, "used": used, "reqs": reqs,
@@ -660,6 +689,30 @@ def multi_edge_rows() -> list[dict]:
              "ap": np.full(n, 1 << 30, dtype=np.int64),
              "pc": np.zeros(n, dtype=np.int64),
              "mask": np.ones(n, dtype=bool)} for alloc, reqs in cases]
+
+
+def multi_wrap_rows(n_res: int) -> dict:
+    """B2's wrapping edge beside the largest quotients, on ``n_res`` rows:
+    row 0 holds dividend INT32_MAX for divisors 2^29 and 2^29 - 1, every
+    other row dividends on and one off multiples of its divisor at quotient
+    2^20 (and small ones); scenarios leave each row inactive in turn, and
+    one leaves all of them."""
+    q, n = 1 << 20, 64
+    divisors = [997 + 34 * r for r in range(n_res)]
+    rows = [np.full(n, (1 << 31) - 1)]
+    for d in divisors[1:]:
+        rows.append(np.array([q * d, q * d - 1, q * d + 1, (q - 1) * d,
+                              d - 1, 0, d, 2 * d - 1] * (n // 8)))
+    base = [1 << 29] + divisors[1:]
+    reqs = [base, [(1 << 29) - 1] + divisors[1:], [0] * n_res]
+    for r in range(n_res):
+        reqs.append([0 if i == r else v for i, v in enumerate(base)])
+    alloc = np.stack(rows).astype(np.int64)
+    return {"alloc": alloc, "used": np.zeros_like(alloc),
+            "reqs": np.array(reqs, dtype=np.int64),
+            "ap": np.full(n, 1 << 30, dtype=np.int64),
+            "pc": np.zeros(n, dtype=np.int64),
+            "mask": np.ones(n, dtype=bool)}
 
 
 def wide_multi_rows(n: int, s: int, n_res: int, seed: int) -> dict:
@@ -692,13 +745,15 @@ def multi_operands(fm, data: dict, v: MultiVariant, device) -> tuple:
 
 
 def phase_multi_kernel_vs_plain(fm, device) -> tuple[int, int]:
-    """All 8 variants of B2 at R in {1, 2, 4, 6}, at 10k x 1k and two
-    ragged shapes, at R = 1534 and 3100 (rows staged in passes), and on
-    the rcp edge inputs: kernel totals must equal
-    the plain version's exactly (tolerance 0: integer totals).  Returns
-    the kernel calls made and the largest |kernel - plain| seen."""
+    """All 8 variants of B2 at R = 1 to 9 (requests in registers up to 8,
+    rows streamed at 9), at 10k x 1k and two ragged shapes, at R = 1534 and
+    3100 (rows staged in passes), on the rcp edge inputs, and on the
+    wrapping edge beside the largest quotients at every R up to 8: kernel
+    totals must equal the plain version's exactly (tolerance 0: integer
+    totals).  Returns the kernel calls made and the largest
+    |kernel - plain| seen."""
     cases = []
-    for n_res in (1, 2, 4, 6):
+    for n_res in range(1, 10):
         for n, s in ((10_000, 1_000), (1, 1), (2049, 257)):
             cases.append((multi_rows(n, s, n_res, seed=n + s + n_res),
                           f"R={n_res} {n}x{s}"))
@@ -706,6 +761,7 @@ def phase_multi_kernel_vs_plain(fm, device) -> tuple[int, int]:
         cases.append((wide_multi_rows(333, 130, n_res, seed=n_res),
                       f"R={n_res} 333x130"))
     cases += [(d, f"rcp-edge-{i}") for i, d in enumerate(multi_edge_rows())]
+    cases += [(multi_wrap_rows(r), f"wrap-edge R={r}") for r in range(1, 9)]
     calls = max_err = 0
     before = fm.LAUNCHES
     for data, label in cases:
@@ -722,8 +778,8 @@ def phase_multi_kernel_vs_plain(fm, device) -> tuple[int, int]:
                     f"{v.name} at {label}: kernel differs from plain "
                     f"(max |diff| {err})")
     log(f"kernel == plain: sweep_multi, 8 variants at {len(cases)} input "
-        f"sets (R in 1, 2, 4, 6; 10000x1000, 1x1, 2049x257; R in 1534, "
-        f"3100 at 333x130; rcp edges)")
+        f"sets (R = 1 to 9 at 10000x1000, 1x1, 2049x257; R in 1534, 3100 "
+        f"at 333x130; rcp edges; the wrapping edge at R = 1 to 8)")
     if fm.LAUNCHES - before != calls:
         raise AssertionError(
             f"sweep_multi LAUNCHES rose by {fm.LAUNCHES - before}, "
@@ -881,25 +937,24 @@ def phase_multi_paths(pkg, cli, ff, fm, tmp: str) -> dict:
     return out
 
 
-def bare_multi_launch(fm, ff, ops, strict: bool, sms: int):
-    """B2 through its C entry point with every argument prepared once
-    (the counterpart of :func:`bare_launch`)."""
+def bare_multi_launch(fn, ops, strict: bool, chunk: int):
+    """B2 through its C entry point ``fn`` with every argument prepared
+    once (the counterpart of :func:`bare_launch`)."""
     alloc, used, ap, pc, reqs, rcps, mask = ops
     r, n = (int(d) for d in alloc.shape)
     s = int(reqs.shape[1])
     totals = torch.zeros(s, dtype=torch.int64, device=alloc.device)
     ptr = [None if t is None else t.data_ptr() for t in
            (alloc, used, ap, pc, mask, reqs, rcps, totals)]
-    args = (*ptr, n, s, r, ff.node_chunk(n, s, sms), int(strict),
+    args = (*ptr, n, s, r, chunk, int(strict),
             torch.cuda.current_stream().cuda_stream)
-    fn = fm._multi_fn()
 
     def launch():
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"sweep_multi launch failed: CUDA error {rc}")
 
-    return launch
+    return launch, totals
 
 
 def phase_multi_times(fm, ff, paths: dict, identity: str,
@@ -917,8 +972,11 @@ def phase_multi_times(fm, ff, paths: dict, identity: str,
     for var, ops, path in timed:
         r, n = (int(d) for d in ops[0].shape)
         s = int(ops[4].shape[1])
-        ms, hold_calls = device_ms(
-            bare_multi_launch(fm, ff, ops, var.strict, sms), clock_hz)
+        chunk = ff.node_chunk(n, s, sms)
+        launch, _ = bare_multi_launch(fm._multi_fn(), ops, var.strict, chunk)
+        ms, hold_calls = device_ms(launch, clock_hz)
+        dead_ms = no_cell_ms(bare_multi_launch, fm._multi_fn(), ops, 6,
+                             var.strict, chunk, clock_hz)
         plain_ms, plain_hold_calls = device_ms(
             lambda: fm.sweep_multi_plain(*ops, strict=var.strict), clock_hz)
         wrapper_host_ms = host_call_ms(
@@ -926,7 +984,8 @@ def phase_multi_times(fm, ff, paths: dict, identity: str,
         bound_ms, bound_by, op_count = var.bound(ops, sms, clock_hz)
         rows.append({
             "kernel": var.name, "shape": f"{r}x{n}x{s}", "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "no_cell_ms": dead_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "wrapper_host_ms": wrapper_host_ms,
             "calls_per_hold": {"kernel": hold_calls,
                                "plain": plain_hold_calls},
@@ -968,6 +1027,15 @@ def phase_multi_end_to_end(fm, f_args: tuple) -> dict:
     return out
 
 
+KERNELS = ("sweep_fit", "sweep_multi")
+# A kernel's name and template arguments in its mangled symbol.
+KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
+# The kernels of the main paths' rcp variants: B1 <rcp, strict, counts> and
+# B2 with requests in registers <R, rcp, strict>.
+MAIN_RCP = re.compile(r"sweep_fit_kernel<1,|sweep_multi_kernel_r<\d+,1,")
+CONVERSIONS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F")
+
+
 def build_kernels(build, names: tuple[str, ...]) -> dict[str, float]:
     """Build every kernel library at once, one nvcc process each; returns
     each build's seconds (raises with nvcc's output if one fails)."""
@@ -980,14 +1048,145 @@ def build_kernels(build, names: tuple[str, ...]) -> dict[str, float]:
         return dict(zip(names, pool.map(timed, names)))
 
 
-def log_ptxas(build, name: str, pattern: str, variant_of) -> None:
-    variant = "?"
+def log_ptxas(build, name: str) -> int:
+    """Each kernel's registers as ptxas reports them (template arguments in
+    brackets: B1 <rcp, strict, counts>; B2 <R, rcp, strict> with requests in
+    registers, <rcp, strict, mask> with rows streamed); returns the bytes
+    spilled over all of them."""
+    kernel, spilled = "?", 0
     for line in build.ptxas_report(name).splitlines():
-        flags = re.search(pattern, line)
-        if flags:
-            variant = variant_of(*(bit == "1" for bit in flags.groups())).name
+        if "Compiling entry" in line:
+            kernel = kernel_label(line)
+        elif "spill" in line:
+            spilled += sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                      line))
         elif "registers" in line:
-            log(f"  {variant}: {line.split(':', 1)[1].strip()}")
+            log(f"  {kernel}: {line.split(':', 1)[1].strip()}")
+    return spilled
+
+
+# SASS opcodes counted per kernel: the conversion pipe (I2F, F2I, FRND,
+# F2F; I2FP is the conversion Hopper issues to the ALU), the multi-function
+# unit, and the integer, float and shared-memory work of a cell.
+SASS_OPS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F", "MUFU", "IMAD",
+            "ISETP", "IADD3", "LOP3", "SHF", "LEA", "SEL", "IMNMX", "VIMNMX",
+            "FMUL", "FADD", "FMNMX", "LDS")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def _cuobjdump() -> str | None:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda, "bin", "cuobjdump")
+    return path if os.path.exists(path) else None
+
+
+def sass_kernels(tool: str, lib: str) -> dict[str, list[tuple[int, str, str]]]:
+    """``cuobjdump -sass`` of a built library: for each kernel (mangled
+    name), its instructions as (address, opcode, text without predicate),
+    with branch labels resolved to addresses."""
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    kernels: dict[str, list] = {}
+    cur, labels, pending = None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = kernels.setdefault(m.group(1), [])
+            labels, pending = {}, []
+            continue
+        if cur is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSTR.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            body = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            for label, at in labels.items():  # labels defined so far
+                body = body.replace(f"`({label})", hex(at))
+            cur.append((addr, body.split()[0], body))
+    return kernels
+
+
+def hot_loop(instrs: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
+    """The per-cell loop: of the regions closed by a backward branch and
+    free of barriers (a loop that stages a tile syncs the block), the one
+    with the most shared-memory loads, the shortest among equals."""
+    best, best_key = [], None
+    for addr, op, body in instrs:
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"0x([0-9a-f]+)", body)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        lo = int(m.group(1), 16)
+        region = [i for i in instrs if lo <= i[0] <= addr]
+        if any(i[1].startswith("BAR") for i in region):
+            continue
+        key = (sum(i[1].startswith("LDS") for i in region), -len(region))
+        if best_key is None or key > best_key:
+            best, best_key = region, key
+    return best
+
+
+def sass_counts(instrs) -> dict[str, int]:
+    counts = {op: 0 for op in SASS_OPS}
+    for _, op, _ in instrs:
+        base = op.split(".")[0]
+        if base in counts:
+            counts[base] += 1
+    counts["total"] = len(instrs)
+    return {k: v for k, v in counts.items() if v or k in
+            ("I2F", "F2I", "FRND", "total")}
+
+
+def kernel_label(symbol: str) -> str:
+    """``sweep_multi_kernel_r<4,1,1>`` for a mangled kernel symbol."""
+    m = KERNEL_NAME.search(symbol)
+    if not m:
+        return symbol
+    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+
+
+def phase_sass(build, names: tuple[str, ...]) -> dict:
+    """SASS instruction counts of each kernel of each library: the whole
+    kernel and its per-cell loop (:func:`hot_loop`), one line each.  A
+    diagnostic, not a kernel path: without ``cuobjdump`` it says so and
+    returns nothing."""
+    tool = _cuobjdump()
+    if tool is None:
+        log("sass: cuobjdump not found on PATH or under CUDA_HOME; "
+            "instruction counts skipped")
+        return {}
+    out = {}
+    for name in names:
+        lib = str(build.build(name))
+        for symbol, instrs in sorted(sass_kernels(tool, lib).items()):
+            kernel = kernel_label(symbol)
+            out[kernel] = {"kernel": sass_counts(instrs),
+                           "loop": sass_counts(hot_loop(instrs))}
+            log(f"sass {kernel}: " + json.dumps(out[kernel]))
+    return out
+
+
+def check_sass(counts: dict) -> None:
+    """The main paths' rcp kernels convert nothing in their per-cell loop."""
+    main = {k: v for k, v in counts.items() if MAIN_RCP.search(k)}
+    bad = {k: v["loop"] for k, v in main.items()
+           if any(v["loop"].get(op, 0) for op in CONVERSIONS)}
+    if bad:
+        raise AssertionError(f"conversions in the per-cell loop: {bad}")
+    log(f"sass: no {'/'.join(CONVERSIONS)} in the per-cell loop of the "
+        f"{len(main)} main-path rcp kernels")
 
 
 def main() -> int:
@@ -995,6 +1194,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--sass-only"]:
+        from kubernetesclustercapacity_tpu_torch.ops import _build
+
+        phase_sass(_build, KERNELS)
+        return 0
     import kubernetesclustercapacity_tpu_torch as pkg
     from kubernetesclustercapacity_tpu_torch import cli
     from kubernetesclustercapacity_tpu_torch.ops import _build
@@ -1013,15 +1217,18 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    seconds = build_kernels(_build, ("sweep_fit", "sweep_multi"))
+    seconds = build_kernels(_build, KERNELS)
     log(f"build: csrc/sweep_fit.cu and csrc/sweep_multi.cu together in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
         + f"; {' '.join(_build.NVCC_FLAGS)})")
-    log_ptxas(_build, "sweep_fit",
-              r"sweep_fit_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", Variant)
-    log_ptxas(_build, "sweep_multi",
-              r"sweep_multi_kernelILb(\d)ELb(\d)ELb(\d)E", MultiVariant)
+    spilled = sum(log_ptxas(_build, k) for k in KERNELS)
+    if spilled:
+        raise AssertionError(f"ptxas spilled {spilled} bytes")
+    log("ptxas: no spills in any kernel")
+    sass = phase_sass(_build, KERNELS)
+    if sass:
+        check_sass(sass)
 
     calls, max_err = phase_kernel_vs_plain(ff, device)
     multi_calls, multi_max_err = phase_multi_kernel_vs_plain(fm, device)
@@ -1033,6 +1240,9 @@ def main() -> int:
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
     rows = phase_times(pkg, ff, device, identity, clock_hz, main_launches)
+    floor = launch_floor_ms(clock_hz)
+    log(f"launch floor: a one-element fill times {floor:.6f} ms by the same "
+        "method")
     e2e = phase_end_to_end(pkg, ff)
     multi_rows_timed = phase_multi_times(fm, ff, multi_paths, identity,
                                          clock_hz)
@@ -1056,6 +1266,7 @@ def main() -> int:
         "variants_checked": len(VARIANTS),
         "checked_calls": calls,
         "variants": rows,
+        "launch_floor_ms": floor,
         **e2e,
         "gpu": identity,
     }, {
@@ -1075,6 +1286,7 @@ def main() -> int:
         "variants_checked": len(MULTI_VARIANTS),
         "checked_calls": multi_calls,
         "variants": multi_rows_timed,
+        "launch_floor_ms": floor,
         **multi_e2e,
         "gpu": identity,
     }]}

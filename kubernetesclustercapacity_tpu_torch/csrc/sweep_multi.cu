@@ -17,50 +17,75 @@
 // value int32 (the host proves the inputs eligible first:
 // fused_multi.fast_multi_eligible).  A scenario whose rows are all inactive
 // keeps fit = INT32_MAX into the epilogue, which gives ap - pc (reference)
-// or the free slots (strict), as on the TPU.  The rcp variants replace each
-// row's divide by _rcp_div: floor(h * (1/req)) in f32 plus ONE fixup round
-// per row, h = max(alloc - used, 0).  That is exact only under
-// fused_multi.rcp_multi_eligible, with correctly rounded f32 steps and
-// reciprocals of max(req, 1) from fused_fit.scenario_reciprocals — hence
-// __int2float_rn / __fmul_rn here and no fast-math or FTZ flags in the
-// build.  The fixup is per row, not B1's combined one: B2 takes the min
-// after each row's quotient is exact.  int32 arithmetic wraps (through
-// uint32), as in XLA and in the plain PyTorch version.
+// or the free slots (strict), as on the TPU.  int32 arithmetic wraps
+// (through uint32), as in XLA and in the plain PyTorch version.  Every
+// variant divides the clamped headroom h = max(alloc - used, 0): where
+// alloc <= used, h = 0 gives quotient 0, the select's 0, and where
+// alloc > used, C's truncating "/" equals the floored "//".
 //
-// Both variants divide the clamped headroom h: where alloc <= used, h = 0
-// gives quotient 0, which is the select's 0, and where alloc > used, h is
-// alloc - used > 0, so C's truncating "/" equals the floored "//".
+// Two kernels compute it.  For 1 <= R <= 8 (every configuration the CLI
+// and BASELINE config 4 send) sweep_multi_kernel_r<R, ...> holds a
+// scenario's requests in registers; larger R runs sweep_multi_kernel<...>,
+// which streams the rows and stages them in passes past 1533 rows.
 //
-// What bounds it on the H100: instruction issue.  The function needs
-// 2a - 1 operations per (scenario, node) cell for a scenario with a active
-// rows (a quotients, a - 1 mins), the epilogue and the accumulate; the
-// node operands are (2R + 3) int32 columns, a few hundred KB at 10k nodes,
-// so the bytes take well under a microsecond.  The design keeps every
+// The reciprocal (rcp) variants, exact under fused_multi.rcp_multi_eligible
+// (every quotient <= 2^20, every divisor <= 2^29) with reciprocals of
+// max(req, 1) from fused_fit.scenario_reciprocals:
+//
+// * sweep_multi_kernel_r takes ONE estimate per cell and one combined fixup
+//   over the rows.  Each row's est_r = RN(hf_r * rc_r) lies within
+//   3 * 2^-24 * (2^20 + 1) < 0.19 of its real quotient x_r = h_r / q_r
+//   (hf_r = RN(h_r), rc_r = RN(1 / q_r) and the product each round once), so
+//   m = min_r est_r lies within 0.19 of min_r x_r (min is 1-Lipschitz).  As
+//   floor(min) = min(floor), the fit is M = floor(min_r x_r), and
+//   RN(m) is M or M + 1.  RN(m) < 2^22, so adding 0x1.8p23 puts it in the
+//   mantissa's low bits and the float's bits minus 0x4B400000 are RN(m) as
+//   an int32: no conversion instruction.  The fixup: f = M + 1 exactly when
+//   some active row's rem_r = h_r - f * q_r is negative, so one OR of the
+//   rems and one sign test give M.  (The JAX kernel floors and fixes up each
+//   row on both sides; under the same proof both give M.)  True rems lie in
+//   (-q_r, h_r] with q_r <= 2^29, so the wrapping int32 products give them
+//   exactly.  An inactive row holds q_r = 0 (its rem is h_r >= 0) and a NaN
+//   reciprocal (its estimate is NaN, which fminf ignores); a scenario with
+//   no active row gives row 0 a reciprocal of 0, so m = 0, and subtracts a
+//   bias that turns RN(0) into INT32_MAX.  The two steps
+//   stay __fmul_rn / __fadd_rn, and the build keeps -fmad=false and no
+//   fast-math or FTZ flags: a contracted FMA would round once, not twice.
+// * sweep_multi_kernel keeps _rcp_div per row (one floor, one fixup on both
+//   sides).
+//
+// What bounds it on the H100: instruction issue, with the ALU pipe (16
+// lanes per SM sub-partition, half the FP32 pipe's) close behind.  The
+// per-cell loop of sweep_multi_kernel_r<4> in the rcp/strict form issues
+// about 21 instructions per cell (cuobjdump -sass; chip_smoke.py prints the
+// counts): per row an FMUL, an FMNMX and an IMAD for the rem; then the
+// magic add (FADD) and its subtraction, the OR of the rems (LOP3), the sign
+// fixup (LEA.HI), the strict min, the accumulate and 1.5 shared loads.  Of
+// those about 8 are ALU instructions, and none is an I2F, F2I or FRND:
+// every conversion runs once per node per block, at staging.  Besides the
+// cells, a launch pays a fixed time (the scenario loads, the staging, and
+// the launch itself) that a sweep whose nodes are all masked out measures.
+// The node operands are (2R + 3) int32 columns, a few hundred KB at 10k
+// nodes, so the bytes take well under a microsecond.  The design keeps every
 // cell's operands in registers or broadcast shared memory and never writes
 // a per-cell value to device memory:
 //
-// * one thread owns one scenario; blockIdx.x walks blocks of kThreads
-//   scenarios, blockIdx.y walks node chunks sized by the wrapper so the
-//   grid fills every SM several times;
-// * a block stages its chunk through shared memory, `tile` nodes at a
-//   time, as the per-node terms the cells share: the R headrooms
-//   max(alloc - used, 0), ap, pc and the mask.  All threads read the same
-//   node at once (a broadcast, no bank conflicts).  The tile shrinks with
-//   R so that it fits 48 KB; the tail of a chunk is staged as zero nodes,
-//   which add 0 to every total in every variant.  Past the R at which even
-//   kBatch nodes of every row do not fit, the tile is one batch and its
-//   rows are staged in passes of `pass_rows`, the batch's running mins
-//   staying in registers between passes, so every R >= 1 runs;
-// * a thread takes kBatch nodes at a time with their running mins in
-//   registers, and walks the rows once per batch: one load of its request
-//   (and reciprocal) per row serves kBatch cells, and an inactive row is
-//   skipped;
-// * each thread accumulates its total in an int64 register and ends with
-//   one atomicAdd into totals[s] (zeroed by the wrapper).  Integer sums do
-//   not depend on their order.
-//
-// Requests held in registers for a static R, 16-byte loads and persistent
-// blocks are left for later work.
+// * a thread owns kSpt scenarios and holds each one's requests (and
+//   reciprocals) in registers for the whole block, so one shared load of a
+//   node serves kSpt cells; blockIdx.x walks blocks of kThreads * kSpt
+//   scenarios, blockIdx.y walks node chunks sized by the wrapper
+//   (fused_fit.node_chunk) so the grid fills every SM several times;
+// * a block stages its chunk into shared memory as one 16-byte-aligned
+//   record per node of the terms every cell of that node shares: the R
+//   headrooms h_r, their floats (rcp), and the epilogue's terms (strict:
+//   the free slots max(ap - pc, 0); reference: ap and ap - pc).  All
+//   threads read the same record at once (a broadcast, 16 bytes per load);
+// * a node whose mask is 0 adds 0 to every total in every variant, so the
+//   staging leaves it out: a warp ballot compacts the live nodes, and the
+//   tail of a chunk, or a tile with no live node, stages nothing;
+// * each thread accumulates its totals in int64 registers and ends with
+//   one atomicAdd each into totals[s] (zeroed by the wrapper).  Integer
+//   sums do not depend on their order, so neither does the compaction.
 
 #include <cstdint>
 
@@ -68,10 +93,18 @@
 
 namespace {
 
-constexpr int kThreads = 128;          // scenarios per block
-constexpr int kBatch = 8;              // nodes per register batch
-constexpr int kMaxTile = 256;          // nodes staged per step at most
+// kThreads and kSpt are fused_fit.THREADS_PER_BLOCK and SCENARIOS_PER_THREAD.
+constexpr int kThreads = 128;          // threads per block
+constexpr int kSpt = 2;                // scenarios per thread (R <= 8)
+constexpr int kBatch = 8;              // nodes per register batch (runtime R)
+constexpr int kMaxTile = 256;          // nodes staged per step (runtime R)
+constexpr int kMaxStaticR = 8;         // largest R with requests in registers
+constexpr int kMaxRecords = 512;       // node records staged per tile at most
 constexpr int kSmemBytes = 48 * 1024;  // shared memory without an opt-in
+
+// RN(m) for 0 <= m < 2^22: the low bits of m + 0x1.8p23 (see the header).
+constexpr float kMagic = 12582912.0f;            // 0x1.8p23
+constexpr int32_t kMagicBits = 0x4B400000;       // its bit pattern
 
 struct Params {
   const int32_t* __restrict__ alloc;  // [r, n], row-scaled
@@ -86,8 +119,8 @@ struct Params {
   int s;
   int r;
   long long chunk;
-  int tile;       // nodes staged per step, a multiple of kBatch
-  int pass_rows;  // resource rows staged per pass: r, or fewer if tile == kBatch
+  int tile;       // nodes staged per step, a multiple of kBatch (runtime R)
+  int pass_rows;  // resource rows staged per pass (runtime R)
 };
 
 // Wrapping int32 arithmetic (two's complement, like XLA and torch).
@@ -123,6 +156,204 @@ __device__ __forceinline__ int32_t epilogue(int32_t fit, int32_t ap,
     return fit >= ap ? wsub(ap, pc) : fit;
   }
 }
+
+// --- 1 <= R <= 8: requests in registers, one estimate per cell -----------
+
+// One staged node: h[R], then hf[R] (rcp), then the epilogue's terms
+// (strict: slots; reference: ap, ap - pc), padded to whole 16-byte words.
+template <int R, bool RCP, bool STRICT>
+struct Record {
+  static constexpr int kTerms = R * (RCP ? 2 : 1);
+  static constexpr int kWords = (kTerms + (STRICT ? 1 : 2) + 3) / 4 * 4;
+  static constexpr int kVecs = kWords / 4;
+  // Records per tile: kMaxRecords, or fewer if they would pass 48 KB.
+  static constexpr int kCap = kSmemBytes / 16 / kVecs < kMaxRecords
+                                  ? kSmemBytes / 16 / kVecs
+                                  : kMaxRecords;
+  static_assert(kCap >= kThreads, "a staging round must fit one tile");
+};
+
+template <int R, bool RCP, bool STRICT>
+__global__ void __launch_bounds__(kThreads)
+    sweep_multi_kernel_r(const Params p) {
+  using Rec = Record<R, RCP, STRICT>;
+  __shared__ int4 tile[Rec::kCap * Rec::kVecs];
+  __shared__ int next;  // records claimed since the block started
+
+  // This thread's scenarios: requests (rcp: negated, so that a rem is one
+  // IMAD, and 0 where inactive; divide: 1 where inactive, so that every
+  // row divides and the divisor's reciprocal is shared by the unrolled
+  // nodes), reciprocals, the active rows, and the bias that turns the
+  // magic sum into f.
+  int sidx[kSpt];
+  int32_t q[kSpt][R];
+  float rc[kSpt][R];
+  unsigned active[kSpt];
+  int32_t bias[kSpt];
+  long long acc[kSpt];
+#pragma unroll
+  for (int k = 0; k < kSpt; ++k) {
+    sidx[k] = blockIdx.x * (kThreads * kSpt) + k * kThreads + threadIdx.x;
+    const bool valid = sidx[k] < p.s;
+    active[k] = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long at = static_cast<long long>(r) * p.s + sidx[k];
+      const int32_t v = valid ? p.reqs[at] : 0;
+      // Inactive rcp row: 0, so its rem is h >= 0, never negative.
+      q[k][r] = v > 0 ? (RCP ? -v : v) : (RCP ? 0 : 1);
+      active[k] |= static_cast<unsigned>(v > 0) << r;
+      if constexpr (RCP) {
+        rc[k][r] = v > 0 ? p.rcps[at] : __int_as_float(0x7fffffff);  // NaN
+      }
+    }
+    bias[k] = kMagicBits;
+    if constexpr (RCP) {
+      if (active[k] == 0) {
+        // No active row: row 0's estimate becomes 0 (the others are NaN),
+        // and this bias turns RN(0)'s magic sum into INT32_MAX.
+        rc[k][0] = 0.0f;
+        bias[k] = wsub(kMagicBits, INT32_MAX);
+      }
+    }
+    acc[k] = 0;
+  }
+
+  if (threadIdx.x == 0) next = 0;
+  __syncthreads();
+
+  const unsigned lane = threadIdx.x & 31u;
+  const long long begin = static_cast<long long>(blockIdx.y) * p.chunk;
+  const long long end = min(begin + p.chunk, p.n);
+  int total = 0, start = 0;  // records staged in all, and before this tile
+  for (long long g0 = begin; g0 < end; g0 += kThreads) {
+    // Stage the live nodes of [g0, g0 + kThreads), compacted.
+    // The columns load beside the mask (one round trip, not two).
+    const long long g = g0 + threadIdx.x;
+    const bool in = g < end;
+    int32_t w[Rec::kWords] = {};
+    if (in) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const long long at = static_cast<long long>(r) * p.n + g;
+        w[r] = max(wsub(p.alloc[at], p.used[at]), 0);
+      }
+      const int32_t ap = p.ap[g], pc = p.pc[g];
+      if constexpr (STRICT) {
+        w[Rec::kTerms] = max(wsub(ap, pc), 0);
+      } else {
+        w[Rec::kTerms] = ap;
+        w[Rec::kTerms + 1] = wsub(ap, pc);
+      }
+    }
+    const bool live = in && (p.mask == nullptr || p.mask[g] != 0);
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    int base = 0;
+    if (lane == 0 && ballot != 0) base = atomicAdd(&next, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (live) {
+      if constexpr (RCP) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          w[R + r] = __float_as_int(__int2float_rn(w[r]));
+        }
+      }
+      const int at = base - start + __popc(ballot & ((1u << lane) - 1u));
+      int4* dst = tile + at * Rec::kVecs;
+#pragma unroll
+      for (int v = 0; v < Rec::kVecs; ++v) {
+        dst[v] = make_int4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
+      }
+    }
+    total += __syncthreads_count(live);  // also publishes the records
+    const int filled = total - start;
+    if (filled <= Rec::kCap - kThreads && g0 + kThreads < end) continue;
+
+    // Every cell of the staged records.
+#pragma unroll 2
+    for (int i = 0; i < filled; ++i) {
+      int32_t w[Rec::kWords];
+      const int4* src = tile + i * Rec::kVecs;
+#pragma unroll
+      for (int v = 0; v < Rec::kVecs; ++v) {
+        const int4 x = src[v];
+        w[4 * v] = x.x;
+        w[4 * v + 1] = x.y;
+        w[4 * v + 2] = x.z;
+        w[4 * v + 3] = x.w;
+      }
+#pragma unroll
+      for (int k = 0; k < kSpt; ++k) {
+        int32_t f;
+        if constexpr (RCP) {
+          float m = __fmul_rn(__int_as_float(w[R]), rc[k][0]);
+#pragma unroll
+          for (int r = 1; r < R; ++r) {
+            m = fminf(m, __fmul_rn(__int_as_float(w[R + r]), rc[k][r]));
+          }
+          f = wsub(__float_as_int(__fadd_rn(m, kMagic)), bias[k]);
+          int32_t rems = 0;  // the OR of the rems: negative iff f = M + 1
+#pragma unroll
+          for (int r = 0; r < R; ++r) rems |= wadd(w[r], wmul(f, q[k][r]));
+          f = wsub(f, rems < 0);
+        } else {
+          f = INT32_MAX;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int32_t quo = w[r] / q[k][r];
+            if ((active[k] >> r) & 1u) f = min(f, quo);
+          }
+        }
+        // Epilogue on the staged terms.  Strict: f >= 0 and the slots are
+        // >= 0, so the outer max(., 0) is void.
+        if constexpr (STRICT) {
+          f = min(f, w[Rec::kTerms]);
+          acc[k] += static_cast<uint32_t>(f);  // f >= 0: no sign to extend
+        } else {
+          acc[k] += f >= w[Rec::kTerms] ? w[Rec::kTerms + 1] : f;
+        }
+      }
+    }
+    __syncthreads();  // the tile has been read
+    start = total;
+  }
+#pragma unroll
+  for (int k = 0; k < kSpt; ++k) {
+    if (sidx[k] < p.s && acc[k] != 0) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(p.totals + sidx[k]),
+                static_cast<unsigned long long>(acc[k]));
+    }
+  }
+}
+
+template <int R>
+void launch_r(const Params& p, bool rcp, bool strict, unsigned chunks,
+              cudaStream_t st) {
+  const dim3 grid((p.s + kThreads * kSpt - 1) / (kThreads * kSpt), chunks);
+  if (rcp) {
+    if (strict) {
+      sweep_multi_kernel_r<R, true, true><<<grid, kThreads, 0, st>>>(p);
+    } else {
+      sweep_multi_kernel_r<R, true, false><<<grid, kThreads, 0, st>>>(p);
+    }
+  } else {
+    if (strict) {
+      sweep_multi_kernel_r<R, false, true><<<grid, kThreads, 0, st>>>(p);
+    } else {
+      sweep_multi_kernel_r<R, false, false><<<grid, kThreads, 0, st>>>(p);
+    }
+  }
+}
+
+// --- R > 8: rows streamed from global memory, staged in passes ------------
+//
+// One thread per scenario; a block stages its chunk `tile` nodes at a time
+// as the R headrooms, ap, pc and the mask (the tail as zero nodes, which add
+// 0), and a thread takes kBatch nodes at a time with their running mins in
+// registers, loading its request (and reciprocal) once per row per batch and
+// skipping inactive rows.  Past the R at which even kBatch nodes of every row
+// do not fit 48 KB, the tile is one batch and its rows are staged in passes
+// of `pass_rows`, the batch's running mins staying in registers.
 
 template <bool RCP, bool STRICT, bool MASK>
 __global__ void __launch_bounds__(kThreads) sweep_multi_kernel(const Params p) {
@@ -210,19 +441,39 @@ void launch(const Params& p, dim3 grid, size_t smem, cudaStream_t stream) {
 // Launches one R-resource sweep on `stream`, on the calling thread's
 // current device (the one that holds the pointers).  A null mask selects
 // the variants without it; null reciprocals the int32-divide variants.
-// `totals` must be zeroed.  Every r >= 1 runs.  Returns the cudaError_t of
-// the launch (0 on success); never synchronises.
+// The mask is 0/1 (the register kernel stages the nodes whose mask is not
+// 0 and leaves out the others).  `totals` must be zeroed.  Every r >= 1
+// runs.  Returns the cudaError_t of the launch (0 on success); never
+// synchronises.
 extern "C" int kccap_sweep_multi(
     const int32_t* alloc, const int32_t* used, const int32_t* ap,
     const int32_t* pc, const int32_t* mask, const int32_t* reqs,
     const float* rcps, long long* totals,
     long long n, int s, int r, long long chunk, int strict, void* stream) {
-  if (n <= 0 || s <= 0 || r <= 0 || chunk <= 0) {
+  if (n <= 0 || s <= 0 || r <= 0 || chunk <= 0 || chunk > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long chunks = (n + chunk - 1) / chunk;
   if (chunks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Params p{alloc, used, ap, pc, mask, reqs, rcps, totals,
+           n, s, r, chunk, 0, 0};
+  if (r <= kMaxStaticR) {
+    const bool rcp = rcps != nullptr;
+    const unsigned ch = static_cast<unsigned>(chunks);
+    switch (r) {
+      case 1: launch_r<1>(p, rcp, strict != 0, ch, st); break;
+      case 2: launch_r<2>(p, rcp, strict != 0, ch, st); break;
+      case 3: launch_r<3>(p, rcp, strict != 0, ch, st); break;
+      case 4: launch_r<4>(p, rcp, strict != 0, ch, st); break;
+      case 5: launch_r<5>(p, rcp, strict != 0, ch, st); break;
+      case 6: launch_r<6>(p, rcp, strict != 0, ch, st); break;
+      case 7: launch_r<7>(p, rcp, strict != 0, ch, st); break;
+      default: launch_r<8>(p, rcp, strict != 0, ch, st); break;
+    }
+    return static_cast<int>(cudaGetLastError());
   }
   // Shared words: pass_rows headroom rows plus ap, pc (and the mask), each
   // `tile` nodes long.  Stage every row when kBatch nodes of them fit;
@@ -238,11 +489,10 @@ extern "C" int kccap_sweep_multi(
   if (tile > kMaxTile) tile = kMaxTile;
   const size_t smem =
       static_cast<size_t>(pass_rows + extra) * tile * sizeof(int32_t);
-  const Params p{alloc, used, ap, pc, mask, reqs, rcps, totals,
-                 n, s, r, chunk, static_cast<int>(tile), pass_rows};
+  p.tile = static_cast<int>(tile);
+  p.pass_rows = pass_rows;
   const dim3 grid((s + kThreads - 1) / kThreads,
                   static_cast<unsigned>(chunks));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int variant = ((rcps != nullptr) << 2) | ((strict != 0) << 1) |
                       (mask != nullptr);
   switch (variant) {

@@ -54,12 +54,19 @@ __all__ = [
 #: counted nowhere else).
 LAUNCHES = 0
 
-#: Scenarios per block of the CUDA kernel (``kThreads`` in the source).
+#: Threads per block of the CUDA kernels (``kThreads`` in the sources), and
+#: the scenarios each thread owns (``kSpt``): a block covers
+#: ``SCENARIOS_PER_BLOCK`` scenarios.  B2 above 8 resource rows takes one
+#: scenario per thread; its grid is sized in its C entry.
 THREADS_PER_BLOCK = 128
+SCENARIOS_PER_THREAD = 2
+SCENARIOS_PER_BLOCK = THREADS_PER_BLOCK * SCENARIOS_PER_THREAD
 #: Blocks the wrapper aims for on each SM, and the fewest nodes a block
-#: takes (so a block's staging is worth its launch).
-BLOCKS_PER_SM = 8
-MIN_NODES_PER_BLOCK = 64
+#: takes (so a block's staging is worth its launch); measured choices, see
+#: PERF.md.  At 10,000 nodes a block takes 76, so the minimum acts only on
+#: small node counts, such as the grouped sweep's 48 groups.
+BLOCKS_PER_SM = 4
+MIN_NODES_PER_BLOCK = 16
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -252,7 +259,7 @@ def node_chunk(n: int, s: int, sm_count: int) -> int:
     """Nodes per block along the grid's y axis: enough blocks to give every
     SM ``BLOCKS_PER_SM`` of them, no block under ``MIN_NODES_PER_BLOCK``
     nodes, and at most 65535 chunks."""
-    scenario_blocks = -(-s // THREADS_PER_BLOCK)
+    scenario_blocks = -(-s // SCENARIOS_PER_BLOCK)
     want_chunks = max(1, -(-BLOCKS_PER_SM * sm_count // scenario_blocks))
     chunk = max(MIN_NODES_PER_BLOCK, -(-n // want_chunks))
     return max(chunk, -(-n // 65535))
@@ -372,7 +379,11 @@ def _fused_totals(
         crr = _devcache.to_device(scenario_reciprocals(cr), device)
         mrr = _devcache.to_device(scenario_reciprocals(mr), device)
     if mask is not None:
-        mask = _devcache.to_device(np.asarray(mask).astype(np.int32), device)
+        # The kernel takes any non-zero lane as 1; the plain version
+        # multiplies by it.  Staging the mask as 0/1 keeps them equal.
+        mask = _devcache.to_device(
+            np.asarray(mask, dtype=bool).astype(np.int32), device
+        )
     if counts is not None:
         counts = _devcache.to_device(
             np.asarray(counts, dtype=np.int64).astype(np.int32), device

@@ -192,7 +192,8 @@ def stage_multi_operands(
         np.asarray(pods_count, dtype=np.int64).astype(np.int32),
         reqs,
         scenario_reciprocals(np.maximum(reqs, 1)) if use_rcp else None,
-        None if node_mask is None else np.asarray(node_mask).astype(np.int32),
+        None if node_mask is None
+        else np.asarray(node_mask, dtype=bool).astype(np.int32),
     ]
     return tuple(
         None if a is None else _devcache.to_device(a, device) for a in host
@@ -263,8 +264,8 @@ def sweep_multi(
     """Per-scenario totals of the fused R-resource sweep, int64 ``[S]``.
 
     Operands as :func:`stage_multi_operands` returns them, on one device;
-    ``rcps`` selects the reciprocal-division variant and ``mask`` the lane
-    mask.  Callers prove the inputs eligible first.  On CUDA tensors this
+    ``rcps`` selects the reciprocal-division variant and ``mask`` (0/1) the
+    lane mask.  Callers prove the inputs eligible first.  On CUDA tensors this
     launches ``csrc/sweep_multi.cu`` (and raises if it cannot); on CPU
     tensors it runs :func:`sweep_multi_plain`.
     """

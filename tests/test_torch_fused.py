@@ -360,10 +360,40 @@ def test_node_chunk_grid(n, s, sms):
     chunk = tf.node_chunk(n, s, sms)
     chunks = -(-n // chunk)
     assert chunk >= tf.MIN_NODES_PER_BLOCK and chunks <= 65535
-    scenario_blocks = -(-s // tf.THREADS_PER_BLOCK)
+    scenario_blocks = -(-s // tf.SCENARIOS_PER_BLOCK)
     if n >= tf.MIN_NODES_PER_BLOCK * tf.BLOCKS_PER_SM * sms:
         assert chunks * scenario_blocks >= tf.BLOCKS_PER_SM * sms or \
             chunks == 65535
+
+
+@pytest.mark.parametrize("source", ["sweep_fit.cu", "sweep_multi.cu"])
+def test_grid_constants_match_the_kernel_sources(source):
+    """node_chunk sizes the grid from the kernels' threads per block and
+    scenarios per thread; each source declares the same two numbers."""
+    from kubernetesclustercapacity_tpu_torch.ops import _build
+
+    text = (_build.CSRC / source).read_text()
+    assert f"constexpr int kThreads = {tf.THREADS_PER_BLOCK};" in text
+    assert f"constexpr int kSpt = {tf.SCENARIOS_PER_THREAD};" in text
+
+
+@pytest.mark.parametrize("mode", ["reference", "strict"])
+@pytest.mark.parametrize("shapes", [None, 8], ids=["per-node", "grouped"])
+def test_an_int_node_mask_counts_as_its_truth(mode, shapes):
+    """The kernel stages a node whose mask is not 0 and the plain version
+    multiplies by the mask, so the dispatcher stages ``node_mask`` as 0/1:
+    an int mask with values other than 0 and 1 sweeps as ``mask != 0``."""
+    snap = t_snapshot.synthetic_snapshot(600, seed=21, shapes=shapes)
+    grid = t_scenario.random_scenario_grid(40, seed=22)
+    rng = np.random.default_rng(23)
+    weights = rng.choice(np.array([0, 1, 2, 7, -3], np.int32), size=600)
+    got = tf.sweep_snapshot_auto(snap, grid, mode=mode, node_mask=weights,
+                                 device="cpu")
+    want = tf.sweep_snapshot_auto(snap, grid, mode=mode,
+                                  node_mask=weights != 0, device="cpu")
+    assert got[2] == want[2] and got[2].startswith("plain_i32_rcp_fused")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 def test_device_cache_reuses_tensors_and_drops_them_with_the_snapshot():

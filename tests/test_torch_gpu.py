@@ -67,6 +67,28 @@ def test_kernel_matches_plain(cuda, variant, n, s):
     assert torch.equal(got, ff.sweep_fused_plain(*ops, strict=strict))
 
 
+@pytest.mark.parametrize("dead", ["every-mask-0", "most-counts-0"])
+@pytest.mark.parametrize(
+    "variant", list(itertools.product((False, True), repeat=4)),
+    ids=lambda v: "-".join(str(int(b)) for b in v),
+)
+def test_kernel_leaves_out_dead_nodes(cuda, variant, dead):
+    """The kernel stages only nodes whose mask and count are not 0; a chunk
+    with no live node, and chunks with a few, still equal the plain
+    version."""
+    rcp, strict, mask, counts = variant
+    ops = _operands(5_000, 700, 11, cuda, rcp, mask, counts)
+    rng = np.random.default_rng(12)
+    if dead == "every-mask-0" and mask:
+        ops[10].zero_()
+    if dead == "most-counts-0" and counts:
+        keep = torch.from_numpy(rng.random(5_000) < 0.02).to(cuda)
+        ops[11] = torch.where(keep, ops[11], 0).contiguous()
+    got = ff.sweep_fused(*ops, strict=strict)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ff.sweep_fused_plain(*ops, strict=strict))
+
+
 def test_snapshot_sweep_on_card_matches_host(cuda):
     snap = synthetic_snapshot(10_000, seed=1)
     grid = random_scenario_grid(1_000, seed=0)
@@ -99,7 +121,7 @@ def _multi_operands(n, s, n_res, seed, device, rcp, mask):
 
 
 @pytest.mark.parametrize("n,s", [(1, 1), (2049, 257), (10_000, 1_000)])
-@pytest.mark.parametrize("n_res", [1, 2, 4, 6])
+@pytest.mark.parametrize("n_res", [1, 2, 3, 4, 5, 6, 7, 8, 9])
 @pytest.mark.parametrize(
     "variant", list(itertools.product((False, True), repeat=3)),
     ids=lambda v: "-".join(str(int(b)) for b in v),
@@ -142,6 +164,25 @@ def test_multi_kernel_stages_rows_in_passes(cuda, variant, n_res):
     got = fm.sweep_multi(*ops, strict=strict)
     torch.cuda.synchronize()
     assert torch.equal(got, fm.sweep_multi_plain(*ops, strict=strict))
+
+
+@pytest.mark.parametrize("n_res", [1, 4, 8, 9])
+@pytest.mark.parametrize(
+    "variant", list(itertools.product((False, True), repeat=3)),
+    ids=lambda v: "-".join(str(int(b)) for b in v),
+)
+def test_multi_kernel_with_every_mask_0(cuda, variant, n_res):
+    """Every node masked out: the totals are 0 in the masked variants, and
+    equal to the plain version's in all of them."""
+    rcp, strict, mask = variant
+    ops = _multi_operands(3_000, 300, n_res, n_res, cuda, rcp, mask)
+    if mask:
+        ops[6].zero_()
+    got = fm.sweep_multi(*ops, strict=strict)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fm.sweep_multi_plain(*ops, strict=strict))
+    if mask:
+        assert not got.any()
 
 
 def test_multi_sweep_on_card_matches_host(cuda):

@@ -439,6 +439,23 @@ def _operands(n=16, s=3, n_res=2):
     ))
 
 
+@pytest.mark.parametrize("strict", [False, True], ids=["ref", "strict"])
+def test_staging_makes_an_int_node_mask_0_1(strict):
+    """The kernel takes any non-zero lane as 1 and the plain version
+    multiplies by it, so ``stage_multi_operands`` stages ``mask != 0``."""
+    data = _rows(64, 9, 4, seed=3)
+    weights = np.random.default_rng(4).choice(
+        np.array([0, 1, 2, 7, -3], np.int32), size=64)
+    staged = [tm.stage_multi_operands(
+        data["alloc"], data["used"], data["ap"], data["pc"], data["reqs"],
+        [1] * 4, m, use_rcp=True, device=torch.device("cpu"),
+    ) for m in (weights, weights != 0)]
+    assert torch.equal(staged[0][6], torch.from_numpy(
+        (weights != 0).astype(np.int32)))
+    assert torch.equal(tm.sweep_multi(*staged[0], strict=strict),
+                       tm.sweep_multi(*staged[1], strict=strict))
+
+
 def test_wrapper_runs_plain_on_cpu_without_counting_a_launch():
     ops = _operands()
     before = tm.LAUNCHES
