@@ -12,11 +12,16 @@ the port's CLI at the north-star size (10,000 nodes x 1,000 scenarios, and
 100,000 nodes in the grouped form) and the R-resource sweep of BASELINE
 config 4 (``-extended-request``, 4 resources) through the CLI and the
 library call, checks every total against the exact int64 program on the
-card and on the host, and times each kernel beside its bound.  Any failure
-raises, so the script exits nonzero without its final line.  It needs a
-CUDA device and the package beside it; it imports nothing of JAX.
+card and on the host, and times each kernel beside its bound.  Then it
+drives the single-spec surface at 10,000 nodes: the reference transcript
+and ``-explain`` through the CLI, the fused sweep+explain and
+sweep+quantile programs, and ``CapacityModel``'s sweeps, which must launch
+B1 and B2 once each.  Any failure raises, so the script exits nonzero
+without its final line.  It needs a CUDA device and the package beside it;
+it imports nothing of JAX.
 
 Output: phase lines, one JSON line per timed kernel variant, a
+``{"paths": {...}}`` line with the single-spec paths' times, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -24,9 +29,11 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -1027,6 +1034,277 @@ def phase_multi_end_to_end(fm, f_args: tuple) -> dict:
     return out
 
 
+def run_cli_text(cli, argv: list[str]) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv} exited {rc}: {buf.getvalue()[-500:]}")
+    return buf.getvalue()
+
+
+TRANSCRIPT_TOTAL = re.compile(
+    r"Total possible replicas for the pod with required input specs : (-?\d+)")
+SPEC_FLAGS = ["-cpuRequests=200m", "-cpuLimits=400m", "-memRequests=250mb",
+              "-memLimits=500mb", "-replicas=5000"]
+SINGLE_SPEC_NODES = 10_000
+
+
+def phase_single_spec(pkg, cli, fit, ff, fm, tmp: str,
+                      identity: str) -> dict:
+    """Paths (g) and (h): one pod spec through the port's CLI on the card
+    at 10,000 nodes, a JSON fixture of ``synthetic_fixture(10_000, seed=6,
+    taint_frac=0.1)``.  (g): the default reference transcript from
+    ``-backend torch`` on the card and from ``-backend cpu`` (the
+    pure-Python oracle) must be byte-identical, in both semantics, and
+    their total must equal the host's sum of ``fit_per_node`` (taint mask
+    applied in strict).  (h): ``-explain`` as table and JSON, whose total
+    must equal (g)'s.  Neither path launches B1 or B2.  Returns each run's
+    host-clocked seconds (one call each) and the totals."""
+    fixture = pkg.synthetic_fixture(SINGLE_SPEC_NODES, seed=6, taint_frac=0.1)
+    path = os.path.join(tmp, "g.json")
+    pkg.save_fixture(fixture, path)
+    scenario = pkg.scenario_from_flags(
+        cpuRequests="200m", cpuLimits="400m", memRequests="250mb",
+        memLimits="500mb", replicas="5000")
+    out = {"seconds": {}, "totals": {}, "launches": {}}
+    for semantics in ("reference", "strict"):
+        argv = ["-snapshot", path, "-semantics", semantics, *SPEC_FLAGS]
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        card = run_cli_text(cli, argv)
+        out["seconds"][f"(g) {semantics} torch"] = time.perf_counter() - t0
+        out["launches"][f"(g) {semantics}"] = ff.LAUNCHES + fm.LAUNCHES
+        t0 = time.perf_counter()
+        host = run_cli_text(cli, argv + ["-backend", "cpu"])
+        out["seconds"][f"(g) {semantics} cpu"] = time.perf_counter() - t0
+        if card != host:
+            raise AssertionError(f"(g) {semantics}: the transcripts of "
+                                 "-backend torch and -backend cpu differ")
+        snap = pkg.snapshot_from_fixture(fixture, semantics=semantics)
+        fits = fit.fit_snapshot(
+            snap, scenario.cpu_request_milli, scenario.mem_request_bytes,
+            mode=semantics, node_mask=pkg.implicit_taint_mask(snap),
+            device="cpu")
+        want = int(fits.sum())
+        got = [int(t) for t in TRANSCRIPT_TOTAL.findall(card)]
+        if got != [want] or card.count("\nMax replicas : ") != \
+                SINGLE_SPEC_NODES:
+            raise AssertionError(f"(g) {semantics}: transcript total {got}, "
+                                 f"host sum of fit_per_node {want}")
+        out["totals"][semantics] = want
+        log(f"main path (g) single spec, {SINGLE_SPEC_NODES} nodes, "
+            f"{semantics}: -backend torch on the card "
+            f"{out['seconds'][f'(g) {semantics} torch']:.3f} s and "
+            f"-backend cpu {out['seconds'][f'(g) {semantics} cpu']:.3f} s "
+            f"through the CLI (one call each), transcripts byte-identical "
+            f"({len(card)} bytes), total {want} = host sum of fit_per_node, "
+            f"launches {out['launches'][f'(g) {semantics}']} ({identity})")
+
+        argv = argv + ["-explain"]
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        doc = json.loads(run_cli_text(cli, argv + ["-output", "json"]))
+        out["seconds"][f"(h) {semantics} json"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        table = run_cli_text(cli, argv + ["-output", "table"])
+        out["seconds"][f"(h) {semantics} table"] = time.perf_counter() - t0
+        out["launches"][f"(h) {semantics}"] = ff.LAUNCHES + fm.LAUNCHES
+        if doc["total_possible_replicas"] != want or \
+                f"total possible replicas: {want} " not in table or \
+                len(doc["nodes"]) != SINGLE_SPEC_NODES or \
+                sum(n["fit"] for n in doc["nodes"]) != want:
+            raise AssertionError(f"(h) {semantics}: -explain total differs "
+                                 f"from (g)'s {want}")
+        log(f"main path (h) -explain, {SINGLE_SPEC_NODES} nodes, "
+            f"{semantics}: JSON {out['seconds'][f'(h) {semantics} json']:.3f}"
+            f" s, table {out['seconds'][f'(h) {semantics} table']:.3f} s "
+            f"through the CLI (one call each), total {want} = (g)'s, "
+            f"binding {doc['binding_counts']}, marginal "
+            f"{ {k: (v or {}).get('delta') for k, v in doc['marginal'].items()} }"
+            f" ({identity})")
+    return out
+
+
+def quantile_index(n: int, q: float) -> int:
+    """The sorted-ascending order statistic of confidence ``q`` among ``n``
+    samples, ``n - ceil(q·n)`` clamped to ``[0, n - 1]`` (the JAX
+    package's ``stochastic.car.quantile_index``)."""
+    k = math.ceil(round(q * n, 9))
+    return min(max(n - k, 0), n - 1)
+
+
+def check_explain(pkg, ff, name: str, snap, grid, mode: str, mask,
+                  kernel: str) -> None:
+    """One fused sweep+explain on the card: totals equal the exact sweep on
+    the card, every per-node output equals ``explain_snapshot``'s on the
+    card, and the fits sum to the totals."""
+    totals, sched, result, label = pkg.sweep_explain_snapshot(
+        snap, grid, mode=mode, node_mask=mask)
+    if label != kernel:
+        raise AssertionError(f"{name}: label {label}, want {kernel}")
+    exact, exact_sched, exact_label = ff.sweep_snapshot_auto(
+        snap, grid, mode=mode, kernel="exact", node_mask=mask, device="cuda")
+    if not exact_label.startswith("torch_int64") or \
+            not np.array_equal(totals, exact) or \
+            not np.array_equal(sched, exact_sched):
+        raise AssertionError(f"{name}: totals differ from the exact sweep")
+    solo = pkg.explain_snapshot(snap, grid, mode=mode, node_mask=mask)
+    for field in ("fits", "binding", "cpu_fit", "mem_fit", "slots"):
+        got, want = getattr(result, field), getattr(solo, field)
+        if got.shape != (grid.size, snap.n_nodes) or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"{name}: {field} differs from "
+                                 "explain_snapshot")
+    if not np.array_equal(result.fits.sum(axis=1), totals):
+        raise AssertionError(f"{name}: the fits do not sum to the totals")
+
+
+def phase_fused_programs(pkg, ff, identity: str) -> dict:
+    """Paths (i) and (j): ``sweep_explain_snapshot`` at 10,000 nodes x
+    1,000 scenarios (strict with the taint mask, and reference unmasked)
+    and over 48 node-shape groups of 100,000 nodes x 100 scenarios, and
+    ``sweep_quantiles_snapshot`` at 10,000 x 1,000 with the order
+    statistics of q = 0.5, 0.9, 0.95, 0.99 against a host stable argsort
+    of the exact totals.  Returns the host-clocked median of warm calls of
+    each, and a profiler trace of the unmasked (i) and (j) calls."""
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    strict = pkg.snapshot_from_fixture(
+        pkg.synthetic_fixture(10_000, seed=6, taint_frac=0.1),
+        semantics="strict")
+    mask = pkg.implicit_taint_mask(strict)
+    reference = pkg.synthetic_snapshot(10_000, seed=1)
+    grouped = pkg.synthetic_snapshot(100_000, seed=2, shapes=48)
+    small_grid = pkg.random_scenario_grid(100, seed=7)
+    cases = [
+        ("(i) 10k x 1k strict, taint-masked", strict, grid, "strict", mask,
+         "torch_int64_sweep_explain"),
+        ("(i) 10k x 1k reference", reference, grid, "reference", None,
+         "torch_int64_sweep_explain"),
+        ("(i) 100k grouped (48 shapes) x 100", grouped, small_grid,
+         "reference", None, "torch_int64_sweep_explain_grouped"),
+    ]
+    out = {}
+    for name, snap, g, mode, m, kernel in cases:
+        check_explain(pkg, ff, name, snap, g, mode, m, kernel)
+        out[name] = host_median_ms(
+            lambda: pkg.sweep_explain_snapshot(snap, g, mode=mode,
+                                               node_mask=m),
+            runs=5, warmup=2)
+        log(f"main path {name}: sweep_explain_snapshot equal to the exact "
+            f"sweep and to explain_snapshot on the card, label {kernel}, "
+            f"{out[name]:.3f} ms (host clock, median of 5 warm calls) "
+            f"({identity})")
+    name, snap, g, mode, m, _ = cases[1]
+    out["(i) trace"] = phase_trace(
+        lambda: pkg.sweep_explain_snapshot(snap, g, mode=mode, node_mask=m),
+        "Memcpy DtoH", out[name], runs=5)
+
+    qs = (0.5, 0.9, 0.95, 0.99)
+    q_indices = tuple(quantile_index(grid.size, q) for q in qs)
+    for name, snap, mode, m in (
+            ("(j) 10k x 1k strict, taint-masked", strict, "strict", mask),
+            ("(j) 10k x 1k reference", reference, "reference", None)):
+        totals, sched, qvals, qidx, label = pkg.sweep_quantiles_snapshot(
+            snap, grid, mode=mode, node_mask=m, q_indices=q_indices)
+        exact, exact_sched, _ = ff.sweep_snapshot_auto(
+            snap, grid, mode=mode, kernel="exact", node_mask=m,
+            device="cuda")
+        order = np.argsort(exact, kind="stable")
+        if label != "torch_int64_sweep_qtile" or \
+                not np.array_equal(totals, exact) or \
+                not np.array_equal(sched, exact_sched) or \
+                not np.array_equal(qidx, order[list(q_indices)]) or \
+                not np.array_equal(qvals, exact[order][list(q_indices)]):
+            raise AssertionError(f"{name}: order statistics differ from the "
+                                 "host stable argsort of the exact totals")
+        out[name] = host_median_ms(
+            lambda: pkg.sweep_quantiles_snapshot(
+                snap, grid, mode=mode, node_mask=m, q_indices=q_indices),
+            runs=20, warmup=5)
+        log(f"main path {name}: sweep_quantiles_snapshot at q = {qs} "
+            f"(indices {q_indices}) gives {qvals.tolist()} at samples "
+            f"{qidx.tolist()}, equal to a host stable argsort of the exact "
+            f"totals, {out[name]:.3f} ms (host clock, median of 20 warm "
+            f"calls) ({identity})")
+    out["(j) trace"] = phase_trace(
+        lambda: pkg.sweep_quantiles_snapshot(reference, grid,
+                                             q_indices=q_indices),
+        "Memcpy", out["(j) 10k x 1k reference"])
+    return out
+
+
+def phase_model(pkg, ff, fm, f_args: tuple, identity: str) -> dict:
+    """Path (k): ``CapacityModel(snapshot, mode=...).sweep`` at 10,000 x
+    1,000 (reference on path (a)'s snapshot; strict on path (b)'s fixture
+    with its taint mask) must launch B1 once and ``.sweep_multi`` on path
+    (f)'s inputs B2 once, each equal to the exact program on the card.
+    Returns the launches of each call and the host-clocked median of warm
+    calls."""
+    from kubernetesclustercapacity_tpu_torch.scenario import (
+        MultiResourceGrid,
+    )
+
+    grid = pkg.random_scenario_grid(1000, seed=0)
+    out = {"launches": {"sweep_fit": {}, "sweep_multi": {}}, "ms": {}}
+    cases = [
+        ("(k) CapacityModel.sweep 10k x 1k reference",
+         pkg.synthetic_snapshot(10_000, seed=1), "reference"),
+        ("(k) CapacityModel.sweep 10k x 1k strict, taint-masked",
+         pkg.snapshot_from_fixture(
+             pkg.synthetic_fixture(10_000, seed=3, taint_frac=0.1),
+             semantics="strict"), "strict"),
+    ]
+    for name, snap, mode in cases:
+        model = pkg.CapacityModel(snap, mode=mode)
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        totals, sched = model.sweep(grid)
+        out["launches"]["sweep_fit"][name] = ff.LAUNCHES
+        if (ff.LAUNCHES, fm.LAUNCHES) != (1, 0):
+            raise AssertionError(f"{name}: sweep_fit launches {ff.LAUNCHES}, "
+                                 f"sweep_multi launches {fm.LAUNCHES}")
+        exact = ff.sweep_snapshot_auto(
+            snap, grid, mode=mode, kernel="exact",
+            node_mask=pkg.implicit_taint_mask(snap), device="cuda")
+        if not (np.array_equal(totals, exact[0])
+                and np.array_equal(sched, exact[1])):
+            raise AssertionError(f"{name}: totals differ from the exact "
+                                 "program")
+        out["ms"][name] = host_median_ms(lambda: model.sweep(grid))
+        log(f"main path {name}: launches sweep_fit 1, sweep_multi 0, equal "
+            f"to the exact program on the card, {out['ms'][name]:.3f} ms "
+            f"(host clock, median of 20 warm calls) ({identity})")
+
+    alloc_rn, used_rn, ap, pc, healthy, reqs, replicas = f_args
+    base = pkg.synthetic_snapshot(10_000, seed=0)
+    resources = ("cpu", "memory", "ephemeral-storage", "nvidia.com/gpu")
+    if not (np.array_equal(base.alloc_pods, ap)
+            and np.array_equal(base.healthy, healthy)):
+        raise AssertionError("(k): path (f)'s snapshot differs")
+    snap = dataclasses.replace(
+        base, semantics="strict",
+        extended={r: (alloc_rn[i], used_rn[i])
+                  for i, r in enumerate(resources) if i >= 2})
+    mgrid = MultiResourceGrid(resources=resources, requests=reqs,
+                              replicas=replicas)
+    model = pkg.CapacityModel(snap, mode="strict")
+    name = "(k) CapacityModel.sweep_multi config 4 10k x 1k x 4"
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    totals, sched = model.sweep_multi(mgrid)
+    out["launches"]["sweep_multi"][name] = fm.LAUNCHES
+    if (ff.LAUNCHES, fm.LAUNCHES) != (0, 1):
+        raise AssertionError(f"{name}: sweep_fit launches {ff.LAUNCHES}, "
+                             f"sweep_multi launches {fm.LAUNCHES}")
+    check_multi_against_exact(fm, name, f_args, {"mode": "strict"}, totals,
+                              sched)
+    out["ms"][name] = host_median_ms(lambda: model.sweep_multi(mgrid))
+    log(f"main path {name}: launches sweep_fit 0, sweep_multi 1, equal to "
+        f"the exact program on the card and the host, "
+        f"{out['ms'][name]:.3f} ms (host clock, median of 20 warm calls) "
+        f"({identity})")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -1235,7 +1513,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(pkg, cli, ff, tmp)
         multi_paths = phase_multi_paths(pkg, cli, ff, fm, tmp)
+        single = phase_single_spec(pkg, cli, fit, ff, fm, tmp, identity)
     phase_exact_adversarial(fit)
+    fused = phase_fused_programs(pkg, ff, identity)
+    model = phase_model(pkg, ff, fm, multi_paths["f_args"], identity)
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -1248,13 +1529,23 @@ def main() -> int:
                                          clock_hz)
     multi_e2e = phase_multi_end_to_end(fm, multi_paths["f_args"])
 
+    print(json.dumps({"paths": {
+        "single_spec_cli_s": single["seconds"],
+        "single_spec_totals": single["totals"],
+        "single_spec_launches": single["launches"],
+        "fused_programs_ms": fused,
+        "model_ms": model["ms"],
+        "model_launches": model["launches"],
+        "gpu": identity,
+    }}), flush=True)
     head = rows[0]
     kernels = {"kernels": [{
         "name": "sweep_fit",
         "route": "cuda",
         "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_fit.cu",
         "replaces": "kubernetesclustercapacity_tpu/ops/pallas_fit.py:450",
-        "launches": sum(main_launches.values()),
+        "launches": sum(main_launches.values())
+        + sum(model["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1274,7 +1565,8 @@ def main() -> int:
         "route": "cuda",
         "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_multi.cu",
         "replaces": "kubernetesclustercapacity_tpu/ops/pallas_multi.py:165",
-        "launches": sum(multi_paths["launches"].values()),
+        "launches": sum(multi_paths["launches"].values())
+        + sum(model["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

@@ -10,16 +10,22 @@ nothing of the JAX package.
 Layer map:
 
 ===========  ===============================================================
-L4 CLI       :mod:`.cli` (``-grid`` sweep, ``-extended-request``; the six
-             reference flags)
-L3 codecs    :mod:`.utils.quantity`
-L2 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
-             :mod:`.scenario`, :mod:`.masks`
-L1 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel in
-             ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
-             R-resource sweep, ``csrc/sweep_multi.cu``), :mod:`.ops.fit`
-             (the exact int64 programs), :mod:`.devcache` (device-resident
-             columns)
+L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
+             ``-grid`` sweep, ``-extended-request``; the six reference
+             flags)
+L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
+             kernel B1, ``sweep_multi`` on kernel B2), :mod:`.explain`
+             (binding attribution, marginals, the fused sweep+explain)
+L2 report    :mod:`.report` (the reference transcript, JSON, tables),
+             :mod:`.oracle` (the sequential bug-for-bug walk)
+L1 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
+             :mod:`.scenario`, :mod:`.masks`, :mod:`.utils.quantity`
+L0 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel B1
+             in ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
+             R-resource sweep, kernel B2 in ``csrc/sweep_multi.cu``),
+             :mod:`.ops.fit` (the exact int64 programs and the fused
+             sweep+explain / sweep+quantile programs), :mod:`.devcache`
+             (device-resident columns)
 ===========  ===============================================================
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
@@ -60,6 +66,7 @@ from kubernetesclustercapacity_tpu_torch.ops.fit import (  # noqa: F401
     sweep_grid,
     sweep_grid_grouped,
     sweep_grid_multi,
+    sweep_quantiles_snapshot,
 )
 from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (  # noqa: F401
     sweep_auto,
@@ -71,4 +78,15 @@ from kubernetesclustercapacity_tpu_torch.ops.fused_multi import (  # noqa: F401
     sweep_multi,
     sweep_multi_auto,
     sweep_multi_plain,
+)
+from kubernetesclustercapacity_tpu_torch.explain import (  # noqa: F401
+    explain_snapshot,
+    sweep_explain_snapshot,
+)
+from kubernetesclustercapacity_tpu_torch.models import (  # noqa: F401
+    CapacityModel,
+    PodSpec,
+)
+from kubernetesclustercapacity_tpu_torch.report import (  # noqa: F401
+    reference_report,
 )

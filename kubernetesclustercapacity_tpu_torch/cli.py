@@ -1,18 +1,32 @@
-"""CLI (L4): the ``-grid`` capacity sweep of the PyTorch port.
+"""CLI (L4): the reference's question on PyTorch / CUDA — one pod spec, or
+a sweep of them.
 
-Counterpart of ``kubernetesclustercapacity_tpu/cli.py`` (its flag layer,
-``:544-609``, ``_extended_names`` / ``_parse_extended_requests``,
-``:1701-1734``, and ``_run_grid``, ``:1876-1983``).  The reference's six
-flags parse exactly as there (``ClusterCapacity.go:50-83``), so an invalid
-memory or replicas value prints the reference's fatal line; then a random
-``-grid N`` sweep runs through :func:`..ops.fused_fit.sweep_snapshot_auto`,
-or, with ``-extended-request NAME=QTY``, through the R-resource
+Counterpart of ``kubernetesclustercapacity_tpu/cli.py`` (its flag layer
+and dispatch, ``:544-609``, ``_run_explain``, ``:1575-1604``,
+``_extended_names`` / ``_parse_extended_requests`` / ``_run_single`` /
+``_emit_report``, ``:1701-1873``, and ``_run_grid``, ``:1876-1983``).
+The reference's six flags parse exactly as there
+(``ClusterCapacity.go:50-83``), so an invalid memory or replicas value
+prints the reference's fatal line.  Then, for one spec, it prints the
+reference transcript (``-output reference``, the default), the JSON report
+or the table, byte for byte as the JAX CLI does; ``-explain`` prints the
+binding attribution and marginals instead; a random ``-grid N`` sweep runs
+through :func:`..ops.fused_fit.sweep_snapshot_auto`, or, with
+``-extended-request NAME=QTY``, through the R-resource
 :func:`..ops.fused_multi.sweep_multi_auto`, and prints the same JSON or
-table as the JAX CLI, apart from the kernel label.  The single-spec
-transcript and the live-cluster source are not ported yet.
+table as the JAX CLI apart from the kernel label.
 
-Example (BASELINE config 4's four-resource sweep)::
+``-backend torch`` (the default) runs the port's device programs on
+``-device``; ``-backend cpu`` is the pure-Python oracle, the reference's
+sequential walk, as a cross-check.  The compiled C++ loop
+(``-backend native``), the live-cluster source, and the drain, CaR,
+forecast, plan, gang and optimize surfaces are not ported yet and say so.
 
+Examples::
+
+    python -m kubernetesclustercapacity_tpu_torch.cli \\
+        -snapshot tests/fixtures/kind-3node.json \\
+        -cpuRequests=200m -memRequests=250mb -replicas=10
     python -m kubernetesclustercapacity_tpu_torch.cli \\
         -snapshot cluster.npz -grid 1000 -semantics strict \\
         -extended-request nvidia.com/gpu=1 \\
@@ -30,11 +44,23 @@ import numpy as np
 
 __all__ = ["main", "build_parser"]
 
+# (flag, metavar) of the JAX CLI's surfaces that are not ported yet: each is
+# accepted and answered with a "not yet ported" line.  A None metavar is a
+# switch.
+_UNPORTED_FLAGS = (
+    ("-drain", "NODE"),
+    ("-car-spec", "FILE"),
+    ("-forecast-spec", "FILE"),
+    ("-plan", "FILE"),
+    ("-gang-spec", "FILE"),
+    ("-optimize", None),
+)
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="kccap-torch",
-        description="Kubernetes cluster-capacity sweep on PyTorch / CUDA",
+        description="Kubernetes cluster-capacity simulator on PyTorch / CUDA",
     )
     home = os.environ.get("HOME", "") or os.environ.get("USERPROFILE", "")
     default_kubeconfig = os.path.join(home, ".kube", "config") if home else ""
@@ -50,6 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-memLimits", default="200mb",
                    help="Memory limits either in GB(2) or megabytes(500mb)")
     p.add_argument("-replicas", default="1", help="No of pod replicas")
+    p.add_argument("-backend", choices=("torch", "cpu", "native"),
+                   default="torch",
+                   help="the device programs (torch, on -device), the "
+                        "pure-Python sequential walk (cpu), or the compiled "
+                        "C++ loop (native, not yet ported)")
     p.add_argument("-snapshot", default="",
                    help="offline source: fixture .json or checkpoint .npz")
     p.add_argument("-semantics", choices=("reference", "strict"),
@@ -57,10 +88,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bug-compatible reference semantics or corrected mode "
                         "(default: reference; for .npz snapshots, the "
                         "semantics they were packed with)")
-    p.add_argument("-output", choices=("json", "table"), default="json",
-                   help="report format")
+    p.add_argument("-output", choices=("reference", "json", "table"),
+                   default="reference",
+                   help="report format: the reference's transcript, "
+                        "structured JSON, or a compact table (-grid and "
+                        "-explain print JSON or a table)")
     p.add_argument("-grid", type=int, default=0, metavar="N",
-                   help="evaluate a random N-scenario sweep")
+                   help="evaluate a random N-scenario sweep instead of one "
+                        "spec")
     p.add_argument("-seed", type=int, default=0, help="sweep RNG seed")
     p.add_argument("-kernel", choices=("auto", "exact"), default="auto",
                    help="sweep kernel: auto (the fused kernel when provably "
@@ -74,8 +109,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-replica request for an extended resource "
                         "(repeatable; strict quantity grammar, e.g. "
                         "nvidia.com/gpu=2, ephemeral-storage=10Gi)")
+    p.add_argument("-explain", action="store_true",
+                   help="print per-node bottleneck attribution (binding "
+                        "constraint, per-resource fits, marginal '+1 "
+                        "replica' analysis) for the spec instead of the "
+                        "fit report; -output json selects the structured "
+                        "form (-backend torch only)")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
+    for flag, metavar in _UNPORTED_FLAGS:
+        if metavar is None:
+            p.add_argument(flag, action="store_true",
+                           help="not yet ported to the PyTorch package")
+        else:
+            p.add_argument(flag, default="", metavar=metavar,
+                           help="not yet ported to the PyTorch package")
     return p
 
 
@@ -105,7 +153,7 @@ def main(argv: list[str] | None = None) -> int:
         _split_single_dash_eq(sys.argv[1:] if argv is None else list(argv))
     )
     try:
-        scenario_from_flags(
+        scenario = scenario_from_flags(
             cpuRequests=args.cpuRequests,
             cpuLimits=args.cpuLimits,
             memRequests=args.memRequests,
@@ -116,24 +164,42 @@ def main(argv: list[str] | None = None) -> int:
         # The reference prints an ERROR line and exits 1 (:68-83).
         print(e.reference_line or f"ERROR : {e} ...exiting")
         return 1
-    if args.grid <= 0:
-        print("ERROR : the single-spec report is not yet ported to the "
-              "PyTorch package; use -grid N ...exiting")
+    unported = [
+        flag for flag, _ in _UNPORTED_FLAGS
+        if getattr(args, flag.lstrip("-").replace("-", "_"))
+    ]
+    if args.backend == "native":
+        unported.append("-backend native")
+    if unported:
+        print(f"ERROR : {', '.join(unported)}: not yet ported to the "
+              "PyTorch package ...exiting")
         return 1
+    if args.grid <= 0:
+        try:
+            scenario.validate()
+        except ScenarioError as e:
+            # No reference line exists here: the reference would NOT exit —
+            # it would panic later at the division (Q8 divergence).
+            print(f"ERROR : {e} ...exiting")
+            return 1
     if not args.snapshot:
         print("ERROR : the live-cluster source is not yet ported to the "
               "PyTorch package; use -snapshot <fixture.json|checkpoint.npz> "
               "...exiting")
         return 1
     try:
-        _, snapshot, args.semantics = resolve_source(
+        fixture, snapshot, args.semantics = resolve_source(
             args.snapshot, args.semantics,
             extended_resources=_extended_names(args),
         )
     except SourceError as e:
         print(f"ERROR : {e}")
         return 1
-    return _run_grid(args, snapshot)
+    if args.explain:
+        return _run_explain(args, snapshot, scenario)
+    if args.grid > 0:
+        return _run_grid(args, snapshot)
+    return _run_single(args, fixture, snapshot, scenario)
 
 
 def _extended_names(args) -> tuple[str, ...]:
@@ -173,12 +239,150 @@ def _parse_extended_requests(args) -> dict[str, int] | None:
     return out
 
 
+def _run_explain(args, snapshot, scenario) -> int:
+    """-explain: WHY the fit stops — binding attribution + marginals, with
+    the same implicit strict-mode taint mask as every other surface, so it
+    explains the numbers the fit and the sweep return."""
+    from kubernetesclustercapacity_tpu_torch.explain import explain_snapshot
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.report import (
+        explain_json_report,
+        explain_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.scenario import ScenarioGrid
+
+    if args.backend != "torch":
+        print("ERROR : -explain runs on the device programs (-backend "
+              "torch); the cpu backend is a fit-only cross-check ...exiting")
+        return 1
+    result = explain_snapshot(
+        snapshot, ScenarioGrid.from_scenarios([scenario]),
+        mode=args.semantics, node_mask=implicit_taint_mask(snapshot),
+        device=args.device,
+    )
+    if args.output == "json":
+        print(explain_json_report(result))
+    else:
+        print(explain_table_report(result))
+    return 0
+
+
+def _run_single(args, fixture, snapshot, scenario) -> int:
+    """One spec: per-node fits from the device program (or the oracle
+    under ``-backend cpu``), then the chosen report."""
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.ops.fit import fit_snapshot
+    from kubernetesclustercapacity_tpu_torch.oracle import (
+        ReferencePanic,
+        fit_arrays_python,
+        reference_run,
+    )
+    from kubernetesclustercapacity_tpu_torch.utils.quantity import int64_bits
+
+    ext_requests = _parse_extended_requests(args)
+    if ext_requests is None:
+        return 1
+    if ext_requests:
+        # The R-resource fit through the model facade (R-way min and the
+        # implicit strict mask).  The cpu backend walks 2 resources only.
+        if args.backend != "torch":
+            print("ERROR : -extended-request needs -backend torch "
+                  "...exiting")
+            return 1
+        from kubernetesclustercapacity_tpu_torch.models import (
+            CapacityModel,
+            PodSpec,
+        )
+
+        try:
+            result = CapacityModel(
+                snapshot, mode=args.semantics, fixture=fixture,
+                device=args.device,
+            ).evaluate(
+                PodSpec(
+                    cpu_request_milli=scenario.cpu_request_milli,
+                    mem_request_bytes=scenario.mem_request_bytes,
+                    replicas=scenario.replicas,
+                    cpu_limit_milli=scenario.cpu_limit_milli,
+                    mem_limit_bytes=scenario.mem_limit_bytes,
+                    extended_requests=ext_requests,
+                )
+            )
+        except (KeyError, ValueError) as e:
+            print(f"ERROR : extended-resource fit failed: {e} ...exiting")
+            return 1
+        return _emit_report(args, snapshot, result.fits, scenario)
+
+    if args.backend == "cpu":
+        try:
+            if fixture is not None and args.semantics == "reference":
+                fits = reference_run(fixture, scenario).fits
+            else:
+                fits = fit_arrays_python(
+                    snapshot.alloc_cpu_milli,
+                    snapshot.alloc_mem_bytes,
+                    snapshot.alloc_pods,
+                    snapshot.used_cpu_req_milli,
+                    snapshot.used_mem_req_bytes,
+                    snapshot.pods_count,
+                    scenario.cpu_request_milli,
+                    scenario.mem_request_bytes,
+                    mode=args.semantics,
+                    healthy=snapshot.healthy,
+                )
+        except ReferencePanic as e:
+            print(f"panic: {e}")
+            return 2
+        fits = np.array(fits, dtype=np.int64)
+    else:
+        # Scenario CPU values are raw uint64 (the codec wraps, and the
+        # transcript prints them so); the tensors carry their bit patterns.
+        fits = fit_snapshot(
+            snapshot,
+            int64_bits(scenario.cpu_request_milli),
+            scenario.mem_request_bytes,
+            mode=args.semantics,
+            device=args.device,
+        )
+    # Strict semantics honors hard taints on every surface — the same
+    # zeroing the fit program's node_mask performs, for both backends.
+    # None (a no-op, keeping byte parity) under reference semantics; the
+    # extended-request path above applied it inside CapacityModel.
+    mask = implicit_taint_mask(snapshot)
+    if mask is not None:
+        fits = np.where(mask, fits, 0)
+    return _emit_report(args, snapshot, fits, scenario)
+
+
+def _emit_report(args, snapshot, fits, scenario) -> int:
+    from kubernetesclustercapacity_tpu_torch.report import (
+        json_report,
+        reference_report,
+        table_report,
+    )
+
+    if args.output == "json":
+        print(json_report(snapshot, fits, scenario))
+    elif args.output == "table":
+        print(table_report(snapshot, fits, scenario))
+    else:
+        print(reference_report(snapshot, fits, scenario), end="")
+    return 0
+
+
 def _run_grid(args, snapshot) -> int:
     from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
     from kubernetesclustercapacity_tpu_torch.scenario import (
         random_scenario_grid,
     )
 
+    if args.backend != "torch":
+        # Running the device sweep under -backend cpu would defeat a
+        # cross-check; the sequential backend is single-spec.
+        print("ERROR : -grid sweeps run on the device programs (-backend "
+              "torch); the cpu backend is a single-spec cross-check "
+              "...exiting")
+        return 1
     ext_requests = _parse_extended_requests(args)
     if ext_requests is None:
         return 1

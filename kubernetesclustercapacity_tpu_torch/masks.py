@@ -5,9 +5,9 @@ Counterpart of ``kubernetesclustercapacity_tpu/masks.py`` (numpy only).
 The reference ignores taints, selectors and affinity; real scheduling gates
 placement on them, and every family reduces to a node mask ANDed into the
 sweep.  Ported families: taints × tolerations (``NoSchedule``/
-``NoExecute``; ``PreferNoSchedule`` is soft and ignored), ``nodeSelector``
-and required node affinity.  Anti-affinity against existing pods (which
-needs the topology model) is not ported yet.
+``NoExecute``; ``PreferNoSchedule`` is soft and ignored), ``nodeSelector``,
+required node affinity, and anti-affinity against existing pods over the
+hostname topology.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ __all__ = [
     "tolerations_mask",
     "node_selector_mask",
     "node_affinity_mask",
+    "anti_affinity_existing_mask",
     "combine_masks",
     "implicit_taint_mask",
 ]
@@ -143,6 +144,41 @@ def node_affinity_mask(
             term_matches(term, labels, snapshot.names[i])
             for term in node_selector_terms
         )
+    return mask
+
+
+def anti_affinity_existing_mask(
+    snapshot: ClusterSnapshot,
+    fixture: dict,
+    label_selector: dict,
+    *,
+    namespace: str | None = None,
+) -> np.ndarray:
+    """Anti-affinity vs existing pods: exclude nodes hosting a matching pod.
+
+    Hostname topology: a node is infeasible if any non-terminated pod on it
+    carries all the selector labels (the fixture pods' optional ``labels``
+    key).  ``namespace`` scopes the match as a ``PodAffinityTerm`` with no
+    ``namespaces`` field does, to the incoming pod's own namespace;
+    ``None`` matches cluster-wide (a what-if spec that models no
+    namespace).  Hostname identity is the node name: a pod whose
+    ``nodeName`` names no snapshot row repels nothing, and duplicate names
+    keep the last row (the JAX package's ``topology.model.node_name_index``
+    rule).
+    """
+    node_index = {name: i for i, name in enumerate(snapshot.names)}
+    mask = np.ones(snapshot.n_nodes, dtype=np.bool_)
+    for pod in fixture.get("pods", []):
+        if pod.get("phase") in ("Succeeded", "Failed"):
+            continue
+        if namespace is not None and pod.get("namespace", "") != namespace:
+            continue
+        i = node_index.get(pod.get("nodeName", ""))
+        if i is None:
+            continue
+        pod_labels = pod.get("labels", {}) or {}
+        if all(pod_labels.get(k) == v for k, v in label_selector.items()):
+            mask[i] = False
     return mask
 
 

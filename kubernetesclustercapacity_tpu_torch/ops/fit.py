@@ -1,10 +1,11 @@
 """The exact int64 capacity fit: the reference's per-node loop as tensor math.
 
 Counterpart of ``kubernetesclustercapacity_tpu/ops/fit.py`` (``_trunc_div``,
-``fit_per_node``, ``_apply_mode``, ``sweep_grid``, ``sweep_grid_grouped``,
-the grouped expansion, and the R-resource ``fit_per_node_multi`` /
-``sweep_grid_multi``), as plain PyTorch on whatever device the tensors
-live on.  The reference computes one scenario with a sequential Go
+``fit_per_node``, ``fit_totals``, ``_apply_mode``, ``sweep_grid``,
+``sweep_grid_grouped``, the grouped expansion, the R-resource
+``fit_per_node_multi`` / ``sweep_grid_multi``, and the fused sweep+explain
+and sweep+quantile programs), as plain PyTorch on whatever device the
+tensors live on.  The reference computes one scenario with a sequential Go
 loop (``ClusterCapacity.go:105-140``); here the scenario axis is a batch
 dimension written out, processed in ``[S_chunk, N]`` blocks so memory stays
 bounded at any S.
@@ -33,10 +34,18 @@ import numpy as np
 import torch
 
 from kubernetesclustercapacity_tpu_torch import devcache as _devcache
+from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 
 __all__ = [
     "fit_per_node",
     "fit_per_node_multi",
+    "fit_snapshot",
+    "fit_totals",
+    "sweep_explain_grid",
+    "sweep_explain_grouped",
+    "sweep_quantiles_grid",
+    "sweep_quantiles_grouped",
+    "sweep_quantiles_snapshot",
     "sweep_grid",
     "sweep_grid_grouped",
     "sweep_grid_multi",
@@ -113,6 +122,22 @@ def fit_per_node(
     reference would panic).  ``node_mask`` (``[N]`` bool) zeroes
     constraint-infeasible nodes after the mode epilogue.
     """
+    cpu_fit, mem_fit = _resource_fits(
+        alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_req, mem_req
+    )
+    fit = torch.minimum(cpu_fit, mem_fit)  # findMin (:159-164)
+    fit = _apply_mode(fit, alloc_pods, pods_count, healthy, mode)
+    if node_mask is not None:
+        fit = torch.where(node_mask, fit, 0)
+    return fit
+
+
+def _resource_fits(alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_req,
+                   mem_req):
+    """``(cpu_fit, mem_fit)``, the per-resource quotients on their int64
+    carriers — the one prologue :func:`fit_per_node` and
+    :func:`..explain.explain_per_node` share, so their fits are the same
+    bits."""
     # CPU: Go uint64 compare/divide on the raw bit patterns (:119-123).
     cpu_fit = torch.where(
         _u64_le(alloc_cpu, used_cpu),
@@ -125,11 +150,47 @@ def fit_per_node(
         0,
         _trunc_div(alloc_mem - used_mem, torch.where(mem_req == 0, 1, mem_req)),
     )
-    fit = torch.minimum(cpu_fit, mem_fit)  # findMin (:159-164)
-    fit = _apply_mode(fit, alloc_pods, pods_count, healthy, mode)
+    return cpu_fit, mem_fit
+
+
+def fit_totals(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    cpu_req, mem_req, *,
+    mode: str = "reference",
+) -> torch.Tensor:
+    """Cluster total for one scenario: ``sum_n fit[n]``, a 0-dim int64
+    tensor."""
+    return fit_per_node(
+        alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        healthy, cpu_req, mem_req, mode=mode,
+    ).sum()
+
+
+def fit_snapshot(
+    snapshot,
+    cpu_req: int,
+    mem_req: int,
+    *,
+    mode: str = "reference",
+    node_mask=None,
+    device="cuda",
+) -> np.ndarray:
+    """:func:`fit_per_node` for one spec against a snapshot's
+    device-resident columns: numpy ``fits[N]``.  ``cpu_req`` is the int64
+    bit pattern of the uint64 request."""
+    device = _devcache.resolve_device(device)
+    cols = _devcache.CACHE.exact_tensors(snapshot, device)
+    mask = None
     if node_mask is not None:
-        fit = torch.where(node_mask, fit, 0)
-    return fit
+        mask = _devcache.to_device(np.asarray(node_mask, dtype=bool), device)
+    fits = fit_per_node(
+        *cols,
+        torch.tensor(cpu_req, dtype=torch.int64, device=device),
+        torch.tensor(mem_req, dtype=torch.int64, device=device),
+        mode=mode,
+        node_mask=mask,
+    )
+    return fits.cpu().numpy()
 
 
 def _apply_mode(fit, alloc_pods, pods_count, healthy, mode: str):
@@ -420,3 +481,139 @@ def sweep_grouped_staged(
     if node_mask is not None:
         fits = np.where(np.asarray(node_mask, dtype=bool)[None, :], fits, 0)
     return out[0], out[1], fits
+
+
+# The fused programs: one call answers a sweep AND its explanation or its
+# order statistics.  The explain attribution needs the full int64
+# per-resource quotients, which the fused int32 kernels do not carry, so
+# these ride the exact program's arithmetic: their totals are the explain
+# fits summed on the device, bit-exact against a solo sweep by
+# construction (the fits ARE fit_per_node's).
+
+
+def sweep_explain_grid(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+    node_mask: torch.Tensor | None = None,
+):
+    """Fused sweep+explain: ``(totals[S], schedulable[S], fits[S, N],
+    code[S, N], cpu_fit[S, N], mem_fit[S, N], slots[S, N])`` tensors — the
+    first two :func:`sweep_grid`'s outputs, the rest
+    :func:`..explain.explain_grid`'s.  (The late import keeps the
+    ``explain → ops.fit`` dependency acyclic.)"""
+    from kubernetesclustercapacity_tpu_torch.explain import explain_grid
+
+    per_node = explain_grid(
+        alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        healthy, cpu_reqs, mem_reqs, mode=mode, node_mask=node_mask,
+    )
+    totals = per_node[0].sum(dim=1)
+    return (totals, totals >= replicas, *per_node)
+
+
+def sweep_explain_grouped(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    counts, cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+):
+    """Grouped fused sweep+explain: attribution over ``G`` node-shape
+    groups with count-weighted totals (a node mask folds into ``counts``
+    upstream and re-applies per node after expansion).  Outputs are
+    ``[S]`` / ``[S, G]``."""
+    from kubernetesclustercapacity_tpu_torch.explain import explain_grid
+
+    per_node = explain_grid(
+        alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        healthy, cpu_reqs, mem_reqs, mode=mode,
+    )
+    totals = (per_node[0] * counts).sum(dim=1)
+    return (totals, totals >= replicas, *per_node)
+
+
+def _order_statistics(totals: torch.Tensor, q_indices: tuple):
+    """``(qvals, qidx)`` at ``q_indices`` of the stable ascending order: a
+    stable sort has one permutation, so ties resolve as numpy's
+    ``argsort(kind="stable")`` and ``jnp.argsort(stable=True)`` resolve
+    them."""
+    order = torch.argsort(totals, stable=True)
+    qi = torch.tensor(q_indices, dtype=torch.int64, device=totals.device)
+    return totals[order][qi], order[qi]
+
+
+def sweep_quantiles_grid(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+    q_indices: tuple = (),
+    node_mask: torch.Tensor | None = None,
+):
+    """Fused sweep+quantile: ``(totals[S], schedulable[S], qvals[Q],
+    qidx[Q])``, the order statistics at the sorted-ascending indices
+    ``q_indices`` taken on the device (the capacity-at-risk hot path)."""
+    totals, schedulable = sweep_grid(
+        alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        healthy, cpu_reqs, mem_reqs, replicas,
+        mode=mode, node_mask=node_mask,
+    )
+    return (totals, schedulable, *_order_statistics(totals, q_indices))
+
+
+def sweep_quantiles_grouped(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    counts, cpu_reqs, mem_reqs, replicas, *,
+    mode: str = "reference",
+    q_indices: tuple = (),
+):
+    """Grouped twin of :func:`sweep_quantiles_grid` (count-weighted
+    totals; a node mask folds into ``counts`` upstream)."""
+    totals, schedulable = sweep_grid_grouped(
+        alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        healthy, counts, cpu_reqs, mem_reqs, replicas, mode=mode,
+    )
+    return (totals, schedulable, *_order_statistics(totals, q_indices))
+
+
+def sweep_quantiles_snapshot(
+    snapshot,
+    grid,
+    *,
+    mode: str | None = None,
+    node_mask=None,
+    q_indices: tuple = (),
+    device="cuda",
+):
+    """Dispatch entry for the fused sweep+quantile program: the
+    snapshot's device-resident columns, the grouped route when it pays, no
+    scenario padding (pad probes would enter the sort).  ``mode`` defaults
+    to the snapshot's packing semantics.  Returns numpy ``(totals[S],
+    schedulable[S], qvals, qidx, kernel_name)``, the name
+    ``torch_int64_sweep_qtile`` or ``torch_int64_sweep_qtile_grouped``.
+    """
+    mode = mode or snapshot.semantics
+    grid.validate()
+    device = _devcache.resolve_device(device)
+    q_indices = tuple(int(i) for i in q_indices)
+    scen = _scenario_tensors(
+        grid.cpu_request_milli, grid.mem_request_bytes, grid.replicas, device
+    )
+    grouped = grouped_for_dispatch(snapshot)
+    if grouped is not None:
+        out = sweep_quantiles_grouped(
+            *_devcache.CACHE.grouped_exact_tensors(grouped, device),
+            _devcache.to_device(grouped.effective_counts(node_mask), device),
+            *scen, mode=mode, q_indices=q_indices,
+        )
+        kernel = "torch_int64_sweep_qtile_grouped"
+    else:
+        mask = None
+        if node_mask is not None:
+            mask = _devcache.to_device(
+                np.asarray(node_mask, dtype=bool), device
+            )
+        out = sweep_quantiles_grid(
+            *_devcache.CACHE.exact_tensors(snapshot, device), *scen,
+            mode=mode, q_indices=q_indices, node_mask=mask,
+        )
+        kernel = "torch_int64_sweep_qtile"
+    return (*(o.cpu().numpy() for o in out), kernel)

@@ -1,0 +1,349 @@
+"""Verdict reporting: the reference's transcript, byte for byte, and the
+structured views.
+
+Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec
+and explain renderers).  The reference's whole observability story is
+``fmt.Printf`` to stdout (SURVEY.md §5); :func:`reference_report`
+reproduces that text exactly, the typos ("allocatbale", "scehdule") and Go's
+NaN/±Inf float rendering included, and :func:`json_report`,
+:func:`table_report` and the two explain renderers add the views the
+reference lacks.  Host-side Python only: percentages are display-only in
+the reference too (``ClusterCapacity.go:113-117``).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+
+import numpy as np
+
+from kubernetesclustercapacity_tpu_torch.scenario import Scenario
+from kubernetesclustercapacity_tpu_torch.snapshot import ClusterSnapshot
+
+__all__ = [
+    "reference_report",
+    "json_report",
+    "table_report",
+    "explain_table_report",
+    "explain_json_report",
+]
+
+_RULE = "=" * 110  # the reference prints 110 '=' (ClusterCapacity.go:142,149)
+
+
+def _go_float(x: float) -> str:
+    """Render a float the way Go ``%.2f`` does (NaN, ±Inf spellings)."""
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "+Inf" if x > 0 else "-Inf"
+    return f"{x:.2f}"
+
+
+def _go_percent(num: int, den: int) -> float:
+    """Go float64 division semantics: x/0 → ±Inf, 0/0 → NaN."""
+    if den == 0:
+        if num == 0:
+            return math.nan
+        return math.inf if num > 0 else -math.inf
+    return float(num) * 100 / float(den)
+
+
+def _u64(v: int) -> int:
+    """The unsigned view of an int64 bit pattern.
+
+    Go keeps allocatable CPU and the CPU request/limit sums in uint64
+    (``ClusterCapacity.go:41-46,255-258``) and prints/divides them as such;
+    the snapshot arrays carry the same bits in int64, so wrapped sums
+    (>= 2^63) must be reinterpreted before rendering.  Memory is int64 in
+    Go too — it stays signed.
+    """
+    return v & ((1 << 64) - 1) if v < 0 else v
+
+
+_CPU_CODEC_ERR = "\nError converting string to int for %s\n"
+
+
+def reference_report(
+    snapshot: ClusterSnapshot,
+    fits: np.ndarray,
+    scenario: Scenario,
+    *,
+    include_preamble: bool = True,
+) -> str:
+    """The reference's stdout transcript, reconstructed from arrays.
+
+    Mirrors ``main``'s prints in order: the flag-codec error lines
+    (``:64-65`` → ``:316``), the parsed-input line (``:85``), the node
+    count (``:174``) followed by getHealthyNodes' codec-error/skip lines
+    (``:215,316``), per-node blocks (``:107-137``) each preceded by its
+    pods' codec-error lines (``:279-284``), and the final verdict
+    (``:142-149``).  The per-node struct print matches Go's ``%v`` of the
+    ``node`` struct: ``{name cpu mem pods}``.  CPU quantities render as
+    uint64 (see :func:`_u64`).
+    """
+    out = []
+    pod_errs = snapshot.pod_cpu_errs
+    if include_preamble:
+        for payload in getattr(scenario, "input_cpu_error_payloads", ()):
+            out.append(_CPU_CODEC_ERR % payload)
+        out.append(
+            "\nCPU limits, requests, Memory limits, requests and replicas "
+            f"parsed from input : {_u64(scenario.cpu_limit_milli)} "
+            f"{_u64(scenario.cpu_request_milli)} {scenario.mem_limit_bytes} "
+            f"{scenario.mem_request_bytes} {scenario.replicas}\n"
+        )
+        out.append(
+            f"\nThere are total {snapshot.n_nodes} nodes in the cluster\n\n"
+        )
+        for kind, payload in snapshot.node_log:
+            if kind == "cpu_err":
+                out.append(_CPU_CODEC_ERR % payload)
+            else:  # "skip" — Go prints the REAL name of the phantom row
+                out.append(f"Skipping node {payload} as it is not healthy\n")
+
+    total = 0
+    for i in range(snapshot.n_nodes):
+        name = snapshot.names[i]
+        alloc_cpu = _u64(int(snapshot.alloc_cpu_milli[i]))
+        alloc_mem = int(snapshot.alloc_mem_bytes[i])
+        cpu_lim = _u64(int(snapshot.used_cpu_lim_milli[i]))
+        cpu_req = _u64(int(snapshot.used_cpu_req_milli[i]))
+        mem_lim = int(snapshot.used_mem_lim_bytes[i])
+        mem_req = int(snapshot.used_mem_req_bytes[i])
+        if i < len(pod_errs):  # the pod walk's codec errors print first
+            for payload in pod_errs[i]:
+                out.append(_CPU_CODEC_ERR % payload)
+        out.append(
+            f"\n{{{name} {alloc_cpu} {alloc_mem} "
+            f"{int(snapshot.alloc_pods[i])}}} - "
+            f"Current non-terminated pods : {int(snapshot.pods_count[i])}"
+        )
+        out.append(
+            "\nSum of CPU Limits, Requests and Memory Limits, Requests for "
+            f"all pods : {cpu_lim} {cpu_req} {mem_lim} {mem_req}"
+        )
+        out.append(
+            f"\nTotal allocatbale CPU and Memory : {alloc_cpu}, {alloc_mem}"
+        )
+        out.append(
+            "\nCPU Limits, Requests and Memory Limits, Requests used "
+            "percentage till now : "
+            f"{_go_float(_go_percent(cpu_lim, alloc_cpu))} "
+            f"{_go_float(_go_percent(cpu_req, alloc_cpu))} "
+            f"{_go_float(_go_percent(mem_lim, alloc_mem))} "
+            f"{_go_float(_go_percent(mem_req, alloc_mem))}"
+        )
+        out.append(f"\nMax replicas : {int(fits[i])}\n")
+        total += int(fits[i])
+
+    out.append(_RULE + "\n")
+    out.append(
+        "\n\t Total possible replicas for the pod with required input specs "
+        f": {total}"
+    )
+    if total >= scenario.replicas:
+        out.append(
+            f"\n\t So you can go ahead with deployment of {scenario.replicas} "
+            "pod replicas in the Kubernetes cluster!!\n\n"
+        )
+    else:
+        out.append(
+            f"\n\t Unfortunately Kubernetes cluster can't scehdule "
+            f"{scenario.replicas} replicas. Please try again by reducing the "
+            "number of replicas or/and cpu/memory resource requests. "
+            "Exiting!!\n\n"
+        )
+    out.append(_RULE + "\n")
+    return "".join(out)
+
+
+def json_report(
+    snapshot: ClusterSnapshot, fits: np.ndarray, scenario: Scenario
+) -> str:
+    """Structured output: the same quantities the reference prints, as JSON."""
+    total = int(np.sum(fits))
+    nodes = []
+    for i in range(snapshot.n_nodes):
+        # CPU fields are uint64 in Go (see _u64); memory is int64.
+        alloc_cpu = _u64(int(snapshot.alloc_cpu_milli[i]))
+        alloc_mem = int(snapshot.alloc_mem_bytes[i])
+        cpu_req = _u64(int(snapshot.used_cpu_req_milli[i]))
+        mem_req = int(snapshot.used_mem_req_bytes[i])
+        nodes.append(
+            {
+                "name": snapshot.names[i],
+                "healthy": bool(snapshot.healthy[i]),
+                "allocatable": {
+                    "cpu_milli": alloc_cpu,
+                    "memory_bytes": alloc_mem,
+                    "pods": int(snapshot.alloc_pods[i]),
+                },
+                "used_requests": {
+                    "cpu_milli": cpu_req,
+                    "memory_bytes": mem_req,
+                },
+                "used_limits": {
+                    "cpu_milli": _u64(int(snapshot.used_cpu_lim_milli[i])),
+                    "memory_bytes": int(snapshot.used_mem_lim_bytes[i]),
+                },
+                "pods_count": int(snapshot.pods_count[i]),
+                "utilization_pct": {
+                    "cpu_requests": _nan_to_none(
+                        _go_percent(cpu_req, alloc_cpu)
+                    ),
+                    "memory_requests": _nan_to_none(
+                        _go_percent(mem_req, alloc_mem)
+                    ),
+                },
+                "max_replicas": int(fits[i]),
+            }
+        )
+    return json.dumps(
+        {
+            "scenario": {
+                "cpu_request_milli": scenario.cpu_request_milli,
+                "cpu_limit_milli": scenario.cpu_limit_milli,
+                "mem_request_bytes": scenario.mem_request_bytes,
+                "mem_limit_bytes": scenario.mem_limit_bytes,
+                "replicas": scenario.replicas,
+            },
+            "nodes": nodes,
+            "total_possible_replicas": total,
+            "schedulable": total >= scenario.replicas,
+        },
+        indent=2,
+    )
+
+
+def _nan_to_none(x: float):
+    if math.isnan(x) or math.isinf(x):
+        return None
+    return round(x, 2)
+
+
+def _marginal_line(resource: str, m: dict | None) -> str:
+    """One human line per resource of the marginal analysis."""
+    if m is None:
+        return f"  {resource:<8} no single-node increment yields +1"
+    unit = {"milli": "m", "bytes": "B", "slots": " pod slot(s)"}.get(
+        m["unit"], m["unit"]
+    )
+    return (
+        f"  {resource:<8} +{m['delta']}{unit} on {m['node'] or '<phantom>'}"
+        " -> +1 replica"
+    )
+
+
+def explain_table_report(result, s: int = 0) -> str:
+    """Bottleneck attribution as a compact table + marginal summary.
+
+    ``result`` is an :class:`~..explain.ExplainResult`; ``s`` selects the
+    scenario.  The reference transcript is untouched by design — this is
+    a NEW view (the reference's percentages never influence the fit,
+    ``ClusterCapacity.go:113-117``); the summary block names the binding
+    constraint per node, the binding histogram, and the smallest
+    single-node capacity increment that buys one more replica.
+    """
+    snapshot = result.snapshot
+    fits = result.fits[s]
+    names = result.binding_names(s)
+    header = (
+        f"{'NODE':<24} {'HEALTHY':<8} {'BINDING':<10} {'FIT':>7} "
+        f"{'CPU_FIT':>9} {'MEM_FIT':>9} {'POD_SLOTS':>10}"
+    )
+    lines = [header, "-" * len(header)]
+    for i in range(snapshot.n_nodes):
+        lines.append(
+            f"{snapshot.names[i] or '<phantom>':<24} "
+            f"{'yes' if snapshot.healthy[i] else 'NO':<8} "
+            f"{names[i]:<10} "
+            f"{int(fits[i]):>7} "
+            f"{int(result.cpu_fit[s][i]):>9} "
+            f"{int(result.mem_fit[s][i]):>9} "
+            f"{int(result.slots[s][i]):>10}"
+        )
+    lines.append("-" * len(header))
+    counts = result.binding_counts(s)
+    lines.append(
+        "binding: "
+        + "  ".join(f"{k}={v}" for k, v in counts.items() if v)
+    )
+    total = int(np.sum(fits))
+    replicas = int(result.replicas[s])
+    verdict = "SCHEDULABLE" if total >= replicas else "NOT SCHEDULABLE"
+    lines.append(
+        f"total possible replicas: {total}   requested: {replicas}   "
+        f"verdict: {verdict}"
+    )
+    lines.append("marginal (+1 replica):")
+    for resource, m in result.marginal(s).items():
+        lines.append(_marginal_line(resource, m))
+    return "\n".join(lines)
+
+
+def explain_json_report(result, s: int = 0) -> str:
+    """The same explanation as structured JSON (machine surface)."""
+    snapshot = result.snapshot
+    fits = result.fits[s]
+    names = result.binding_names(s)
+    total = int(np.sum(fits))
+    nodes = [
+        {
+            "name": snapshot.names[i],
+            "healthy": bool(snapshot.healthy[i]),
+            "binding": names[i],
+            "fit": int(fits[i]),
+            "cpu_fit": int(result.cpu_fit[s][i]),
+            "mem_fit": int(result.mem_fit[s][i]),
+            "pod_slots": int(result.slots[s][i]),
+        }
+        for i in range(snapshot.n_nodes)
+    ]
+    return json.dumps(
+        {
+            "mode": result.mode,
+            "scenario": {
+                "cpu_request_milli": int(result.cpu_request_milli[s]),
+                "mem_request_bytes": int(result.mem_request_bytes[s]),
+                "replicas": int(result.replicas[s]),
+            },
+            "nodes": nodes,
+            "binding_counts": result.binding_counts(s),
+            "marginal": result.marginal(s),
+            "saturation": result.saturation(s),
+            "total_possible_replicas": total,
+            "schedulable": total >= int(result.replicas[s]),
+        },
+        indent=2,
+    )
+
+
+def table_report(
+    snapshot: ClusterSnapshot, fits: np.ndarray, scenario: Scenario
+) -> str:
+    """Compact human-readable table (a view the reference never had)."""
+    header = (
+        f"{'NODE':<24} {'HEALTHY':<8} {'CPU USED/ALLOC (m)':<22} "
+        f"{'MEM USED/ALLOC (MiB)':<24} {'PODS':<9} {'FIT':>6}"
+    )
+    lines = [header, "-" * len(header)]
+    mib = 1024 * 1024
+    for i in range(snapshot.n_nodes):
+        lines.append(
+            f"{snapshot.names[i] or '<phantom>':<24} "
+            f"{'yes' if snapshot.healthy[i] else 'NO':<8} "
+            f"{f'{int(snapshot.used_cpu_req_milli[i])}/{int(snapshot.alloc_cpu_milli[i])}':<22} "
+            f"{f'{int(snapshot.used_mem_req_bytes[i]) // mib}/{int(snapshot.alloc_mem_bytes[i]) // mib}':<24} "
+            f"{f'{int(snapshot.pods_count[i])}/{int(snapshot.alloc_pods[i])}':<9} "
+            f"{int(fits[i]):>6}"
+        )
+    total = int(np.sum(fits))
+    verdict = "SCHEDULABLE" if total >= scenario.replicas else "NOT SCHEDULABLE"
+    lines.append("-" * len(header))
+    lines.append(
+        f"total possible replicas: {total}   requested: {scenario.replicas}   "
+        f"verdict: {verdict}"
+    )
+    return "\n".join(lines)

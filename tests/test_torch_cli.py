@@ -132,6 +132,23 @@ def test_error_lines_match_jax(argv, capsys):
     assert t_out == j_out
 
 
+@pytest.mark.parametrize("extra", [[], ["-extended-request",
+                                       "nvidia.com/gpu=1"]])
+def test_grid_rejects_the_cpu_backend_like_jax(extra, npz_sources, capsys):
+    # The sequential oracle is a single-spec cross-check in both packages;
+    # only the backend's name differs.
+    argv = ["-snapshot", npz_sources["gpu_npz"], "-grid", "4", *extra]
+    j_rc, j_out = _run(j_cli.main, argv + ["-backend", "cpu"], capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-backend", "cpu", "-device",
+                                           "cpu"], capsys)
+    assert j_rc == t_rc == 1
+    assert j_out.startswith("ERROR : -grid sweeps run on the TPU kernels")
+    assert t_out == (
+        "ERROR : -grid sweeps run on the device programs (-backend torch); "
+        "the cpu backend is a single-spec cross-check ...exiting\n"
+    )
+
+
 def test_semantics_conflict_matches_jax(npz_sources, capsys):
     argv = ["-snapshot", npz_sources["tainted"], "-semantics", "reference",
             "-grid", "4"]
@@ -144,7 +161,18 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
 @pytest.mark.parametrize(
     "argv,needle",
     [
-        (["-snapshot", KIND], "single-spec report is not yet ported"),
+        (["-snapshot", KIND, "-backend", "native"],
+         "-backend native: not yet ported"),
+        (["-snapshot", KIND, "-drain", "kind-worker"],
+         "-drain: not yet ported"),
+        (["-snapshot", KIND, "-car-spec", "spec.yaml"],
+         "-car-spec: not yet ported"),
+        (["-snapshot", KIND, "-forecast-spec", "spec.yaml"],
+         "-forecast-spec: not yet ported"),
+        (["-snapshot", KIND, "-plan", "spec.yaml", "-optimize"],
+         "-plan, -optimize: not yet ported"),
+        (["-snapshot", KIND, "-gang-spec", "gang.yaml", "-grid", "4"],
+         "-gang-spec: not yet ported"),
         (["-grid", "4"], "live-cluster source is not yet ported"),
     ],
 )
@@ -246,8 +274,15 @@ def test_extended_error_lines_match_jax(source, extra, npz_sources, capsys):
 
 
 def test_extended_request_without_grid_says_not_ported(npz_sources, capsys):
-    rc, out = _run(t_cli.main, ["-snapshot", npz_sources["gpu_npz"],
-                                "-extended-request", "nvidia.com/gpu=1",
-                                "-device", "cpu"], capsys)
-    assert rc == 1
-    assert "single-spec report is not yet ported" in out
+    # The single-spec extended-request report is ported now: it prints the
+    # JAX CLI's report (through CapacityModel.evaluate) in every format.
+    for output in ("reference", "json", "table"):
+        argv = ["-snapshot", npz_sources["gpu_npz"],
+                "-extended-request", "nvidia.com/gpu=1",
+                "-extended-request", "ephemeral-storage=10Gi",
+                "-output", output]
+        j_rc, j_out = _run(j_cli.main, argv, capsys)
+        t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+        assert j_rc == t_rc == 0
+        assert t_out == j_out
+        assert "not yet ported" not in t_out

@@ -1,5 +1,7 @@
 """The CUDA sweep kernels (B1 ``sweep_fit``, B2 ``sweep_multi``) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card, and the entry points above them
+(``CapacityModel``'s sweeps launch each kernel once; the explain and
+quantile programs equal their host runs).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -14,8 +16,16 @@ import pytest
 import torch
 
 from kubernetesclustercapacity_tpu_torch import (
+    CapacityModel,
+    MultiResourceGrid,
+    PodSpec,
+    explain_snapshot,
     random_scenario_grid,
+    snapshot_from_fixture,
+    sweep_explain_snapshot,
+    sweep_quantiles_snapshot,
     sweep_snapshot_auto,
+    synthetic_fixture,
     synthetic_snapshot,
 )
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as ff
@@ -209,3 +219,83 @@ def test_multi_sweep_on_card_matches_host(cuda):
     assert exact[2] == "torch_int64_multi"
     np.testing.assert_array_equal(card[0], host[0])
     np.testing.assert_array_equal(card[0], exact[0])
+
+
+def _gpu_snapshot(n, seed):
+    """A strict, taint-masked fleet with GPU and storage columns."""
+    fx = synthetic_fixture(n, seed=seed, taint_frac=0.1, unhealthy_frac=0.05)
+    rng = np.random.default_rng(seed)
+    for node in fx["nodes"]:
+        node["allocatable"]["nvidia.com/gpu"] = str(int(rng.integers(0, 9)))
+        node["allocatable"]["ephemeral-storage"] = \
+            f"{int(rng.integers(50, 501))}Gi"
+    return snapshot_from_fixture(
+        fx, semantics="strict",
+        extended_resources=("ephemeral-storage", "nvidia.com/gpu"),
+    )
+
+
+def test_model_sweeps_launch_each_kernel_once(cuda):
+    snap = _gpu_snapshot(4_000, seed=7)
+    grid = random_scenario_grid(500, seed=8)
+    card = CapacityModel(snap, mode="strict")
+    host = CapacityModel(snap, mode="strict", device="cpu")
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    totals, sched = card.sweep(grid)
+    assert (ff.LAUNCHES, fm.LAUNCHES) == (1, 0)
+    want = host.sweep(grid)
+    np.testing.assert_array_equal(totals, want[0])
+    np.testing.assert_array_equal(sched, want[1])
+
+    rng = np.random.default_rng(9)
+    mgrid = MultiResourceGrid.from_grid(grid, {
+        "nvidia.com/gpu": rng.integers(0, 3, grid.size),
+        "ephemeral-storage": rng.integers(1, 20, grid.size) << 30,
+    })
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    totals, sched = card.sweep_multi(mgrid)
+    assert (ff.LAUNCHES, fm.LAUNCHES) == (0, 1)
+    want = host.sweep_multi(mgrid)
+    np.testing.assert_array_equal(totals, want[0])
+    np.testing.assert_array_equal(sched, want[1])
+
+
+def test_model_evaluate_on_card_matches_host(cuda):
+    snap = _gpu_snapshot(3_000, seed=10)
+    for requests in ({}, {"nvidia.com/gpu": 1}):
+        spec = PodSpec(cpu_request_milli=250, mem_request_bytes=256 << 20,
+                       replicas=100, extended_requests=requests)
+        card = CapacityModel(snap, mode="strict").evaluate(spec)
+        host = CapacityModel(snap, mode="strict", device="cpu").evaluate(spec)
+        np.testing.assert_array_equal(card.fits, host.fits)
+        assert card.total == host.total > 0
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("mode", ["reference", "strict"])
+def test_explain_on_card_matches_host(cuda, mode, grouped):
+    snap = (synthetic_snapshot(20_000, seed=2, shapes=48) if grouped
+            else synthetic_snapshot(5_000, seed=3))
+    grid = random_scenario_grid(200, seed=11)
+    mask = np.random.default_rng(12).random(snap.n_nodes) < 0.8
+    card = sweep_explain_snapshot(snap, grid, mode=mode, node_mask=mask)
+    host = sweep_explain_snapshot(snap, grid, mode=mode, node_mask=mask,
+                                  device="cpu")
+    assert card[3] == host[3] == "torch_int64_sweep_explain" + (
+        "_grouped" if grouped else "")
+    np.testing.assert_array_equal(card[0], host[0])
+    np.testing.assert_array_equal(card[1], host[1])
+    for name in ("fits", "binding", "cpu_fit", "mem_fit", "slots"):
+        np.testing.assert_array_equal(getattr(card[2], name),
+                                      getattr(host[2], name))
+    solo = explain_snapshot(snap, grid, mode=mode, node_mask=mask)
+    np.testing.assert_array_equal(solo.binding, card[2].binding)
+    exact = sweep_snapshot_auto(snap, grid, mode=mode, kernel="exact",
+                                node_mask=mask, device="cuda")
+    np.testing.assert_array_equal(card[0], exact[0])
+    q = (0, 17, 100, 199)
+    qt = sweep_quantiles_snapshot(snap, grid, mode=mode, node_mask=mask,
+                                  q_indices=q)
+    order = np.argsort(exact[0], kind="stable")
+    np.testing.assert_array_equal(qt[3], order[list(q)])
+    np.testing.assert_array_equal(qt[2], exact[0][order][list(q)])

@@ -109,6 +109,14 @@ _BLOCKED_RUN = textwrap.dedent(
         rc += cli.main(["-snapshot", fx_path, "-semantics", "strict",
                         "-grid", "8", "-device", "cpu",
                         "-extended-request", "nvidia.com/gpu=0"])
+    single = io.StringIO()
+    with contextlib.redirect_stdout(single):
+        rc += cli.main(["-snapshot", fx_path, "-semantics", "strict",
+                        "-device", "cpu"])
+        rc += cli.main(["-snapshot", fx_path, "-explain", "-output", "json",
+                        "-device", "cpu"])
+    model = kt.CapacityModel(snap, mode="strict", device="cpu")
+    model_total = int(model.sweep(kt.random_scenario_grid(8, seed=4))[0].sum())
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -119,6 +127,9 @@ _BLOCKED_RUN = textwrap.dedent(
     print(json.dumps({"name": name, "total": int(totals.sum()), "rc": rc,
                       "cli_kernel": json.loads(buf.getvalue())["kernel"],
                       "multi_kernel": json.loads(multi.getvalue())["kernel"],
+                      "single_spec": "Total possible replicas" in
+                      single.getvalue(),
+                      "model_total": model_total,
                       "loaded": loaded}))
     """
 )
@@ -141,9 +152,11 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "rc": 0,
         "cli_kernel": "plain_i32_rcp_fused",
         "multi_kernel": "plain_multi_i32_rcp_fused",
+        "single_spec": True,
+        "model_total": doc["model_total"],
         "loaded": [],
     }
-    assert doc["total"] > 0
+    assert doc["total"] > 0 and doc["model_total"] > 0
 
 
 @pytest.fixture
