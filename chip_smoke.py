@@ -16,7 +16,11 @@ card and on the host, and times each kernel beside its bound.  Then it
 drives the single-spec surface at 10,000 nodes: the reference transcript
 and ``-explain`` through the CLI, the fused sweep+explain and
 sweep+quantile programs, and ``CapacityModel``'s sweeps, which must launch
-B1 and B2 once each.  Any failure raises, so the script exits nonzero
+B1 and B2 once each.  Last it drives the capacity service (path (l)): the
+port's ``CapacityServer`` on the card, through its ``CapacityClient``, at
+the same widths (``sweep`` one launch of B1, ``sweep_multi`` one of B2, 8
+concurrent sweeps folded into fewer than 8 launches, ``reload``, ``fit``
+and ``explain``), with each op's latency.  Any failure raises, so the script exits nonzero
 without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
@@ -41,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1305,6 +1310,271 @@ def phase_model(pkg, ff, fm, f_args: tuple, identity: str) -> dict:
     return out
 
 
+def timed_requests(call, runs: int = 20, warmup: int = 3) -> dict:
+    """Median and p90 of ``runs`` warm requests on the host clock (the
+    client blocks until the reply is decoded)."""
+    times = []
+    for i in range(warmup + runs):
+        t0 = time.perf_counter()
+        reply = call()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return {"median_ms": statistics.median(times),
+            "p90_ms": times[int(math.ceil(0.9 * len(times))) - 1],
+            "reply": reply}
+
+
+def check_equal(name: str, got, want) -> None:
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        raise AssertionError(f"{name}: totals differ")
+
+
+def phase_service(pkg, cli, fit, ff, fm, f_args: tuple, tmp: str,
+                  identity: str) -> dict:
+    """Path (l): the port's ``CapacityServer`` in this process on
+    127.0.0.1:0 with ``device="cuda"``, driven through the port's
+    ``CapacityClient`` at the earlier paths' widths.
+
+    On (a)'s ``synthetic_snapshot(10_000, seed=1)`` (reference): ``ping``,
+    ``info``, a ``sweep`` of ``random_scenario_grid(1000, seed=7)`` that
+    must launch B1 exactly once and equal the exact program on the card
+    and the host's sum of ``fit_per_node``, a ``fit`` whose reference
+    transcript must be byte-identical to the CLI's ``-backend torch`` one,
+    and an ``explain`` whose total must equal it.  A second server on the
+    same snapshot with a batch window takes 8 concurrent sweeps of 125
+    scenarios from 8 threads: each must equal its solo answer, and B1
+    must launch fewer than 8 times.  ``reload`` to (b)'s strict,
+    taint-masked snapshot, then ``sweep`` again, must equal
+    ``sweep_snapshot_auto`` with the implicit taint mask.  A third server
+    on (f)'s config-4 snapshot answers ``sweep_multi`` of 1,000 scenarios
+    with exactly one launch of B2, equal to the exact program.  Each op
+    is then timed over 20 warm requests; the eligibility proofs and the
+    reply's JSON encoding are timed alone beside it."""
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+
+    out = {"launches": {"sweep_fit": {}, "sweep_multi": {}}, "ops": {},
+           "shares": {}}
+    a_path = os.path.join(tmp, "l_a.npz")
+    snap = pkg.synthetic_snapshot(10_000, seed=1)
+    snap.save(a_path)
+    b_path = os.path.join(tmp, "l_b.npz")
+    strict = pkg.snapshot_from_fixture(
+        pkg.synthetic_fixture(10_000, seed=3, taint_frac=0.1),
+        semantics="strict")
+    strict.save(b_path)
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    spec = dict(cpuRequests="200m", cpuLimits="400m", memRequests="250mb",
+                memLimits="500mb", replicas="5000")
+    servers = []
+
+    def serve(snapshot, **kw):
+        server = CapacityServer(snapshot, device="cuda", **kw)
+        server.start()
+        servers.append(server)
+        return server
+
+    def client(server):
+        return CapacityClient(*server.address, connect_timeout_s=60,
+                              timeout_s=300, retry=None)
+
+    try:
+        server = serve(pkg.load_snapshot(a_path), batch_window_ms=0)
+        with client(server) as c:
+            if c.ping() != "pong":
+                raise AssertionError("(l): ping")
+            info = c.info()
+            if (info["nodes"], info["semantics"]) != (10_000, "reference") \
+                    or info["resilience"]["fast_path_breaker"]["state"] \
+                    != "closed":
+                raise AssertionError(f"(l): info {info}")
+            ff.LAUNCHES = fm.LAUNCHES = 0
+            doc = c.sweep(random={"n": 1000, "seed": 7})
+            launches = (ff.LAUNCHES, fm.LAUNCHES)
+            out["launches"]["sweep_fit"]["(l) sweep"] = launches[0]
+            if launches != (1, 0) or doc["kernel"] != "cuda_i32_rcp_fused":
+                raise AssertionError(f"(l) sweep: label {doc['kernel']}, "
+                                     f"launches {launches}")
+            exact = ff.sweep_snapshot_auto(snap, grid, kernel="exact",
+                                           device="cuda")
+            host = fit.sweep_snapshot(snap, grid, device="cpu")
+            check_equal("(l) sweep vs exact on the card", doc["totals"],
+                        exact[0])
+            check_equal("(l) sweep vs host fit_per_node", doc["totals"],
+                        host[0])
+            check_equal("(l) sweep schedulable", doc["schedulable"], host[1])
+            transcript = run_cli_text(cli, ["-snapshot", a_path, *SPEC_FLAGS])
+            fit_doc = c.fit(**spec)
+            if fit_doc["report"] != transcript:
+                raise AssertionError("(l) fit: the transcript differs from "
+                                     "the CLI's -backend torch transcript")
+            explain = c.explain(**spec)
+            if explain["total"] != fit_doc["total"] or \
+                    sum(explain["binding_counts"].values()) != 10_000:
+                raise AssertionError("(l) explain: total differs from fit")
+            log(f"main path (l) service on (a) 10k nodes, reference: ping, "
+                f"info; sweep 1000 (seed 7) label {doc['kernel']}, B1 "
+                f"launches 1, totals sum {sum(doc['totals'])} equal to the "
+                f"exact program on the card and the host's fit_per_node; "
+                f"fit transcript byte-identical to the CLI's "
+                f"({len(transcript)} bytes, total {fit_doc['total']}); "
+                f"explain total {explain['total']}, binding "
+                f"{explain['binding_counts']} ({identity})")
+
+            folded = serve(snap, batch_window_ms=2000.0, batch_max=8,
+                           max_inflight=8)
+            grids = [{"n": 125, "seed": 100 + i} for i in range(8)]
+            solo = [c.sweep(random=g)["totals"] for g in grids]
+            replies = [None] * 8
+            errors = []
+
+            def member(i):
+                try:
+                    with client(folded) as mc:
+                        replies[i] = mc.sweep(random=grids[i])
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=member, args=(i,))
+                       for i in range(8)]
+            ff.LAUNCHES = 0
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            fold_launches = ff.LAUNCHES
+            out["launches"]["sweep_fit"]["(l) folded 8 x 125"] = fold_launches
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"(l) folded: {errors}")
+            for i, reply in enumerate(replies):
+                check_equal(f"(l) folded member {i} vs solo",
+                            reply["totals"], solo[i])
+            if not 1 <= fold_launches < 8:
+                raise AssertionError(f"(l) folded: B1 launched "
+                                     f"{fold_launches} times for 8 requests")
+            stats = folded.batching_stats
+            log(f"main path (l) folded: 8 concurrent sweeps of 125 from 8 "
+                f"threads, B1 launches {fold_launches} (< 8), "
+                f"{stats['dispatches']} dispatch(es), mean batch "
+                f"{stats['mean_batch_size']:.2f}, every member equal to its "
+                f"solo answer ({identity})")
+
+            before = pkg.devcache.CACHE.stats()["stage_replace"]
+            reload = c.reload(b_path, semantics="strict")
+            restaged = {k: v - before[k] for k, v in
+                        pkg.devcache.CACHE.stats()["stage_replace"].items()}
+            ff.LAUNCHES = 0
+            after = c.sweep(random={"n": 1000, "seed": 7})
+            after_launches = ff.LAUNCHES
+            out["launches"]["sweep_fit"]["(l) sweep after reload"] = \
+                after_launches
+            mask = pkg.implicit_taint_mask(strict)
+            want = ff.sweep_snapshot_auto(strict, grid, mode="strict",
+                                          node_mask=mask, device="cuda")
+            check_equal("(l) sweep after reload", after["totals"], want[0])
+            if reload != {"nodes": 10_000, "semantics": "strict"} or \
+                    after_launches != 1 or mask is None or \
+                    restaged["copied"] < 1:
+                raise AssertionError(f"(l) reload: {reload}, B1 launches "
+                                     f"{after_launches}, columns {restaged}")
+            log(f"main path (l) reload to (b)'s strict taint-masked "
+                f"snapshot: then sweep 1000 label {after['kernel']}, B1 "
+                f"launches 1, totals sum {sum(after['totals'])} equal to "
+                f"sweep_snapshot_auto with the implicit taint mask; the "
+                f"reload re-staged its columns {restaged} (copied: in place "
+                f"into the retired snapshot's tensors) ({identity})")
+
+        alloc_rn, used_rn, ap, pc, healthy, reqs, replicas = f_args
+        resources = ("cpu", "memory", "ephemeral-storage", "nvidia.com/gpu")
+        base = pkg.synthetic_snapshot(10_000, seed=0)
+        config4 = dataclasses.replace(
+            base, semantics="strict",
+            extended={r: (alloc_rn[i], used_rn[i])
+                      for i, r in enumerate(resources) if i >= 2})
+        multi = serve(config4, batch_window_ms=0)
+        with client(multi) as c:
+            ff.LAUNCHES = fm.LAUNCHES = 0
+            mdoc = c.sweep_multi(list(resources), reqs.tolist(),
+                                 replicas=replicas.tolist())
+            launches = (ff.LAUNCHES, fm.LAUNCHES)
+            out["launches"]["sweep_multi"]["(l) sweep_multi"] = launches[1]
+            if launches != (0, 1) or \
+                    mdoc["kernel"] != "cuda_multi_i32_rcp_fused":
+                raise AssertionError(f"(l) sweep_multi: label "
+                                     f"{mdoc['kernel']}, launches {launches}")
+            check_multi_against_exact(fm, "(l) sweep_multi", f_args,
+                                      {"mode": "strict"},
+                                      np.asarray(mdoc["totals"]),
+                                      np.asarray(mdoc["schedulable"]))
+            log(f"main path (l) sweep_multi on (f)'s config 4, 10k x 1k x 4: "
+                f"label {mdoc['kernel']}, B2 launches 1, equal to the exact "
+                f"program on the card and the host ({identity})")
+            out["ops"]["sweep_multi 1000 x 4"] = timed_requests(
+                lambda: c.sweep_multi(list(resources), reqs.tolist(),
+                                      replicas=replicas.tolist()))
+        scales, _ = fm.fast_multi_eligible(alloc_rn, used_rn, ap, pc, reqs)
+        multi_proofs = host_median_ms(lambda: (
+            fm.fast_multi_eligible(alloc_rn, used_rn, ap, pc, reqs),
+            fm.rcp_multi_eligible(alloc_rn, used_rn, reqs, scales)))
+
+        timed = serve(pkg.load_snapshot(a_path), batch_window_ms=0)
+        with client(timed) as c:
+            ops = {
+                "ping": lambda: c.ping(),
+                "info": lambda: c.info(),
+                "sweep 1000": lambda: c.sweep(random={"n": 1000, "seed": 7}),
+                "sweep 125": lambda: c.sweep(random={"n": 125, "seed": 100}),
+                "fit reference transcript": lambda: c.fit(**spec),
+                "fit json": lambda: c.fit(output="json", **spec),
+                "explain": lambda: c.explain(**spec),
+            }
+            for name, call in ops.items():
+                out["ops"][name] = timed_requests(call)
+        nodes = (snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+                 snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+                 snap.pods_count)
+        req = (grid.cpu_request_milli, grid.mem_request_bytes)
+        proofs = host_median_ms(lambda: (
+            ff.fast_sweep_eligible(*nodes, *req),
+            ff.rcp_division_eligible(nodes[0], nodes[1], nodes[3], nodes[4],
+                                     *req)))
+        for name, proof_ms in (("sweep 1000", proofs),
+                               ("sweep_multi 1000 x 4", multi_proofs),
+                               ("fit reference transcript", None),
+                               ("explain", None)):
+            op = out["ops"][name]
+            body = {"ok": True, "result": op["reply"], "generation": 1}
+            encode_ms = host_median_ms(lambda: json.dumps(body).encode())
+            out["shares"][name] = {
+                "median_ms": op["median_ms"],
+                "eligibility_ms": proof_ms,
+                "eligibility_share": (None if proof_ms is None
+                                      else proof_ms / op["median_ms"]),
+                "json_encode_ms": encode_ms,
+                "json_encode_share": encode_ms / op["median_ms"],
+                "reply_bytes": len(json.dumps(body)),
+            }
+    finally:
+        for server in servers:
+            server.shutdown()
+    for name, op in out["ops"].items():
+        op.pop("reply")
+        log(f"service op {name}: median {op['median_ms']:.4f} ms, p90 "
+            f"{op['p90_ms']:.4f} ms (host clock, 20 warm requests through "
+            f"CapacityClient on 127.0.0.1) ({identity})")
+    for name, share in out["shares"].items():
+        log(f"service op {name}: eligibility proofs "
+            f"{share['eligibility_ms'] if share['eligibility_ms'] is None else round(share['eligibility_ms'], 4)}"
+            f" ms (share {share['eligibility_share']}), reply JSON encoding "
+            f"{share['json_encode_ms']:.4f} ms (share "
+            f"{share['json_encode_share']:.4f}, {share['reply_bytes']} bytes)"
+            f" ({identity})")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -1517,6 +1787,9 @@ def main() -> int:
     phase_exact_adversarial(fit)
     fused = phase_fused_programs(pkg, ff, identity)
     model = phase_model(pkg, ff, fm, multi_paths["f_args"], identity)
+    with tempfile.TemporaryDirectory() as tmp:
+        service = phase_service(pkg, cli, fit, ff, fm, multi_paths["f_args"],
+                                tmp, identity)
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -1536,6 +1809,9 @@ def main() -> int:
         "fused_programs_ms": fused,
         "model_ms": model["ms"],
         "model_launches": model["launches"],
+        "service_ops": service["ops"],
+        "service_shares": service["shares"],
+        "service_launches": service["launches"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -1545,7 +1821,8 @@ def main() -> int:
         "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_fit.cu",
         "replaces": "kubernetesclustercapacity_tpu/ops/pallas_fit.py:450",
         "launches": sum(main_launches.values())
-        + sum(model["launches"]["sweep_fit"].values()),
+        + sum(model["launches"]["sweep_fit"].values())
+        + sum(service["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1566,7 +1843,8 @@ def main() -> int:
         "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_multi.cu",
         "replaces": "kubernetesclustercapacity_tpu/ops/pallas_multi.py:165",
         "launches": sum(multi_paths["launches"].values())
-        + sum(model["launches"]["sweep_multi"].values()),
+        + sum(model["launches"]["sweep_multi"].values())
+        + sum(service["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

@@ -10,9 +10,13 @@ nothing of the JAX package.
 Layer map:
 
 ===========  ===============================================================
+L5 service   :mod:`.service` (``CapacityServer``: the snapshot stays on the
+             card between requests, concurrent sweeps fold into one
+             launch; ``CapacityClient``; the JAX package's wire protocol),
+             with :mod:`.resilience` and :mod:`.telemetry`
 L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
              ``-grid`` sweep, ``-extended-request``; the six reference
-             flags)
+             flags; every other flag of the JAX CLI declared)
 L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
              kernel B1, ``sweep_multi`` on kernel B2), :mod:`.explain`
              (binding attribution, marginals, the fused sweep+explain)
@@ -24,8 +28,9 @@ L0 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel B1
              in ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
              R-resource sweep, kernel B2 in ``csrc/sweep_multi.cu``),
              :mod:`.ops.fit` (the exact int64 programs and the fused
-             sweep+explain / sweep+quantile programs), :mod:`.devcache`
-             (device-resident columns)
+             sweep+explain / sweep+quantile programs, ``sweep_snapshot``
+             and its async fetch), :mod:`.devcache` (device-resident
+             columns, re-staged in place on a snapshot swap)
 ===========  ===============================================================
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

@@ -18,9 +18,12 @@ table as the JAX CLI apart from the kernel label.
 
 ``-backend torch`` (the default) runs the port's device programs on
 ``-device``; ``-backend cpu`` is the pure-Python oracle, the reference's
-sequential walk, as a cross-check.  The compiled C++ loop
-(``-backend native``), the live-cluster source, and the drain, CaR,
-forecast, plan, gang and optimize surfaces are not ported yet and say so.
+sequential walk, as a cross-check.  ``-save-snapshot`` checkpoints the
+loaded snapshot and ``-group-min-count`` sets the grouping gate, as in the
+JAX CLI.  Every other flag of the JAX CLI is declared: the compiled C++
+loop (``-backend native``), the live-cluster source, and the drain, CaR,
+forecast, plan, gang, optimize, timeline, replay, doctor, profiling and
+federation surfaces are not ported yet and say so with exit 1.
 
 Examples::
 
@@ -44,17 +47,86 @@ import numpy as np
 
 __all__ = ["main", "build_parser"]
 
-# (flag, metavar) of the JAX CLI's surfaces that are not ported yet: each is
-# accepted and answered with a "not yet ported" line.  A None metavar is a
-# switch.
+# The JAX CLI's flags for surfaces that are not ported yet, each with what
+# it takes: a value, a switch, or one or more values.  Every one is
+# declared, so using it prints a "not yet ported" line and exits 1 (the
+# JAX CLI would run; argparse would exit 2 on an unknown flag).
 _UNPORTED_FLAGS = (
-    ("-drain", "NODE"),
-    ("-car-spec", "FILE"),
-    ("-forecast-spec", "FILE"),
-    ("-plan", "FILE"),
-    ("-gang-spec", "FILE"),
-    ("-optimize", None),
+    ("-drain", "value"),
+    ("-drain-policy", "value"),
+    ("-doctor", "switch"),
+    ("-doctor-timeout", "value"),
+    ("-doctor-service", "value"),
+    ("-metrics-port", "value"),
+    ("-trace-log", "value"),
+    ("-trace-log-max-bytes", "value"),
+    ("-jax-profile", "value"),
+    ("-timeline", "value"),
+    ("-timeline-since", "value"),
+    ("-timeline-watch", "value"),
+    ("-car", "value"),
+    ("-car-spec", "value"),
+    ("-car-samples", "value"),
+    ("-car-seed", "value"),
+    ("-forecast", "value"),
+    ("-forecast-spec", "value"),
+    ("-plan", "value"),
+    ("-catalog", "value"),
+    ("-gang", "value"),
+    ("-gang-spec", "value"),
+    ("-optimize", "switch"),
+    ("-opt-backend", "value"),
+    ("-replay", "value"),
+    ("-replay-ref", "value"),
+    ("-replay-generation", "value"),
+    ("-replay-tenant", "value"),
+    ("-slo-status", "value"),
+    ("-dump", "value"),
+    ("-dump-limit", "value"),
+    ("-dump-tenant", "value"),
+    ("-drain-server", "value"),
+    ("-drain-timeout-s", "value"),
+    ("-plane-status", "value"),
+    ("-fed-status", "value"),
+    ("-fed-sweep", "value"),
+    ("-doctor-federation", "value"),
+    ("-trace-tree", "value"),
+    ("-trace-logs", "value"),
+    ("-profile", "value"),
+    ("-profile-seconds", "value"),
+    ("-profile-out", "value"),
+    ("-bench-diff", "values"),
+    ("-bench-thresholds", "value"),
 )
+
+#: The one line a ``-node-bucket-floor`` run prints (to stderr) before it
+#: goes on: the flag sizes the JAX package's shape-bucket ladder.
+NO_BUCKET_LADDER = (
+    "note : -node-bucket-floor is ignored: the PyTorch package has no "
+    "shape-bucket ladder (eager PyTorch compiles nothing per shape)"
+)
+
+
+def add_unported_flags(p: argparse.ArgumentParser, flags) -> None:
+    """Declare each ``(flag, kind)`` of ``flags``; a flag that is not used
+    leaves no attribute (see :func:`unported_flags_used`)."""
+    for flag, kind in flags:
+        kw: dict = {"default": argparse.SUPPRESS,
+                    "help": "not yet ported to the PyTorch package"}
+        if kind == "switch":
+            kw["action"] = "store_true"
+        elif kind == "values":
+            kw["nargs"] = "+"
+        p.add_argument(flag, dest=_unported_dest(flag), **kw)
+
+
+def _unported_dest(flag: str) -> str:
+    return "unported_" + flag.lstrip("-").replace("-", "_")
+
+
+def unported_flags_used(args, flags) -> list[str]:
+    """The flags of ``flags`` that this command line used."""
+    return [flag for flag, _ in flags if hasattr(args, _unported_dest(flag))]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,15 +187,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "replica' analysis) for the spec instead of the "
                         "fit report; -output json selects the structured "
                         "form (-backend torch only)")
+    p.add_argument("-save-snapshot", default="", metavar="PATH",
+                   help="checkpoint the loaded snapshot to PATH (.npz)")
+    p.add_argument("-node-bucket-floor", type=int, default=0,
+                   dest="node_bucket_floor", metavar="N",
+                   help="accepted for the JAX CLI's sake and ignored: the "
+                        "PyTorch package has no shape-bucket ladder")
+    p.add_argument("-group-min-count", type=int, default=0,
+                   dest="group_min_count", metavar="K",
+                   help="mean nodes per distinct node shape required before "
+                        "sweeps run over node-shape groups (default 2, or "
+                        "KCCAP_GROUP_MIN_COUNT)")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
-    for flag, metavar in _UNPORTED_FLAGS:
-        if metavar is None:
-            p.add_argument(flag, action="store_true",
-                           help="not yet ported to the PyTorch package")
-        else:
-            p.add_argument(flag, default="", metavar=metavar,
-                           help="not yet ported to the PyTorch package")
+    add_unported_flags(p, _UNPORTED_FLAGS)
     return p
 
 
@@ -164,16 +241,21 @@ def main(argv: list[str] | None = None) -> int:
         # The reference prints an ERROR line and exits 1 (:68-83).
         print(e.reference_line or f"ERROR : {e} ...exiting")
         return 1
-    unported = [
-        flag for flag, _ in _UNPORTED_FLAGS
-        if getattr(args, flag.lstrip("-").replace("-", "_"))
-    ]
+    unported = unported_flags_used(args, _UNPORTED_FLAGS)
     if args.backend == "native":
         unported.append("-backend native")
     if unported:
         print(f"ERROR : {', '.join(unported)}: not yet ported to the "
               "PyTorch package ...exiting")
         return 1
+    if args.node_bucket_floor > 0:
+        print(NO_BUCKET_LADDER, file=sys.stderr)
+    if args.group_min_count > 0:
+        from kubernetesclustercapacity_tpu_torch import (
+            snapshot as _snapshot_mod,
+        )
+
+        _snapshot_mod.set_group_min_count(args.group_min_count)
     if args.grid <= 0:
         try:
             scenario.validate()
@@ -195,6 +277,10 @@ def main(argv: list[str] | None = None) -> int:
     except SourceError as e:
         print(f"ERROR : {e}")
         return 1
+    if args.save_snapshot:
+        snapshot.save(args.save_snapshot)
+        print(f"snapshot checkpointed to {args.save_snapshot}",
+              file=sys.stderr)
     if args.explain:
         return _run_explain(args, snapshot, scenario)
     if args.grid > 0:

@@ -450,12 +450,14 @@ def binding_shift(
     }
 
 
-def _dispatch(snapshot, grid, mode, node_mask, device, *, fused: bool):
+def _dispatch(snapshot, grid, mode, node_mask, device, *, fused: bool,
+              rows=None):
     """Stage the snapshot (or its node-shape groups) and the grid on
     ``device``, run :func:`explain_grid` — or, ``fused``, the sweep+explain
-    program — and bring every output to the host.  Returns the leading
-    outputs (none, or totals and schedulable), the five per-node
-    ``[S, N]`` arrays, and whether the groups served."""
+    program — and bring the outputs to the host: the leading ones (none,
+    or totals and schedulable) whole, the five per-node ``[S, N]`` arrays
+    only at the scenario indices ``rows`` when given.  Returns the leading
+    outputs, the per-node arrays, and whether the groups served."""
     device = _devcache.resolve_device(device)
     cpu_reqs, mem_reqs, replicas = (
         _devcache.to_device(np.asarray(a, dtype=np.int64), device)
@@ -493,8 +495,12 @@ def _dispatch(snapshot, grid, mode, node_mask, device, *, fused: bool):
             out = explain_grid(
                 *cols, cpu_reqs, mem_reqs, mode=mode, node_mask=mask
             )
-    out = [o.cpu().numpy() for o in out]
-    lead, per_node = out[:-5], out[-5:]
+    lead = [o.cpu().numpy() for o in out[:-5]]
+    per_node = out[-5:]
+    if rows is not None:
+        index = _devcache.to_device(np.asarray(rows, dtype=np.int64), device)
+        per_node = [o.index_select(0, index) for o in per_node]
+    per_node = [o.cpu().numpy() for o in per_node]
     if grouped is not None:
         # Identical rows get identical attribution, so the expansion is
         # bit-exact; the mask is the same last-wins override the per-node
@@ -510,14 +516,16 @@ def _dispatch(snapshot, grid, mode, node_mask, device, *, fused: bool):
     return lead, per_node, grouped is not None
 
 
-def _result(snapshot, grid, mode, node_mask, per_node) -> ExplainResult:
+def _result(snapshot, grid, mode, node_mask, per_node,
+            rows=None) -> ExplainResult:
     fits, code, cpu_fit, mem_fit, slots = per_node
+    take = slice(None) if rows is None else np.asarray(rows, dtype=np.int64)
     return ExplainResult(
         snapshot=snapshot,
         mode=mode,
-        cpu_request_milli=np.asarray(grid.cpu_request_milli),
-        mem_request_bytes=np.asarray(grid.mem_request_bytes),
-        replicas=np.asarray(grid.replicas),
+        cpu_request_milli=np.asarray(grid.cpu_request_milli)[take],
+        mem_request_bytes=np.asarray(grid.mem_request_bytes)[take],
+        replicas=np.asarray(grid.replicas)[take],
         fits=fits,
         binding=code,
         cpu_fit=cpu_fit,
@@ -559,6 +567,7 @@ def sweep_explain_snapshot(
     mode: str | None = None,
     node_mask=None,
     device="cuda",
+    rows=None,
 ):
     """Fused sweep+explain: one device program answering both "how many
     fit" and "what binds" for every scenario.
@@ -571,12 +580,19 @@ def sweep_explain_snapshot(
     totals and re-applies it per node after expansion.  Returns numpy
     ``(totals[S], schedulable[S], ExplainResult, kernel_name)``, the name
     ``torch_int64_sweep_explain`` or ``torch_int64_sweep_explain_grouped``.
+
+    ``rows`` (scenario indices) restricts the :class:`ExplainResult` to
+    those scenarios, in that order, and copies only their per-node rows
+    to the host; the totals stay whole.  The device→host copy of the
+    ``[S, N]`` outputs is most of this call at large S, and a caller that
+    reads a few scenarios (the service's folded explain) pays for those.
     """
     mode = mode or snapshot.semantics
     grid.validate()
     (totals, schedulable), per_node, grouped = _dispatch(
-        snapshot, grid, mode, node_mask, device, fused=True
+        snapshot, grid, mode, node_mask, device, fused=True, rows=rows
     )
     kernel = "torch_int64_sweep_explain" + ("_grouped" if grouped else "")
     return (totals, schedulable,
-            _result(snapshot, grid, mode, node_mask, per_node), kernel)
+            _result(snapshot, grid, mode, node_mask, per_node, rows),
+            kernel)

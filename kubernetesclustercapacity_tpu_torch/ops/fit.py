@@ -30,6 +30,8 @@ Modes: ``"reference"`` is bug-compatible; ``"strict"`` is the corrected
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -37,6 +39,8 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 
 __all__ = [
+    "AsyncFetch",
+    "fetch",
     "fit_per_node",
     "fit_per_node_multi",
     "fit_snapshot",
@@ -52,6 +56,7 @@ __all__ = [
     "sweep_grid_multi_staged",
     "sweep_grid_staged",
     "sweep_grouped_staged",
+    "sweep_snapshot",
 ]
 
 _INT64_MIN = -(1 << 63)
@@ -420,12 +425,14 @@ def sweep_grid_staged(
     return_per_node: bool = False,
     snapshot=None,
     device="cuda",
+    sync: bool = True,
 ):
     """:func:`sweep_grid` on numpy inputs, numpy results.
 
     When ``snapshot`` is given the node columns come device-resident from
     :mod:`..devcache` (no per-request upload); the positional arrays are
-    then not re-staged.
+    then not re-staged.  ``sync=False`` returns :class:`AsyncFetch` views
+    instead of numpy arrays (see :func:`fetch`).
     """
     device = _devcache.resolve_device(device)
     if snapshot is not None:
@@ -443,7 +450,7 @@ def sweep_grid_staged(
         *cols, *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
         mode=mode, node_mask=mask, return_per_node=return_per_node,
     )
-    return tuple(o.cpu().numpy() for o in out)
+    return fetch(out, sync=sync)
 
 
 def sweep_grouped_staged(
@@ -456,6 +463,7 @@ def sweep_grouped_staged(
     node_mask=None,
     return_per_node: bool = False,
     device="cuda",
+    sync: bool = True,
 ):
     """The exact sweep over ``G`` group rows instead of ``N`` node rows,
     numpy in and out, with per-node fits expanded back through the
@@ -464,7 +472,9 @@ def sweep_grouped_staged(
     ``node_mask`` folds into the per-group counts (a masked node's fit is
     zero in every mode, so dropping it from its group's count is the same
     sum); per-group fits stay mask-independent and the per-node expansion
-    re-applies the mask.
+    re-applies the mask.  ``sync=False`` returns :class:`AsyncFetch`
+    views of the totals; the per-node expansion is host work, so
+    ``return_per_node`` always materializes.
     """
     device = _devcache.resolve_device(device)
     cols = _devcache.CACHE.grouped_exact_tensors(grouped, device)
@@ -474,13 +484,140 @@ def sweep_grouped_staged(
         *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
         mode=mode, return_per_group=return_per_node,
     )
-    out = tuple(o.cpu().numpy() for o in out)
+    out = fetch(out, sync=sync and not return_per_node)
     if not return_per_node:
         return out
     fits = grouped.expand(out[2])
     if node_mask is not None:
         fits = np.where(np.asarray(node_mask, dtype=bool)[None, :], fits, 0)
     return out[0], out[1], fits
+
+
+class AsyncFetch:
+    """Device results on their way to the host, without a wait.
+
+    The tensors (int64 or bool, one device) are packed into one int64
+    device buffer and copied into one pinned host buffer with
+    ``non_blocking=True`` on the current stream; a CUDA event recorded
+    after the copy is the only thing :meth:`arrays` waits on, so the
+    caller blocks when it reads the result, never when it launches, and
+    never on the whole device.  On the CPU the values are already there
+    and nothing is waited on.  Thread-safe: the first reader pays the
+    wait, later readers get the cached numpy arrays.
+    """
+
+    def __init__(self, tensors) -> None:
+        tensors = tuple(tensors)
+        self._meta = [(t.dtype, tuple(t.shape)) for t in tensors]
+        self._lock = threading.Lock()
+        self._np: tuple | None = None
+        self._event = None
+        #: The packed device buffer, held until the copy is read (the
+        #: service books it in the device-memory ledger meanwhile).
+        self.staged: torch.Tensor | None = None
+        device = tensors[0].device if tensors else torch.device("cpu")
+        if device.type == "cuda":
+            packed = torch.cat(
+                [t.reshape(-1).to(torch.int64) for t in tensors]
+            )
+            host = torch.empty(
+                packed.shape, dtype=torch.int64, pin_memory=True
+            )
+            host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+            self.staged = packed
+            self._host = host
+        else:
+            self._host = tensors
+
+    def arrays(self) -> tuple:
+        """The results as numpy arrays of their own dtypes and shapes."""
+        with self._lock:
+            if self._np is None:
+                if self._event is None:
+                    self._np = tuple(t.numpy() for t in self._host)
+                else:
+                    self._event.synchronize()
+                    flat = self._host.numpy()
+                    out, lo = [], 0
+                    for dtype, shape in self._meta:
+                        size = int(np.prod(shape, dtype=np.int64))
+                        a = flat[lo:lo + size].reshape(shape)
+                        out.append(a.astype(bool) if dtype == torch.bool
+                                   else a.copy())
+                        lo += size
+                    self._np = tuple(out)
+                self._event = self._host = self.staged = None
+            return self._np
+
+
+class _AsyncView:
+    """One result of an :class:`AsyncFetch`, sliced on the host when it
+    materializes (the numpy ``__array__`` protocol, so the caller's
+    ``np.asarray`` is the sync point)."""
+
+    __slots__ = ("fetch", "_which", "_key")
+
+    def __init__(self, fetch, which: int, key=slice(None)) -> None:
+        self.fetch = fetch
+        self._which = which
+        self._key = key
+
+    def __array__(self, dtype=None, copy=None):
+        host = self.fetch.arrays()[self._which][self._key]
+        return host if dtype is None else np.asarray(host, dtype)
+
+
+def fetch(tensors, *, sync: bool = True) -> tuple:
+    """Bring results to the host: numpy arrays under ``sync``, else
+    :class:`_AsyncView` objects over one :class:`AsyncFetch` (one pinned
+    copy and one event for all of them)."""
+    if sync:
+        return tuple(t.cpu().numpy() for t in tensors)
+    pending = AsyncFetch(tensors)
+    return tuple(_AsyncView(pending, i) for i in range(len(pending._meta)))
+
+
+def sweep_snapshot(
+    snapshot,
+    grid,
+    *,
+    mode: str = "reference",
+    return_per_node: bool = False,
+    node_mask=None,
+    sync: bool = True,
+    device="cuda",
+):
+    """The exact program's snapshot entry: ``ClusterSnapshot`` ×
+    ``ScenarioGrid`` → ``(totals[S], schedulable[S][, fits[S, N]])``.
+
+    Counterpart of the JAX package's ``ops/fit.sweep_snapshot``.
+    Validates the grid the way the reference's flag layer would (nonzero
+    requests), then runs the int64 program on the snapshot's
+    device-resident columns (:mod:`..devcache`).  ``node_mask`` (``[N]``
+    bool) zeroes constraint-infeasible nodes for every scenario.
+    Degenerate fleets run over node-shape groups
+    (:func:`..snapshot.grouped_for_dispatch`).  Returns numpy arrays, or,
+    with ``sync=False``, views whose ``np.asarray`` waits for the pinned
+    copy (the grouped route's per-node expansion always materializes).
+    Values are identical either way.  ``device`` defaults to ``"cuda"``
+    and raises when no card is present.
+    """
+    grid.validate()
+    grouped = grouped_for_dispatch(snapshot)
+    if grouped is not None:
+        return sweep_grouped_staged(
+            grouped, grid.cpu_request_milli, grid.mem_request_bytes,
+            grid.replicas, mode=mode, node_mask=node_mask,
+            return_per_node=return_per_node, device=device, sync=sync,
+        )
+    return sweep_grid_staged(
+        None, None, None, None, None, None, None,
+        grid.cpu_request_milli, grid.mem_request_bytes, grid.replicas,
+        mode=mode, node_mask=node_mask, return_per_node=return_per_node,
+        snapshot=snapshot, device=device, sync=sync,
+    )
 
 
 # The fused programs: one call answers a sweep AND its explanation or its

@@ -26,6 +26,7 @@ wrapper runs the kernel's plain version instead (``plain_*`` labels).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
+    fetch,
     sweep_grid_staged,
     sweep_grouped_staged,
 )
@@ -41,18 +43,32 @@ from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 
 __all__ = [
     "LAUNCHES",
+    "PLAIN_CALLS",
     "fast_sweep_eligible",
     "rcp_division_eligible",
     "scenario_reciprocals",
     "sweep_fused",
     "sweep_fused_plain",
     "sweep_auto",
+    "sweep_explain_snapshot_auto",
     "sweep_snapshot_auto",
 ]
 
 #: Launches of the CUDA sweep kernel in this process (one per launch,
 #: counted nowhere else).
 LAUNCHES = 0
+#: Calls of :func:`sweep_fused` that ran the plain version (CPU tensors):
+#: the host twin of :data:`LAUNCHES`, so a CPU run can count the
+#: dispatches that would launch the kernel on the card.
+PLAIN_CALLS = 0
+#: Guards both counters: the service's handler threads launch
+#: concurrently, and ``+=`` on a module global is not atomic.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 #: Threads per block of the CUDA kernels (``kThreads`` in the sources), and
 #: the scenarios each thread owns (``kSpt``): a block covers
@@ -280,11 +296,11 @@ def sweep_fused(
     ``csrc/sweep_fit.cu`` (and raises if it cannot); on CPU tensors it runs
     :func:`sweep_fused_plain`.
     """
-    global LAUNCHES
     device = _check_operands(
         (ac, am, ap, uc, um, pc), cr, mr, crr, mrr, mask, counts
     )
     if device.type == "cpu":
+        _count("PLAIN_CALLS")
         return sweep_fused_plain(
             ac, am, ap, uc, um, pc, cr, mr, crr, mrr, mask, counts,
             strict=strict,
@@ -306,7 +322,7 @@ def sweep_fused(
         )
     if rc != 0:
         raise RuntimeError(f"sweep_fit kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    _count("LAUNCHES")
     return totals
 
 
@@ -368,10 +384,15 @@ def _fused_label(device: torch.device, use_rcp: bool) -> str:
     return f"{prefix}_i32_rcp_fused" if use_rcp else f"{prefix}_i32_fused"
 
 
-def _fused_totals(
-    node_cols, cpu_reqs, mem_reqs, mask, counts, *, use_rcp, strict, device
-) -> np.ndarray:
-    """Stage the scenario operands and run :func:`sweep_fused`."""
+def _fused_sweep(
+    node_cols, cpu_reqs, mem_reqs, replicas, mask, counts, *, use_rcp,
+    strict, device, sync,
+):
+    """Stage the scenario operands, run :func:`sweep_fused` and bring
+    ``(totals, schedulable)`` to the host: at once under ``sync``, else as
+    views over one pending copy (:func:`..fit.fetch`), the comparison
+    with ``replicas`` then made on the device so that one copy carries
+    both."""
     cr = np.asarray(cpu_reqs, dtype=np.int64).astype(np.int32)
     mr = (np.asarray(mem_reqs, dtype=np.int64) // 1024).astype(np.int32)
     crr = mrr = None
@@ -395,7 +416,13 @@ def _fused_totals(
         crr, mrr, mask, counts,
         strict=strict,
     )
-    return totals.cpu().numpy()
+    if sync:
+        totals = totals.cpu().numpy()
+        return totals, totals >= np.asarray(replicas, dtype=np.int64)
+    replicas = _devcache.to_device(
+        np.asarray(replicas, dtype=np.int64), device
+    )
+    return fetch((totals, totals >= replicas), sync=False)
 
 
 def sweep_auto(
@@ -408,6 +435,7 @@ def sweep_auto(
     node_mask=None,
     force_exact: bool = False,
     device="cuda",
+    sync: bool = True,
 ):
     """Fused kernel when eligible, exact int64 program otherwise — always
     bit-exact.
@@ -416,9 +444,11 @@ def sweep_auto(
     epilogue, strict with the clamped epilogue and ``healthy`` folded into
     the kernel's lane mask (reference mode ignores ``healthy``: its
     phantom nodes are zero rows from packing).  The snapshot's node
-    columns come device-resident from :mod:`..devcache`.  Returns numpy ``(totals[S], schedulable[S],
-    kernel_name)``, the name one of ``{cuda,plain}_i32_rcp_fused``,
-    ``{cuda,plain}_i32_fused`` or ``torch_int64``.
+    columns come device-resident from :mod:`..devcache`.  Returns numpy
+    ``(totals[S], schedulable[S], kernel_name)``, the name one of
+    ``{cuda,plain}_i32_rcp_fused``, ``{cuda,plain}_i32_fused`` or
+    ``torch_int64``; with ``sync=False`` the two arrays are views over one
+    pending pinned copy (:func:`..fit.fetch`).
     """
     device = _devcache.resolve_device(device)
     nodes = (
@@ -440,15 +470,16 @@ def sweep_auto(
         use_rcp = rcp_division_eligible(
             alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_reqs, mem_reqs
         )
-        totals = _fused_totals(
-            _devcache.CACHE.kernel_tensors(snapshot, device), cpu_reqs, mem_reqs, kernel_mask, None,
+        totals, schedulable = _fused_sweep(
+            _devcache.CACHE.kernel_tensors(snapshot, device), cpu_reqs,
+            mem_reqs, replicas, kernel_mask, None,
             use_rcp=use_rcp, strict=mode == "strict", device=device,
+            sync=sync,
         )
-        schedulable = totals >= np.asarray(replicas, dtype=np.int64)
         return totals, schedulable, _fused_label(device, use_rcp)
     totals, schedulable = sweep_grid_staged(
         *nodes, snapshot.healthy, cpu_reqs, mem_reqs, replicas, mode=mode,
-        node_mask=node_mask, snapshot=snapshot, device=device,
+        node_mask=node_mask, snapshot=snapshot, device=device, sync=sync,
     )
     return totals, schedulable, "torch_int64"
 
@@ -461,6 +492,7 @@ def _sweep_auto_grouped(
     node_mask=None,
     force_exact: bool = False,
     device="cuda",
+    sync: bool = True,
 ):
     """:func:`sweep_auto` over node-shape groups with count weighting.
 
@@ -488,16 +520,16 @@ def _sweep_auto_grouped(
             np.asarray(grouped.healthy, dtype=bool)
             if mode == "strict" else None
         )
-        totals = _fused_totals(
+        totals, schedulable = _fused_sweep(
             _devcache.CACHE.grouped_kernel_tensors(grouped, device),
-            cpu_reqs, mem_reqs, kernel_mask, counts,
+            cpu_reqs, mem_reqs, grid.replicas, kernel_mask, counts,
             use_rcp=use_rcp, strict=mode == "strict", device=device,
+            sync=sync,
         )
-        schedulable = totals >= grid.replicas
         return totals, schedulable, _fused_label(device, use_rcp) + "_grouped"
     totals, schedulable = sweep_grouped_staged(
         grouped, cpu_reqs, mem_reqs, grid.replicas,
-        mode=mode, node_mask=node_mask, device=device,
+        mode=mode, node_mask=node_mask, device=device, sync=sync,
     )
     return totals, schedulable, "torch_int64_grouped"
 
@@ -510,6 +542,7 @@ def sweep_snapshot_auto(
     kernel: str = "auto",
     node_mask=None,
     device="cuda",
+    sync: bool = True,
 ):
     """The sweep entry point: the fastest route that is provably bit-exact.
 
@@ -523,6 +556,14 @@ def sweep_snapshot_auto(
     raises when no card is present; pass ``"cpu"`` to run on the host.
     Returns ``(totals[S], schedulable[S], kernel_name)`` numpy arrays and
     the route actually taken.
+
+    ``sync=False`` returns the two arrays as views over one pending
+    device→host copy into pinned memory, with a CUDA event recorded after
+    it (:class:`..fit.AsyncFetch`): the caller blocks only when it reads
+    them (``np.asarray``), on that event alone — the service's folded
+    sweeps answer this way.  Every route honours it; values are identical
+    either way.  (The JAX package's async dispatch covers only its exact
+    program; its Pallas routes stay synchronous.)
     """
     device = _devcache.resolve_device(device)
     if kernel not in ("auto", "exact"):
@@ -534,7 +575,7 @@ def sweep_snapshot_auto(
     if grouped is not None:
         return _sweep_auto_grouped(
             grouped, grid, mode=mode, node_mask=node_mask,
-            force_exact=(kernel == "exact"), device=device,
+            force_exact=(kernel == "exact"), device=device, sync=sync,
         )
     return sweep_auto(
         snapshot,
@@ -545,4 +586,37 @@ def sweep_snapshot_auto(
         node_mask=node_mask,
         force_exact=(kernel == "exact"),
         device=device,
+        sync=sync,
+    )
+
+
+def sweep_explain_snapshot_auto(
+    snapshot,
+    grid,
+    *,
+    mode: str = "reference",
+    node_mask=None,
+    device="cuda",
+    rows=None,
+):
+    """The fused sweep+explain entry, beside :func:`sweep_snapshot_auto`
+    so that the service's folded dispatcher can route a batch that mixes
+    sweeps and explains through one call.
+
+    There is no kernel route here, as in the JAX package: the explain
+    attribution carries the full int64 per-resource quotients
+    (``cpu_fit``/``mem_fit``/``slots``), which B1 does not produce, so
+    every call is the exact program and its label says so.  Delegates to
+    :func:`..explain.sweep_explain_snapshot`; ``rows`` (scenario indices)
+    limits the per-node outputs brought to the host to the rows a caller
+    reads.  Returns ``(totals[S], schedulable[S], ExplainResult,
+    kernel_name)``.
+    """
+    from kubernetesclustercapacity_tpu_torch.explain import (
+        sweep_explain_snapshot,
+    )
+
+    return sweep_explain_snapshot(
+        snapshot, grid, mode=mode, node_mask=node_mask, device=device,
+        rows=rows,
     )

@@ -27,6 +27,7 @@ version (``plain_*`` labels).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
 
 __all__ = [
     "LAUNCHES",
+    "PLAIN_CALLS",
     "multi_row_scales",
     "fast_multi_eligible",
     "rcp_multi_eligible",
@@ -57,6 +59,15 @@ __all__ = [
 #: Launches of the CUDA R-resource kernel in this process (one per launch,
 #: counted nowhere else).
 LAUNCHES = 0
+#: Calls of :func:`sweep_multi` that ran the plain version (CPU tensors).
+PLAIN_CALLS = 0
+#: Guards both counters against concurrent handler threads.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 _I32_MAX = np.iinfo(np.int32).max
 _SCALES = (1, 1024, 1024**2, 1024**3)
@@ -269,9 +280,9 @@ def sweep_multi(
     launches ``csrc/sweep_multi.cu`` (and raises if it cannot); on CPU
     tensors it runs :func:`sweep_multi_plain`.
     """
-    global LAUNCHES
     device = _check_operands(alloc, used, ap, pc, reqs, rcps, mask)
     if device.type == "cpu":
+        _count("PLAIN_CALLS")
         return sweep_multi_plain(
             alloc, used, ap, pc, reqs, rcps, mask, strict=strict
         )
@@ -292,7 +303,7 @@ def sweep_multi(
         )
     if rc != 0:
         raise RuntimeError(f"sweep_multi kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    _count("LAUNCHES")
     return totals
 
 

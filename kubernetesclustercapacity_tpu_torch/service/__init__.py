@@ -1,0 +1,17 @@
+"""Service boundary: a long-lived server that keeps the snapshot on the card.
+
+Counterpart of ``kubernetesclustercapacity_tpu/service/``.  A client
+sends length-prefixed JSON frames over TCP; the server answers from a
+snapshot whose columns stay device-resident between requests, so a query
+costs one kernel dispatch:
+
+* :mod:`.protocol` — framing, byte-compatible with the JAX package's;
+* :mod:`.server`   — threaded TCP server dispatching to the kernels;
+* :mod:`.batching` — micro-batching: concurrent sweeps share one launch;
+* :mod:`.client`   — Python client.
+
+Either package's client talks to either package's server.
+"""
+
+from kubernetesclustercapacity_tpu_torch.service.client import CapacityClient  # noqa: F401
+from kubernetesclustercapacity_tpu_torch.service.server import CapacityServer  # noqa: F401

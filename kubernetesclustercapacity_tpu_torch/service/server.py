@@ -1,0 +1,1615 @@
+"""The capacity service on PyTorch / CUDA: a long-lived server that keeps
+the snapshot on the card.
+
+Counterpart of ``kubernetesclustercapacity_tpu/service/server.py``.  One
+server serves one cluster snapshot (reloadable).  The snapshot's columns
+stay device-resident between requests (:mod:`..devcache`), so a ``sweep``
+costs one launch of kernel B1 (``csrc/sweep_fit.cu``) and a
+``sweep_multi`` one launch of kernel B2 (``csrc/sweep_multi.cu``), behind
+the same eligibility routing as the library.  Concurrent sweeps of one
+generation fold into one launch (:mod:`.batching`).
+
+Ported ops: ``ping``, ``info``, ``fit`` (with the spec fields the port's
+``PodSpec`` has), ``sweep`` (solo and folded), ``sweep_multi``,
+``explain``, ``reload`` and ``drain_server``, behind the auth token, the
+compute-slot bound and deadline shedding.  Replies equal the JAX server's
+apart from kernel labels (``cuda_``/``plain_``/``torch_int64`` for
+``pallas_``/``xla_int64``) and volatile fields (latencies, ids).  Every
+other op of the protocol — and a fit or sweep carrying ``priority`` /
+``priorities`` — is answered with an error reply saying it is not yet
+ported.  The port has no fast-path breaker (a kernel that fails to build
+or launch raises); ``info`` reports one that never opens, in the JAX
+snapshot's shape, for clients that read it.
+
+    python -m kubernetesclustercapacity_tpu_torch.service.server \\
+        -snapshot tests/fixtures/kind-3node.json -port 7077 -device cpu
+"""
+
+from __future__ import annotations
+
+import os
+import socketserver
+import threading
+import time
+import weakref
+
+import numpy as np
+
+from kubernetesclustercapacity_tpu_torch import devcache as _devcache
+from kubernetesclustercapacity_tpu_torch.masks import (
+    implicit_taint_mask as _implicit_taint_mask,
+)
+from kubernetesclustercapacity_tpu_torch.report import (
+    json_report,
+    reference_report,
+    table_report,
+)
+from kubernetesclustercapacity_tpu_torch.resilience import (
+    CircuitBreaker,
+    Deadline,
+    DeadlineExpired,
+    DrainingError,
+)
+from kubernetesclustercapacity_tpu_torch.scenario import (
+    ScenarioError,
+    ScenarioGrid,
+    random_scenario_grid,
+    scenario_from_flags,
+)
+from kubernetesclustercapacity_tpu_torch.service import protocol
+from kubernetesclustercapacity_tpu_torch.snapshot import ClusterSnapshot
+from kubernetesclustercapacity_tpu_torch.sources import resolve_source
+from kubernetesclustercapacity_tpu_torch.telemetry import (
+    memledger as _memledger,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
+from kubernetesclustercapacity_tpu_torch.telemetry import (
+    tracectx as _tracectx,
+)
+
+__all__ = ["CapacityServer", "UNPORTED_OPS", "main"]
+
+#: Ops of the protocol this server does not answer yet: each gets an
+#: error reply saying so.
+UNPORTED_OPS = frozenset(
+    {
+        "place", "drain", "topology_spread", "plan", "car", "forecast",
+        "gang", "optimize", "dump", "timeline", "slo", "update",
+    }
+)
+
+#: ``info``'s ``fast_path_breaker``: the port has no breaker (a failed
+#: build or launch raises), so it reports one that is never used and so
+#: never opens, in the JAX package's snapshot shape.
+_NEVER_OPEN = CircuitBreaker(
+    name="cuda_fused_sweep", failure_threshold=1, recovery_timeout_s=None
+)
+
+
+class _Handler(socketserver.BaseRequestHandler):
+    def handle(self) -> None:  # one connection, many frames
+        server: "CapacityServer" = self.server.capacity_server  # type: ignore[attr-defined]
+        while True:
+            try:
+                msg = protocol.recv_msg(self.request)
+            except (protocol.ProtocolError, OSError):
+                # Mid-frame resets/aborts are routine client behavior, not
+                # server errors — drop the connection quietly.
+                return
+            if msg is None:
+                return
+            try:
+                reply = {"ok": True, "result": server.dispatch(msg)}
+            except Exception as e:  # noqa: BLE001 - service boundary
+                reply = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                # Machine-readable refusal class (draining): clients
+                # dispatch on this token, never on error prose.
+                code = getattr(e, "wire_code", None)
+                if isinstance(code, str):
+                    reply["code"] = code
+            # The generation watermark: every reply says WHICH snapshot
+            # generation answered.  Same thread as the dispatch, so the
+            # thread-local read is race-free.
+            gen = server.last_dispatch_generation()
+            if gen is not None:
+                reply["generation"] = gen
+            try:
+                protocol.send_msg(self.request, reply)
+            except OSError:
+                return  # peer went away while we answered
+
+
+class _ThreadingServer(socketserver.ThreadingTCPServer):
+    daemon_threads = True
+    allow_reuse_address = True
+
+    # Track live per-connection sockets so shutdown can SEVER them: a
+    # stopped server must look dead to connected clients, not keep
+    # answering on old connections.
+    def __init__(self, *args, **kwargs) -> None:
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def get_request(self):
+        sock, addr = super().get_request()
+        with self._conns_lock:
+            self._conns.add(sock)
+        return sock, addr
+
+    def shutdown_request(self, request) -> None:
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def close_all_connections(self) -> None:
+        with self._conns_lock:
+            conns = list(self._conns)
+            self._conns.clear()
+        for sock in conns:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+
+def _retire_fold_box(box: list) -> None:
+    """Finalizer body for a dying :class:`_FoldedFetch` that never
+    materialized: un-book its staged buffer so the ledger stays honest.
+    Swallows everything — it can run during interpreter shutdown."""
+    try:
+        staged = box[0]
+        box[0] = None
+        if staged is not None:
+            _memledger.retire(staged)
+    except Exception:
+        pass
+
+
+class _FoldedFetch:
+    """Shared device→host materialization for one async folded dispatch.
+
+    The whole batch rides ONE :class:`..ops.fit.AsyncFetch`: one packed
+    device buffer, one pinned host copy, one CUDA event.  The first member
+    to build its response waits on that event; everyone after slices the
+    cached host arrays.  While the copy is pending its device buffer is
+    booked in the device-memory ledger under ``fold_fetch``, so an
+    abandoned fold shows up as booked bytes, not silent device memory.
+    """
+
+    def __init__(self, pending) -> None:
+        self._pending = pending
+        self._lock = threading.Lock()
+        staged = pending.staged
+        self._staged: tuple | None = None if staged is None else (staged,)
+        if self._staged is not None:
+            _memledger.register(self._staged, "fold_fetch")
+        # The box — never ``self`` — rides in the finalizer.
+        self._staged_box: list = [self._staged]
+        weakref.finalize(self, _retire_fold_box, self._staged_box)
+
+    def arrays(self) -> tuple:
+        out = self._pending.arrays()
+        with self._lock:
+            if self._staged is not None:
+                _memledger.retire(self._staged)
+                self._staged = None
+                self._staged_box[0] = None
+        return out
+
+
+class _FoldedSlice:
+    """One member's ``[offset:end]`` view of a :class:`_FoldedFetch`.
+
+    Materializes through the numpy ``__array__`` protocol, so the
+    response path's ``np.asarray`` is the (timed) sync point.
+    """
+
+    def __init__(self, fetch: _FoldedFetch, which: int, offset: int,
+                 end: int) -> None:
+        self._fetch = fetch
+        self._which = which
+        self._offset = offset
+        self._end = end
+
+    def __array__(self, dtype=None, copy=None):
+        view = self._fetch.arrays()[self._which][self._offset:self._end]
+        return np.asarray(view) if dtype is None else np.asarray(view, dtype)
+
+
+class CapacityServer:
+    """Serve capacity queries for one snapshot over the framed-JSON protocol.
+
+    Guardrails (all opt-in, preserving the localhost default):
+
+    * ``auth_token`` — when set, every op except ``ping`` must carry a
+      matching ``token`` field (compared constant-time); required before
+      exposing the port beyond localhost, since ``reload`` mutates served
+      state.
+    * ``max_inflight`` — cap on concurrently-executing compute ops
+      (fit/sweep/sweep_multi/explain); excess requests wait up to
+      ``inflight_wait_s`` then fail with "server busy".
+    * ``reload_roots`` — when non-empty, ``reload`` paths must resolve
+      (symlinks followed) under one of these directories.
+
+    ``registry`` is the metrics registry this server instruments (default
+    a fresh private one).  ``trace_log`` (a path or
+    :class:`~..telemetry.tracing.TraceLog`) records one JSONL span tree
+    per dispatched request, kept or dropped by ``trace_sample``
+    (``always | p99-breach | errors | rate:N``).  ``flight_records``
+    sizes the ring of the last dispatched requests; ``flight_dump_path``
+    appends it as JSONL whenever a dispatch raises.
+
+    ``batch_window_ms`` arms micro-batching: concurrent sweeps and
+    explains of one snapshot generation collect for up to this window
+    (``batch_max`` requests at most) and dispatch as ONE launch, each
+    response scattered back.  ``0`` dispatches every request solo.
+
+    ``device`` is where the snapshot's tensors live and the kernels run:
+    ``"cuda"`` (the default) raises at construction where there is no
+    card; ``"cpu"`` runs the kernels' plain versions on the host.
+    """
+
+    def __init__(
+        self,
+        snapshot: ClusterSnapshot,
+        *,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        fixture: dict | None = None,
+        auth_token: str | None = None,
+        max_inflight: int = 8,
+        inflight_wait_s: float = 30.0,
+        reload_roots: tuple[str, ...] = (),
+        registry=None,
+        trace_log=None,
+        trace_sample: str = "always",
+        flight_records: int = 256,
+        flight_dump_path: str | None = None,
+        batch_window_ms: float = 1.0,
+        batch_max: int = 32,
+        drain_timeout_s: float = 10.0,
+        device="cuda",
+    ) -> None:
+        from kubernetesclustercapacity_tpu_torch.telemetry.flightrec import (
+            FlightRecorder,
+        )
+        from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+            SUB_MS_LATENCY_BUCKETS_S,
+            MetricsRegistry,
+        )
+        from kubernetesclustercapacity_tpu_torch.telemetry.tracing import (
+            TraceLog,
+        )
+
+        self._device = _devcache.resolve_device(device)
+        self.snapshot = snapshot
+        self.fixture = fixture
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._trace_log = (
+            TraceLog(trace_log) if isinstance(trace_log, str) else trace_log
+        )
+        # Graceful-drain state: _draining flips once and never back;
+        # _active_gated counts in-flight drain-gated ops (compute +
+        # reload) so begin_drain can wait for quiesce.
+        self._drain_timeout_s = float(drain_timeout_s)
+        self._drain_cv = threading.Condition()
+        self._draining = False
+        self._active_gated = 0
+        self._drain_lock = threading.Lock()
+        self._drain_result: dict | None = None
+        #: Optional observer fired (with the drain record) after a
+        #: completed drain — ``main`` uses it to stop the serve loop.
+        self.on_drained = None
+        m = self.registry
+        self._m_requests = m.counter(
+            "kccap_requests_total", "Requests dispatched, by op.", ("op",)
+        )
+        self._m_errors = m.counter(
+            "kccap_request_errors_total",
+            "Requests that raised, by op and exception type.",
+            ("op", "error"),
+        )
+        self._m_latency = m.histogram(
+            "kccap_request_latency_seconds",
+            "End-to-end dispatch latency, by op.",
+            ("op",),
+        )
+        self._m_inflight = m.gauge(
+            "kccap_requests_in_flight",
+            "Requests currently being dispatched.",
+        )
+        self._m_slot_wait = m.gauge(
+            "kccap_compute_slot_waiting",
+            "Compute requests currently waiting for an inflight slot.",
+        )
+        self._m_shed = m.counter(
+            "kccap_deadline_shed_total",
+            "Requests shed because their deadline had already expired.",
+        )
+        self._m_draining = m.gauge(
+            "kccap_server_draining",
+            "1 while the server is draining (graceful shutdown), else 0.",
+        )
+        # Per-phase latency decomposition of every dispatched request
+        # (telemetry/phases.py), on sub-millisecond buckets.
+        self._m_phase = m.histogram(
+            "kccap_phase_seconds",
+            "Per-request phase latency decomposition, by op and phase.",
+            ("op", "phase"),
+            buckets=SUB_MS_LATENCY_BUCKETS_S,
+        )
+        self._flight = FlightRecorder(flight_records)
+        self._flight_dump_path = flight_dump_path
+        # Tail-based sampling: span ids are always minted; span bodies
+        # route through the sampler, which keeps or drops each request's
+        # whole tree once its latency and error are known.
+        self._trace_sink = None
+        if self._trace_log is not None:
+            self._trace_sink = _tracectx.TailSampler(
+                self._trace_log,
+                trace_sample,
+                latency=self._m_latency,
+                registry=m,
+            )
+        self._batcher = None
+        if batch_window_ms and batch_window_ms > 0:
+            from kubernetesclustercapacity_tpu_torch.service.batching import (
+                MicroBatcher,
+            )
+
+            self._batcher = MicroBatcher(
+                self._dispatch_sweep_batch,
+                window_s=float(batch_window_ms) / 1e3,
+                max_batch=batch_max,
+                registry=m,
+                trace_sink=self._trace_sink,
+            )
+        # Per-dispatch-thread context: the snapshot generation captured
+        # under the dispatch lock, so replies and flight records say
+        # which generation ANSWERED.
+        self._dispatch_tls = threading.local()
+        # Served-state generation: bumped on every snapshot swap.
+        self._generation = 1
+        self._implicit_mask = _implicit_taint_mask(snapshot)
+        self._auth_token = auth_token
+        self._max_inflight = max(1, int(max_inflight))
+        self._inflight = threading.Semaphore(self._max_inflight)
+        self._inflight_wait_s = float(inflight_wait_s)
+        self._reload_roots = tuple(
+            os.path.realpath(r) for r in reload_roots
+        )
+        self._lock = threading.Lock()
+        self._tcp = _ThreadingServer((host, port), _Handler)
+        self._tcp.capacity_server = self  # type: ignore[attr-defined]
+        self._thread: threading.Thread | None = None
+        self._serving = False
+
+    @property
+    def address(self) -> tuple[str, int]:
+        return self._tcp.server_address  # type: ignore[return-value]
+
+    @property
+    def device(self):
+        """The ``torch.device`` the snapshot's tensors live on."""
+        return self._device
+
+    @property
+    def generation(self) -> int:
+        """Monotonic served-snapshot generation (1 at construction)."""
+        with self._lock:
+            return self._generation
+
+    @property
+    def flight_recorder(self):
+        """The server's request flight recorder (read-mostly surface)."""
+        return self._flight
+
+    @property
+    def batching_stats(self) -> dict | None:
+        """The micro-batcher's counters (None when batching is off)."""
+        return self._batcher.stats if self._batcher is not None else None
+
+    def tracing_stats(self) -> dict:
+        """Distributed-tracing status (the ``info {tracing: true}``
+        section): whether span recording is armed, the sampling policy,
+        and the kept/dropped ledger."""
+        out: dict = {
+            "armed": self._trace_sink is not None,
+            "request_log": False,
+        }
+        if self._trace_sink is not None:
+            out.update(self._trace_sink.stats())
+        return out
+
+    @property
+    def draining(self) -> bool:
+        """True once a graceful drain has begun (it never un-begins)."""
+        with self._drain_cv:
+            return self._draining
+
+    def last_dispatch_generation(self) -> int | None:
+        """The generation that answered the CURRENT thread's most recent
+        dispatch (thread-local; the reply-envelope watermark)."""
+        return getattr(self._dispatch_tls, "last_generation", None)
+
+    def begin_drain(self, *, timeout_s=None, reason: str = "") -> dict:
+        """Gracefully drain this server: stop accepting compute and
+        reload ops (refused with the ``draining`` wire code — retryable
+        elsewhere), wait up to ``timeout_s`` for in-flight gated ops to
+        finish, then fire :attr:`on_drained` with the drain record.
+
+        Idempotent and thread-safe: the second and later callers get the
+        first drain's record back with ``"already": true``.  Diagnostics
+        (ping/info) keep answering throughout.
+        """
+        timeout_s = (
+            self._drain_timeout_s if timeout_s is None else float(timeout_s)
+        )
+        with self._drain_cv:
+            inflight0 = self._active_gated
+            self._draining = True
+        self._m_draining.set(1)
+        with self._drain_lock:
+            if self._drain_result is not None:
+                return {**self._drain_result, "already": True}
+            t0 = time.monotonic()
+            with self._drain_cv:
+                while self._active_gated > 0:
+                    left = timeout_s - (time.monotonic() - t0)
+                    if left <= 0:
+                        break
+                    self._drain_cv.wait(min(left, 0.1))
+                remaining = self._active_gated
+            waited = time.monotonic() - t0
+            record = {
+                "kind": "drain",
+                "ts": time.time(),
+                "reason": reason,
+                "generation": self.generation,
+                "inflight_at_start": inflight0,
+                "inflight_remaining": remaining,
+                "waited_s": round(waited, 3),
+                "drained": remaining == 0,
+            }
+            self._drain_result = record
+        if self.on_drained is not None:
+            try:
+                self.on_drained(record)
+            except Exception:  # noqa: BLE001 - observers never fail a drain
+                pass
+        return dict(record)
+
+    def _op_drain_server(self, msg: dict) -> dict:
+        """Graceful drain over the wire (auth-gated like every mutation).
+        ``timeout_s`` overrides the server's ``drain_timeout_s``; the
+        reply is the drain record, sent after in-flight work finished
+        (or the timeout lapsed)."""
+        timeout = msg.get("timeout_s")
+        if timeout is not None and (
+            isinstance(timeout, bool) or not isinstance(timeout, (int, float))
+        ):
+            raise ValueError(
+                f"timeout_s must be a number, got {timeout!r}"
+            )
+        reason = msg.get("reason")
+        if reason is not None and not isinstance(reason, str):
+            raise ValueError(f"reason must be a string, got {reason!r}")
+        return self.begin_drain(
+            timeout_s=timeout, reason=reason or "drain_server op"
+        )
+
+    def start(self) -> None:
+        self._serving = True
+        self._thread = threading.Thread(
+            target=self._tcp.serve_forever, daemon=True
+        )
+        self._thread.start()
+
+    def serve_forever(self) -> None:
+        self._serving = True
+        self._tcp.serve_forever()
+
+    def shutdown(self) -> None:
+        # socketserver.shutdown() handshakes with a running serve_forever
+        # loop and would block forever without one.
+        if self._serving:
+            self._tcp.shutdown()
+            self._serving = False
+        self._tcp.server_close()
+        # Sever live connections too: a shut-down server must be DEAD to
+        # its connected clients, not keep answering on old sockets.
+        self._tcp.close_all_connections()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    # -- dispatch ----------------------------------------------------------
+    def _check_deadline(self, msg: dict, *, shed: bool = True):
+        """Parse the optional absolute ``deadline`` riding the request;
+        raise :class:`~..resilience.DeadlineExpired` (→ a normal error
+        response) when the caller's budget is already spent — never burn
+        a kernel dispatch on an answer nobody is waiting for."""
+        wire = msg.get("deadline")
+        if wire is None:
+            return None
+        deadline = Deadline.from_wire(wire)  # ValueError on junk
+        if shed and deadline.expired():
+            self._m_shed.inc()
+            raise DeadlineExpired(
+                f"request deadline expired {-deadline.remaining():.3f}s "
+                "ago; shedding without dispatch"
+            )
+        return deadline
+
+    # Every op the protocol routes — the request-metrics label set.
+    # Anything else is labeled "unknown" so a misbehaving client cannot
+    # mint unbounded label cardinality through the op field.
+    _KNOWN_OPS = frozenset(
+        {
+            "ping", "info", "fit", "sweep", "sweep_multi", "place",
+            "drain", "topology_spread", "plan", "explain", "car",
+            "gang", "optimize", "forecast", "dump", "timeline", "slo",
+            "reload", "update", "drain_server",
+        }
+    )
+
+    # The compute ops: bounded by the inflight slots.
+    _COMPUTE_OPS = frozenset({"fit", "sweep", "sweep_multi", "explain"})
+
+    # The ops a graceful drain refuses and waits out: compute work plus
+    # mutations.  ping/info stay answerable so load balancers and
+    # operators can watch the drain; drain_server itself must pass.
+    _DRAIN_GATED_OPS = frozenset(
+        {
+            "fit", "sweep", "sweep_multi", "place", "drain",
+            "topology_spread", "plan", "explain", "car", "gang",
+            "optimize", "forecast", "update", "reload",
+        }
+    )
+
+    def dispatch(self, msg: dict) -> dict | str:
+        """Instrumented entry: count/time every request (by op), record a
+        trace span when a log is wired, then route.  Every dispatch also
+        activates a per-request :class:`~..telemetry.phases.PhaseClock`
+        (thread-local, so the slot wait, the micro-batcher and the fetch
+        attribute their sub-intervals to THIS request); the
+        decomposition lands in ``kccap_phase_seconds{op,phase}``, as
+        child spans of the request's trace span, and as the flight
+        record's ``phases`` field."""
+        op = msg.get("op")
+        op_label = op if op in self._KNOWN_OPS else "unknown"
+        trace_id = msg.get("trace_id")
+        if trace_id is not None and not isinstance(trace_id, str):
+            raise ValueError(
+                f"trace_id must be a string, got {trace_id!r}"
+            )
+        span_ctx = (
+            _tracectx.from_wire(msg) if self._trace_sink is not None else None
+        )
+        parent_span_id = msg.get("parent_span_id")
+        if not isinstance(parent_span_id, str) or not parent_span_id:
+            parent_span_id = None
+        self._dispatch_tls.trace_ctx = span_ctx
+        wall0 = time.time()
+        self._m_requests.labels(op=op_label).inc()
+        self._m_inflight.inc()
+        clk = _phases.new_clock()
+        prev_clk = _phases.activate(clk)
+        t0 = time.perf_counter()
+        error: str | None = None
+        result = None
+        gated = False
+        try:
+            if op_label in self._DRAIN_GATED_OPS:
+                with self._drain_cv:
+                    draining = self._draining
+                    if not draining:
+                        self._active_gated += 1
+                        gated = True
+                if draining:
+                    # Refused BEFORE any work: safe to retry elsewhere
+                    # (the wire code says so), mutations included.
+                    raise DrainingError(
+                        "server is draining; retry another replica"
+                    )
+            result = self._dispatch_routed(msg)
+            return result
+        except Exception as e:
+            self._m_errors.labels(op=op_label, error=type(e).__name__).inc()
+            error = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            if gated:
+                with self._drain_cv:
+                    self._active_gated -= 1
+                    self._drain_cv.notify_all()
+            _phases.restore(prev_clk)
+            dur = time.perf_counter() - t0
+            self._m_inflight.dec()
+            self._m_latency.labels(op=op_label).observe(
+                dur,
+                exemplar=(
+                    span_ctx.trace_id if span_ctx is not None else None
+                ),
+            )
+            phase_items = clk.items() if clk else ()
+            for ph, secs in phase_items:
+                self._m_phase.labels(op=op_label, phase=ph).observe(secs)
+            # The generation that ANSWERED (captured under the dispatch
+            # lock); ops that never captured one (ping, shed requests)
+            # fall back to the current generation.
+            gen = getattr(self._dispatch_tls, "generation", None)
+            self._dispatch_tls.generation = None
+            gen = self.generation if gen is None else gen
+            # Persisted for the reply envelope: the handler thread reads
+            # it right after dispatch returns.
+            self._dispatch_tls.last_generation = gen
+            sampled = None
+            if span_ctx is not None:
+                sampled = self._trace_sink.decide(
+                    op_label, dur, error, forced=span_ctx.sampled
+                )
+            self._dispatch_tls.trace_ctx = None
+            if self._trace_sink is not None:
+                self._emit_spans(
+                    span_ctx, parent_span_id, op_label, wall0, dur, error,
+                    phase_items, sampled,
+                )
+            self._flight_record(
+                msg, op_label, trace_id, dur, error, result, gen,
+                phases=(clk.to_ms() if clk else None),
+                trace_sampled=sampled,
+            )
+
+    def _emit_spans(self, span_ctx, parent_span_id, op_label, wall0, dur,
+                    error, phase_items, sampled) -> None:
+        """The request span and one child span per recorded phase, then
+        the tail sampler's keep/drop of the request's tree."""
+        span_id = (
+            span_ctx.span_id if span_ctx is not None
+            else _tracectx.new_span_id()
+        )
+        trace = span_ctx.trace_id if span_ctx is not None else ""
+        _tracectx.span(
+            self._trace_sink,
+            ts=time.time(),
+            start_ts=wall0,
+            trace_id=trace,
+            span_id=span_id,
+            **(
+                {"parent_span_id": parent_span_id}
+                if span_ctx is not None and parent_span_id
+                else {}
+            ),
+            op=op_label,
+            service="server",
+            **({"hops": span_ctx.hops} if span_ctx else {}),
+            duration_ms=round(dur * 1e3, 3),
+            status="error" if error else "ok",
+            **({"error": error} if error else {}),
+        )
+        for ph, secs in phase_items:
+            _tracectx.span(
+                self._trace_sink,
+                ts=time.time(),
+                trace_id=trace,
+                span_id=_tracectx.new_span_id(),
+                parent_span_id=span_id,
+                op=f"phase:{ph}",
+                phase=ph,
+                service="server",
+                duration_ms=round(secs * 1e3, 3),
+                status="ok",
+            )
+        if span_ctx is not None:
+            self._trace_sink.finish(span_ctx.trace_id, keep=bool(sampled))
+
+    def _flight_record(
+        self, msg, op_label, trace_id, dur, error, result, gen,
+        phases=None, trace_sampled=None,
+    ) -> None:
+        """One flight-recorder entry per dispatch (the failing request
+        included), then — on error, when configured — the whole ring
+        dumped as JSONL.  Strictly best-effort: observability never
+        fails the op it observes."""
+        from kubernetesclustercapacity_tpu_torch.telemetry import flightrec
+
+        try:
+            self._flight.record(
+                op=op_label,
+                args_digest=flightrec.args_digest(msg),
+                generation=gen,
+                trace_id=(trace_id or "") if isinstance(trace_id, str) else "",
+                latency_ms=dur * 1e3,
+                status="error" if error else "ok",
+                result_digest=(
+                    "" if result is None else flightrec.result_digest(result)
+                ),
+                error=error,
+                phases=phases,
+                trace_sampled=trace_sampled,
+            )
+            if error and self._flight_dump_path:
+                self._flight.dump_jsonl(self._flight_dump_path)
+        except Exception:  # noqa: BLE001 - recorder must not fail ops
+            pass
+
+    def _dispatch_routed(self, msg: dict) -> dict | str:
+        op = msg.get("op")
+        deadline = self._check_deadline(msg)
+        if op == "ping":
+            return "pong"
+        if self._auth_token is not None:
+            import hmac
+
+            token = msg.get("token")
+            # Compare as bytes: compare_digest on str raises TypeError for
+            # non-ASCII, which would lock out a correct non-ASCII token.
+            ok = isinstance(token, str) and hmac.compare_digest(
+                token.encode(), self._auth_token.encode()
+            )
+            if not ok:
+                raise PermissionError("missing or invalid auth token")
+        if op in UNPORTED_OPS:
+            raise NotImplementedError(
+                f"op {op!r} is not yet ported to the PyTorch package"
+            )
+        if (op == "fit" and "priority" in msg) or (
+            op == "sweep" and "priorities" in msg
+        ):
+            raise NotImplementedError(
+                "priority (preemption-aware capacity) is not yet ported to "
+                "the PyTorch package"
+            )
+        if op == "drain_server":
+            return self._op_drain_server(msg)
+        if op in self._COMPUTE_OPS:
+            # Bounded concurrency for the compute ops; a request carrying
+            # a deadline never waits past it for a slot.
+            wait_s = self._inflight_wait_s
+            if deadline is not None:
+                wait_s = max(0.0, min(wait_s, deadline.remaining()))
+            self._m_slot_wait.inc()
+            clk = _phases.current()
+            t0 = time.perf_counter() if clk else 0.0
+            try:
+                with clk.live("queue_wait"):
+                    acquired = self._inflight.acquire(timeout=wait_s)
+            finally:
+                self._m_slot_wait.dec()
+                if clk:
+                    clk.record("queue_wait", time.perf_counter() - t0)
+            if not acquired:
+                raise RuntimeError(
+                    f"server busy: {self._max_inflight} compute requests "
+                    "already in flight"
+                )
+            try:
+                # The slot wait may have consumed the caller's budget:
+                # shed now rather than dispatch a kernel nobody awaits.
+                self._check_deadline(msg)
+                return self._dispatch_inner(op, msg)
+            finally:
+                self._inflight.release()
+        return self._dispatch_inner(op, msg)
+
+    def _dispatch_inner(self, op: str, msg: dict) -> dict | str:
+        # Capture the (snapshot, fixture, mask) triple once under the lock
+        # so a concurrent reload can never produce a torn read.
+        with self._lock:
+            snap = self.snapshot
+            fixture = self.fixture
+            implicit_mask = self._implicit_mask
+            self._dispatch_tls.generation = self._generation
+        if op == "info":
+            return self._op_info(msg, snap)
+        if op == "fit":
+            return self._op_fit(msg, snap, fixture, implicit_mask)
+        if op == "sweep":
+            return self._op_sweep(msg, snap, implicit_mask)
+        if op == "sweep_multi":
+            return self._op_sweep_multi(msg, snap, implicit_mask)
+        if op == "explain":
+            return self._op_explain(msg, snap, implicit_mask)
+        if op == "reload":
+            return self._op_reload(msg, snap)
+        raise ValueError(f"unknown op {op!r}")
+
+    def _op_info(self, msg: dict, snap: ClusterSnapshot) -> dict:
+        out = {
+            "nodes": snap.n_nodes,
+            "semantics": snap.semantics,
+            "healthy_nodes": int(np.sum(snap.healthy)),
+            "extended_resources": sorted(snap.extended),
+            "resilience": {
+                "deadline_shed": int(self._m_shed.value),
+                "fast_path_breaker": _NEVER_OPEN.snapshot(),
+            },
+            # The protocol feature handshake: what THIS server speaks.
+            "capabilities": {
+                "protocol": 2,
+                "plane": False,
+                "admission": False,
+                "drain": True,
+                "tenancy": False,
+            },
+            "draining": self.draining,
+        }
+        # Opt-in sections (the default shape is pinned by clients that
+        # diff it); the plane, tenancy and audit sections answer as a
+        # server without those subsystems does.
+        if msg.get("plane"):
+            out["plane"] = None
+        if msg.get("metrics"):
+            out["metrics"] = self.registry.snapshot()
+        if msg.get("hot_path"):
+            from kubernetesclustercapacity_tpu_torch import (
+                snapshot as _snapshot_mod,
+            )
+
+            grouped = _snapshot_mod.grouped_for_dispatch(snap)
+            out["hot_path"] = {
+                "devcache": _devcache.CACHE.stats(),
+                "node_bucket_floor": None,  # no bucket ladder in the port
+                "batching": self.batching_stats,
+                "grouping": {
+                    "enabled": _snapshot_mod.grouping_enabled(),
+                    "engaged": grouped is not None,
+                    "group_min_count": _snapshot_mod.group_min_count(),
+                    **(
+                        {
+                            "groups": grouped.n_groups,
+                            "compression_ratio": round(
+                                grouped.compression_ratio, 4
+                            ),
+                        }
+                        if grouped is not None
+                        else {}
+                    ),
+                },
+            }
+        if msg.get("tenancy"):
+            out["tenancy"] = None
+        if msg.get("tracing"):
+            out["tracing"] = self.tracing_stats()
+        if msg.get("audit"):
+            out["audit"] = {"enabled": False, "log": None, "shadow": None}
+        return out
+
+    # PodSpec extension fields a fit message may carry beyond the
+    # reference's six flags (``priority`` is refused before routing).
+    _SPEC_FIELDS = (
+        "tolerations",
+        "node_selector",
+        "affinity_terms",
+        "anti_affinity_labels",
+        "spread",
+        "extended_requests",
+    )
+
+    @staticmethod
+    def _scenario_from_msg(msg: dict):
+        """The six reference flags (shared defaults for every op)."""
+        try:
+            scenario = scenario_from_flags(
+                cpuRequests=msg.get("cpuRequests", "100m"),
+                cpuLimits=msg.get("cpuLimits", "200m"),
+                memRequests=msg.get("memRequests", "100mb"),
+                memLimits=msg.get("memLimits", "200mb"),
+                replicas=msg.get("replicas", "1"),
+            )
+            scenario.validate()
+        except ScenarioError as e:
+            raise ValueError(str(e)) from e
+        return scenario
+
+    @staticmethod
+    def _spec_from_msg(msg: dict, scenario):
+        """msg → PodSpec.  ``spread`` follows the protocol's string-flag
+        convention (``spread="2"`` and ``spread=2`` both work)."""
+        from kubernetesclustercapacity_tpu_torch.models import PodSpec
+
+        spread = msg.get("spread")
+        try:
+            return PodSpec(
+                cpu_request_milli=scenario.cpu_request_milli,
+                mem_request_bytes=scenario.mem_request_bytes,
+                replicas=scenario.replicas,
+                cpu_limit_milli=scenario.cpu_limit_milli,
+                mem_limit_bytes=scenario.mem_limit_bytes,
+                tolerations=tuple(msg.get("tolerations") or ()),
+                node_selector=dict(msg.get("node_selector") or {}),
+                affinity_terms=tuple(msg.get("affinity_terms") or ()),
+                anti_affinity_labels=dict(
+                    msg.get("anti_affinity_labels") or {}
+                ),
+                namespace=msg.get("namespace"),
+                spread=int(spread) if spread is not None else None,
+                extended_requests={
+                    k: int(v)
+                    for k, v in (msg.get("extended_requests") or {}).items()
+                },
+            )
+        except (TypeError, KeyError, ValueError) as e:
+            raise ValueError(f"bad pod spec: {e}") from e
+
+    def _op_fit(
+        self,
+        msg: dict,
+        snap: ClusterSnapshot,
+        fixture: dict | None,
+        implicit_mask=None,
+    ) -> dict:
+        scenario = self._scenario_from_msg(msg)
+        if any(k in msg for k in self._SPEC_FIELDS):
+            return self._op_fit_spec(msg, snap, fixture, scenario)
+        from kubernetesclustercapacity_tpu_torch.utils.quantity import (
+            int64_bits,
+        )
+
+        # The implicit strict-mode taint mask (computed per snapshot
+        # swap) — the same mask CapacityModel applies, so the plain-flags
+        # and PodSpec surfaces agree.
+        node_mask = implicit_mask
+        # "cpu" walks the oracle; any other value (the JAX clients'
+        # "tpu", or "torch") runs the device program.
+        backend = msg.get("backend", "torch")
+        if backend == "cpu":
+            from kubernetesclustercapacity_tpu_torch.oracle import (
+                fit_arrays_python,
+                reference_run,
+            )
+
+            if fixture is not None and snap.semantics == "reference":
+                fits = reference_run(fixture, scenario).fits
+            else:
+                # No fixture (.npz source) or strict packing: sequential
+                # walk over the packed arrays, as the CLI does.
+                fits = fit_arrays_python(
+                    snap.alloc_cpu_milli,
+                    snap.alloc_mem_bytes,
+                    snap.alloc_pods,
+                    snap.used_cpu_req_milli,
+                    snap.used_mem_req_bytes,
+                    snap.pods_count,
+                    scenario.cpu_request_milli,
+                    scenario.mem_request_bytes,
+                    mode=snap.semantics,
+                    healthy=(
+                        snap.healthy
+                        if node_mask is None
+                        else snap.healthy & node_mask
+                    ),
+                )
+            fits = np.array(fits, dtype=np.int64)
+        else:
+            from kubernetesclustercapacity_tpu_torch.ops.fit import (
+                fit_snapshot,
+            )
+
+            fits = fit_snapshot(
+                snap,
+                # raw uint64 request -> the tensors' int64 bit pattern
+                int64_bits(scenario.cpu_request_milli),
+                scenario.mem_request_bytes,
+                mode=snap.semantics,
+                node_mask=node_mask,
+                device=self._device,
+            )
+        clk = _phases.current()
+        with clk.phase("serialize"):
+            report = self._render_report(msg, snap, fits, scenario)
+            total = int(fits.sum())
+            return {
+                "total": total,
+                "schedulable": total >= scenario.replicas,
+                "fits": fits.tolist(),
+                "report": report,
+            }
+
+    @staticmethod
+    def _render_report(msg: dict, snap: ClusterSnapshot, fits, scenario):
+        """One place maps the wire ``output`` flag to a report renderer —
+        every fit path honors the same formats."""
+        output = msg.get("output", "reference")
+        if output == "json":
+            return json_report(snap, fits, scenario)
+        if output == "table":
+            return table_report(snap, fits, scenario)
+        return reference_report(snap, fits, scenario)
+
+    def _op_fit_spec(
+        self,
+        msg: dict,
+        snap: ClusterSnapshot,
+        fixture: dict | None,
+        scenario,
+    ) -> dict:
+        """Constrained / multi-resource fit through ``CapacityModel``:
+        taint tolerations, nodeSelector, node (anti-)affinity, spread and
+        extended resources."""
+        from kubernetesclustercapacity_tpu_torch.models import CapacityModel
+
+        spec = self._spec_from_msg(msg, scenario)
+        try:
+            result = CapacityModel(
+                snap, mode=snap.semantics, fixture=fixture,
+                device=self._device,
+            ).evaluate(spec)
+        except (TypeError, KeyError, ValueError) as e:
+            raise ValueError(f"bad pod spec: {e}") from e
+        return {
+            "total": result.total,
+            "schedulable": result.schedulable,
+            "fits": result.fits.tolist(),
+            "report": self._render_report(msg, snap, result.fits, scenario),
+        }
+
+    def _batch_key(self, snap, kernel_req: str):
+        """The micro-batch key: the generation ``_dispatch_inner``
+        captured WITH this snapshot (a direct caller that bypassed
+        dispatch keys by snapshot identity), the served semantics and the
+        kernel family — only requests whose combined dispatch equals
+        their solo ones share a launch."""
+        generation = getattr(self._dispatch_tls, "generation", None)
+        if generation is None:
+            generation = ("snap-id", id(snap))
+        return (generation, snap.semantics, kernel_req)
+
+    def _op_explain(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """Bottleneck attribution over the wire: the same six flag fields
+        as fit, answered with WHY — the binding constraint per node, the
+        binding histogram, the saturation summary, and the marginal
+        ("+1 replica") analysis, under the served semantics and the same
+        implicit taint mask the fit and sweep ops apply.  Only the one
+        scenario's per-node rows come to the host."""
+        from kubernetesclustercapacity_tpu_torch.explain import (
+            explain_snapshot,
+        )
+        from kubernetesclustercapacity_tpu_torch.report import (
+            explain_json_report,
+            explain_table_report,
+        )
+
+        scenario = self._scenario_from_msg(msg)
+        grid = ScenarioGrid.from_scenarios([scenario])
+        if self._batcher is not None:
+            # Explain folds into the SAME queue as "auto" sweeps; a mixed
+            # batch rides the fused sweep+explain program.
+            grid.validate()
+            result, _kernel = self._batcher.submit(
+                self._batch_key(snap, "auto"),
+                ("explain", snap, implicit_mask, grid),
+                deadline=self._check_deadline(msg),
+                trace=getattr(self._dispatch_tls, "trace_ctx", None),
+                weight=grid.size,
+            )
+        else:
+            result = explain_snapshot(
+                snap, grid, mode=snap.semantics, node_mask=implicit_mask,
+                device=self._device,
+            )
+        total = int(result.totals[0])
+        out = {
+            "total": total,
+            "schedulable": total >= scenario.replicas,
+            "mode": result.mode,
+            "binding": result.binding_names(0),
+            "binding_counts": result.binding_counts(0),
+            "marginal": result.marginal(0),
+            "saturation": result.saturation(0),
+        }
+        output = msg.get("output")
+        if output == "table":
+            out["report"] = explain_table_report(result)
+        elif output == "json":
+            out["report"] = explain_json_report(result)
+        return out
+
+    def _op_sweep(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        if "random" in msg:
+            grid = random_scenario_grid(
+                int(msg["random"]["n"]), seed=int(msg["random"].get("seed", 0))
+            )
+        else:
+            grid = ScenarioGrid(
+                cpu_request_milli=np.asarray(msg["cpu_request_milli"]),
+                mem_request_bytes=np.asarray(msg["mem_request_bytes"]),
+                replicas=np.asarray(msg.get("replicas", [1])),
+            )
+        kernel_req = msg.get("kernel", "auto")
+        if self._batcher is not None:
+            # Validate BEFORE joining a batch: a bad grid must fail its
+            # own request, never a batch it rode into.
+            grid.validate()
+            totals, sched, kernel = self._batcher.submit(
+                self._batch_key(snap, kernel_req),
+                ("sweep", snap, implicit_mask, grid),
+                deadline=self._check_deadline(msg),
+                trace=getattr(self._dispatch_tls, "trace_ctx", None),
+                weight=grid.size,
+            )
+        else:
+            from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
+                sweep_snapshot_auto,
+            )
+
+            # The same implicit taint mask the fit op applies: a strict
+            # sweep over a tainted snapshot must not report higher totals
+            # than fit does for the identical spec.
+            totals, sched, kernel = sweep_snapshot_auto(
+                snap,
+                grid,
+                mode=snap.semantics,
+                kernel=kernel_req,
+                node_mask=implicit_mask,
+                device=self._device,
+            )
+        clk = _phases.current()
+        if not isinstance(totals, np.ndarray):
+            # A folded batch answers with views over one pending pinned
+            # copy: wait for it at the last moment, under its own phase.
+            t0 = time.perf_counter() if clk else 0.0
+            with clk.live("fetch_overlap"):
+                totals = np.asarray(totals)
+                sched = np.asarray(sched)
+            if clk:
+                clk.record("fetch_overlap", time.perf_counter() - t0)
+        with clk.phase("serialize"):
+            return {
+                "totals": totals.tolist(),
+                "schedulable": sched.tolist(),
+                "scenarios": grid.size,
+                "kernel": kernel,
+            }
+
+    def _dispatch_sweep_batch(self, key, items) -> list:
+        """One launch for a micro-batch of folded requests.
+
+        ``items`` are ``(op, snap, implicit_mask, grid)`` tuples sharing
+        one snapshot generation, served semantics and kernel family;
+        ``op`` is ``"sweep"`` or ``"explain"``.  Scenario rows from ALL
+        members concatenate along the scenario axis, launch once, and
+        scatter back per request.  A batch of one takes EXACTLY the solo
+        path.
+
+        * all-sweep batches dispatch with ``sync=False``: one launch of
+          B1 (or the exact program) on the concatenated grid, one pinned
+          device→host copy and one event, shared by every member through
+          :class:`_FoldedFetch`; each member slices the host array;
+        * batches containing an explain ride the fused sweep+explain
+          program, which brings to the host only the explain members'
+          per-node rows.
+        """
+        from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
+            sweep_explain_snapshot_auto,
+            sweep_snapshot_auto,
+        )
+
+        _generation, _semantics, kernel_req = key
+        _op0, snap, mask, _grid0 = items[0]
+        if len(items) == 1:
+            op, _, _, grid = items[0]
+            if op == "explain":
+                from kubernetesclustercapacity_tpu_torch.explain import (
+                    explain_snapshot,
+                )
+
+                result = explain_snapshot(
+                    snap, grid, mode=snap.semantics, node_mask=mask,
+                    device=self._device,
+                )
+                return [(result, "explain")]
+            return [sweep_snapshot_auto(
+                snap, grid, mode=snap.semantics, kernel=kernel_req,
+                node_mask=mask, device=self._device,
+            )]
+        grids = [item[3] for item in items]
+        combined = ScenarioGrid(
+            cpu_request_milli=np.concatenate(
+                [g.cpu_request_milli for g in grids]
+            ),
+            mem_request_bytes=np.concatenate(
+                [g.mem_request_bytes for g in grids]
+            ),
+            replicas=np.concatenate([g.replicas for g in grids]),
+        )
+        bounds = np.cumsum([0] + [g.size for g in grids])
+        fetch = full = None
+        if any(item[0] == "explain" for item in items):
+            rows = np.concatenate([
+                np.arange(bounds[i], bounds[i + 1])
+                for i, item in enumerate(items) if item[0] == "explain"
+            ])
+            totals, sched, full, kernel = sweep_explain_snapshot_auto(
+                snap, combined, mode=snap.semantics, node_mask=mask,
+                device=self._device, rows=rows,
+            )
+        else:
+            totals, sched, kernel = sweep_snapshot_auto(
+                snap, combined, mode=snap.semantics, kernel=kernel_req,
+                node_mask=mask, device=self._device, sync=False,
+            )
+            if not isinstance(totals, np.ndarray):
+                fetch = _FoldedFetch(totals.fetch)
+        out, explain_at = [], 0
+        for i, (op, _, _, g) in enumerate(items):
+            offset, end = int(bounds[i]), int(bounds[i + 1])
+            if op == "explain":
+                from kubernetesclustercapacity_tpu_torch.explain import (
+                    ExplainResult,
+                )
+
+                lo, hi = explain_at, explain_at + g.size
+                explain_at = hi
+                out.append((
+                    ExplainResult(
+                        snapshot=snap,
+                        mode=full.mode,
+                        cpu_request_milli=full.cpu_request_milli[lo:hi],
+                        mem_request_bytes=full.mem_request_bytes[lo:hi],
+                        replicas=full.replicas[lo:hi],
+                        fits=full.fits[lo:hi],
+                        binding=full.binding[lo:hi],
+                        cpu_fit=full.cpu_fit[lo:hi],
+                        mem_fit=full.mem_fit[lo:hi],
+                        slots=full.slots[lo:hi],
+                        node_mask=full.node_mask,
+                    ),
+                    kernel,
+                ))
+            elif fetch is not None:
+                out.append((
+                    _FoldedSlice(fetch, 0, offset, end),
+                    _FoldedSlice(fetch, 1, offset, end),
+                    kernel,
+                ))
+            else:
+                out.append((totals[offset:end], sched[offset:end], kernel))
+        return out
+
+    def _op_sweep_multi(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """R-resource grid sweep (config 4): ``resources`` names the rows
+        (cpu milli / memory bytes / extended columns), ``requests`` is the
+        ``[S][R]`` request matrix, ``replicas`` the ``[S]`` targets.  Same
+        implicit-taint-mask policy as the 2-resource sweep."""
+        from kubernetesclustercapacity_tpu_torch.ops.fused_multi import (
+            sweep_multi_auto,
+        )
+        from kubernetesclustercapacity_tpu_torch.scenario import (
+            MultiResourceGrid,
+        )
+
+        try:
+            grid = MultiResourceGrid(
+                resources=tuple(msg["resources"]),
+                requests=np.asarray(msg["requests"]),
+                replicas=np.asarray(
+                    msg.get("replicas", [1] * len(msg["requests"]))
+                ),
+            )
+            grid.validate()
+            alloc_rn, used_rn = snap.resource_matrix(grid.resources)
+        except (ScenarioError, KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"bad multi-resource grid: {e}") from e
+        totals, sched, kernel = sweep_multi_auto(
+            alloc_rn,
+            used_rn,
+            snap.alloc_pods,
+            snap.pods_count,
+            snap.healthy,
+            grid.requests,
+            grid.replicas,
+            mode=snap.semantics,
+            node_masks=implicit_mask,
+            force_exact=(msg.get("kernel", "auto") == "exact"),
+            device=self._device,
+        )
+        return {
+            "totals": totals.tolist(),
+            "schedulable": sched.tolist(),
+            "scenarios": grid.size,
+            "resources": list(grid.resources),
+            "kernel": kernel,
+        }
+
+    def replace_snapshot(
+        self,
+        snapshot: ClusterSnapshot,
+        fixture: dict | None = None,
+        *,
+        warm: bool = False,
+    ) -> None:
+        """Atomically swap the served snapshot.
+
+        ``warm=True`` pre-stages the new snapshot's tensors AFTER the
+        swap, through :meth:`..devcache.DeviceCache.stage_replace` unless
+        ``KCCAP_DONATE=0``: columns equal to the retired snapshot's carry
+        over, changed ones are copied in place into its tensors where it
+        is safe, and a request arriving next finds them staged.  The
+        retired snapshot's cache entries are dropped either way, so its
+        device memory frees promptly.
+        """
+        mask = _implicit_taint_mask(snapshot)
+        with self._lock:
+            old = self.snapshot
+            self.snapshot = snapshot
+            self.fixture = fixture
+            self._implicit_mask = mask
+            self._generation += 1
+        if old is snapshot:
+            return
+        if warm and _devcache.donate_enabled():
+            _devcache.CACHE.stage_replace(old, snapshot, self._device)
+        else:
+            _devcache.CACHE.invalidate(old)
+            if warm:
+                _devcache.CACHE.warm(snapshot, self._device)
+
+    def _op_reload(self, msg: dict, snap: ClusterSnapshot) -> dict:
+        """``snap`` is the dispatch's lock-captured snapshot — reading
+        ``self.snapshot`` here could tear against a concurrent reload."""
+        path = msg["path"]
+        # An unspecified semantics keeps the CURRENTLY-SERVED packing; the
+        # extended columns default to the served set under the SAME
+        # resolved semantics — an explicit switch to reference drops
+        # them, and an explicit extended_resources list always wins.
+        semantics = msg.get("semantics") or snap.semantics
+        if msg.get("extended_resources") is not None:
+            extended = tuple(msg["extended_resources"])
+        elif semantics == "strict":
+            extended = tuple(sorted(snap.extended))
+        else:
+            extended = ()
+        if self._reload_roots:
+            real = os.path.realpath(path)
+            inside = False
+            for root in self._reload_roots:
+                try:
+                    inside = os.path.commonpath([real, root]) == root
+                except ValueError:  # mixed absolute/relative or drives
+                    inside = False
+                if inside:
+                    break
+            if not inside:
+                raise PermissionError(
+                    f"reload path {path!r} outside the allowed roots"
+                )
+            path = real
+        new_fixture, new_snap, _ = resolve_source(
+            path, semantics, extended_resources=extended
+        )
+        # The port re-stages on reload (the JAX server's reload only
+        # drops the old staging): the next request finds the new
+        # snapshot on the card.
+        self.replace_snapshot(new_snap, new_fixture, warm=True)
+        return {"nodes": new_snap.n_nodes, "semantics": new_snap.semantics}
+
+
+# The JAX server's flags for subsystems not ported yet (see the CLI's
+# table): each is declared, so using it exits 1 with "not yet ported".
+_UNPORTED_SERVER_FLAGS = (
+    ("-follow", "switch"),
+    ("-kubeconfig", "value"),
+    ("-coalesce-ms", "value"),
+    ("-metrics-port", "value"),
+    ("-profile-hz", "value"),
+    ("-device-budget-bytes", "value"),
+    ("-trace-log-max-bytes", "value"),
+    ("-trace-sample", "value"),
+    ("-watch", "value"),
+    ("-timeline-depth", "value"),
+    ("-timeline-log", "value"),
+    ("-log-json", "value"),
+    ("-log-json-max-bytes", "value"),
+    ("-audit-dir", "value"),
+    ("-audit-max-bytes", "value"),
+    ("-audit-checkpoint-every", "value"),
+    ("-shadow-sample-rate", "value"),
+    ("-shadow-bundle", "value"),
+    ("-slo", "value"),
+    ("-slo-log", "value"),
+    ("-slo-eval-s", "value"),
+    ("-plane-port", "value"),
+    ("-plane-leader", "value"),
+    ("-plane-stale-after-s", "value"),
+    ("-admission-max-concurrent", "value"),
+    ("-admission-rps", "value"),
+    ("-admission-burst", "value"),
+    ("-admission-price-budget", "value"),
+    ("-tenants", "value"),
+    ("-drain-timeout-s", "value"),
+)
+
+
+def build_parser():
+    import argparse
+
+    from kubernetesclustercapacity_tpu_torch.cli import add_unported_flags
+
+    p = argparse.ArgumentParser(prog="kccap-torch-server")
+    p.add_argument("-snapshot", default=None,
+                   help="fixture .json / checkpoint .npz to serve")
+    p.add_argument("-port", type=int, default=7077)
+    p.add_argument("-host", default="127.0.0.1")
+    p.add_argument("-semantics", choices=("reference", "strict"),
+                   default=None)
+    p.add_argument("-extended-resources", default="",
+                   dest="extended_resources", metavar="NAMES",
+                   help="comma-separated extra resource columns to pack "
+                        "(strict semantics; e.g. nvidia.com/gpu,"
+                        "ephemeral-storage) — enables sweep_multi over them")
+    p.add_argument("-auth-token-file", default=None, dest="auth_token_file",
+                   help="file holding the shared bearer token; when set (or "
+                        "$KCCAP_AUTH_TOKEN is), every op except ping must "
+                        "carry it")
+    p.add_argument("-max-inflight", type=int, default=8, dest="max_inflight",
+                   help="max concurrently-executing compute requests")
+    p.add_argument("-reload-root", action="append", default=[],
+                   dest="reload_roots", metavar="DIR",
+                   help="restrict reload paths to this directory "
+                        "(repeatable; default: unrestricted)")
+    p.add_argument("-trace-log", default=None, dest="trace_log",
+                   metavar="PATH",
+                   help="append one JSONL span per dispatched request "
+                        "(trace_id, op, duration, status) to PATH")
+    p.add_argument("-flight-records", type=int, default=256,
+                   dest="flight_records", metavar="K",
+                   help="flight-recorder depth: remember the last K "
+                        "dispatched requests")
+    p.add_argument("-flight-dump", default=None, dest="flight_dump",
+                   metavar="PATH",
+                   help="append the flight recorder as JSONL to PATH "
+                        "whenever a dispatch raises")
+    p.add_argument("-batch-window-ms", type=float, default=1.0,
+                   dest="batch_window_ms", metavar="MS",
+                   help="micro-batch concurrent sweeps of one snapshot "
+                        "generation for up to MS milliseconds into one "
+                        "kernel launch (0 = dispatch every sweep solo)")
+    p.add_argument("-batch-max", type=int, default=32, dest="batch_max",
+                   metavar="N",
+                   help="max requests per micro-batch (a full batch "
+                        "dispatches before the window closes)")
+    p.add_argument("-node-bucket-floor", type=int, default=0,
+                   dest="node_bucket_floor", metavar="N",
+                   help="accepted for the JAX server's sake and ignored: "
+                        "the PyTorch package has no shape-bucket ladder")
+    p.add_argument("-group-min-count", type=int, default=0,
+                   dest="group_min_count", metavar="K",
+                   help="minimum mean nodes per node shape for sweeps to "
+                        "run over node-shape groups (0 = keep the "
+                        "default/KCCAP_GROUP_MIN_COUNT setting)")
+    p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
+                   help="keep the snapshot on the GPU (default) or the host")
+    add_unported_flags(p, _UNPORTED_SERVER_FLAGS)
+    return p
+
+
+def main(argv=None) -> int:
+    """``python -m kubernetesclustercapacity_tpu_torch.service.server
+    -snapshot ... -port N``"""
+    import signal
+    import sys
+
+    from kubernetesclustercapacity_tpu_torch.cli import (
+        NO_BUCKET_LADDER,
+        unported_flags_used,
+    )
+
+    args = build_parser().parse_args(argv)
+    unported = unported_flags_used(args, _UNPORTED_SERVER_FLAGS)
+    if unported:
+        print(f"ERROR : {', '.join(unported)}: not yet ported to the "
+              "PyTorch package ...exiting", file=sys.stderr)
+        return 1
+    # `or None`: an empty-but-set env var must not enable auth with an
+    # empty token (which would lock out every client).
+    auth_token = os.environ.get("KCCAP_AUTH_TOKEN") or None
+    if args.auth_token_file:
+        try:
+            with open(args.auth_token_file, encoding="utf-8") as fh:
+                auth_token = fh.read().strip()
+        except OSError as e:
+            print(f"ERROR : cannot read auth token file: {e}",
+                  file=sys.stderr)
+            return 1
+        if not auth_token:
+            print("ERROR : auth token file is empty", file=sys.stderr)
+            return 1
+    if args.node_bucket_floor > 0:
+        print(NO_BUCKET_LADDER, file=sys.stderr)
+    if args.group_min_count > 0:
+        from kubernetesclustercapacity_tpu_torch import (
+            snapshot as _snapshot_mod,
+        )
+
+        _snapshot_mod.set_group_min_count(args.group_min_count)
+    extended = tuple(
+        r.strip() for r in args.extended_resources.split(",") if r.strip()
+    )
+    try:
+        if not args.snapshot:
+            raise ValueError("-snapshot is required (-follow is not yet "
+                             "ported to the PyTorch package)")
+        fixture, snap, _ = resolve_source(
+            args.snapshot, args.semantics, extended_resources=extended
+        )
+    except Exception as e:  # noqa: BLE001 - one error line, exit 1
+        print(f"ERROR : {e}", file=sys.stderr)
+        return 1
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import REGISTRY
+
+    server = CapacityServer(
+        snap,
+        host=args.host,
+        port=args.port,
+        fixture=fixture,
+        auth_token=auth_token,
+        max_inflight=args.max_inflight,
+        reload_roots=tuple(args.reload_roots),
+        registry=REGISTRY,
+        trace_log=args.trace_log,
+        flight_records=args.flight_records,
+        flight_dump_path=args.flight_dump,
+        batch_window_ms=args.batch_window_ms,
+        batch_max=args.batch_max,
+        device=args.device,
+    )
+
+    # Graceful shutdown: SIGTERM/SIGINT and the drain_server op all route
+    # through begin_drain, then stop the serve loop on its own thread
+    # after a short grace so the drain op's reply flushes first.
+    def _stop_serving(record: dict) -> None:
+        def _stop() -> None:
+            time.sleep(0.25)  # let replies flush before teardown
+            server.shutdown()
+
+        print(
+            f"drain complete: inflight_at_start="
+            f"{record.get('inflight_at_start')} "
+            f"drained={record.get('drained')} "
+            f"waited_s={record.get('waited_s')}",
+            file=sys.stderr,
+        )
+        threading.Thread(target=_stop, daemon=True).start()
+
+    server.on_drained = _stop_serving
+
+    def _graceful_exit(signum, frame) -> None:
+        print(f"draining on signal {signum} ...", file=sys.stderr)
+        threading.Thread(
+            target=server.begin_drain,
+            kwargs={"reason": f"signal {signum}"},
+            daemon=True,
+        ).start()
+
+    try:
+        signal.signal(signal.SIGTERM, _graceful_exit)
+        signal.signal(signal.SIGINT, _graceful_exit)
+    except ValueError:
+        pass  # not the main thread (embedded/test use): signals stay default
+    print(
+        f"serving {snap.n_nodes} nodes ({snap.semantics}) on "
+        f"{server.address[0]}:{server.address[1]} ({server.device})",
+        file=sys.stderr,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -45,6 +45,7 @@ __all__ = [
     "load_snapshot",
     "grouping_enabled",
     "group_min_count",
+    "set_group_min_count",
     "grouped_for_dispatch",
     "GROUPING_NODE_FLOOR",
 ]
@@ -348,8 +349,24 @@ def grouping_enabled() -> bool:
     return os.environ.get("KCCAP_GROUPING", "1") != "0"
 
 
+#: The gate set by ``-group-min-count`` (None: read the environment).
+_group_min_count: int | None = None
+
+
+def set_group_min_count(value: int | None) -> None:
+    """Set the mean-occupancy gate (the ``-group-min-count`` flag); None
+    returns to the per-dispatch read of ``KCCAP_GROUP_MIN_COUNT``."""
+    global _group_min_count
+    if value is not None and value < 1:
+        raise ValueError("group min count must be >= 1")
+    _group_min_count = None if value is None else int(value)
+
+
 def group_min_count() -> int:
-    """The mean-occupancy gate (``KCCAP_GROUP_MIN_COUNT``, default 2)."""
+    """The mean-occupancy gate: the value :func:`set_group_min_count` set,
+    else ``KCCAP_GROUP_MIN_COUNT``, read on every dispatch, else 2."""
+    if _group_min_count is not None:
+        return _group_min_count
     try:
         env = int(os.environ.get("KCCAP_GROUP_MIN_COUNT", "0"))
     except ValueError:

@@ -1,0 +1,46 @@
+"""Telemetry: metrics registry, request tracing, the flight recorder, the
+phase clock and the device-memory ledger.
+
+Counterpart of ``kubernetesclustercapacity_tpu/telemetry/``, for the
+capacity service.  Every layer of the service records counters, gauges
+and latency histograms into a :class:`~.metrics.MetricsRegistry`, whose
+``snapshot()`` rides the service's ``info`` op; :mod:`.tracing` and
+:mod:`.tracectx` carry per-request trace and span ids through the
+protocol envelope; :mod:`.flightrec` keeps the last requests for
+post-incident dumps; :mod:`.phases` splits each request's latency into
+named phases; :mod:`.memledger` books the device tensors the service
+keeps resident.  The Prometheus endpoint, the SLO monitor, the sampling
+profiler and compile watching are not ported yet.
+
+Hot-path rule: all instrumentation lives on the host around kernel
+dispatch, and the dispatch-side hooks honor :func:`~.metrics.enabled` so
+telemetry can be switched off entirely (``KCCAP_TELEMETRY=0``).
+"""
+
+from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (  # noqa: F401
+    DEFAULT_LATENCY_BUCKETS_S,
+    REGISTRY,
+    SUB_MS_LATENCY_BUCKETS_S,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    enabled,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry.tracing import (  # noqa: F401
+    Span,
+    TraceLog,
+    new_span_id,
+    new_trace_id,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry.flightrec import (  # noqa: F401
+    FlightRecorder,
+    args_digest,
+    result_digest,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry.phases import (  # noqa: F401
+    NULL_CLOCK,
+    PHASES,
+    PhaseClock,
+    new_clock,
+)

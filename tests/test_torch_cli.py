@@ -286,3 +286,141 @@ def test_extended_request_without_grid_says_not_ported(npz_sources, capsys):
         assert j_rc == t_rc == 0
         assert t_out == j_out
         assert "not yet ported" not in t_out
+
+
+# Fault C1: every flag of the JAX CLI is known to the port's parser.  The
+# port runs it (-save-snapshot, -group-min-count), notes it
+# (-node-bucket-floor) or answers "not yet ported" with exit 1, never
+# argparse's exit 2.
+
+def _options(parser):
+    return [
+        (o, a) for a in parser._actions for o in a.option_strings
+        if o not in ("-h", "--help")
+    ]
+
+
+JAX_FLAGS = _options(j_cli.build_parser())
+PORTED_NEW = ("-save-snapshot", "-node-bucket-floor", "-group-min-count")
+
+
+@pytest.fixture
+def restore_group_min_count():
+    before = j_snapshot.group_min_count()
+    yield
+    j_snapshot.set_group_min_count(before)
+    from kubernetesclustercapacity_tpu_torch import snapshot as t_snapshot
+
+    t_snapshot.set_group_min_count(None)
+
+
+def test_every_jax_cli_flag_is_known_to_the_port():
+    known = {o for o, _ in _options(t_cli.build_parser())}
+    assert len(JAX_FLAGS) >= 60
+    assert [o for o, _ in JAX_FLAGS if o not in known] == []
+
+
+def _flag_argv(flag, tmp_path):
+    """The flag with a value the port's parser takes for it."""
+    action = dict(_options(t_cli.build_parser()))[flag]
+    if action.nargs == 0:
+        return [flag]
+    if action.nargs == "+":
+        return [flag, "a", "b"]
+    if action.choices:
+        return [flag, list(action.choices)[0]]
+    if action.type in (int, float):
+        return [flag, "2"]
+    if flag == "-save-snapshot":
+        return [flag, str(tmp_path / "saved.npz")]
+    if flag == "-extended-request":
+        return [flag, "nvidia.com/gpu=0"]
+    return [flag, "x"]
+
+
+@pytest.mark.parametrize("flag", [o for o, _ in JAX_FLAGS])
+def test_no_jax_cli_flag_gives_argparse_exit_2(
+    flag, tmp_path, capsys, restore_group_min_count
+):
+    argv = ["-snapshot", KIND, *_flag_argv(flag, tmp_path), "-device", "cpu"]
+    if flag == "-snapshot":
+        argv = argv[2:]
+    elif flag in ("-extended-request", "-extended-resources"):
+        argv += ["-semantics", "strict"]
+    rc, out = _run(t_cli.main, argv, capsys)  # SystemExit(2) would raise
+    unported = flag in {f for f, _ in t_cli._UNPORTED_FLAGS}
+    if unported:
+        assert rc == 1
+        assert out == (f"ERROR : {flag}: not yet ported to the PyTorch "
+                       "package ...exiting\n")
+    elif flag in PORTED_NEW:
+        assert rc == 0
+
+
+def test_save_snapshot_writes_the_jax_clis_arrays(tmp_path, capsys):
+    paths = {}
+    for name, main in (("jax", j_cli.main), ("torch", t_cli.main)):
+        paths[name] = str(tmp_path / f"{name}.npz")
+        argv = ["-snapshot", KIND, "-cpuRequests=200m", "-memRequests=250mb",
+                "-replicas=10", "-save-snapshot", paths[name]]
+        if name == "torch":
+            argv += ["-device", "cpu"]
+        rc = main(argv)
+        captured = capsys.readouterr()
+        assert rc == 0
+        assert f"snapshot checkpointed to {paths[name]}" in captured.err
+        assert "Total possible replicas" in captured.out
+    with np.load(paths["jax"]) as j, np.load(paths["torch"]) as t:
+        assert sorted(j.files) == sorted(t.files)
+        for key in j.files:
+            assert j[key].dtype == t[key].dtype, key
+            np.testing.assert_array_equal(j[key], t[key], err_msg=key)
+
+
+@pytest.mark.parametrize("output", ["json", "table"])
+def test_group_min_count_grid_matches_jax(output, capsys,
+                                          restore_group_min_count):
+    argv = ["-snapshot", KIND, "-group-min-count", "2", "-grid", "5",
+            "-output", output]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert j_rc == t_rc == 0
+    if output == "json":
+        j_doc, t_doc = json.loads(j_out), json.loads(t_out)
+        assert t_doc["kernel"] == _label(j_doc["kernel"])
+        j_doc["kernel"] = t_doc["kernel"]
+        assert t_doc == j_doc
+    else:
+        assert t_out.splitlines()[:-1] == j_out.splitlines()[:-1]
+    from kubernetesclustercapacity_tpu_torch import snapshot as t_snapshot
+
+    assert t_snapshot.group_min_count() == 2
+
+
+def test_group_min_count_gates_the_grouped_sweep(tmp_path, capsys,
+                                                 restore_group_min_count):
+    # 2,000 nodes of 8 shapes: grouped at the default gate of 2, and
+    # ungrouped once the flag asks for 1,000 nodes per shape.
+    path = str(tmp_path / "shapes.npz")
+    j_snapshot.synthetic_snapshot(2000, seed=8, shapes=8).save(path)
+    kernels = []
+    for k in ("2", "1000"):
+        argv = ["-snapshot", path, "-grid", "6", "-output", "json",
+                "-group-min-count", k]
+        j_rc, j_out = _run(j_cli.main, argv, capsys)
+        t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+        assert j_rc == t_rc == 0
+        j_doc, t_doc = json.loads(j_out), json.loads(t_out)
+        assert t_doc["totals"] == j_doc["totals"]
+        kernels.append(t_doc["kernel"])
+    assert kernels == ["plain_i32_rcp_fused_grouped", "plain_i32_rcp_fused"]
+
+
+def test_node_bucket_floor_is_noted_and_ignored(capsys):
+    argv = ["-snapshot", KIND, "-grid", "4", "-output", "json"]
+    rc, plain = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    rc2 = t_cli.main(argv + ["-node-bucket-floor", "512", "-device", "cpu"])
+    captured = capsys.readouterr()
+    assert rc == rc2 == 0
+    assert captured.out == plain
+    assert captured.err.strip() == t_cli.NO_BUCKET_LADDER

@@ -299,3 +299,147 @@ def test_explain_on_card_matches_host(cuda, mode, grouped):
     order = np.argsort(exact[0], kind="stable")
     np.testing.assert_array_equal(qt[3], order[list(q)])
     np.testing.assert_array_equal(qt[2], exact[0][order][list(q)])
+
+
+# -- the service and its runtime glue on the card ---------------------------
+
+def _serve(snap, **kw):
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        CapacityServer,
+    )
+
+    server = CapacityServer(snap, **kw)
+    server.start()
+    return server
+
+
+def _ask(server, msg):
+    import socket
+
+    from kubernetesclustercapacity_tpu_torch.service import protocol
+
+    with socket.create_connection(server.address, timeout=120) as sock:
+        sock.settimeout(120)
+        protocol.send_msg(sock, msg)
+        return protocol.recv_msg(sock)
+
+
+def test_server_sweep_launches_b1_once_and_matches_host(cuda):
+    snap = synthetic_snapshot(5_000, seed=21)
+    card = _serve(snap, batch_window_ms=0)
+    host = _serve(snap, batch_window_ms=0, device="cpu")
+    try:
+        msg = {"op": "sweep", "random": {"n": 500, "seed": 22}}
+        before = ff.LAUNCHES
+        got = _ask(card, msg)
+        assert ff.LAUNCHES - before == 1
+        assert got["result"]["kernel"] == "cuda_i32_rcp_fused"
+        want = _ask(host, msg)
+        assert got["result"]["totals"] == want["result"]["totals"]
+        exact = _ask(card, dict(msg, kernel="exact"))
+        assert exact["result"]["totals"] == want["result"]["totals"]
+        fit = {"op": "fit", "cpuRequests": "200m", "memRequests": "250mb",
+               "replicas": "10", "output": "json"}
+        assert _ask(card, fit) == _ask(host, fit)
+        explain = {"op": "explain", "cpuRequests": "300m",
+                   "memRequests": "500mb", "output": "json"}
+        assert _ask(card, explain) == _ask(host, explain)
+    finally:
+        card.shutdown()
+        host.shutdown()
+
+
+def test_server_sweep_multi_launches_b2_once(cuda):
+    snap = _gpu_snapshot(4_000, seed=23)
+    card = _serve(snap, batch_window_ms=0)
+    host = _serve(snap, batch_window_ms=0, device="cpu")
+    try:
+        rng = np.random.default_rng(24)
+        msg = {"op": "sweep_multi",
+               "resources": ["cpu", "memory", "nvidia.com/gpu",
+                             "ephemeral-storage"],
+               "requests": [[int(rng.integers(100, 2000)),
+                             int(rng.integers(64, 4096)) << 20,
+                             int(rng.integers(0, 3)),
+                             int(rng.integers(1, 20)) << 30]
+                            for _ in range(300)]}
+        before = fm.LAUNCHES
+        got = _ask(card, msg)
+        assert fm.LAUNCHES - before == 1
+        assert got["result"]["kernel"] == "cuda_multi_i32_rcp_fused"
+        assert got["result"]["totals"] == _ask(host, msg)["result"]["totals"]
+    finally:
+        card.shutdown()
+        host.shutdown()
+
+
+def test_folded_sweeps_launch_b1_once_on_the_card(cuda):
+    import threading
+
+    snap = synthetic_snapshot(5_000, seed=25)
+    solo = _serve(snap, batch_window_ms=0)
+    folded = _serve(snap, batch_window_ms=60_000, batch_max=8,
+                    max_inflight=8)
+    try:
+        msgs = [{"op": "sweep", "random": {"n": 125, "seed": 30 + i}}
+                for i in range(8)]
+        want = [_ask(solo, m) for m in msgs]
+        got = [None] * 8
+
+        def run(i):
+            got[i] = _ask(folded, msgs[i])
+
+        before = ff.LAUNCHES
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert ff.LAUNCHES - before == 1
+        assert got == want
+    finally:
+        solo.shutdown()
+        folded.shutdown()
+
+
+@pytest.mark.parametrize("kernel", ["auto", "exact"])
+def test_async_sweep_on_card_equals_sync(cuda, kernel):
+    snap = synthetic_snapshot(5_000, seed=26)
+    grid = random_scenario_grid(300, seed=27)
+    sync = sweep_snapshot_auto(snap, grid, kernel=kernel)
+    pending = sweep_snapshot_auto(snap, grid, kernel=kernel, sync=False)
+    assert pending[0].fetch.staged.is_cuda
+    np.testing.assert_array_equal(np.asarray(pending[0]), sync[0])
+    np.testing.assert_array_equal(np.asarray(pending[1]), sync[1])
+    assert pending[0].fetch.staged is None
+
+
+def test_stage_replace_copies_in_place_on_the_card(cuda):
+    import dataclasses
+
+    from kubernetesclustercapacity_tpu_torch import devcache
+    from kubernetesclustercapacity_tpu_torch.telemetry import memledger
+
+    cache = devcache.DeviceCache()
+    old = synthetic_snapshot(5_000, seed=28)
+    prior = cache.exact_tensors(old, cuda)
+    ptr = prior[3].data_ptr()
+    used = old.used_cpu_req_milli.copy()
+    used[:100] += 17
+    new = dataclasses.replace(old, used_cpu_req_milli=used)
+    del prior
+    counts = cache.stage_replace(old, new, cuda)
+    # exact: six columns carried over, one copied in place; the kernel
+    # form was never staged for the old snapshot, so it stages fresh.
+    assert counts == {"reused": 6, "copied": 1, "restaged": 6}
+    staged = cache.exact_tensors(new, cuda)
+    assert staged[3].data_ptr() == ptr
+    fresh = devcache.DeviceCache()
+    for form in ("exact_tensors", "kernel_tensors"):
+        for a, b in zip(getattr(cache, form)(new, cuda),
+                        getattr(fresh, form)(new, cuda)):
+            assert torch.equal(a, b)
+    audit = memledger.LEDGER.reconcile()
+    assert audit["allocated_bytes"] >= audit["tracked_cuda_bytes"] > 0

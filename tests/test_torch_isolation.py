@@ -55,6 +55,12 @@ def test_the_scan_is_not_vacuous():
     assert len(names) >= 15
     assert "kubernetesclustercapacity_tpu_torch/ops/fused_fit.py" in names
     assert "kubernetesclustercapacity_tpu_torch/ops/fused_multi.py" in names
+    for module in ("service/server.py", "service/batching.py",
+                   "service/client.py", "service/protocol.py",
+                   "resilience.py", "telemetry/memledger.py",
+                   "telemetry/phases.py", "utils/timing.py",
+                   "utils/threads.py", "timeline/alerts.py"):
+        assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize(
@@ -117,6 +123,19 @@ _BLOCKED_RUN = textwrap.dedent(
                         "-device", "cpu"])
     model = kt.CapacityModel(snap, mode="strict", device="cpu")
     model_total = int(model.sweep(kt.random_scenario_grid(8, seed=4))[0].sum())
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+
+    server = CapacityServer(snap, device="cpu")
+    server.start()
+    try:
+        with CapacityClient(*server.address, timeout_s=60) as client:
+            service_kernel = client.sweep(random={"n": 8, "seed": 2})["kernel"]
+            service_ping = client.ping()
+    finally:
+        server.shutdown()
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -130,6 +149,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "single_spec": "Total possible replicas" in
                       single.getvalue(),
                       "model_total": model_total,
+                      "service": [service_ping, service_kernel],
                       "loaded": loaded}))
     """
 )
@@ -154,6 +174,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "multi_kernel": "plain_multi_i32_rcp_fused",
         "single_spec": True,
         "model_total": doc["model_total"],
+        "service": ["pong", "plain_i32_rcp_fused_grouped"],
         "loaded": [],
     }
     assert doc["total"] > 0 and doc["model_total"] > 0

@@ -1,0 +1,497 @@
+"""The port's capacity service against the JAX package's, both on the CPU.
+
+The same sources (the kind fixture in both semantics, a synthetic ``.npz``
+checkpoint, a tainted fixture with GPU and storage columns) are served by
+the JAX ``CapacityServer`` and the port's, and the same framed requests go
+to both: ``ping``, ``info``, ``fit`` (each output, the cpu backend, spec
+fields), ``sweep`` (explicit grid, ``random``, ``kernel=exact``),
+``sweep_multi``, ``explain`` (JSON and table), ``reload`` from ``.json``
+and ``.npz``, a refused token and an expired deadline.  Replies must be
+equal, integers and bytes exactly, apart from the kernel labels
+(``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and the
+volatile fields (the JAX breaker's success counter, the seconds in a shed
+message).  Both client/server cross pairs are run as well.  Every op the
+port does not serve yet must say so.
+
+Servers bind 127.0.0.1 on port 0, every socket and client has a timeout,
+every server is shut down by its fixture, and no latency is asserted.
+"""
+
+import copy
+import json
+import re
+import socket
+import time
+
+import numpy as np
+import pytest
+
+from kubernetesclustercapacity_tpu import snapshot as j_snapshot
+from kubernetesclustercapacity_tpu.fixtures import synthetic_fixture
+from kubernetesclustercapacity_tpu.service.client import (
+    CapacityClient as JaxClient,
+)
+from kubernetesclustercapacity_tpu.service.server import (
+    CapacityServer as JaxServer,
+)
+from kubernetesclustercapacity_tpu.sources import (
+    resolve_source as j_resolve_source,
+)
+from kubernetesclustercapacity_tpu_torch.service import protocol
+from kubernetesclustercapacity_tpu_torch.service.client import (
+    CapacityClient as TorchClient,
+)
+from kubernetesclustercapacity_tpu_torch.service.server import (
+    UNPORTED_OPS,
+)
+from kubernetesclustercapacity_tpu_torch.service.server import (
+    CapacityServer as TorchServer,
+)
+from kubernetesclustercapacity_tpu_torch.sources import (
+    resolve_source as t_resolve_source,
+)
+
+KIND = "tests/fixtures/kind-3node.json"
+EXTENDED = ("ephemeral-storage", "nvidia.com/gpu")
+TIMEOUT_S = 120.0
+
+
+def _gpu_fixture():
+    """A tainted 64-node fixture with 0-8 GPUs and 50-500 Gi of storage
+    per node, and GPU/storage requests on every third pod."""
+    fx = synthetic_fixture(64, seed=31, taint_frac=0.3, unhealthy_frac=0.1)
+    rng = np.random.default_rng(32)
+    for node in fx["nodes"]:
+        node["allocatable"]["nvidia.com/gpu"] = str(rng.integers(0, 9))
+        node["allocatable"]["ephemeral-storage"] = \
+            f"{rng.integers(50, 501)}Gi"
+    for pod in fx["pods"][::3]:
+        pod["containers"] = [{"resources": {"requests": {
+            "cpu": "250m", "memory": "256Mi",
+            "nvidia.com/gpu": str(rng.integers(0, 3)),
+            "ephemeral-storage": f"{rng.integers(1, 20)}Gi",
+        }}}]
+    return fx
+
+
+@pytest.fixture(scope="module")
+def paths(tmp_path_factory):
+    d = tmp_path_factory.mktemp("service")
+    npz = str(d / "synthetic.npz")
+    j_snapshot.synthetic_snapshot(64, seed=11).save(npz)
+    gpu = str(d / "gpu.json")
+    with open(gpu, "w") as f:
+        json.dump(_gpu_fixture(), f)
+    tainted = str(d / "tainted.json")
+    with open(tainted, "w") as f:
+        json.dump(synthetic_fixture(48, seed=12, taint_frac=0.4), f)
+    return {"kind": KIND, "npz": npz, "gpu": gpu, "tainted": tainted}
+
+
+# name -> (path key, semantics, extended columns)
+SOURCES = {
+    "kind-reference": ("kind", "reference", ()),
+    "kind-strict": ("kind", "strict", ()),
+    "synthetic-npz": ("npz", None, ()),
+    "gpu-strict": ("gpu", "strict", EXTENDED),
+}
+
+
+def _pair(path, semantics, extended, **kw):
+    jf, js, _ = j_resolve_source(path, semantics,
+                                 extended_resources=extended)
+    tf, ts, _ = t_resolve_source(path, semantics,
+                                 extended_resources=extended)
+    j = JaxServer(js, fixture=jf, **kw)
+    t = TorchServer(ts, fixture=tf, device="cpu", **kw)
+    j.start()
+    t.start()
+    return j, t
+
+
+def _stop(*servers):
+    for s in servers:
+        s.shutdown()
+
+
+@pytest.fixture(scope="module")
+def pairs(paths):
+    out = {}
+    try:
+        for name, (key, semantics, extended) in SOURCES.items():
+            out[name] = _pair(paths[key], semantics, extended,
+                              batch_window_ms=0)
+        yield out
+    finally:
+        _stop(*(s for pair in out.values() for s in pair))
+
+
+def _raw(address, msg):
+    with socket.create_connection(address, timeout=TIMEOUT_S) as sock:
+        sock.settimeout(TIMEOUT_S)
+        protocol.send_msg(sock, msg)
+        return protocol.recv_msg(sock)
+
+
+def _relabel(kernel: str) -> str:
+    return kernel.replace("pallas_", "plain_").replace(
+        "xla_int64", "torch_int64"
+    )
+
+
+def _norm(reply):
+    """The reply with its kernel labels in the port's names and its
+    volatile fields fixed."""
+    reply = copy.deepcopy(reply)
+    res = reply.get("result") if isinstance(reply, dict) else None
+    if isinstance(res, dict):
+        if isinstance(res.get("kernel"), str):
+            res["kernel"] = _relabel(res["kernel"])
+        breaker = res.get("resilience", {}).get("fast_path_breaker")
+        if breaker is not None:
+            breaker["successes"] = None  # the JAX breaker counts launches
+    if isinstance(reply, dict) and isinstance(reply.get("error"), str):
+        reply["error"] = re.sub(r"expired [0-9.]+s ago", "expired Ns ago",
+                                reply["error"])
+    return reply
+
+
+def _both(pair, msg):
+    j, t = pair
+    return _raw(j.address, msg), _raw(t.address, msg)
+
+
+FIT = {"op": "fit", "cpuRequests": "200m", "memRequests": "250mb",
+       "replicas": "10"}
+REQUESTS = {
+    "ping": {"op": "ping"},
+    "info": {"op": "info"},
+    "info-sections": {"op": "info", "plane": True, "tenancy": True,
+                      "audit": True, "tracing": True},
+    "fit-reference": dict(FIT),
+    "fit-json": dict(FIT, output="json"),
+    "fit-table": dict(FIT, output="table"),
+    "fit-backend-cpu": dict(FIT, backend="cpu"),
+    "fit-backend-cpu-json": dict(FIT, backend="cpu", output="json"),
+    "fit-backend-tpu": dict(FIT, backend="tpu"),
+    "fit-spread": dict(FIT, spread="2", output="json"),
+    "fit-big": {"op": "fit", "cpuRequests": "2", "memRequests": "4gb",
+                "replicas": "3", "output": "table"},
+    "fit-bad-memory": dict(FIT, memRequests="lots"),
+    "sweep-grid": {"op": "sweep", "cpu_request_milli": [100, 250, 1500],
+                   "mem_request_bytes": [64 << 20, 512 << 20, 3 << 30],
+                   "replicas": [1, 20, 400]},
+    "sweep-random": {"op": "sweep", "random": {"n": 24, "seed": 5}},
+    "sweep-exact": {"op": "sweep", "random": {"n": 24, "seed": 6},
+                    "kernel": "exact"},
+    "sweep-unaligned": {"op": "sweep", "cpu_request_milli": [333, 77],
+                        "mem_request_bytes": [100_000_001, 12_345],
+                        "replicas": [2, 3]},
+    "sweep-bad-kernel": {"op": "sweep", "random": {"n": 2},
+                         "kernel": "fast"},
+    "explain": {"op": "explain", "cpuRequests": "300m",
+                "memRequests": "500mb", "replicas": "7"},
+    "explain-json": {"op": "explain", "cpuRequests": "300m",
+                     "memRequests": "500mb", "output": "json"},
+    "explain-table": {"op": "explain", "cpuRequests": "1",
+                      "memRequests": "1gb", "output": "table"},
+    "unknown-op": {"op": "frobnicate"},
+}
+GPU_REQUESTS = {
+    "sweep-multi": {"op": "sweep_multi",
+                    "resources": ["cpu", "memory", "nvidia.com/gpu",
+                                  "ephemeral-storage"],
+                    "requests": [[250, 256 << 20, 1, 10 << 30],
+                                 [500, 1 << 30, 0, 1 << 30],
+                                 [100, 128 << 20, 2, 20 << 30]],
+                    "replicas": [5, 50, 1]},
+    "sweep-multi-exact": {"op": "sweep_multi",
+                          "resources": ["cpu", "memory", "nvidia.com/gpu"],
+                          "requests": [[250, 256 << 20, 1]],
+                          "kernel": "exact"},
+    "sweep-multi-bad-column": {"op": "sweep_multi",
+                               "resources": ["cpu", "example.com/fpga"],
+                               "requests": [[250, 1]]},
+    "fit-extended": dict(FIT, extended_requests={"nvidia.com/gpu": 1},
+                         output="json"),
+    "fit-tolerations": dict(FIT, tolerations=[
+        {"key": "dedicated", "operator": "Exists", "effect": "NoSchedule"}
+    ], output="json"),
+    "fit-node-selector": dict(FIT, node_selector={"no-such": "label"}),
+}
+
+CASES = [(src, name) for src in SOURCES for name in REQUESTS] + [
+    ("gpu-strict", name) for name in GPU_REQUESTS
+]
+
+
+@pytest.mark.parametrize("source,name", CASES)
+def test_reply_matches_the_jax_server(source, name, pairs):
+    msg = {**REQUESTS, **GPU_REQUESTS}[name]
+    j_reply, t_reply = _both(pairs[source], msg)
+    assert _norm(t_reply) == _norm(j_reply)
+    assert t_reply["ok"] is (not name.endswith(("bad-memory", "bad-kernel",
+                                                 "bad-column", "unknown-op")))
+    if name.startswith(("sweep", "fit", "explain")) and t_reply["ok"]:
+        res = t_reply["result"]
+        for key in ("totals", "fits", "total"):
+            if key in res:
+                values = res[key] if isinstance(res[key], list) else [
+                    res[key]]
+                assert all(type(v) is int for v in values)
+
+
+def test_the_comparison_is_not_vacuous(pairs):
+    """The sweeps took the kernel route on both sides, the fits carry
+    transcripts, and the strict sources are really masked."""
+    j, t = _both(pairs["kind-reference"], REQUESTS["sweep-random"])
+    assert j["result"]["kernel"] == "pallas_i32_rcp_fused"
+    assert t["result"]["kernel"] == "plain_i32_rcp_fused"
+    assert sum(t["result"]["totals"]) > 0
+    _, t = _both(pairs["kind-reference"], REQUESTS["fit-reference"])
+    assert "Total possible replicas" in t["result"]["report"]
+    _, t = _both(pairs["gpu-strict"], GPU_REQUESTS["sweep-multi"])
+    assert t["result"]["kernel"] == "plain_multi_i32_rcp_fused"
+    _, t = _both(pairs["synthetic-npz"], REQUESTS["sweep-unaligned"])
+    assert t["result"]["kernel"] == "torch_int64"
+
+
+@pytest.mark.parametrize("op", sorted(UNPORTED_OPS))
+def test_unported_ops_say_so(op, pairs):
+    _, t = _both(pairs["kind-reference"], {"op": op})
+    assert t == {
+        "ok": False,
+        "error": f"NotImplementedError: op {op!r} is not yet ported to "
+                 "the PyTorch package",
+        "generation": 1,
+    }
+
+
+@pytest.mark.parametrize("msg", [
+    dict(FIT, priority=100),
+    {"op": "sweep", "random": {"n": 4}, "priorities": [0, 1, 2, 3]},
+], ids=["fit-priority", "sweep-priorities"])
+def test_priority_is_not_ported(msg, pairs):
+    _, t = _both(pairs["kind-strict"], msg)
+    assert not t["ok"]
+    assert t["error"].startswith("NotImplementedError: priority")
+    assert "not yet ported" in t["error"]
+
+
+def test_expired_deadline_is_shed_like_jax(pairs):
+    msg = {"op": "sweep", "random": {"n": 4}, "deadline": time.time() - 5}
+    j, t = _both(pairs["kind-reference"], msg)
+    assert not t["ok"] and t["error"].startswith("DeadlineExpired: ")
+    assert _norm(t) == _norm(j)
+    info_j, info_t = _both(pairs["kind-reference"], {"op": "info"})
+    shed = info_t["result"]["resilience"]["deadline_shed"]
+    assert shed == info_j["result"]["resilience"]["deadline_shed"] >= 1
+
+
+def test_auth_token_is_enforced_like_jax():
+    j, t = _pair(KIND, None, (), batch_window_ms=0, auth_token="s3cret")
+    try:
+        for msg in ({"op": "ping"}, dict(FIT), dict(FIT, token="wrong"),
+                    dict(FIT, token="s3cret"), {"op": "info"},
+                    {"op": "reload", "path": KIND}):
+            j_reply, t_reply = _both((j, t), msg)
+            assert _norm(t_reply) == _norm(j_reply), msg
+        refused = _raw(t.address, dict(FIT))
+        assert refused["error"] == ("PermissionError: missing or invalid "
+                                    "auth token")
+    finally:
+        _stop(j, t)
+
+
+@pytest.mark.parametrize("target", ["npz", "tainted"])
+def test_reload_matches_jax(target, paths):
+    j, t = _pair(KIND, None, (), batch_window_ms=0)
+    try:
+        msg = {"op": "reload", "path": paths[target]}
+        if target == "tainted":
+            msg["semantics"] = "strict"
+        j_reply, t_reply = _both((j, t), msg)
+        assert _norm(t_reply) == _norm(j_reply)
+        # The reload answered from generation 1 and published 2.
+        assert t_reply["ok"] and t_reply["generation"] == 1
+        for follow in (REQUESTS["info"], REQUESTS["sweep-random"],
+                       REQUESTS["fit-json"], REQUESTS["explain-json"]):
+            j_reply, t_reply = _both((j, t), follow)
+            assert _norm(t_reply) == _norm(j_reply)
+            assert t_reply["generation"] == 2
+    finally:
+        _stop(j, t)
+
+
+def test_reload_roots_refuse_like_jax(paths, tmp_path):
+    j, t = _pair(KIND, None, (), batch_window_ms=0,
+                 reload_roots=(str(tmp_path),))
+    try:
+        j_reply, t_reply = _both((j, t), {"op": "reload",
+                                          "path": paths["npz"]})
+        assert _norm(t_reply) == _norm(j_reply)
+        assert t_reply["error"].startswith("PermissionError: reload path")
+    finally:
+        _stop(j, t)
+
+
+def test_drain_server_matches_jax():
+    j, t = _pair(KIND, None, (), batch_window_ms=0)
+    try:
+        j_reply, t_reply = _both((j, t), {"op": "drain_server",
+                                          "reason": "test"})
+        for reply in (j_reply, t_reply):
+            reply["result"]["ts"] = reply["result"]["waited_s"] = None
+        assert t_reply == j_reply
+        assert t_reply["result"]["drained"] is True
+        j_reply, t_reply = _both((j, t), dict(FIT))
+        assert t_reply == j_reply
+        assert t_reply["code"] == "draining"
+        j_reply, t_reply = _both((j, t), {"op": "info"})
+        assert t_reply["result"]["draining"] is True
+        assert _norm(t_reply) == _norm(j_reply)
+    finally:
+        _stop(j, t)
+
+
+CROSS = ["info", "fit-json", "fit-backend-cpu", "sweep-grid",
+         "sweep-random", "sweep-exact", "explain-json", "explain-table"]
+
+
+def _call(client_cls, server, msg):
+    params = {k: v for k, v in msg.items() if k != "op"}
+    with client_cls(*server.address, connect_timeout_s=TIMEOUT_S,
+                    timeout_s=TIMEOUT_S, retry=None) as client:
+        return {"ok": True, "result": client.call(msg["op"], **params)}
+
+
+@pytest.mark.parametrize("name", CROSS)
+def test_cross_clients_and_servers(name, pairs):
+    j, t = pairs["kind-strict"]
+    msg = REQUESTS[name]
+    jax_to_port = _call(JaxClient, t, msg)
+    port_to_port = _call(TorchClient, t, msg)
+    port_to_jax = _call(TorchClient, j, msg)
+    jax_to_jax = _call(JaxClient, j, msg)
+    assert jax_to_port == port_to_port
+    assert port_to_jax == jax_to_jax
+    assert _norm(jax_to_port) == _norm(jax_to_jax)
+
+
+def test_cross_client_errors_are_the_same_type(pairs):
+    j, t = pairs["kind-reference"]
+    raised = []
+    for client_cls, server in ((JaxClient, t), (TorchClient, j)):
+        with client_cls(*server.address, timeout_s=TIMEOUT_S,
+                        retry=None) as client:
+            with pytest.raises(RuntimeError) as info:
+                client.call("fit", memRequests="lots")
+            raised.append(str(info.value))
+    assert raised[0] == raised[1]
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    import torch
+
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        synthetic_snapshot,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchServer(synthetic_snapshot(8, seed=1))
+
+
+def test_server_main_rejects_unported_flags_with_exit_1(capsys):
+    from kubernetesclustercapacity_tpu_torch.service import server
+
+    rc = server.main(["-snapshot", KIND, "-follow", "-metrics-port", "9"])
+    err = capsys.readouterr().err
+    assert rc == 1
+    assert err == ("ERROR : -follow, -metrics-port: not yet ported to the "
+                   "PyTorch package ...exiting\n")
+
+
+def test_server_main_knows_every_jax_server_flag():
+    """Every flag of the JAX server's ``main`` is known to the port's
+    parser (the lesson of the CLI's fault C1)."""
+    import inspect
+
+    from kubernetesclustercapacity_tpu.service import server as j_server
+    from kubernetesclustercapacity_tpu_torch.service import server
+
+    src = inspect.getsource(j_server.main)
+    jax_flags = set(re.findall(r'p\.add_argument\(\s*"(-[a-z-]+)"', src))
+    assert len(jax_flags) >= 45
+    known = {o for a in server.build_parser()._actions
+             for o in a.option_strings}
+    assert sorted(jax_flags - known) == []
+
+
+def test_trace_log_and_flight_dump(tmp_path):
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        synthetic_snapshot,
+    )
+
+    trace = tmp_path / "trace.jsonl"
+    dump = tmp_path / "flight.jsonl"
+    server = TorchServer(synthetic_snapshot(32, seed=3), device="cpu",
+                         batch_window_ms=0, trace_log=str(trace),
+                         flight_dump_path=str(dump))
+    try:
+        server.start()
+        ok = _raw(server.address, {"op": "sweep", "random": {"n": 3},
+                                   "trace_id": "ab" * 16})
+        bad = _raw(server.address, dict(FIT, memRequests="lots"))
+    finally:
+        server.shutdown()
+    assert ok["ok"] and not bad["ok"]
+    spans = [json.loads(line) for line in trace.read_text().splitlines()]
+    request = [s for s in spans if s.get("op") == "sweep"]
+    assert request and request[0]["trace_id"] == "ab" * 16
+    assert request[0]["status"] == "ok"
+    assert any(s.get("op", "").startswith("phase:") for s in spans)
+    header, *records = [json.loads(line)
+                        for line in dump.read_text().splitlines()]
+    assert header["flight_dump"] is True and header["records"] == 2
+    assert [r["op"] for r in records] == ["sweep", "fit"]
+    assert records[-1]["status"] == "error"
+    assert server.tracing_stats()["armed"] is True
+
+
+def test_server_main_serves_until_drained(tmp_path):
+    import threading
+
+    from kubernetesclustercapacity_tpu_torch.service import server
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    token = tmp_path / "token"
+    token.write_text("s3cret\n")
+    result = {}
+    thread = threading.Thread(target=lambda: result.update(rc=server.main([
+        "-snapshot", KIND, "-port", str(port), "-device", "cpu",
+        "-auth-token-file", str(token), "-batch-window-ms", "0",
+        "-node-bucket-floor", "64",
+    ])))
+    thread.start()
+    deadline = time.time() + TIMEOUT_S
+    while True:
+        try:
+            reply = _raw(("127.0.0.1", port), {"op": "ping"})
+            break
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.05)
+    assert reply["result"] == "pong"
+    sweep = _raw(("127.0.0.1", port), {"op": "sweep", "token": "s3cret",
+                                       "random": {"n": 4}})
+    assert sweep["ok"] and sweep["result"]["kernel"] == "plain_i32_rcp_fused"
+    drained = _raw(("127.0.0.1", port), {"op": "drain_server",
+                                         "token": "s3cret"})
+    assert drained["result"]["drained"] is True
+    thread.join(timeout=TIMEOUT_S)
+    assert not thread.is_alive()
+    assert result == {"rc": 0}
