@@ -20,8 +20,15 @@ B1 and B2 once each.  Last it drives the capacity service (path (l)): the
 port's ``CapacityServer`` on the card, through its ``CapacityClient``, at
 the same widths (``sweep`` one launch of B1, ``sweep_multi`` one of B2, 8
 concurrent sweeps folded into fewer than 8 launches, ``reload``, ``fit``
-and ``explain``), with each op's latency.  Any failure raises, so the script exits nonzero
-without its final line.  It needs a CUDA device and the package beside it;
+and ``explain``), with each op's latency.  Path (m) drives the live
+cluster at 5,000 nodes and 150,000 pods through a mock apiserver in this
+process: the CLI without ``-snapshot``, 31 ``update`` batches of a
+3,100-event churn stream, and two ``-follow`` servers (follower →
+coalescer → a publish pre-staged on the card) taking the same stream on
+their watch; every sweep after a change launches B1 once, the strict
+server's ``sweep_multi`` B2 once, each equal to the exact program on a
+full repack.  Any failure raises, so the script exits nonzero without
+its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
 Output: phase lines, one JSON line per timed kernel variant, a
@@ -1575,6 +1582,654 @@ def phase_service(pkg, cli, fit, ff, fm, f_args: tuple, tmp: str,
     return out
 
 
+# --- Path (m): the live cluster ------------------------------------------
+# The upper end of a supported Kubernetes cluster: 5,000 nodes and 150,000
+# pods ("Considerations for large clusters",
+# kubernetes.io/docs/setup/best-practices/cluster-large/).
+LIVE_NODES = 5_000
+LIVE_PODS_PER_NODE = 30
+LIVE_TOKEN = "smoke-token"
+NODES_PATH, PODS_PATH = "/api/v1/nodes", "/api/v1/pods"
+EXTENDED = ("nvidia.com/gpu", "ephemeral-storage")
+
+
+def k8s_node(n: dict) -> dict:
+    """A fixture-schema node as the REST Node object an apiserver serves."""
+    return {"metadata": {"name": n["name"], "labels": n.get("labels") or {}},
+            "spec": {"taints": list(n.get("taints") or [])},
+            "status": {"allocatable": n["allocatable"],
+                       "conditions": n["conditions"]}}
+
+
+def k8s_pod(p: dict) -> dict:
+    """A fixture-schema pod as the REST Pod object an apiserver serves."""
+    return {"metadata": {"name": p["name"], "namespace": p["namespace"],
+                         "labels": p.get("labels") or {}},
+            "spec": {"nodeName": p.get("nodeName") or None,
+                     "containers": list(p.get("containers") or []),
+                     "initContainers": list(p.get("initContainers") or [])},
+            "status": {"phase": p["phase"]}}
+
+
+class MockApiserver:
+    """A stdlib stand-in for kube-apiserver on 127.0.0.1:0.
+
+    Serves paged Lists of nodes and pods (``limit``/``continue``, a fresh
+    ``resourceVersion`` on every List; the PodDisruptionBudget API answers
+    404, as on a cluster where it is not readable), newline-delimited
+    watch streams (each watch request takes the next queued stream of its
+    path, later ones get an empty window), and refuses a request without
+    the bearer token.  Items and streams are serialized once up front.
+    ``stream_written[path]`` is the host clock when a stream's last byte
+    was written.
+    """
+
+    def __init__(self, fixture: dict, streams: dict | None = None):
+        import http.server
+
+        self.items = {
+            NODES_PATH: [json.dumps(k8s_node(n)).encode()
+                         for n in fixture["nodes"]],
+            PODS_PATH: [json.dumps(k8s_pod(p)).encode()
+                        for p in fixture["pods"]],
+        }
+        self.streams = {
+            path: [b"".join(json.dumps(e).encode() + b"\n" for e in events)
+                   for events in queued]
+            for path, queued in (streams or {}).items()
+        }
+        self.stream_written: dict[str, float] = {}
+        self.requests = 0
+        self._rv = 1
+        self._lock = threading.Lock()
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True
+
+            def log_message(self, *args):
+                pass
+
+            def reply(self, code: int, body: bytes) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                from urllib.parse import parse_qs, urlsplit
+
+                with outer._lock:
+                    outer.requests += 1
+                if self.headers.get("Authorization") != \
+                        f"Bearer {LIVE_TOKEN}":
+                    return self.reply(401, b"Unauthorized")
+                url = urlsplit(self.path)
+                items = outer.items.get(url.path)
+                if items is None:
+                    return self.reply(404, b"not found")
+                query = parse_qs(url.query)
+                if query.get("watch"):
+                    with outer._lock:
+                        queued = outer.streams.get(url.path) or []
+                        body = queued.pop(0) if queued else b""
+                    self.reply(200, body)
+                    if body:
+                        outer.stream_written[url.path] = time.perf_counter()
+                    return
+                limit = int(query.get("limit", ["500"])[0])
+                start = int(query.get("continue", ["0"])[0] or 0)
+                end = start + limit
+                with outer._lock:
+                    outer._rv += 1
+                    meta = {"resourceVersion": str(outer._rv)}
+                if end < len(items):
+                    meta["continue"] = str(end)
+                self.reply(200, b'{"items":[' + b",".join(items[start:end])
+                           + b'],"metadata":' + json.dumps(meta).encode()
+                           + b"}")
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def live_fixture_source(pkg) -> dict:
+    """The source cluster of path (m): ``synthetic_fixture(5_000, seed=8,
+    pods_per_node=30, taint_frac=0.1)``, every node also advertising 0-8
+    GPUs and 50-500 Gi of ephemeral storage (for the strict server's
+    R-resource sweep)."""
+    fixture = pkg.synthetic_fixture(LIVE_NODES, seed=8,
+                                    pods_per_node=LIVE_PODS_PER_NODE,
+                                    taint_frac=0.1)
+    rng = np.random.default_rng(10)
+    for node, g, e in zip(fixture["nodes"], rng.integers(0, 9, LIVE_NODES),
+                          rng.integers(50, 501, LIVE_NODES)):
+        node["allocatable"] = dict(node["allocatable"])
+        node["allocatable"]["nvidia.com/gpu"] = str(int(g))
+        node["allocatable"]["ephemeral-storage"] = f"{int(e)}Gi"
+    return fixture
+
+
+def churn_events(fixture: dict, seed: int = 9) -> list[dict]:
+    """One seeded stream of 3,100 watch events in the store's schema,
+    shuffled: 1,000 pods ADDED Running on random nodes, 1,000 existing
+    pods DELETED, 1,000 existing Running pods MODIFIED to Succeeded, 80
+    nodes MODIFIED (a pressure condition flipped, or allocatable changed),
+    10 nodes ADDED and 10 DELETED.  The object sets are disjoint, so the
+    final state does not depend on how the stream interleaves kinds."""
+    rng = np.random.default_rng(seed)
+    nodes, pods = fixture["nodes"], fixture["pods"]
+    names = [n["name"] for n in nodes]
+    running = [i for i, p in enumerate(pods)
+               if p["phase"] == "Running" and p.get("nodeName")]
+    picked = rng.choice(len(running), 2_000, replace=False)
+    deleted = [pods[running[i]] for i in picked[:1_000]]
+    finished = [pods[running[i]] for i in picked[1_000:]]
+    node_ix = rng.choice(len(nodes), 90, replace=False)
+    events = []
+    for i in range(1_000):
+        requests = {"cpu": f"{int(rng.integers(50, 2000))}m",
+                    "memory": f"{int(rng.integers(64, 4096))}Mi"}
+        if rng.random() < 0.25:
+            requests["nvidia.com/gpu"] = "1"
+            requests["ephemeral-storage"] = f"{int(rng.integers(1, 11))}Gi"
+        events.append({"type": "ADDED", "kind": "Pod", "object": {
+            "name": f"churn-{i}", "namespace": "churn",
+            "nodeName": names[int(rng.integers(len(names)))],
+            "phase": "Running", "labels": {"app": "churn"},
+            "containers": [{"resources": {"requests": requests,
+                                          "limits": requests}}]}})
+    events += [{"type": "DELETED", "kind": "Pod", "object": p}
+               for p in deleted]
+    events += [{"type": "MODIFIED", "kind": "Pod",
+                "object": dict(p, phase="Succeeded")} for p in finished]
+    for k, i in enumerate(node_ix[:80]):
+        node = json.loads(json.dumps(nodes[int(i)]))
+        if k % 2:
+            cond = node["conditions"][1]
+            cond["status"] = "False" if cond["status"] == "True" else "True"
+        else:
+            node["allocatable"]["cpu"] = str(int(rng.integers(4, 97)))
+        events.append({"type": "MODIFIED", "kind": "Node", "object": node})
+    for i in range(10):
+        node = json.loads(json.dumps(nodes[int(node_ix[80 + i])]))
+        events.append({"type": "DELETED", "kind": "Node", "object": node})
+        joiner = json.loads(json.dumps(nodes[int(rng.integers(len(nodes)))]))
+        joiner["name"] = f"joiner-{i}"
+        joiner["labels"] = dict(joiner.get("labels") or {},
+                                **{"kubernetes.io/hostname": joiner["name"]})
+        events.append({"type": "ADDED", "kind": "Node", "object": joiner})
+    order = rng.permutation(len(events))
+    return [events[int(i)] for i in order]
+
+
+def watch_streams(events: list[dict]) -> dict:
+    """The event stream as one watch stream per resource, in the REST
+    schema, each event with its resourceVersion."""
+    streams = {NODES_PATH: [], PODS_PATH: []}
+    for rv, e in enumerate(events, start=10_000):
+        obj = k8s_node(e["object"]) if e["kind"] == "Node" else \
+            k8s_pod(e["object"])
+        obj["metadata"]["resourceVersion"] = str(rv)
+        path = NODES_PATH if e["kind"] == "Node" else PODS_PATH
+        streams[path].append({"type": e["type"], "object": obj})
+    return {path: [evs] for path, evs in streams.items()}
+
+
+def write_kubeconfig(path: str, server: str) -> None:
+    import yaml
+
+    doc = {"apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+           "contexts": [{"name": "smoke",
+                         "context": {"cluster": "mock", "user": "smoke"}}],
+           "clusters": [{"name": "mock", "cluster": {"server": server}}],
+           "users": [{"name": "smoke", "user": {"token": LIVE_TOKEN}}]}
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+
+
+class PublishClock:
+    """Times each publish's parts on the publisher's thread: the
+    follower's ``snapshot()`` (the store's repack), and the device
+    cache's ``stage_replace`` (with its column counts) and ``warm``.
+    Installed as instance attributes over the bound methods, removed by
+    :meth:`close`."""
+
+    def __init__(self, cache, follower):
+        self.records: list[dict] = []
+        self._cache, self._follower = cache, follower
+        self._current: dict = {}
+        snapshot, stage, warm = (follower.snapshot, cache.stage_replace,
+                                 cache.warm)
+
+        def timed_snapshot():
+            t0 = time.perf_counter()
+            out = snapshot()
+            self._current = {"snapshot_ms": (time.perf_counter() - t0) * 1e3}
+            return out
+
+        def timed_stage(old, new, device):
+            t0 = time.perf_counter()
+            counts = stage(old, new, device)
+            self._current.update(stage_replace_ms=(time.perf_counter() - t0)
+                                 * 1e3, columns=counts)
+            return counts
+
+        def timed_warm(snap, device):
+            t0 = time.perf_counter()
+            warm(snap, device)
+            self._current["warm_ms"] = (time.perf_counter() - t0) * 1e3
+            self.records.append(self._current)
+
+        follower.snapshot = timed_snapshot
+        cache.stage_replace = timed_stage
+        cache.warm = timed_warm
+
+    def close(self) -> None:
+        for obj, name in ((self._follower, "snapshot"),
+                          (self._cache, "stage_replace"),
+                          (self._cache, "warm")):
+            obj.__dict__.pop(name, None)
+
+    def summary(self) -> dict:
+        out = {"publishes": len(self.records)}
+        for key in ("snapshot_ms", "stage_replace_ms", "warm_ms"):
+            values = [r[key] for r in self.records if key in r]
+            out[key] = {"median": statistics.median(values),
+                        "max": max(values)} if values else None
+        out["columns"] = {k: sum(r.get("columns", {}).get(k, 0)
+                                 for r in self.records)
+                          for k in ("reused", "copied", "restaged")}
+        return out
+
+
+def check_totals(name: str, fit, ff, snap, grid, got, *, mode, mask):
+    """``got`` (totals) equals the exact int64 program on the card and on
+    the host for ``snap``; the exact program launches B1 0 times."""
+    before = ff.LAUNCHES
+    card = ff.sweep_snapshot_auto(snap, grid, mode=mode, kernel="exact",
+                                  node_mask=mask, device="cuda")
+    host = fit.sweep_snapshot(snap, grid, mode=mode, node_mask=mask,
+                              device="cpu")
+    if ff.LAUNCHES != before or card[2] not in ("torch_int64",
+                                                "torch_int64_grouped"):
+        raise AssertionError(f"{name}: the exact program took {card[2]}")
+    check_equal(f"{name} vs the exact program on the card", got, card[0])
+    check_equal(f"{name} vs the host", got, host[0])
+
+
+def phase_live(pkg, cli, fit, ff, fm, tmp: str, identity: str) -> dict:
+    """Path (m): the live cluster at the size of a large real one.
+
+    (m1) the CLI without ``-snapshot`` reads the mock apiserver (through
+    ``-kubeconfig`` when PyYAML is installed, else through
+    ``cli.load_source`` with a ``KubeClient``): ``-grid 1000`` (B1 once)
+    and (g)'s single spec with ``-output reference``, each equal to the
+    CLI with ``-snapshot`` on the same cluster written as ``.json``.
+    (m2) a ``CapacityServer`` on that ``.json`` takes the churn stream
+    through ``CapacityClient`` as 31 ``update`` batches of 100; after each,
+    a ``sweep`` of ``random_scenario_grid(1000, seed=7)`` launches B1 once
+    and equals the exact program (card and host) on a full repack of the
+    same events applied to a ``ClusterStore``.  (m3) a server fed by a
+    ``ClusterFollower`` on the mock (``follow_publisher``, 100 ms) takes
+    the same stream on its watch; sweeps answer the final state; a second,
+    strict server with GPU and storage columns answers ``sweep_multi``
+    1,000 x 4 with B2 once."""
+    import importlib.util
+
+    from kubernetesclustercapacity_tpu_torch import devcache, kubeapi
+    from kubernetesclustercapacity_tpu_torch.follower import ClusterFollower
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        follow_publisher,
+    )
+    from kubernetesclustercapacity_tpu_torch.store import ClusterStore
+
+    out = {"launches": {"sweep_fit": {}, "sweep_multi": {}}, "times": {}}
+    # Go-style "-flag=value" split for argparse, as the CLI's main does.
+    spec = [a for flag in SPEC_FLAGS for a in flag.split("=", 1)]
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    log(f"(m): PyYAML {'is' if have_yaml else 'is NOT'} installed; the "
+        f"CLI reads the mock through "
+        f"{'-kubeconfig <file>' if have_yaml else 'load_source(client=)'}")
+    t0 = time.perf_counter()
+    fixture = live_fixture_source(pkg)
+    events = churn_events(fixture)
+    json_path = os.path.join(tmp, "m_cluster.json")
+    pkg.save_fixture(fixture, json_path)
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    log(f"(m) source: {len(fixture['nodes'])} nodes, {len(fixture['pods'])} "
+        f"pods, {len(events)} churn events, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    mock = MockApiserver(fixture)
+    mocks = [mock]
+    servers, followers, coalescers = [], [], []
+
+    def client(server):
+        return CapacityClient(*server.address, connect_timeout_s=60,
+                              timeout_s=600, retry=None)
+
+    try:
+        # -- (m1) the CLI's live run -------------------------------------
+        kube = kubeapi.KubeClient(kubeapi.KubeConfig(mock.url,
+                                                     token=LIVE_TOKEN))
+        t0 = time.perf_counter()
+        listed = kubeapi.live_fixture(client=kube)
+        t_list = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pkg.snapshot_from_fixture(listed)
+        t_pack = time.perf_counter() - t0
+        out["times"]["list_s"], out["times"]["pack_s"] = t_list, t_pack
+        log(f"(m1) List of {len(listed['nodes'])} nodes and "
+            f"{len(listed['pods'])} pods through KubeClient: {t_list:.3f} s;"
+            f" pack (reference): {t_pack:.3f} s ({identity})")
+        kubeconfig = os.path.join(tmp, "m_kubeconfig")
+
+        def live_cli(flags):
+            if have_yaml:
+                return run_cli_text(cli, ["-kubeconfig", kubeconfig, *flags])
+            args = cli.build_parser().parse_args(flags)
+            scenario = pkg.scenario_from_flags(
+                cpuRequests=args.cpuRequests, cpuLimits=args.cpuLimits,
+                memRequests=args.memRequests, memLimits=args.memLimits,
+                replicas=args.replicas)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                fx, snap = cli.load_source(args, client=kubeapi.KubeClient(
+                    kubeapi.KubeConfig(mock.url, token=LIVE_TOKEN)))
+                if snap is None:
+                    raise AssertionError(f"(m1): {buf.getvalue()}")
+                rc = cli.run(args, fx, snap, scenario)
+            if rc != 0:
+                raise AssertionError(f"(m1) cli {flags} exited {rc}")
+            return buf.getvalue()
+
+        if have_yaml:
+            write_kubeconfig(kubeconfig, mock.url)
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        live_grid = json.loads(live_cli(["-grid", "1000", "-output",
+                                         "json"]).strip().splitlines()[-1])
+        out["times"]["cli_grid_s"] = time.perf_counter() - t0
+        launches = (ff.LAUNCHES, fm.LAUNCHES)
+        out["launches"]["sweep_fit"]["(m1) -grid 1000"] = launches[0]
+        file_grid = run_cli(cli, ["-snapshot", json_path, "-grid", "1000",
+                                  "-output", "json"])
+        if launches != (1, 0) or live_grid != file_grid or \
+                live_grid["kernel"] != "cuda_i32_rcp_fused":
+            raise AssertionError(f"(m1) -grid: launches {launches}, label "
+                                 f"{live_grid['kernel']}, equal to -snapshot "
+                                 f"{live_grid == file_grid}")
+        t0 = time.perf_counter()
+        live_text = live_cli([*spec, "-output", "reference"])
+        out["times"]["cli_transcript_s"] = time.perf_counter() - t0
+        file_text = run_cli_text(cli, ["-snapshot", json_path, *spec,
+                                       "-output", "reference"])
+        if live_text != file_text:
+            raise AssertionError("(m1): the live transcript differs from "
+                                 "the -snapshot transcript")
+        log(f"(m1) CLI without -snapshot: -grid 1000 label "
+            f"{live_grid['kernel']}, B1 launches 1, totals equal to "
+            f"-snapshot's ({out['times']['cli_grid_s']:.2f} s); transcript "
+            f"byte-identical to -snapshot's ({len(live_text)} bytes, "
+            f"{out['times']['cli_transcript_s']:.2f} s) ({identity})")
+
+        # -- (m2) update batches through the service --------------------
+        snap0 = pkg.snapshot_from_fixture(fixture)
+        server = CapacityServer(snap0, fixture=fixture, device="cuda",
+                                batch_window_ms=0)
+        server.start()
+        servers.append(server)
+        mirror = ClusterStore(fixture)
+        store_s = 0.0
+        update_s = []
+        quiet = {"stage_replace_ms": [], "warm_ms": [], "columns": []}
+        m2_launches = 0
+        with client(server) as c:
+            c.sweep(random={"n": 1000, "seed": 7})  # stage generation 1
+            for b in range(0, len(events), 100):
+                batch = events[b:b + 100]
+                t0 = time.perf_counter()
+                reply = c.update(batch)
+                update_s.append(time.perf_counter() - t0)
+                prev = mirror.snapshot()
+                t0 = time.perf_counter()
+                mirror.apply(batch)
+                store_s += time.perf_counter() - t0
+                # The same re-stage a -follow publish makes, timed on a
+                # private cache with no other thread running Python.
+                cache = devcache.DeviceCache()
+                cache.warm(prev, torch.device("cuda"))
+                new = mirror.snapshot()
+                t0 = time.perf_counter()
+                quiet["columns"].append(cache.stage_replace(
+                    prev, new, torch.device("cuda")))
+                t1 = time.perf_counter()
+                cache.warm(new, torch.device("cuda"))
+                quiet["stage_replace_ms"].append((t1 - t0) * 1e3)
+                quiet["warm_ms"].append((time.perf_counter() - t1) * 1e3)
+                del cache, prev, new
+                if reply["applied"] != len(batch):
+                    raise AssertionError(f"(m2) update: {reply}")
+                ff.LAUNCHES = fm.LAUNCHES = 0
+                doc = c.sweep(random={"n": 1000, "seed": 7})
+                launches = (ff.LAUNCHES, fm.LAUNCHES)
+                m2_launches += launches[0]
+                if launches != (1, 0) or doc["kernel"] != "cuda_i32_rcp_fused":
+                    raise AssertionError(f"(m2) sweep after batch {b // 100}:"
+                                         f" label {doc['kernel']}, launches "
+                                         f"{launches}")
+                repack = pkg.snapshot_from_fixture(mirror.fixture_view())
+                check_totals(f"(m2) sweep after batch {b // 100}", fit, ff,
+                             repack, grid, doc["totals"], mode="reference",
+                             mask=None)
+        final_totals = doc["totals"]
+        out["launches"]["sweep_fit"]["(m2) 31 sweeps after update"] = \
+            m2_launches
+        out["times"]["store_events_per_s"] = len(events) / store_s
+        out["times"]["update_events_per_s"] = len(events) / sum(update_s)
+        out["times"]["update_first_batch_s"] = update_s[0]
+        out["times"]["update_events_per_s_after_first"] = \
+            (len(events) - 100) / sum(update_s[1:])
+        out["times"]["quiet_publish"] = {
+            key: {"median": statistics.median(v), "max": max(v)}
+            for key, v in quiet.items() if key != "columns"}
+        out["times"]["quiet_publish"]["columns"] = {
+            k: sum(c[k] for c in quiet["columns"])
+            for k in ("reused", "copied", "restaged")}
+        log(f"(m2) 31 update batches of 100 ({len(events)} events): after "
+            f"each, sweep 1000 launched B1 once ({m2_launches} in all) and "
+            f"equalled the exact program on the card and the host on a full "
+            f"repack; events applied per second: store alone "
+            f"{out['times']['store_events_per_s']:.0f}, through update "
+            f"{out['times']['update_events_per_s']:.0f} (the first batch, "
+            f"which builds the server's store, {update_s[0]:.3f} s; the "
+            f"other 30 batches "
+            f"{out['times']['update_events_per_s_after_first']:.0f} events "
+            f"per second) ({identity})")
+        log(f"(m2) the same re-stage as a publish, with no other thread "
+            f"running Python, per batch (median / max ms): stage_replace "
+            f"{out['times']['quiet_publish']['stage_replace_ms']}, warm "
+            f"{out['times']['quiet_publish']['warm_ms']}; columns "
+            f"{out['times']['quiet_publish']['columns']} ({identity})")
+
+        # -- (m3) -follow: list+watch, coalesced publish ----------------
+        def follow(mock_server, **kw):
+            cfg = kubeapi.KubeConfig(mock_server.url, token=LIVE_TOKEN)
+            t0 = time.perf_counter()
+            follower = ClusterFollower(
+                client_factory=lambda: kubeapi.KubeClient(cfg),
+                stop_on_idle_window=True, **kw).start(watch=False)
+            listed_s = time.perf_counter() - t0
+            followers.append(follower)
+            server = CapacityServer(follower.snapshot(),
+                                    fixture=follower.fixture_view(),
+                                    device="cuda", batch_window_ms=0,
+                                    stats_source=follower.stats)
+            server.start()
+            servers.append(server)
+            return follower, server, listed_s
+
+        streams = watch_streams(events)
+        ref_mock = MockApiserver(fixture, streams)
+        mocks.append(ref_mock)
+        follower, server, listed_s = follow(ref_mock, semantics="reference")
+        out["times"]["follower_list_pack_s"] = listed_s
+        with client(server) as c:
+            c.sweep(random={"n": 1000, "seed": 7})  # stage generation 1
+            clock = PublishClock(devcache.CACHE, follower)
+            try:
+                coalescer, publish_fatal = follow_publisher(
+                    server, follower, coalesce_ms=100)
+                coalescers.append(coalescer)
+                polls = 0
+                ff.LAUNCHES = fm.LAUNCHES = 0
+                deadline = time.perf_counter() + 300
+                while True:
+                    doc = c.sweep(random={"n": 1000, "seed": 7})
+                    answered = time.perf_counter()
+                    polls += 1
+                    written = ref_mock.stream_written
+                    if len(written) == 2 and doc["totals"] == final_totals:
+                        break
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("(m3): no sweep answered the "
+                                             "final state within 300 s")
+                    time.sleep(0.001)
+                launches = (ff.LAUNCHES, fm.LAUNCHES)
+                staleness_ms = (answered - max(written.values())) * 1e3
+                follower.join(300)
+                if not coalescer.stop(timeout=300):
+                    raise AssertionError("(m3): the coalescer did not drain")
+            finally:
+                clock.close()
+            if coalescer.last_error is not None or follower.fatal is not None \
+                    or publish_fatal:
+                raise AssertionError(f"(m3): publish error "
+                                     f"{coalescer.last_error}, follower fatal "
+                                     f"{follower.fatal}, {publish_fatal}")
+            if launches != (polls, 0):
+                raise AssertionError(f"(m3): {polls} sweeps launched "
+                                     f"{launches}")
+            ff.LAUNCHES = 0
+            doc = c.sweep(random={"n": 1000, "seed": 7})
+            m3_launches = polls + ff.LAUNCHES
+            if ff.LAUNCHES != 1 or doc["kernel"] != "cuda_i32_rcp_fused":
+                raise AssertionError(f"(m3) final sweep: label "
+                                     f"{doc['kernel']}, launches "
+                                     f"{ff.LAUNCHES}")
+            view = follower.fixture_view()
+            check_totals("(m3) final sweep", fit, ff,
+                         pkg.snapshot_from_fixture(view), grid,
+                         doc["totals"], mode="reference", mask=None)
+            check_equal("(m3) final sweep vs (m2)'s final state",
+                        doc["totals"], final_totals)
+            stats = follower.stats()
+            if stats["events_applied"] != len(events) or stats["fatal"]:
+                raise AssertionError(f"(m3) follower: {stats}")
+            warm = timed_requests(lambda: c.sweep(random={"n": 1000,
+                                                          "seed": 7}))
+            warm.pop("reply")
+        out["launches"]["sweep_fit"]["(m3) sweeps during and after the "
+                                     "stream"] = m3_launches
+        publishes = clock.summary()
+        out["times"].update(staleness_ms=staleness_ms,
+                            publishes=coalescer.flushes,
+                            publish=publishes, warm_sweep=warm)
+        log(f"(m3) follower list+pack at start: {listed_s:.3f} s; the "
+            f"stream's {len(events)} events applied "
+            f"({stats['events_applied']}), {coalescer.flushes} publishes "
+            f"({coalescer.events} notifications); per publish (median / max "
+            f"ms): store snapshot {publishes['snapshot_ms']}, stage_replace "
+            f"{publishes['stage_replace_ms']}, warm {publishes['warm_ms']}; "
+            f"stage_replace columns over all publishes: "
+            f"{publishes['columns']} (reused = carried, copied = in place, "
+            f"restaged = fresh) ({identity})")
+        log("(m3) each publish (ms; columns carried/copied/fresh): " + "; ".join(
+            f"snapshot {r.get('snapshot_ms', 0):.3f}, stage_replace "
+            f"{r.get('stage_replace_ms', 0):.3f}, warm {r['warm_ms']:.3f}, "
+            + "/".join(str(r.get("columns", {}).get(k, 0))
+                       for k in ("reused", "copied", "restaged"))
+            for r in clock.records) + f" ({identity})")
+        log(f"(m3) staleness: {staleness_ms:.3f} ms from the last watch "
+            f"event written to the first sweep answering the final state "
+            f"({polls} sweeps polled, each B1 once); after the last publish "
+            f"20 warm sweeps: median {warm['median_ms']:.4f} ms, p90 "
+            f"{warm['p90_ms']:.4f} ms; final totals equal the exact program "
+            f"on the card and the host and (m2)'s; last_error None, fatal "
+            f"None ({identity})")
+
+        # -- (m3) the strict server with GPU and storage columns --------
+        multi_mock = MockApiserver(fixture, watch_streams(events))
+        mocks.append(multi_mock)
+        follower, server, _ = follow(multi_mock, semantics="strict",
+                                     extended_resources=EXTENDED)
+        coalescer, publish_fatal = follow_publisher(server, follower,
+                                                    coalesce_ms=100)
+        coalescers.append(coalescer)
+        follower.join(300)
+        if not coalescer.stop(timeout=300) or coalescer.last_error \
+                is not None or follower.fatal is not None or publish_fatal:
+            raise AssertionError(f"(m3) strict: publish error "
+                                 f"{coalescer.last_error}, follower fatal "
+                                 f"{follower.fatal}, {publish_fatal}")
+        rng = np.random.default_rng(4)
+        resources = ("cpu", "memory", *EXTENDED)
+        reqs = np.stack([grid.cpu_request_milli, grid.mem_request_bytes,
+                         rng.integers(0, 3, grid.size),
+                         rng.integers(1, 20, grid.size) * GIB], axis=1)
+        with client(server) as c:
+            ff.LAUNCHES = fm.LAUNCHES = 0
+            mdoc = c.sweep_multi(list(resources), reqs.tolist(),
+                                 replicas=grid.replicas.tolist())
+            launches = (ff.LAUNCHES, fm.LAUNCHES)
+        out["launches"]["sweep_multi"]["(m3) strict sweep_multi"] = \
+            launches[1]
+        if launches != (0, 1) or mdoc["kernel"] != "cuda_multi_i32_rcp_fused":
+            raise AssertionError(f"(m3) sweep_multi: label {mdoc['kernel']}, "
+                                 f"launches {launches}")
+        snap = pkg.snapshot_from_fixture(follower.fixture_view(),
+                                         semantics="strict",
+                                         extended_resources=EXTENDED)
+        alloc_rn, used_rn = snap.resource_matrix(resources)
+        check_multi_against_exact(
+            fm, "(m3) sweep_multi",
+            (alloc_rn, used_rn, snap.alloc_pods, snap.pods_count,
+             snap.healthy, reqs, grid.replicas),
+            {"mode": "strict", "node_masks": pkg.implicit_taint_mask(snap)},
+            np.asarray(mdoc["totals"]), np.asarray(mdoc["schedulable"]))
+        log(f"(m3) strict follow server with {', '.join(EXTENDED)}: "
+            f"{coalescer.flushes} publishes, sweep_multi 1000 x 4 label "
+            f"{mdoc['kernel']}, B2 launches 1, equal to the exact program "
+            f"on the card and the host on a full repack ({identity})")
+    finally:
+        for follower in followers:
+            follower.stop()
+        for coalescer in coalescers:
+            coalescer.stop(timeout=60)
+        for server in servers:
+            server.shutdown()
+        for m in mocks:
+            m.close()
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -1790,6 +2445,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         service = phase_service(pkg, cli, fit, ff, fm, multi_paths["f_args"],
                                 tmp, identity)
+    with tempfile.TemporaryDirectory() as tmp:
+        live = phase_live(pkg, cli, fit, ff, fm, tmp, identity)
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -1812,6 +2469,8 @@ def main() -> int:
         "service_ops": service["ops"],
         "service_shares": service["shares"],
         "service_launches": service["launches"],
+        "live": live["times"],
+        "live_launches": live["launches"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -1822,7 +2481,8 @@ def main() -> int:
         "replaces": "kubernetesclustercapacity_tpu/ops/pallas_fit.py:450",
         "launches": sum(main_launches.values())
         + sum(model["launches"]["sweep_fit"].values())
-        + sum(service["launches"]["sweep_fit"].values()),
+        + sum(service["launches"]["sweep_fit"].values())
+        + sum(live["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1844,7 +2504,8 @@ def main() -> int:
         "replaces": "kubernetesclustercapacity_tpu/ops/pallas_multi.py:165",
         "launches": sum(multi_paths["launches"].values())
         + sum(model["launches"]["sweep_multi"].values())
-        + sum(service["launches"]["sweep_multi"].values()),
+        + sum(service["launches"]["sweep_multi"].values())
+        + sum(live["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

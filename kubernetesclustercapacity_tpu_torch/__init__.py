@@ -12,18 +12,23 @@ Layer map:
 ===========  ===============================================================
 L5 service   :mod:`.service` (``CapacityServer``: the snapshot stays on the
              card between requests, concurrent sweeps fold into one
-             launch; ``CapacityClient``; the JAX package's wire protocol),
-             with :mod:`.resilience` and :mod:`.telemetry`
+             launch; ``update`` applies watch events; ``-follow`` keeps it
+             synced to a live cluster through :mod:`.follower` and a
+             coalesced publish; ``CapacityClient``; the JAX package's wire
+             protocol), with :mod:`.resilience` and :mod:`.telemetry`
 L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
-             ``-grid`` sweep, ``-extended-request``; the six reference
-             flags; every other flag of the JAX CLI declared)
+             ``-grid`` sweep, ``-extended-request``, on a file or a live
+             cluster; the six reference flags; every other flag of the JAX
+             CLI declared)
 L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
              kernel B1, ``sweep_multi`` on kernel B2), :mod:`.explain`
              (binding attribution, marginals, the fused sweep+explain)
 L2 report    :mod:`.report` (the reference transcript, JSON, tables),
              :mod:`.oracle` (the sequential bug-for-bug walk)
 L1 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
-             :mod:`.scenario`, :mod:`.masks`, :mod:`.utils.quantity`
+             :mod:`.scenario`, :mod:`.masks`, :mod:`.utils.quantity`,
+             :mod:`.store` (per-row incremental repack), :mod:`.kubeapi`
+             (the stdlib apiserver client), :mod:`.pdb`
 L0 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel B1
              in ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
              R-resource sweep, kernel B2 in ``csrc/sweep_multi.cu``),

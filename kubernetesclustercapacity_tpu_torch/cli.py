@@ -16,20 +16,26 @@ through :func:`..ops.fused_fit.sweep_snapshot_auto`, or, with
 :func:`..ops.fused_multi.sweep_multi_auto`, and prints the same JSON or
 table as the JAX CLI apart from the kernel label.
 
-``-backend torch`` (the default) runs the port's device programs on
-``-device``; ``-backend cpu`` is the pure-Python oracle, the reference's
-sequential walk, as a cross-check.  ``-save-snapshot`` checkpoints the
-loaded snapshot and ``-group-min-count`` sets the grouping gate, as in the
-JAX CLI.  Every other flag of the JAX CLI is declared: the compiled C++
-loop (``-backend native``), the live-cluster source, and the drain, CaR,
-forecast, plan, gang, optimize, timeline, replay, doctor, profiling and
-federation surfaces are not ported yet and say so with exit 1.
+The source is ``-snapshot`` (a fixture ``.json`` or a checkpoint
+``.npz``) or, without it, the live cluster of ``-kubeconfig`` (default
+``$HOME/.kube/config``): two paginated Lists through the port's stdlib
+client (:mod:`.kubeapi`), packed like a fixture.  ``-backend torch`` (the
+default) runs the port's device programs on ``-device``; ``-backend cpu``
+is the pure-Python oracle, the reference's sequential walk, as a
+cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
+``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
+other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
+native``) and the drain, CaR, forecast, plan, gang, optimize, timeline,
+replay, doctor, profiling and federation surfaces are not ported yet and
+say so with exit 1.
 
 Examples::
 
     python -m kubernetesclustercapacity_tpu_torch.cli \\
         -snapshot tests/fixtures/kind-3node.json \\
         -cpuRequests=200m -memRequests=250mb -replicas=10
+    python -m kubernetesclustercapacity_tpu_torch.cli \\
+        -kubeconfig ~/.kube/config -grid 1000 -output json
     python -m kubernetesclustercapacity_tpu_torch.cli \\
         -snapshot cluster.npz -grid 1000 -semantics strict \\
         -extended-request nvidia.com/gpu=1 \\
@@ -45,7 +51,7 @@ import sys
 
 import numpy as np
 
-__all__ = ["main", "build_parser"]
+__all__ = ["main", "build_parser", "load_source", "run"]
 
 # The JAX CLI's flags for surfaces that are not ported yet, each with what
 # it takes: a value, a switch, or one or more values.  Every one is
@@ -221,10 +227,6 @@ def main(argv: list[str] | None = None) -> int:
         ScenarioError,
         scenario_from_flags,
     )
-    from kubernetesclustercapacity_tpu_torch.sources import (
-        SourceError,
-        resolve_source,
-    )
 
     args = build_parser().parse_args(
         _split_single_dash_eq(sys.argv[1:] if argv is None else list(argv))
@@ -264,19 +266,15 @@ def main(argv: list[str] | None = None) -> int:
             # it would panic later at the division (Q8 divergence).
             print(f"ERROR : {e} ...exiting")
             return 1
-    if not args.snapshot:
-        print("ERROR : the live-cluster source is not yet ported to the "
-              "PyTorch package; use -snapshot <fixture.json|checkpoint.npz> "
-              "...exiting")
+    fixture, snapshot = load_source(args)
+    if snapshot is None:
         return 1
-    try:
-        fixture, snapshot, args.semantics = resolve_source(
-            args.snapshot, args.semantics,
-            extended_resources=_extended_names(args),
-        )
-    except SourceError as e:
-        print(f"ERROR : {e}")
-        return 1
+    return run(args, fixture, snapshot, scenario)
+
+
+def run(args, fixture, snapshot, scenario) -> int:
+    """Everything after the source: the checkpoint, then the one surface
+    the flags ask for (``-explain``, ``-grid`` or the single spec)."""
     if args.save_snapshot:
         snapshot.save(args.save_snapshot)
         print(f"snapshot checkpointed to {args.save_snapshot}",
@@ -286,6 +284,66 @@ def main(argv: list[str] | None = None) -> int:
     if args.grid > 0:
         return _run_grid(args, snapshot)
     return _run_single(args, fixture, snapshot, scenario)
+
+
+def load_source(args, *, client=None):
+    """Resolve the cluster source: fixture JSON, npz checkpoint, or live.
+
+    Returns ``(fixture, snapshot)``, or ``(None, None)`` after printing
+    the error line.  A live source lists through ``client`` (a
+    :class:`~.kubeapi.KubeClient`) when one is given, else through the
+    cluster of ``-kubeconfig``; either way the fixture is not kept (only
+    the JAX CLI's ``-drain`` reads it).
+    """
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        snapshot_from_fixture,
+        snapshot_from_live_cluster,
+    )
+
+    if args.snapshot:
+        from kubernetesclustercapacity_tpu_torch.sources import (
+            SourceError,
+            resolve_source,
+        )
+
+        try:
+            fixture, snap, semantics = resolve_source(
+                args.snapshot, args.semantics,
+                extended_resources=_extended_names(args),
+            )
+        except SourceError as e:
+            print(f"ERROR : {e}")
+            return None, None
+        args.semantics = semantics
+        return fixture, snap
+    if args.semantics is None:
+        args.semantics = "reference"
+    extended = _extended_names(args)
+    if extended and args.semantics != "strict":
+        # Same rule resolve_source owns for file sources: never silently
+        # pack without the requested columns.
+        print("ERROR : extended resources require strict semantics "
+              "(reference semantics has no extended-column concept)")
+        return None, None
+    try:
+        if client is not None:
+            from kubernetesclustercapacity_tpu_torch.kubeapi import (
+                live_fixture,
+            )
+
+            return None, snapshot_from_fixture(
+                live_fixture(client=client), semantics=args.semantics,
+                extended_resources=extended,
+            )
+        return None, snapshot_from_live_cluster(
+            args.kubeconfig or None, semantics=args.semantics,
+            extended_resources=extended,
+        )
+    except Exception as e:  # mirrors the reference's panic on bad kubeconfig
+        print(f"ERROR : cannot snapshot live cluster: {e}")
+        print("hint: use -snapshot <fixture.json|checkpoint.npz> for "
+              "offline runs")
+        return None, None
 
 
 def _extended_names(args) -> tuple[str, ...]:

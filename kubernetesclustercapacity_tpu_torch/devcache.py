@@ -35,12 +35,14 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 import weakref
 
 import numpy as np
 import torch
 
 from kubernetesclustercapacity_tpu_torch.telemetry import memledger as _memledger
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 
 __all__ = [
     "DeviceCache",
@@ -215,7 +217,17 @@ class DeviceCache:
             if hit is not None:
                 self._hits += 1
                 return hit
-        value = build()
+        clk = _phases.current()
+        if clk:
+            # A miss stages a host→device upload — the request-visible
+            # cost the cache exists to remove — recorded as the answering
+            # request's ``devcache`` phase (a hit records nothing).
+            t0 = time.perf_counter()
+            with clk.live("devcache"):
+                value = build()
+            clk.record("devcache", time.perf_counter() - t0)
+        else:
+            value = build()
         # Book before the value becomes poppable: a retire racing ahead
         # of a late register would leave a stale entry in the ledger.
         _memledger.register(value, key[0])

@@ -37,6 +37,7 @@ Attribution rule (deterministic, shared with the brute-force oracle in
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -47,6 +48,8 @@ from kubernetesclustercapacity_tpu_torch.oracle import fit_arrays_python
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
     _resource_fits,
+    fetch,
+    observed_fetch,
     sweep_explain_grid,
     sweep_explain_grouped,
 )
@@ -55,6 +58,7 @@ from kubernetesclustercapacity_tpu_torch.snapshot import (
     ClusterSnapshot,
     grouped_for_dispatch,
 )
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 
 __all__ = [
     "BINDING_NAMES",
@@ -465,20 +469,25 @@ def _dispatch(snapshot, grid, mode, node_mask, device, *, fused: bool,
                   grid.replicas)
     )
     grouped = grouped_for_dispatch(snapshot)
+    clk = _phases.current()
     if grouped is not None:
         # No mask inside the program: the mask is per NODE, so it folds
         # into the group counts for the totals and re-applies per node
         # after the group→node expansion below.
         cols = _devcache.CACHE.grouped_exact_tensors(grouped, device)
+        counts = None
         if fused:
             counts = _devcache.to_device(
                 grouped.effective_counts(node_mask), device
             )
-            out = sweep_explain_grouped(
-                *cols, counts, cpu_reqs, mem_reqs, replicas, mode=mode
-            )
-        else:
-            out = explain_grid(*cols, cpu_reqs, mem_reqs, mode=mode)
+        t0 = time.perf_counter()
+        with clk.live("device_exec"):
+            if fused:
+                out = sweep_explain_grouped(
+                    *cols, counts, cpu_reqs, mem_reqs, replicas, mode=mode
+                )
+            else:
+                out = explain_grid(*cols, cpu_reqs, mem_reqs, mode=mode)
     else:
         cols = _devcache.CACHE.exact_tensors(snapshot, device)
         mask = None
@@ -486,21 +495,32 @@ def _dispatch(snapshot, grid, mode, node_mask, device, *, fused: bool,
             mask = _devcache.to_device(
                 np.asarray(node_mask, dtype=bool), device
             )
-        if fused:
-            out = sweep_explain_grid(
-                *cols, cpu_reqs, mem_reqs, replicas, mode=mode,
-                node_mask=mask,
-            )
-        else:
-            out = explain_grid(
-                *cols, cpu_reqs, mem_reqs, mode=mode, node_mask=mask
-            )
-    lead = [o.cpu().numpy() for o in out[:-5]]
+        t0 = time.perf_counter()
+        with clk.live("device_exec"):
+            if fused:
+                out = sweep_explain_grid(
+                    *cols, cpu_reqs, mem_reqs, replicas, mode=mode,
+                    node_mask=mask,
+                )
+            else:
+                out = explain_grid(
+                    *cols, cpu_reqs, mem_reqs, mode=mode, node_mask=mask
+                )
     per_node = out[-5:]
     if rows is not None:
         index = _devcache.to_device(np.asarray(rows, dtype=np.int64), device)
         per_node = [o.index_select(0, index) for o in per_node]
-    per_node = [o.cpu().numpy() for o in per_node]
+    tensors = (*out[:-5], *per_node)
+    if fused:
+        # The fused program is a dispatch of its own label (the JAX
+        # package observes it the same way); a plain explain is not.
+        label = "torch_int64_sweep_explain" + (
+            "_grouped" if grouped is not None else ""
+        )
+        host = observed_fetch(label, t0, tensors)
+    else:
+        host = fetch(tensors)
+    lead, per_node = list(host[:-5]), list(host[-5:])
     if grouped is not None:
         # Identical rows get identical attribution, so the expansion is
         # bit-exact; the mask is the same last-wins override the per-node

@@ -31,16 +31,25 @@ Modes: ``"reference"`` is bug-compatible; ``"strict"`` is the corrected
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
 from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
+from kubernetesclustercapacity_tpu_torch.telemetry import (
+    compilewatch as _compilewatch,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
+from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+    enabled as _telemetry_enabled,
+)
 
 __all__ = [
     "AsyncFetch",
     "fetch",
+    "observed_fetch",
     "fit_per_node",
     "fit_per_node_multi",
     "fit_snapshot",
@@ -326,15 +335,17 @@ def sweep_grid_multi_staged(
     if max_per_node is not None:
         cap = np.asarray(max_per_node, dtype=np.int64)
         max_per_node = int(cap) if cap.ndim == 0 else put(cap)
-    out = sweep_grid_multi(
-        put(alloc_rn), put(used_rn), put(alloc_pods), put(pods_count),
-        put(healthy, bool), put(reqs_sr), put(replicas),
-        mode=mode,
-        node_masks=None if node_masks is None else put(node_masks, bool),
-        max_per_node=max_per_node,
-        return_per_node=return_per_node,
-    )
-    return tuple(o.cpu().numpy() for o in out)
+    t0 = time.perf_counter()
+    with _phases.current().live("device_exec"):
+        out = sweep_grid_multi(
+            put(alloc_rn), put(used_rn), put(alloc_pods), put(pods_count),
+            put(healthy, bool), put(reqs_sr), put(replicas),
+            mode=mode,
+            node_masks=None if node_masks is None else put(node_masks, bool),
+            max_per_node=max_per_node,
+            return_per_node=return_per_node,
+        )
+    return observed_fetch("torch_int64_multi", t0, out)
 
 
 def _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, *, mode, node_mask,
@@ -446,11 +457,13 @@ def sweep_grid_staged(
     mask = None
     if node_mask is not None:
         mask = _devcache.to_device(np.asarray(node_mask, dtype=bool), device)
-    out = sweep_grid(
-        *cols, *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
-        mode=mode, node_mask=mask, return_per_node=return_per_node,
-    )
-    return fetch(out, sync=sync)
+    t0 = time.perf_counter()
+    with _phases.current().live("device_exec"):
+        out = sweep_grid(
+            *cols, *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
+            mode=mode, node_mask=mask, return_per_node=return_per_node,
+        )
+    return observed_fetch("torch_int64", t0, out, sync=sync)
 
 
 def sweep_grouped_staged(
@@ -479,12 +492,15 @@ def sweep_grouped_staged(
     device = _devcache.resolve_device(device)
     cols = _devcache.CACHE.grouped_exact_tensors(grouped, device)
     counts = _devcache.to_device(grouped.effective_counts(node_mask), device)
-    out = sweep_grid_grouped(
-        *cols, counts,
-        *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
-        mode=mode, return_per_group=return_per_node,
-    )
-    out = fetch(out, sync=sync and not return_per_node)
+    t0 = time.perf_counter()
+    with _phases.current().live("device_exec"):
+        out = sweep_grid_grouped(
+            *cols, counts,
+            *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
+            mode=mode, return_per_group=return_per_node,
+        )
+    out = observed_fetch("torch_int64_grouped", t0, out,
+                         sync=sync or return_per_node)
     if not return_per_node:
         return out
     fits = grouped.expand(out[2])
@@ -577,6 +593,35 @@ def fetch(tensors, *, sync: bool = True) -> tuple:
         return tuple(t.cpu().numpy() for t in tensors)
     pending = AsyncFetch(tensors)
     return tuple(_AsyncView(pending, i) for i in range(len(pending._meta)))
+
+
+def observed_fetch(label: str, t0: float, tensors, *, sync: bool = True):
+    """:func:`fetch` for a dispatch launched at ``t0``, accounted for.
+
+    The request's phase clock gets ``device_exec`` (``t0`` until now, the
+    launch) and ``fetch`` (the copy and its wait), and compilewatch files
+    the whole host-timed interval under ``label``; a label's first
+    dispatch (the kernel build or library load on the card) is filed,
+    and clocked, as ``compile``.  An asynchronous fetch is neither timed
+    nor observed: its host interval excludes the device wait.
+    """
+    clk = _phases.current()
+    t_launch = time.perf_counter()
+    with clk.live("fetch"):
+        out = fetch(tensors, sync=sync)
+    if not sync:
+        return out
+    t_done = time.perf_counter()
+    kind = None
+    if _telemetry_enabled():
+        kind = _compilewatch.observe_dispatch(label, t_done - t0)
+    if clk:
+        if kind == "compile":
+            clk.record("compile", t_done - t0)
+        else:
+            clk.record("device_exec", t_launch - t0)
+            clk.record("fetch", t_done - t_launch)
+    return out
 
 
 def sweep_snapshot(
@@ -735,12 +780,17 @@ def sweep_quantiles_snapshot(
         grid.cpu_request_milli, grid.mem_request_bytes, grid.replicas, device
     )
     grouped = grouped_for_dispatch(snapshot)
+    clk = _phases.current()
     if grouped is not None:
-        out = sweep_quantiles_grouped(
-            *_devcache.CACHE.grouped_exact_tensors(grouped, device),
-            _devcache.to_device(grouped.effective_counts(node_mask), device),
-            *scen, mode=mode, q_indices=q_indices,
+        cols = _devcache.CACHE.grouped_exact_tensors(grouped, device)
+        counts = _devcache.to_device(
+            grouped.effective_counts(node_mask), device
         )
+        t0 = time.perf_counter()
+        with clk.live("device_exec"):
+            out = sweep_quantiles_grouped(
+                *cols, counts, *scen, mode=mode, q_indices=q_indices,
+            )
         kernel = "torch_int64_sweep_qtile_grouped"
     else:
         mask = None
@@ -748,9 +798,12 @@ def sweep_quantiles_snapshot(
             mask = _devcache.to_device(
                 np.asarray(node_mask, dtype=bool), device
             )
-        out = sweep_quantiles_grid(
-            *_devcache.CACHE.exact_tensors(snapshot, device), *scen,
-            mode=mode, q_indices=q_indices, node_mask=mask,
-        )
+        cols = _devcache.CACHE.exact_tensors(snapshot, device)
+        t0 = time.perf_counter()
+        with clk.live("device_exec"):
+            out = sweep_quantiles_grid(
+                *cols, *scen, mode=mode, q_indices=q_indices,
+                node_mask=mask,
+            )
         kernel = "torch_int64_sweep_qtile"
-    return (*(o.cpu().numpy() for o in out), kernel)
+    return (*observed_fetch(kernel, t0, out), kernel)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
 
 import numpy as np
 import torch
@@ -35,11 +36,12 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
-    fetch,
+    observed_fetch,
     sweep_grid_staged,
     sweep_grouped_staged,
 )
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 
 __all__ = [
     "LAUNCHES",
@@ -386,13 +388,15 @@ def _fused_label(device: torch.device, use_rcp: bool) -> str:
 
 def _fused_sweep(
     node_cols, cpu_reqs, mem_reqs, replicas, mask, counts, *, use_rcp,
-    strict, device, sync,
+    strict, device, sync, label,
 ):
     """Stage the scenario operands, run :func:`sweep_fused` and bring
     ``(totals, schedulable)`` to the host: at once under ``sync``, else as
     views over one pending copy (:func:`..fit.fetch`), the comparison
     with ``replicas`` then made on the device so that one copy carries
-    both."""
+    both.  A synchronous dispatch is clocked and observed under ``label``
+    (:func:`..fit.observed_fetch`)."""
+    t0 = time.perf_counter()
     cr = np.asarray(cpu_reqs, dtype=np.int64).astype(np.int32)
     mr = (np.asarray(mem_reqs, dtype=np.int64) // 1024).astype(np.int32)
     crr = mrr = None
@@ -409,20 +413,18 @@ def _fused_sweep(
         counts = _devcache.to_device(
             np.asarray(counts, dtype=np.int64).astype(np.int32), device
         )
-    totals = sweep_fused(
-        *node_cols,
-        _devcache.to_device(cr, device),
-        _devcache.to_device(mr, device),
-        crr, mrr, mask, counts,
-        strict=strict,
-    )
+    cr, mr = _devcache.to_device(cr, device), _devcache.to_device(mr, device)
+    with _phases.current().live("device_exec"):
+        totals = sweep_fused(
+            *node_cols, cr, mr, crr, mrr, mask, counts, strict=strict,
+        )
     if sync:
-        totals = totals.cpu().numpy()
+        (totals,) = observed_fetch(label, t0, (totals,))
         return totals, totals >= np.asarray(replicas, dtype=np.int64)
     replicas = _devcache.to_device(
         np.asarray(replicas, dtype=np.int64), device
     )
-    return fetch((totals, totals >= replicas), sync=False)
+    return observed_fetch(label, t0, (totals, totals >= replicas), sync=False)
 
 
 def sweep_auto(
@@ -470,13 +472,14 @@ def sweep_auto(
         use_rcp = rcp_division_eligible(
             alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_reqs, mem_reqs
         )
+        label = _fused_label(device, use_rcp)
         totals, schedulable = _fused_sweep(
             _devcache.CACHE.kernel_tensors(snapshot, device), cpu_reqs,
             mem_reqs, replicas, kernel_mask, None,
             use_rcp=use_rcp, strict=mode == "strict", device=device,
-            sync=sync,
+            sync=sync, label=label,
         )
-        return totals, schedulable, _fused_label(device, use_rcp)
+        return totals, schedulable, label
     totals, schedulable = sweep_grid_staged(
         *nodes, snapshot.healthy, cpu_reqs, mem_reqs, replicas, mode=mode,
         node_mask=node_mask, snapshot=snapshot, device=device, sync=sync,
@@ -520,13 +523,14 @@ def _sweep_auto_grouped(
             np.asarray(grouped.healthy, dtype=bool)
             if mode == "strict" else None
         )
+        label = _fused_label(device, use_rcp) + "_grouped"
         totals, schedulable = _fused_sweep(
             _devcache.CACHE.grouped_kernel_tensors(grouped, device),
             cpu_reqs, mem_reqs, grid.replicas, kernel_mask, counts,
             use_rcp=use_rcp, strict=mode == "strict", device=device,
-            sync=sync,
+            sync=sync, label=label,
         )
-        return totals, schedulable, _fused_label(device, use_rcp) + "_grouped"
+        return totals, schedulable, label
     totals, schedulable = sweep_grouped_staged(
         grouped, cpu_reqs, mem_reqs, grid.replicas,
         mode=mode, node_mask=node_mask, device=device, sync=sync,

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
+    observed_fetch,
     sweep_grid_multi_staged,
 )
 from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
@@ -43,6 +45,7 @@ from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
     plain_epilogue,
     scenario_reciprocals,
 )
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 
 __all__ = [
     "LAUNCHES",
@@ -402,13 +405,17 @@ def sweep_multi_auto(
             else:
                 kernel_mask = shared_mask
             use_rcp = rcp_multi_eligible(alloc_rn, used_rn, reqs_sr, scales)
+            label = _multi_label(device, use_rcp)
+            t0 = time.perf_counter()
             ops = stage_multi_operands(
                 alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr, scales,
                 kernel_mask, use_rcp=use_rcp, device=device,
             )
-            totals = sweep_multi(*ops, strict=mode == "strict").cpu().numpy()
+            with _phases.current().live("device_exec"):
+                totals = sweep_multi(*ops, strict=mode == "strict")
+            (totals,) = observed_fetch(label, t0, (totals,))
             schedulable = totals >= np.asarray(replicas, dtype=np.int64)
-            return totals, schedulable, _multi_label(device, use_rcp)
+            return totals, schedulable, label
     totals, schedulable = sweep_grid_multi_staged(
         alloc_rn, used_rn, alloc_pods, pods_count, healthy, reqs_sr,
         replicas, mode=mode, node_masks=node_masks,

@@ -8,6 +8,7 @@ costs one kernel dispatch:
 * :mod:`.protocol` — framing, byte-compatible with the JAX package's;
 * :mod:`.server`   — threaded TCP server dispatching to the kernels;
 * :mod:`.batching` — micro-batching: concurrent sweeps share one launch;
+* :mod:`.coalesce` — ``-follow``'s bounded-rate snapshot publisher;
 * :mod:`.client`   — Python client.
 
 Either package's client talks to either package's server.

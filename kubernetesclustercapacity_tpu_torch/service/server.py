@@ -11,8 +11,12 @@ generation fold into one launch (:mod:`.batching`).
 
 Ported ops: ``ping``, ``info``, ``fit`` (with the spec fields the port's
 ``PodSpec`` has), ``sweep`` (solo and folded), ``sweep_multi``,
-``explain``, ``reload`` and ``drain_server``, behind the auth token, the
-compute-slot bound and deadline shedding.  Replies equal the JAX server's
+``explain``, ``reload``, ``update`` (watch-style events applied through
+:class:`..store.ClusterStore`) and ``drain_server``, behind the auth
+token, the compute-slot bound and deadline shedding.  ``-follow`` keeps
+the served snapshot synced to a live cluster (:class:`..follower.
+ClusterFollower` → :class:`.coalesce.SnapshotCoalescer` → a publish that
+pre-stages the new generation on the card).  Replies equal the JAX server's
 apart from kernel labels (``cuda_``/``plain_``/``torch_int64`` for
 ``pallas_``/``xla_int64``) and volatile fields (latencies, ids).  Every
 other op of the protocol — and a fit or sweep carrying ``priority`` /
@@ -23,6 +27,8 @@ snapshot's shape, for clients that read it.
 
     python -m kubernetesclustercapacity_tpu_torch.service.server \\
         -snapshot tests/fixtures/kind-3node.json -port 7077 -device cpu
+    python -m kubernetesclustercapacity_tpu_torch.service.server \\
+        -follow -kubeconfig ~/.kube/config -port 7077
 """
 
 from __future__ import annotations
@@ -67,14 +73,14 @@ from kubernetesclustercapacity_tpu_torch.telemetry import (
     tracectx as _tracectx,
 )
 
-__all__ = ["CapacityServer", "UNPORTED_OPS", "main"]
+__all__ = ["CapacityServer", "UNPORTED_OPS", "follow_publisher", "main"]
 
 #: Ops of the protocol this server does not answer yet: each gets an
 #: error reply saying so.
 UNPORTED_OPS = frozenset(
     {
         "place", "drain", "topology_spread", "plan", "car", "forecast",
-        "gang", "optimize", "dump", "timeline", "slo", "update",
+        "gang", "optimize", "dump", "timeline", "slo",
     }
 )
 
@@ -248,6 +254,11 @@ class CapacityServer:
     ``device`` is where the snapshot's tensors live and the kernels run:
     ``"cuda"`` (the default) raises at construction where there is no
     card; ``"cpu"`` runs the kernels' plain versions on the host.
+
+    ``stats_source`` is an optional zero-arg callable returning a
+    JSON-able dict (the ``-follow`` wiring passes the follower's
+    :meth:`~..follower.ClusterFollower.stats`); it is surfaced under
+    ``info.resilience.follower``.
     """
 
     def __init__(
@@ -270,6 +281,7 @@ class CapacityServer:
         batch_max: int = 32,
         drain_timeout_s: float = 10.0,
         device="cuda",
+        stats_source=None,
     ) -> None:
         from kubernetesclustercapacity_tpu_torch.telemetry.flightrec import (
             FlightRecorder,
@@ -285,6 +297,7 @@ class CapacityServer:
         self._device = _devcache.resolve_device(device)
         self.snapshot = snapshot
         self.fixture = fixture
+        self._stats_source = stats_source
         self.registry = registry if registry is not None else MetricsRegistry()
         self._trace_log = (
             TraceLog(trace_log) if isinstance(trace_log, str) else trace_log
@@ -369,8 +382,12 @@ class CapacityServer:
         # under the dispatch lock, so replies and flight records say
         # which generation ANSWERED.
         self._dispatch_tls = threading.local()
-        # Served-state generation: bumped on every snapshot swap.
+        # Served-state generation: bumped on every snapshot swap
+        # (reload, update, replace_snapshot).
         self._generation = 1
+        self._store = None  # lazy ClusterStore, built on first update op
+        self._fixture_dirty = False  # fixture lags the store until needed
+        self._fixture_source = None  # lazy fixture provider (follower feed)
         self._implicit_mask = _implicit_taint_mask(snapshot)
         self._auth_token = auth_token
         self._max_inflight = max(1, int(max_inflight))
@@ -796,12 +813,47 @@ class CapacityServer:
 
     def _dispatch_inner(self, op: str, msg: dict) -> dict | str:
         # Capture the (snapshot, fixture, mask) triple once under the lock
-        # so a concurrent reload can never produce a torn read.
+        # so a concurrent reload/update can never produce a torn read.  The
+        # raw fixture is rebuilt from the store lazily — only when an op
+        # actually consumes it, not on every watch-event batch.
         with self._lock:
             snap = self.snapshot
-            fixture = self.fixture
-            implicit_mask = self._implicit_mask
             self._dispatch_tls.generation = self._generation
+            needs_fixture = op == "fit" and self._fit_consumes_fixture(
+                msg, snap.semantics
+            )
+            if needs_fixture and self._fixture_dirty and self._store is not None:
+                # Store-fed staleness rematerializes under the same lock
+                # hold that captured the snapshot: exact pairing (the
+                # fixture rebuilds from the state the snapshot came from).
+                self.fixture = self._store.fixture_view()
+                self._fixture_dirty = False
+            # A dirty fixture is NEVER served: consumers see None (and
+            # fall back to packed-array walks) rather than stale objects.
+            fixture = None if self._fixture_dirty else self.fixture
+            # Follower-fed publishes swap snapshots without a fixture;
+            # pull one lazily — but only for the anti-affinity mask, which
+            # correlates fixture to snapshot BY NODE NAME and tolerates
+            # the follower moving a little ahead of the published
+            # snapshot.  The reference cpu cross-check pairs fits to rows
+            # POSITIONALLY, so it keeps the packed-array fallback.
+            source = None
+            if (
+                needs_fixture
+                and fixture is None
+                and self._fixture_source is not None
+                and "anti_affinity_labels" in msg
+            ):
+                source = self._fixture_source
+            implicit_mask = self._implicit_mask
+        if source is not None:
+            # The O(N) deep copy runs OUTSIDE the dispatch lock (it also
+            # takes the follower's lock — holding both would stall every
+            # concurrent request AND watch-event application).
+            fixture = source()
+            with self._lock:
+                if self.snapshot is snap and self.fixture is None:
+                    self.fixture = fixture  # cache until the next publish
         if op == "info":
             return self._op_info(msg, snap)
         if op == "fit":
@@ -814,7 +866,35 @@ class CapacityServer:
             return self._op_explain(msg, snap, implicit_mask)
         if op == "reload":
             return self._op_reload(msg, snap)
+        if op == "update":
+            return self._op_update(msg)
         raise ValueError(f"unknown op {op!r}")
+
+    @staticmethod
+    def _fit_consumes_fixture(msg: dict, semantics: str) -> bool:
+        """The fit paths that read raw objects, not just packed arrays:
+        the reference cpu cross-check walk, and anti-affinity masks (pod
+        labels are not in the arrays).  Dispatch uses this to decide
+        whether a store-dirty fixture must be rematerialized."""
+        return (
+            (msg.get("backend") == "cpu" and semantics == "reference")
+            or "anti_affinity_labels" in msg
+        )
+
+    def _resilience_info(self) -> dict:
+        """``info``'s resilience section: deadline sheds, the (never
+        used) fast-path breaker, and — when a follower feeds this server —
+        its retry/backoff counters."""
+        out = {
+            "deadline_shed": int(self._m_shed.value),
+            "fast_path_breaker": _NEVER_OPEN.snapshot(),
+        }
+        if self._stats_source is not None:
+            try:
+                out["follower"] = self._stats_source()
+            except Exception as e:  # noqa: BLE001 - info must not fail
+                out["follower"] = {"error": f"{type(e).__name__}: {e}"}
+        return out
 
     def _op_info(self, msg: dict, snap: ClusterSnapshot) -> dict:
         out = {
@@ -822,10 +902,7 @@ class CapacityServer:
             "semantics": snap.semantics,
             "healthy_nodes": int(np.sum(snap.healthy)),
             "extended_resources": sorted(snap.extended),
-            "resilience": {
-                "deadline_shed": int(self._m_shed.value),
-                "fast_path_breaker": _NEVER_OPEN.snapshot(),
-            },
+            "resilience": self._resilience_info(),
             # The protocol feature handshake: what THIS server speaks.
             "capabilities": {
                 "protocol": 2,
@@ -1325,29 +1402,45 @@ class CapacityServer:
         snapshot: ClusterSnapshot,
         fixture: dict | None = None,
         *,
+        fixture_source=None,
         warm: bool = False,
     ) -> None:
-        """Atomically swap the served snapshot.
+        """Atomically swap the served snapshot (e.g. from a live follower).
+
+        ``fixture_source`` is an optional zero-arg callable yielding the
+        raw fixture for THIS snapshot on demand (the follower's
+        ``fixture_view``): publishers that swap snapshots at watch-event
+        rates pass the source instead of a materialized fixture, so the
+        O(N) deep copy is paid only when a fixture-consuming request
+        (anti-affinity) arrives.  Such a fixture reflects the follower's
+        CURRENT state, which may lead the served snapshot by the events
+        of one coalescer window.
 
         ``warm=True`` pre-stages the new snapshot's tensors AFTER the
-        swap, through :meth:`..devcache.DeviceCache.stage_replace` unless
-        ``KCCAP_DONATE=0``: columns equal to the retired snapshot's carry
-        over, changed ones are copied in place into its tensors where it
-        is safe, and a request arriving next finds them staged.  The
-        retired snapshot's cache entries are dropped either way, so its
-        device memory frees promptly.
+        swap, on the caller's thread (the coalescer's worker under
+        ``-follow``), through :meth:`..devcache.DeviceCache.stage_replace`
+        and :meth:`~..devcache.DeviceCache.warm` unless ``KCCAP_DONATE=0``:
+        columns equal to the retired snapshot's carry over, changed ones
+        are copied in place into its tensors where that is safe, and a
+        request arriving next finds them staged.  The retired snapshot's
+        cache entries are dropped either way, so its device memory frees
+        promptly.
         """
         mask = _implicit_taint_mask(snapshot)
         with self._lock:
             old = self.snapshot
             self.snapshot = snapshot
             self.fixture = fixture
+            self._fixture_source = fixture_source
+            self._store = None  # stale after a wholesale replace
+            self._fixture_dirty = False
             self._implicit_mask = mask
             self._generation += 1
         if old is snapshot:
             return
         if warm and _devcache.donate_enabled():
             _devcache.CACHE.stage_replace(old, snapshot, self._device)
+            _devcache.CACHE.warm(snapshot, self._device)
         else:
             _devcache.CACHE.invalidate(old)
             if warm:
@@ -1356,6 +1449,14 @@ class CapacityServer:
     def _op_reload(self, msg: dict, snap: ClusterSnapshot) -> dict:
         """``snap`` is the dispatch's lock-captured snapshot — reading
         ``self.snapshot`` here could tear against a concurrent reload."""
+        with self._lock:
+            if self._fixture_source is not None:
+                # Same rule as update: the next coalesced publish would
+                # silently clobber the reloaded state.
+                raise ValueError(
+                    "this server follows a live cluster (-follow); "
+                    "reload is only for file-backed servers"
+                )
         path = msg["path"]
         # An unspecified semantics keeps the CURRENTLY-SERVED packing; the
         # extended columns default to the served set under the SAME
@@ -1392,13 +1493,102 @@ class CapacityServer:
         self.replace_snapshot(new_snap, new_fixture, warm=True)
         return {"nodes": new_snap.n_nodes, "semantics": new_snap.semantics}
 
+    def _op_update(self, msg: dict) -> dict:
+        """Apply watch-style node/pod events to the served snapshot.
+
+        Incremental (per-row recompute via :class:`..store.ClusterStore`)
+        — the informer analog of the reference's full re-walk.  Events
+        apply in order; on a bad event the ops before it stay applied and
+        the served snapshot is re-synced to the store before the error
+        surfaces.  The retired snapshot's staging is dropped; the next
+        sweep stages the new generation.
+        """
+        from kubernetesclustercapacity_tpu_torch.store import ClusterStore
+
+        events = msg.get("events")
+        if not isinstance(events, list):
+            raise ValueError("update needs an 'events' list")
+        with self._lock:
+            if self._fixture_source is not None:
+                # A follower feeds this server: an op-side store would be
+                # clobbered by the next coalesced publish, silently
+                # discarding the client's events.  The cluster itself is
+                # the write surface here.
+                raise ValueError(
+                    "this server follows a live cluster (-follow); "
+                    "update events must go to the cluster, not the server"
+                )
+            if self._store is None:
+                if self.fixture is None:
+                    raise ValueError(
+                        "update needs a fixture-backed source (.json); "
+                        ".npz checkpoints carry no raw objects to update"
+                    )
+                self._store = ClusterStore(
+                    self.fixture,
+                    semantics=self.snapshot.semantics,
+                    extended_resources=tuple(sorted(self.snapshot.extended)),
+                )
+            old = self.snapshot
+            try:
+                self._store.apply(events)
+            finally:
+                snap = self.snapshot = self._store.snapshot()
+                self._fixture_dirty = True  # rebuilt on demand (cpu fit)
+                self._implicit_mask = _implicit_taint_mask(snap)
+                self._generation += 1
+        if old is not snap:
+            _devcache.CACHE.invalidate(old)
+        return {
+            "nodes": snap.n_nodes,
+            "healthy_nodes": int(np.sum(snap.healthy)),
+            "applied": len(events),
+        }
+
+
+def follow_publisher(server: CapacityServer, follower, *,
+                     coalesce_ms: int = 100):
+    """Wire a listed follower (``start(watch=False)``) to ``server``, then
+    start its watches.
+
+    Watch events are applied to the follower's store per row; snapshot
+    PUBLICATION (a repack and a swap into the server) is coalesced: the
+    first event flushes at once, bursts collapse to one trailing publish
+    per ``coalesce_ms`` window.  Each publish hands the server the
+    follower's snapshot with ``fixture_source=follower.fixture_view``
+    and ``warm=True``, so the new generation is pre-staged on the card on
+    the coalescer's worker thread.  A failing publish is fatal: it is
+    recorded in the returned list and stops the follower — answering from
+    a silently frozen snapshot is the one unacceptable outcome.  Returns
+    ``(coalescer, publish_fatal)``.
+    """
+    from kubernetesclustercapacity_tpu_torch.service.coalesce import (
+        SnapshotCoalescer,
+    )
+
+    publish_fatal: list[str] = []
+
+    def _publish_failed(err: str) -> None:
+        publish_fatal.append(err)
+        follower.stop()
+
+    coalescer = SnapshotCoalescer(
+        lambda: server.replace_snapshot(
+            follower.snapshot(),
+            fixture_source=follower.fixture_view,
+            warm=True,
+        ),
+        min_interval_s=max(coalesce_ms, 0) / 1e3,
+        on_error=_publish_failed,
+    )
+    follower.on_event = coalescer.notify
+    follower.start_watches()  # after wiring: no event can be missed
+    return coalescer, publish_fatal
+
 
 # The JAX server's flags for subsystems not ported yet (see the CLI's
 # table): each is declared, so using it exits 1 with "not yet ported".
 _UNPORTED_SERVER_FLAGS = (
-    ("-follow", "switch"),
-    ("-kubeconfig", "value"),
-    ("-coalesce-ms", "value"),
     ("-metrics-port", "value"),
     ("-profile-hz", "value"),
     ("-device-budget-bytes", "value"),
@@ -1437,6 +1627,11 @@ def build_parser():
     p = argparse.ArgumentParser(prog="kccap-torch-server")
     p.add_argument("-snapshot", default=None,
                    help="fixture .json / checkpoint .npz to serve")
+    p.add_argument("-follow", action="store_true",
+                   help="serve a live cluster and stay synced (list+watch)")
+    p.add_argument("-kubeconfig", default=None,
+                   help="kubeconfig for -follow (default: $KUBECONFIG or "
+                        "$HOME/.kube/config)")
     p.add_argument("-port", type=int, default=7077)
     p.add_argument("-host", default="127.0.0.1")
     p.add_argument("-semantics", choices=("reference", "strict"),
@@ -1446,6 +1641,9 @@ def build_parser():
                    help="comma-separated extra resource columns to pack "
                         "(strict semantics; e.g. nvidia.com/gpu,"
                         "ephemeral-storage) — enables sweep_multi over them")
+    p.add_argument("-coalesce-ms", type=int, default=100, dest="coalesce_ms",
+                   help="min interval between snapshot repacks under "
+                        "-follow churn (0 = repack on every event)")
     p.add_argument("-auth-token-file", default=None, dest="auth_token_file",
                    help="file holding the shared bearer token; when set (or "
                         "$KCCAP_AUTH_TOKEN is), every op except ping must "
@@ -1494,7 +1692,7 @@ def build_parser():
 
 def main(argv=None) -> int:
     """``python -m kubernetesclustercapacity_tpu_torch.service.server
-    -snapshot ... -port N``"""
+    -snapshot ... -port N`` (or ``-follow [-kubeconfig PATH]``)"""
     import signal
     import sys
 
@@ -1534,17 +1732,41 @@ def main(argv=None) -> int:
     extended = tuple(
         r.strip() for r in args.extended_resources.split(",") if r.strip()
     )
+    # One process registry feeds every layer — follower sync counters and
+    # server request metrics — so info {metrics: true} is the whole story.
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import REGISTRY
+
+    follower = None
     try:
-        if not args.snapshot:
-            raise ValueError("-snapshot is required (-follow is not yet "
-                             "ported to the PyTorch package)")
-        fixture, snap, _ = resolve_source(
-            args.snapshot, args.semantics, extended_resources=extended
-        )
+        if args.follow:
+            # The packers enforce the strict-only extended-columns rule as
+            # the backstop; checking argv here too avoids paying a full
+            # live-cluster LIST before a config error knowable up front.
+            if extended and (args.semantics or "reference") != "strict":
+                raise ValueError(
+                    "-extended-resources requires -semantics strict "
+                    "(reference semantics has no extended-column concept)"
+                )
+            from kubernetesclustercapacity_tpu_torch.follower import (
+                ClusterFollower,
+            )
+
+            follower = ClusterFollower(
+                args.kubeconfig,
+                semantics=args.semantics or "reference",
+                extended_resources=extended,
+                registry=REGISTRY,
+            ).start(watch=False)
+            snap, fixture = follower.snapshot(), follower.fixture_view()
+        elif args.snapshot:
+            fixture, snap, _ = resolve_source(
+                args.snapshot, args.semantics, extended_resources=extended
+            )
+        else:
+            raise ValueError("one of -snapshot or -follow is required")
     except Exception as e:  # noqa: BLE001 - one error line, exit 1
         print(f"ERROR : {e}", file=sys.stderr)
         return 1
-    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import REGISTRY
 
     server = CapacityServer(
         snap,
@@ -1561,7 +1783,16 @@ def main(argv=None) -> int:
         batch_window_ms=args.batch_window_ms,
         batch_max=args.batch_max,
         device=args.device,
+        # -follow: the follower's retry/backoff/degradation counters ride
+        # info's resilience section.
+        stats_source=follower.stats if follower is not None else None,
     )
+    coalescer = None
+    publish_fatal: list[str] = []
+    if follower is not None:
+        coalescer, publish_fatal = follow_publisher(
+            server, follower, coalesce_ms=args.coalesce_ms
+        )
 
     # Graceful shutdown: SIGTERM/SIGINT and the drain_server op all route
     # through begin_drain, then stop the serve loop on its own thread
@@ -1569,6 +1800,8 @@ def main(argv=None) -> int:
     def _stop_serving(record: dict) -> None:
         def _stop() -> None:
             time.sleep(0.25)  # let replies flush before teardown
+            if follower is not None:
+                follower.stop()
             server.shutdown()
 
         print(
@@ -1601,10 +1834,32 @@ def main(argv=None) -> int:
         file=sys.stderr,
     )
     try:
-        server.serve_forever()
+        if follower is None:
+            server.serve_forever()
+        else:
+            # Supervised serve: if the follower dies (fatal watch-thread
+            # failure, a failed publish, or a drain's teardown), the
+            # service stops WITH it — silently answering every query from
+            # a snapshot frozen at the failure instant is the one
+            # unacceptable outcome.
+            server.start()
+            while not follower.wait_stopped(1.0):
+                pass
+            if follower.fatal is not None:
+                print(f"ERROR : follower died: {follower.fatal}",
+                      file=sys.stderr)
+                return 2
+            if publish_fatal:
+                print(f"ERROR : snapshot publish failed: {publish_fatal[0]}",
+                      file=sys.stderr)
+                return 2
     except KeyboardInterrupt:
         pass
     finally:
+        if follower is not None:
+            follower.stop()
+        if coalescer is not None:
+            coalescer.stop()
         server.shutdown()
     return 0
 

@@ -20,8 +20,9 @@ Two ingestion semantics, pinned by SURVEY.md §2.4:
 
 :meth:`ClusterSnapshot.save` / :func:`load_snapshot` read and write the JAX
 package's ``.npz`` checkpoint format field for field.  The pod walks are
-the pure-Python loops (the JAX package's native C ingest is not ported),
-and the live-cluster source is not ported yet.
+the pure-Python loops (the JAX package's native C ingest is not ported).
+:func:`snapshot_from_live_cluster` lists a live apiserver (two paginated
+Lists, :mod:`.kubeapi`) and packs the result like a fixture.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ __all__ = [
     "ClusterSnapshot",
     "GroupedSnapshot",
     "snapshot_from_fixture",
+    "snapshot_from_live_cluster",
     "synthetic_snapshot",
     "load_snapshot",
     "grouping_enabled",
@@ -604,6 +606,26 @@ def _pack_reference(fixture: dict) -> ClusterSnapshot:
     )
 
 
+def container_cpu_error_payloads(pods) -> list[str]:
+    """Codec-error payloads of the pods' containers, in the reference
+    walk's emission order: per pod, per container, LIMITS before REQUESTS
+    (``ClusterCapacity.go:279-284``), one entry per failing occurrence.
+    The store's incremental rows use it; the columnar packer replays the
+    same payloads through its interned-quad vocabulary.
+    """
+    errs: list[str] = []
+    for pod in pods:
+        for c in pod.get("containers", []):
+            res = c.get("resources", {})
+            req = res.get("requests", {})
+            lim = res.get("limits", {})
+            for s in (lim.get("cpu", "0"), req.get("cpu", "0")):
+                p = _q.cpu_parse_error_payload(s)
+                if p is not None:
+                    errs.append(p)
+    return errs
+
+
 def _walk_pods_reference(pods):
     """Reference-mode pod walk: returns ``(interned, name_gid, pod_gids,
     c_gids, c_codes)`` — the insertion-ordered quad→code dict, the
@@ -774,6 +796,44 @@ def _walk_pods_strict(pods, index, extended_resources):
     return interned, pod_nodes, c_pod, c_codes, i_pod, i_codes
 
 
+def _effective_pod_resources(
+    pod: dict, extended_resources: tuple[str, ...]
+) -> dict:
+    """Scheduler-rule effective requests: ``max(sum(containers), max(inits))``.
+
+    The reference ignores init containers entirely (Q7); real kube-scheduler
+    reserves the max of the init-container peak and the steady-state sum.
+    The single-pod path of the store's watch-event updates.
+    """
+    cpu_req = cpu_lim = mem_req = mem_lim = 0
+    ext = dict.fromkeys(extended_resources, 0)
+    for c in pod.get("containers", []):
+        res = c.get("resources", {})
+        req, lim = res.get("requests", {}), res.get("limits", {})
+        cpu_req += _strict_parse(req.get("cpu"), milli=True)
+        cpu_lim += _strict_parse(lim.get("cpu"), milli=True)
+        mem_req += _strict_parse(req.get("memory"))
+        mem_lim += _strict_parse(lim.get("memory"))
+        for r in extended_resources:
+            ext[r] += _strict_parse(req.get(r))
+    for c in pod.get("initContainers", []):
+        res = c.get("resources", {})
+        req, lim = res.get("requests", {}), res.get("limits", {})
+        cpu_req = max(cpu_req, _strict_parse(req.get("cpu"), milli=True))
+        cpu_lim = max(cpu_lim, _strict_parse(lim.get("cpu"), milli=True))
+        mem_req = max(mem_req, _strict_parse(req.get("memory")))
+        mem_lim = max(mem_lim, _strict_parse(lim.get("memory")))
+        for r in extended_resources:
+            ext[r] = max(ext[r], _strict_parse(req.get(r)))
+    return {
+        "cpu_req": cpu_req,
+        "cpu_lim": cpu_lim,
+        "mem_req": mem_req,
+        "mem_lim": mem_lim,
+        "ext": ext,
+    }
+
+
 def _strict_healthy(conditions: list[dict]) -> bool:
     """Correct health predicate: Ready is True, no pressure condition is True."""
     ready = False
@@ -870,4 +930,89 @@ def synthetic_snapshot(
         pods_count=pods,
         healthy=np.ones(n_nodes, dtype=np.bool_),
         semantics="reference",
+    )
+
+
+def snapshot_from_live_cluster(
+    kubeconfig: str | None = None,
+    *,
+    semantics: str = "strict",
+    extended_resources: tuple[str, ...] = (),
+) -> ClusterSnapshot:
+    """Snapshot a live cluster: two paginated List calls (nodes and pods,
+    plus the optional PodDisruptionBudgets), then local packing — the
+    reference's ``1 + 2N + ΣP`` requests become three (SURVEY.md §3.4).
+
+    Uses the optional ``kubernetes`` package when it is installed (for its
+    wider auth-provider support), else the port's own stdlib client
+    (:mod:`.kubeapi`, PyYAML for the kubeconfig file).
+    ``extended_resources`` names extra columns to pack (strict only).
+    """
+    try:
+        from kubernetes import client, config  # type: ignore[import-not-found]
+    except ImportError:
+        from kubernetesclustercapacity_tpu_torch.kubeapi import live_fixture
+
+        return snapshot_from_fixture(
+            live_fixture(kubeconfig),
+            semantics=semantics,
+            extended_resources=extended_resources,
+        )
+
+    config.load_kube_config(config_file=kubeconfig)  # pragma: no cover
+    v1 = client.CoreV1Api()  # pragma: no cover
+
+    def paginate(list_fn):  # pragma: no cover
+        token = None
+        while True:
+            page = list_fn(limit=500, _continue=token)
+            yield from page.items
+            token = page.metadata._continue
+            if not token:
+                return
+
+    def serialize_containers(containers):  # pragma: no cover
+        out = []
+        for c in containers or []:
+            res = c.resources
+            out.append(
+                {
+                    "resources": {
+                        "requests": dict(res.requests or {}) if res else {},
+                        "limits": dict(res.limits or {}) if res else {},
+                    }
+                }
+            )
+        return out
+
+    fixture: dict = {"nodes": [], "pods": []}  # pragma: no cover
+    for n in paginate(v1.list_node):  # pragma: no cover
+        fixture["nodes"].append(
+            {
+                "name": n.metadata.name,
+                "allocatable": dict(n.status.allocatable or {}),
+                "conditions": [
+                    {"type": c.type, "status": c.status}
+                    for c in (n.status.conditions or [])
+                ],
+                "labels": dict(n.metadata.labels or {}),
+                "taints": [
+                    {"key": t.key, "value": t.value or "", "effect": t.effect}
+                    for t in (n.spec.taints or [])
+                ],
+            }
+        )
+    for p in paginate(v1.list_pod_for_all_namespaces):  # pragma: no cover
+        fixture["pods"].append(
+            {
+                "name": p.metadata.name,
+                "namespace": p.metadata.namespace,
+                "nodeName": p.spec.node_name or "",
+                "phase": p.status.phase,
+                "containers": serialize_containers(p.spec.containers),
+                "initContainers": serialize_containers(p.spec.init_containers),
+            }
+        )
+    return snapshot_from_fixture(  # pragma: no cover
+        fixture, semantics=semantics, extended_resources=extended_resources
     )

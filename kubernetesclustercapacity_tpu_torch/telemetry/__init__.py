@@ -9,8 +9,9 @@ and latency histograms into a :class:`~.metrics.MetricsRegistry`, whose
 protocol envelope; :mod:`.flightrec` keeps the last requests for
 post-incident dumps; :mod:`.phases` splits each request's latency into
 named phases; :mod:`.memledger` books the device tensors the service
-keeps resident.  The Prometheus endpoint, the SLO monitor, the sampling
-profiler and compile watching are not ported yet.
+keeps resident; :mod:`.compilewatch` splits each kernel label's first
+dispatch (its build or load) from the steady state.  The Prometheus
+endpoint, the SLO monitor and the sampling profiler are not ported yet.
 
 Hot-path rule: all instrumentation lives on the host around kernel
 dispatch, and the dispatch-side hooks honor :func:`~.metrics.enabled` so

@@ -173,7 +173,8 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
          "-plan, -optimize: not yet ported"),
         (["-snapshot", KIND, "-gang-spec", "gang.yaml", "-grid", "4"],
          "-gang-spec: not yet ported"),
-        (["-grid", "4"], "live-cluster source is not yet ported"),
+        (["-snapshot", KIND, "-timeline", "audit-dir"],
+         "-timeline: not yet ported"),
     ],
 )
 def test_unported_surfaces_say_so(argv, needle, capsys):
@@ -181,6 +182,26 @@ def test_unported_surfaces_say_so(argv, needle, capsys):
     assert rc == 1
     assert needle in out and out.startswith("ERROR : ")
     assert out.rstrip().endswith("...exiting")
+
+
+@pytest.mark.parametrize("extra", [[], ["-semantics", "strict"],
+                                   ["-extended-request", "nvidia.com/gpu=1"]],
+                         ids=["reference", "strict", "extended-reference"])
+def test_live_source_without_snapshot_is_ported(extra, tmp_path, capsys):
+    """No -snapshot: the port lists the live cluster of -kubeconfig as the
+    JAX CLI does (here a missing file, so both print the same error and
+    hint lines); it never answers "not yet ported"."""
+    argv = ["-kubeconfig", str(tmp_path / "absent"), "-grid", "4", *extra]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert j_rc == t_rc == 1
+    assert t_out == j_out
+    assert "not yet ported" not in t_out
+    if extra[:1] == ["-extended-request"]:
+        assert t_out.startswith("ERROR : extended resources require strict")
+    else:
+        assert t_out.startswith("ERROR : cannot snapshot live cluster: ")
+        assert t_out.splitlines()[1].startswith("hint: ")
 
 
 EXT_SOURCES = [

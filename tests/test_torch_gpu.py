@@ -443,3 +443,152 @@ def test_stage_replace_copies_in_place_on_the_card(cuda):
             assert torch.equal(a, b)
     audit = memledger.LEDGER.reconcile()
     assert audit["allocated_bytes"] >= audit["tracked_cuda_bytes"] > 0
+
+
+# -- the live cluster on the card: update and -follow publishes --------------
+
+def _pod_events(fixture, n, seed, *, gpus=False):
+    """``n`` seeded pod ADDED events on random nodes of ``fixture``."""
+    rng = np.random.default_rng(seed)
+    names = [node["name"] for node in fixture["nodes"]]
+    events = []
+    for i in range(n):
+        requests = {"cpu": f"{int(rng.integers(50, 2000))}m",
+                    "memory": f"{int(rng.integers(64, 2048))}Mi"}
+        if gpus:
+            requests["nvidia.com/gpu"] = str(int(rng.integers(0, 2)))
+        events.append({"type": "ADDED", "kind": "Pod", "object": {
+            "name": f"live-{seed}-{i}", "namespace": "default",
+            "nodeName": names[int(rng.integers(len(names)))],
+            "phase": "Running",
+            "containers": [{"resources": {"requests": requests,
+                                          "limits": requests}}],
+        }})
+    return events
+
+
+def test_update_then_sweep_launches_b1_once(cuda):
+    fixture = synthetic_fixture(3_000, seed=40, taint_frac=0.1)
+    snap = snapshot_from_fixture(fixture)
+    card = _serve(snap, fixture=fixture, batch_window_ms=0)
+    host = _serve(snap, fixture=fixture, batch_window_ms=0, device="cpu")
+    try:
+        msg = {"op": "sweep", "random": {"n": 500, "seed": 41}}
+        for batch in range(3):
+            update = {"op": "update",
+                      "events": _pod_events(fixture, 100, 42 + batch)}
+            assert _ask(card, update) == _ask(host, update)
+            before = ff.LAUNCHES
+            got = _ask(card, msg)
+            assert ff.LAUNCHES - before == 1
+            assert got["result"]["kernel"] == "cuda_i32_rcp_fused"
+            assert got["generation"] == batch + 2
+            assert got["result"]["totals"] == _ask(host, msg)["result"][
+                "totals"]
+    finally:
+        card.shutdown()
+        host.shutdown()
+
+
+class _StoreFollower:
+    """Stands in for a ``ClusterFollower`` (no apiserver): a store whose
+    applied events notify the publisher exactly as watch events do."""
+
+    def __init__(self, store):
+        self.store = store
+        self.on_event = None
+
+    def snapshot(self):
+        return self.store.snapshot()
+
+    def fixture_view(self):
+        return self.store.fixture_view()
+
+    def start_watches(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def apply(self, events):
+        for event in events:
+            self.store.apply_event(event)
+            self.on_event(event["kind"], event["type"], event["object"])
+
+
+def _follow(fixture, **store_kw):
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        follow_publisher,
+    )
+    from kubernetesclustercapacity_tpu_torch.store import ClusterStore
+
+    follower = _StoreFollower(ClusterStore(fixture, **store_kw))
+    server = _serve(follower.snapshot(), batch_window_ms=0)
+    coalescer, fatal = follow_publisher(server, follower, coalesce_ms=0)
+    return follower, server, coalescer, fatal
+
+
+def test_follow_publish_restages_and_the_next_sweep_reads_it(cuda):
+    from kubernetesclustercapacity_tpu_torch import devcache
+
+    fixture = synthetic_fixture(3_000, seed=43)
+    follower, server, coalescer, fatal = _follow(fixture)
+    try:
+        msg = {"op": "sweep", "random": {"n": 500, "seed": 44}}
+        _ask(server, msg)  # stages generation 1's kernel form
+        before = devcache.CACHE.stats()["stage_replace"]
+        follower.apply(_pod_events(fixture, 50, 45))
+        assert coalescer.stop(timeout=120)
+        assert coalescer.last_error is None and fatal == []
+        moved = {k: v - before[k] for k, v in
+                 devcache.CACHE.stats()["stage_replace"].items()}
+        assert moved["reused"] + moved["copied"] >= 1
+        launches = ff.LAUNCHES
+        got = _ask(server, msg)
+        assert ff.LAUNCHES - launches == 1
+        want = sweep_snapshot_auto(
+            snapshot_from_fixture(follower.fixture_view()),
+            random_scenario_grid(500, seed=44), device="cpu")
+        assert got["result"]["totals"] == want[0].tolist()
+        assert got["generation"] == server.generation > 1
+    finally:
+        server.shutdown()
+
+
+def test_strict_follow_sweep_multi_launches_b2_once(cuda):
+    from kubernetesclustercapacity_tpu_torch import sweep_multi_auto
+
+    fixture = synthetic_fixture(3_000, seed=46, taint_frac=0.1)
+    for i, node in enumerate(fixture["nodes"]):
+        node["allocatable"]["nvidia.com/gpu"] = str(i % 9)
+    follower, server, coalescer, fatal = _follow(
+        fixture, semantics="strict", extended_resources=("nvidia.com/gpu",))
+    try:
+        follower.apply(_pod_events(fixture, 80, 47, gpus=True))
+        assert coalescer.stop(timeout=120)
+        assert coalescer.last_error is None and fatal == []
+        rng = np.random.default_rng(48)
+        requests = [[int(rng.integers(100, 2000)),
+                     int(rng.integers(64, 4096)) << 20,
+                     int(rng.integers(0, 3))] for _ in range(300)]
+        msg = {"op": "sweep_multi",
+               "resources": ["cpu", "memory", "nvidia.com/gpu"],
+               "requests": requests}
+        before = fm.LAUNCHES
+        got = _ask(server, msg)
+        assert fm.LAUNCHES - before == 1
+        assert got["result"]["kernel"] == "cuda_multi_i32_rcp_fused"
+        snap = snapshot_from_fixture(follower.fixture_view(),
+                                     semantics="strict",
+                                     extended_resources=("nvidia.com/gpu",))
+        from kubernetesclustercapacity_tpu_torch import implicit_taint_mask
+
+        alloc_rn, used_rn = snap.resource_matrix(tuple(msg["resources"]))
+        want = sweep_multi_auto(
+            alloc_rn, used_rn, snap.alloc_pods, snap.pods_count,
+            snap.healthy, np.asarray(requests), np.ones(300, np.int64),
+            mode="strict", node_masks=implicit_taint_mask(snap),
+            force_exact=True, device="cpu")
+        assert got["result"]["totals"] == want[0].tolist()
+    finally:
+        server.shutdown()

@@ -59,7 +59,10 @@ def test_the_scan_is_not_vacuous():
                    "service/client.py", "service/protocol.py",
                    "resilience.py", "telemetry/memledger.py",
                    "telemetry/phases.py", "utils/timing.py",
-                   "utils/threads.py", "timeline/alerts.py"):
+                   "utils/threads.py", "timeline/alerts.py", "store.py",
+                   "kubeapi.py", "follower.py", "pdb.py",
+                   "service/coalesce.py", "telemetry/compilewatch.py",
+                   "utils/guards.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -136,6 +139,24 @@ _BLOCKED_RUN = textwrap.dedent(
             service_ping = client.ping()
     finally:
         server.shutdown()
+    from kubernetesclustercapacity_tpu_torch import follower, kubeapi
+    from kubernetesclustercapacity_tpu_torch.service import coalesce
+    from kubernetesclustercapacity_tpu_torch.store import ClusterStore
+    from kubernetesclustercapacity_tpu_torch.utils.guards import (
+        checked_fit_totals,
+    )
+
+    store = ClusterStore(fx, semantics="strict")
+    store.apply([{"type": "DELETED", "kind": "Node",
+                  "object": {"name": fx["nodes"][0]["name"]}}])
+    live = [store.n_nodes, kubeapi.node_to_fixture({})["name"],
+            follower.ClusterFollower.__name__,
+            coalesce.SnapshotCoalescer.__name__,
+            checked_fit_totals(snap.alloc_cpu_milli, snap.alloc_mem_bytes,
+                               snap.alloc_pods, snap.used_cpu_req_milli,
+                               snap.used_mem_req_bytes, snap.pods_count,
+                               snap.healthy, 100, 1 << 20,
+                               device="cpu") > 0]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -150,6 +171,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       single.getvalue(),
                       "model_total": model_total,
                       "service": [service_ping, service_kernel],
+                      "live": live,
                       "loaded": loaded}))
     """
 )
@@ -175,6 +197,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "single_spec": True,
         "model_total": doc["model_total"],
         "service": ["pong", "plain_i32_rcp_fused_grouped"],
+        "live": [19, "", "ClusterFollower", "SnapshotCoalescer", True],
         "loaded": [],
     }
     assert doc["total"] > 0 and doc["model_total"] > 0

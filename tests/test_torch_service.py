@@ -405,11 +405,39 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_server_main_rejects_unported_flags_with_exit_1(capsys):
     from kubernetesclustercapacity_tpu_torch.service import server
 
-    rc = server.main(["-snapshot", KIND, "-follow", "-metrics-port", "9"])
+    rc = server.main(["-snapshot", KIND, "-profile-hz", "5",
+                      "-metrics-port", "9"])
     err = capsys.readouterr().err
     assert rc == 1
-    assert err == ("ERROR : -follow, -metrics-port: not yet ported to the "
-                   "PyTorch package ...exiting\n")
+    assert err == ("ERROR : -metrics-port, -profile-hz: not yet ported to "
+                   "the PyTorch package ...exiting\n")
+
+
+def test_live_cluster_surfaces_are_ported(tmp_path):
+    """``update`` is answered (not "not yet ported") exactly as the JAX
+    server answers it, and -follow, -kubeconfig and -coalesce-ms are real
+    flags of the port's server."""
+    from kubernetesclustercapacity_tpu_torch.service import server
+
+    assert "update" not in UNPORTED_OPS
+    assert {"-follow", "-kubeconfig", "-coalesce-ms"}.isdisjoint(
+        f for f, _ in server._UNPORTED_SERVER_FLAGS)
+    args = server.build_parser().parse_args(
+        ["-follow", "-kubeconfig", "kc", "-coalesce-ms", "5"])
+    assert (args.follow, args.kubeconfig, args.coalesce_ms) == (True, "kc", 5)
+    j, t = _pair(KIND, "reference", (), batch_window_ms=0)
+    try:
+        node = json.load(open(KIND))["nodes"][0]["name"]
+        msg = {"op": "update", "events": [{
+            "type": "ADDED", "kind": "Pod", "object": {
+                "name": "new", "namespace": "default", "nodeName": node,
+                "phase": "Running", "containers": [{"resources": {
+                    "requests": {"cpu": "1", "memory": "1Gi"}}}]}}]}
+        for request in (msg, REQUESTS["sweep-random"], REQUESTS["info"]):
+            j_reply, t_reply = _both((j, t), request)
+            assert t_reply["ok"] and _norm(t_reply) == _norm(j_reply)
+    finally:
+        _stop(j, t)
 
 
 def test_server_main_knows_every_jax_server_flag():
