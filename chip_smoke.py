@@ -22,12 +22,17 @@ the same widths (``sweep`` one launch of B1, ``sweep_multi`` one of B2, 8
 concurrent sweeps folded into fewer than 8 launches, ``reload``, ``fit``
 and ``explain``), with each op's latency.  Path (m) drives the live
 cluster at 5,000 nodes and 150,000 pods through a mock apiserver in this
-process: the CLI without ``-snapshot``, 31 ``update`` batches of a
-3,100-event churn stream, and two ``-follow`` servers (follower →
+process: the CLI without ``-snapshot``, 6 ``update`` batches of a
+600-event churn stream, and two ``-follow`` servers (follower →
 coalescer → a publish pre-staged on the card) taking the same stream on
 their watch; every sweep after a change launches B1 once, the strict
 server's ``sweep_multi`` B2 once, each equal to the exact program on a
-full repack.  Any failure raises, so the script exits nonzero without
+full repack.  Path (n) drives scheduler fidelity at 10,000 nodes: the
+placement scans on the card against the host engines, ``drain`` with its
+disruption-budget gate (and ``-drain`` through the CLI), preemption,
+topology spread and scale planning (B1 twice), and the service's
+``place``/``drain``/``topology_spread``/``plan`` and priority ops.  Any
+failure raises, so the script exits nonzero without
 its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
@@ -1722,24 +1727,32 @@ def live_fixture_source(pkg) -> dict:
     return fixture
 
 
+# The churn stream's depth.  It was 3,100 events (1,000 pods of each kind,
+# 80 nodes modified, 10 swapped) until path (n) was added; it is cut to
+# 600 so that the whole script stays within a minute of its length
+# before (n).
+CHURN_PODS, CHURN_NODES_MODIFIED, CHURN_NODES_SWAPPED = 192, 14, 5
+
+
 def churn_events(fixture: dict, seed: int = 9) -> list[dict]:
-    """One seeded stream of 3,100 watch events in the store's schema,
-    shuffled: 1,000 pods ADDED Running on random nodes, 1,000 existing
-    pods DELETED, 1,000 existing Running pods MODIFIED to Succeeded, 80
-    nodes MODIFIED (a pressure condition flipped, or allocatable changed),
-    10 nodes ADDED and 10 DELETED.  The object sets are disjoint, so the
-    final state does not depend on how the stream interleaves kinds."""
+    """One seeded stream of 600 watch events in the store's schema,
+    shuffled: 192 pods ADDED Running on random nodes, 192 existing pods
+    DELETED, 192 existing Running pods MODIFIED to Succeeded, 14 nodes
+    MODIFIED (a pressure condition flipped, or allocatable changed), 5
+    nodes ADDED and 5 DELETED.  The object sets are disjoint, so the final
+    state does not depend on how the stream interleaves kinds."""
     rng = np.random.default_rng(seed)
     nodes, pods = fixture["nodes"], fixture["pods"]
     names = [n["name"] for n in nodes]
     running = [i for i, p in enumerate(pods)
                if p["phase"] == "Running" and p.get("nodeName")]
-    picked = rng.choice(len(running), 2_000, replace=False)
-    deleted = [pods[running[i]] for i in picked[:1_000]]
-    finished = [pods[running[i]] for i in picked[1_000:]]
-    node_ix = rng.choice(len(nodes), 90, replace=False)
+    picked = rng.choice(len(running), 2 * CHURN_PODS, replace=False)
+    deleted = [pods[running[i]] for i in picked[:CHURN_PODS]]
+    finished = [pods[running[i]] for i in picked[CHURN_PODS:]]
+    node_ix = rng.choice(len(nodes), CHURN_NODES_MODIFIED
+                         + CHURN_NODES_SWAPPED, replace=False)
     events = []
-    for i in range(1_000):
+    for i in range(CHURN_PODS):
         requests = {"cpu": f"{int(rng.integers(50, 2000))}m",
                     "memory": f"{int(rng.integers(64, 4096))}Mi"}
         if rng.random() < 0.25:
@@ -1755,7 +1768,7 @@ def churn_events(fixture: dict, seed: int = 9) -> list[dict]:
                for p in deleted]
     events += [{"type": "MODIFIED", "kind": "Pod",
                 "object": dict(p, phase="Succeeded")} for p in finished]
-    for k, i in enumerate(node_ix[:80]):
+    for k, i in enumerate(node_ix[:CHURN_NODES_MODIFIED]):
         node = json.loads(json.dumps(nodes[int(i)]))
         if k % 2:
             cond = node["conditions"][1]
@@ -1763,8 +1776,9 @@ def churn_events(fixture: dict, seed: int = 9) -> list[dict]:
         else:
             node["allocatable"]["cpu"] = str(int(rng.integers(4, 97)))
         events.append({"type": "MODIFIED", "kind": "Node", "object": node})
-    for i in range(10):
-        node = json.loads(json.dumps(nodes[int(node_ix[80 + i])]))
+    for i in range(CHURN_NODES_SWAPPED):
+        node = json.loads(json.dumps(
+            nodes[int(node_ix[CHURN_NODES_MODIFIED + i])]))
         events.append({"type": "DELETED", "kind": "Node", "object": node})
         joiner = json.loads(json.dumps(nodes[int(rng.integers(len(nodes)))]))
         joiner["name"] = f"joiner-{i}"
@@ -1879,7 +1893,7 @@ def phase_live(pkg, cli, fit, ff, fm, tmp: str, identity: str) -> dict:
     and (g)'s single spec with ``-output reference``, each equal to the
     CLI with ``-snapshot`` on the same cluster written as ``.json``.
     (m2) a ``CapacityServer`` on that ``.json`` takes the churn stream
-    through ``CapacityClient`` as 31 ``update`` batches of 100; after each,
+    through ``CapacityClient`` as 6 ``update`` batches of 100; after each,
     a ``sweep`` of ``random_scenario_grid(1000, seed=7)`` launches B1 once
     and equals the exact program (card and host) on a full repack of the
     same events applied to a ``ClusterStore``.  (m3) a server fed by a
@@ -2040,8 +2054,8 @@ def phase_live(pkg, cli, fit, ff, fm, tmp: str, identity: str) -> dict:
                              repack, grid, doc["totals"], mode="reference",
                              mask=None)
         final_totals = doc["totals"]
-        out["launches"]["sweep_fit"]["(m2) 31 sweeps after update"] = \
-            m2_launches
+        out["launches"]["sweep_fit"][
+            f"(m2) {len(update_s)} sweeps after update"] = m2_launches
         out["times"]["store_events_per_s"] = len(events) / store_s
         out["times"]["update_events_per_s"] = len(events) / sum(update_s)
         out["times"]["update_first_batch_s"] = update_s[0]
@@ -2053,7 +2067,8 @@ def phase_live(pkg, cli, fit, ff, fm, tmp: str, identity: str) -> dict:
         out["times"]["quiet_publish"]["columns"] = {
             k: sum(c[k] for c in quiet["columns"])
             for k in ("reused", "copied", "restaged")}
-        log(f"(m2) 31 update batches of 100 ({len(events)} events): after "
+        log(f"(m2) {len(update_s)} update batches of 100 ({len(events)} "
+            f"events): after "
             f"each, sweep 1000 launched B1 once ({m2_launches} in all) and "
             f"equalled the exact program on the card and the host on a full "
             f"repack; events applied per second: store alone "
@@ -2227,6 +2242,459 @@ def phase_live(pkg, cli, fit, ff, fm, tmp: str, identity: str) -> dict:
             server.shutdown()
         for m in mocks:
             m.close()
+    return out
+
+
+# --- Path (n): scheduler fidelity ----------------------------------------
+# (b)'s strict 10,000-node fixture with what scheduling reads beyond the
+# packed columns: a pod priority (the admission-resolved pod.spec.priority
+# of three PriorityClasses), an app label per pod and 40 PodDisruptionBudgets
+# over those labels.  The template is m5.xlarge-shaped (README "Library").
+SCHED_NODES = 10_000
+SCHED_TEMPLATE = {"allocatable": {"cpu": "4", "memory": "16777216Ki",
+                                  "pods": "110"}}
+SCHED_SPEC = {"cpu_request_milli": 500, "mem_request_bytes": 512 * MIB}
+SCHED_WIRE = {"cpuRequests": "500m", "memRequests": "512mb"}
+POLICIES = ("first-fit", "best-fit", "spread")
+
+
+def scheduling_fixture(pkg, n: int = SCHED_NODES) -> dict:
+    """``synthetic_fixture(n, seed=3, taint_frac=0.1)`` as a seeded copy
+    (seed 10): each pod gets a priority from {0, 1000, 100000} and an
+    ``app`` label from 32 apps; 40 PDBs select apps 0-31 in one namespace
+    each (apps 0-7 twice, so their pods are covered twice), with zero
+    allowance (``minAvailable: 100%``), one (``maxUnavailable: 1``),
+    slack (``minAvailable: 1``) or ``maxUnavailable: 10%``."""
+    fixture = pkg.synthetic_fixture(n, seed=3, taint_frac=0.1)
+    rng = np.random.default_rng(10)
+    pods = fixture["pods"]
+    prio = rng.choice(np.array([0, 1000, 100000]), len(pods))
+    app = rng.integers(0, 32, len(pods))
+    for pod, p, a in zip(pods, prio.tolist(), app.tolist()):
+        pod["priority"] = p
+        pod["labels"] = {"app": f"app-{a}"}
+    namespaces = sorted({p.get("namespace", "") for p in pods})
+    allowance = (("minAvailable", "100%"), ("maxUnavailable", 1),
+                 ("minAvailable", 1), ("maxUnavailable", "10%"))
+    fixture["pdbs"] = [
+        {"name": f"pdb-{k}", "namespace": namespaces[k % 32 % len(namespaces)],
+         "selector": {"matchLabels": {"app": f"app-{k % 32}"}},
+         allowance[k % 4][0]: allowance[k % 4][1]}
+        for k in range(40)
+    ]
+    return fixture
+
+
+def strict_fits_numpy(ac, am, ap, uc, um, pc, healthy, mask, c, m):
+    """The strict fit of one spec in plain numpy: per resource
+    ``(alloc - used) // request`` where used < alloc, the min, clamped to
+    the free pod slots and 0, zero on unhealthy and masked nodes."""
+    cpu = np.where(ac > uc, (ac - uc) // c, 0)
+    mem = np.where(am > um, (am - um) // m, 0)
+    fit = np.minimum(np.minimum(cpu, mem), np.maximum(ap - pc, 0))
+    fit = np.maximum(fit, 0)
+    return np.where(healthy & (True if mask is None else mask), fit, 0)
+
+
+def spread_reference(cols, c, m, zone, n_zones, n_replicas, policy,
+                     max_skew, mask):
+    """The zone-skew greedy in plain numpy, one step at a time: the
+    feasible node whose zone stays within ``max_skew`` of the least-filled
+    zone, first-fit by index, best-fit by least and spread by most
+    normalized headroom after the placement (``np.argmin``: first
+    minimum)."""
+    ac, am, ap, uc, um, pc, healthy = (np.asarray(x) for x in cols)
+    hc, hm = ac - uc, am - um
+    slots = np.maximum(ap - pc, 0)
+    ok_node = healthy & mask & (zone >= 0)
+    counts = np.zeros(n_zones, dtype=np.int64)
+    out = []
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for _ in range(n_replicas):
+            zone_ok = counts[np.maximum(zone, 0)] + 1 - counts.min() \
+                <= max_skew
+            feas = (hc >= c) & (hm >= m) & (slots >= 1) & ok_node & zone_ok
+            if policy == "first-fit":
+                score = np.arange(len(hc), dtype=np.float64)
+            else:
+                after = (np.where(ac > 0, (hc - c) / ac, 0.0)
+                         + np.where(am > 0, (hm - m) / am, 0.0))
+                score = after if policy == "best-fit" else -after
+            masked = np.where(feas, score, np.inf)
+            i = int(np.argmin(masked))
+            if not np.isfinite(masked[i]):
+                out.append(-1)
+                continue
+            hc[i] -= c
+            hm[i] -= m
+            slots[i] -= 1
+            counts[zone[i]] += 1
+            out.append(i)
+    return np.asarray(out, dtype=np.int64)
+
+
+def host_blocked(pkg_pdb, fixture, keys):
+    """The eviction API's point-in-time gate, walked on the host: a pod
+    covered by two or more PDBs of its namespace, or by one with no
+    allowed disruption, is blocked."""
+    statuses = pkg_pdb.budget_statuses(fixture)
+    pods = {f"{p.get('namespace', '')}/{p.get('name', '')}": p
+            for p in fixture["pods"]}
+    out = {}
+    for key in keys:
+        pod = pods[key]
+        covering = [
+            s for s, doc in zip(statuses, fixture["pdbs"])
+            if s.namespace == pod.get("namespace", "") and all(
+                (pod.get("labels") or {}).get(k) == v
+                for k, v in doc["selector"]["matchLabels"].items())
+        ]
+        if len(covering) >= 2 or (covering and
+                                  covering[0].allowed_disruptions <= 0):
+            out[key] = [s.name for s in covering]
+    return out
+
+
+def run_cli_rc(cli, argv: list[str]) -> tuple[int, str]:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_scheduling(pkg, cli, fit, ff, fm, tmp: str, identity: str,
+                     device: str = "cuda", n: int = SCHED_NODES) -> dict:
+    """Path (n): scheduler fidelity on :func:`scheduling_fixture`, strict,
+    through the library, the CLI and the service, each device program on
+    the card held against a host engine.
+
+    (n1) ``place`` under each policy: the scan at 256 replicas equals the
+    trace engine's and ``place_replicas_python``'s order; the trace and
+    bulk engines at 5,000 agree, and every count is ``min(R, Σ strict
+    fits)`` of the exact program.  (n2) the zone-skew scan at 256 equals a
+    numpy reference; ``place_replicas_multi`` on (e)'s config-4 fixture
+    with ``nvidia.com/gpu=1`` equals the trace engine and (best-fit)
+    ``place_replicas_multi_python``.  (n3) ``drain`` of the busiest node
+    under each policy equals ``place_pods_python`` and the host PDB walk;
+    ``-drain`` through the CLI on the fixture as ``.json`` equals the
+    ``-device cpu`` text byte for byte.  (n4) ``evaluate(priority=1000)``
+    and ``sweep_preemption`` of 1,000 equal a numpy loop over the
+    scenarios on the same tables.  (n5) ``topology_spread(_grid)`` and
+    ``nodes_needed(_grid)`` of 1,000 (B1 launches counted) equal the exact
+    program and the host.  (n6) a server on the fixture answers ``place``,
+    ``drain``, ``topology_spread``, ``plan``, ``fit`` with ``priority`` and
+    ``sweep`` with ``priorities`` as the library does, 20 warm requests of
+    each."""
+    from kubernetesclustercapacity_tpu_torch import pdb as pkg_pdb
+    from kubernetesclustercapacity_tpu_torch.ops import placement as pl
+    from kubernetesclustercapacity_tpu_torch.ops import preemption as pre
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.topology.model import (
+        label_codes,
+    )
+
+    out = {"ms": {}, "launches": {"sweep_fit": {}, "sweep_multi": {}}}
+    card = device != "cpu"
+
+    def timed(name, fn, runs=5, warmup=1):
+        out["ms"][name] = host_median_ms(fn, runs=runs, warmup=warmup) \
+            if card else 0.0
+        return out["ms"][name]
+
+    t0 = time.perf_counter()
+    fixture = scheduling_fixture(pkg, n)
+    snap = pkg.snapshot_from_fixture(fixture, semantics="strict")
+    mask = pkg.implicit_taint_mask(snap)
+    model = pkg.CapacityModel(snap, mode="strict", fixture=fixture,
+                              device=device)
+    host = pkg.CapacityModel(snap, mode="strict", fixture=fixture,
+                             device="cpu")
+    cols = (snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+            snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+            snap.pods_count, snap.healthy)
+    c, m = SCHED_SPEC["cpu_request_milli"], SCHED_SPEC["mem_request_bytes"]
+    exact_total = int(fit.fit_snapshot(snap, c, m, mode="strict",
+                                       node_mask=mask, device=device).sum())
+    log(f"(n) fixture: {n} nodes, {len(fixture['pods'])} pods, "
+        f"{len(fixture['pdbs'])} PDBs, built and packed in "
+        f"{time.perf_counter() - t0:.2f} s; strict total for 500m/512Mi "
+        f"{exact_total}")
+
+    # (n1) place under each policy, each engine forced.
+    for policy in POLICIES:
+        scan = model.place(pkg.PodSpec(**SCHED_SPEC, replicas=256),
+                           policy=policy, assignments=True)
+        kw = dict(n_replicas=256, policy=policy, node_mask=mask)
+        trace, _, _ = pl.place_replicas_trace(*cols, c, m, **kw)
+        py, _ = pl.place_replicas_python(*cols, c, m, **kw)
+        if scan.engine != "scan" or not np.array_equal(scan.assignments,
+                                                       trace) \
+                or not np.array_equal(scan.assignments, py):
+            raise AssertionError(f"(n1) {policy}: the scan's order differs "
+                                 "from the trace engine or the host walk")
+        big = pkg.PodSpec(**SCHED_SPEC, replicas=5000)
+        tr = model.place(big, policy=policy, assignments="trace")
+        bulk = model.place(big, policy=policy, assignments=False)
+        for r, res in ((256, scan), (5000, tr), (5000, bulk)):
+            if int(res.per_node.sum()) != min(r, exact_total):
+                raise AssertionError(f"(n1) {policy} {res.engine}: placed "
+                                     f"{int(res.per_node.sum())}, want "
+                                     f"min({r}, {exact_total})")
+        if not np.array_equal(tr.per_node, bulk.per_node):
+            raise AssertionError(f"(n1) {policy}: trace and bulk differ")
+        spec256 = pkg.PodSpec(**SCHED_SPEC, replicas=256)
+        ms = timed(f"(n1) scan 256 {policy}", lambda: model.place(
+            spec256, policy=policy, assignments=True))
+        timed(f"(n1) trace 5000 {policy}", lambda: model.place(
+            big, policy=policy, assignments="trace"))
+        timed(f"(n1) bulk 5000 {policy}", lambda: model.place(
+            big, policy=policy, assignments=False))
+        log(f"(n1) place {policy}: scan 256 = trace = host walk, "
+            f"{ms:.3f} ms ({ms / 256 * 1e3:.1f} us per step); trace/bulk "
+            f"5000 {out['ms'][f'(n1) trace 5000 {policy}']:.3f} / "
+            f"{out['ms'][f'(n1) bulk 5000 {policy}']:.3f} ms; counts "
+            f"min(R, {exact_total}) (host clock, median of 5; {identity})")
+
+    # (n2) the zone-skew scan, and the R-resource scan on config 4.
+    zone, zones, _ = label_codes(snap.labels, "zone", missing="exclude",
+                                 eligible=snap.healthy, n_nodes=n)
+    for policy in POLICIES:
+        spec = pkg.PodSpec(**SCHED_SPEC, replicas=256)
+        res = model.place(spec, policy=policy, topology_key="zone",
+                          max_skew=1)
+        want = spread_reference(cols, c, m, zone, len(zones), 256, policy, 1,
+                                np.ones(n, bool) if mask is None else mask)
+        cap = model.topology_spread(spec, topology_key="zone").total
+        if not np.array_equal(res.assignments, want) or \
+                res.placed != min(256, cap):
+            raise AssertionError(f"(n2) zone spread {policy}: differs from "
+                                 "the numpy reference")
+        ms = timed(f"(n2) zone scan 256 {policy}", lambda: model.place(
+            spec, policy=policy, topology_key="zone", max_skew=1))
+        log(f"(n2) place topology_key=zone max_skew=1 {policy}: scan 256 = "
+            f"numpy reference, placed {res.placed}, {ms:.3f} ms "
+            f"({ms / 256 * 1e3:.1f} us per step; {identity})")
+    c4 = pkg.snapshot_from_fixture(config4_fixture(pkg, n),
+                                   semantics="strict",
+                                   extended_resources=EXTENDED)
+    resources = ("cpu", "memory", "nvidia.com/gpu")
+    alloc_rn, used_rn = c4.resource_matrix(resources)
+    margs = (alloc_rn, used_rn, c4.alloc_pods, c4.pods_count, c4.healthy,
+             np.array([c, m, 1]))
+    mmask = pkg.implicit_taint_mask(c4)
+    for policy in POLICIES:
+        kw = dict(n_replicas=256, policy=policy, node_mask=mmask)
+        got, counts = pl.place_replicas_multi(*margs, device=device, **kw)
+        trace, t_counts, _ = pl.place_replicas_trace_multi(*margs, **kw)
+        if not (np.array_equal(got, trace) and
+                np.array_equal(counts, t_counts)):
+            raise AssertionError(f"(n2) multi {policy}: scan != trace")
+        if policy == "best-fit":
+            py, _ = pl.place_replicas_multi_python(*margs, **kw)
+            if not np.array_equal(got, py):
+                raise AssertionError("(n2) multi best-fit: scan != host walk")
+        ms = timed(f"(n2) multi scan 256 {policy}", lambda: (
+            pl.place_replicas_multi(*margs, device=device, **kw)))
+        log(f"(n2) place_replicas_multi {policy} config 4, nvidia.com/gpu=1:"
+            f" scan 256 = trace engine"
+            f"{' = host walk' if policy == 'best-fit' else ''}, placed "
+            f"{int((got >= 0).sum())}, {ms:.3f} ms ({identity})")
+
+    # (n3) drain the node with the most counted pods.
+    counted = {}
+    for p in fixture["pods"]:
+        if p.get("nodeName") and p.get("phase") not in ("Succeeded",
+                                                        "Failed"):
+            counted[p["nodeName"]] = counted.get(p["nodeName"], 0) + 1
+    node = min(counted, key=lambda k: (-counted[k], k))
+    by_key = {f"{p.get('namespace', '')}/{p.get('name', '')}": p
+              for p in fixture["pods"]}
+    for policy in POLICIES:
+        t0 = time.perf_counter()
+        plan = model.drain(node, policy=policy)
+        ms = out["ms"][f"(n3) drain {policy}"] = \
+            (time.perf_counter() - t0) * 1e3
+        effs = [pkg.snapshot._effective_pod_resources(by_key[k], ())
+                for k in plan.pods]
+        dmask = np.ones(n, bool) if mask is None else mask.copy()
+        dmask[snap.names.index(node)] = False
+        want, _ = pl.place_pods_python(
+            *cols, [e["cpu_req"] for e in effs],
+            [e["mem_req"] for e in effs], policy=policy, node_mask=dmask)
+        names = [snap.names[i] if i >= 0 else None for i in want]
+        if plan.assignments != names or len(plan.pods) != counted[node] or \
+                plan.blocked != host_blocked(pkg_pdb, fixture, plan.pods):
+            raise AssertionError(f"(n3) drain {policy}: differs from "
+                                 "place_pods_python or the host PDB walk")
+        log(f"(n3) drain {node} ({len(plan.pods)} pods) {policy}: = "
+            f"place_pods_python, {len(plan.blocked)} blocked = host PDB "
+            f"walk, evictable {plan.evictable}, {ms:.3f} ms (one call; "
+            f"{identity})")
+    path = os.path.join(tmp, "n.json")
+    pkg.save_fixture(fixture, path)
+    argv = ["-snapshot", path, "-semantics", "strict", "-drain", node]
+    t0 = time.perf_counter()
+    rc, text = run_cli_rc(cli, argv + ["-device", device])
+    out["ms"]["(n3) -drain CLI"] = (time.perf_counter() - t0) * 1e3
+    rc_cpu, text_cpu = run_cli_rc(cli, argv + ["-device", "cpu"])
+    if (rc, text) != (rc_cpu, text_cpu) or not text.startswith(
+            f"drain {node}: {counted[node]} pod(s)"):
+        raise AssertionError("(n3) -drain: the card's text differs from "
+                             "-device cpu")
+    log(f"(n3) -drain {node} through the CLI on the .json: exit {rc}, "
+        f"{len(text)} bytes equal to -device cpu, "
+        f"{out['ms']['(n3) -drain CLI']:.1f} ms ({identity})")
+
+    # (n4) preemption: one spec, then 1,000 scenarios.
+    table = pre.build_priority_table(fixture, snap)
+    res = model.evaluate(pkg.PodSpec(**SCHED_SPEC, priority=1000))
+    k = table.column_index(1000)
+    want = strict_fits_numpy(*cols[:3], table.used_cpu_ge[:, k],
+                             table.used_mem_ge[:, k], table.pods_ge[:, k],
+                             snap.healthy, mask, c, m)
+    if not np.array_equal(res.fits, want) or res.total <= exact_total:
+        raise AssertionError("(n4) evaluate(priority=1000): differs from "
+                             "the numpy fit on the table")
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    prio = np.random.default_rng(11).choice(
+        np.array([-1, 0, 1, 999, 1000, 1001, 100000, 200000]), grid.size)
+    totals, sched = model.sweep_preemption(grid, prio)
+    want = np.empty(grid.size, dtype=np.int64)
+    for s in range(grid.size):
+        k = table.column_index(int(prio[s]))
+        want[s] = strict_fits_numpy(
+            *cols[:3], table.used_cpu_ge[:, k], table.used_mem_ge[:, k],
+            table.pods_ge[:, k], snap.healthy, mask,
+            int(grid.cpu_request_milli[s]),
+            int(grid.mem_request_bytes[s])).sum()
+    if not (np.array_equal(totals, want)
+            and np.array_equal(sched, want >= grid.replicas)):
+        raise AssertionError("(n4) sweep_preemption: differs from the "
+                             "numpy loop over scenarios")
+    ev = timed("(n4) evaluate priority", lambda: model.evaluate(
+        pkg.PodSpec(**SCHED_SPEC, priority=1000)))
+    sw = timed("(n4) sweep_preemption 1000", lambda: model.sweep_preemption(
+        grid, prio))
+    log(f"(n4) evaluate(priority=1000) total {res.total} (> {exact_total} "
+        f"without preemption) {ev:.3f} ms; sweep_preemption 1000 x {n} "
+        f"= numpy loop, {sw:.3f} ms ({identity})")
+
+    # (n5) topology spread and scale planning; the plan asks for 10,000
+    # replicas more than the cluster holds.
+    spec = pkg.PodSpec(**SCHED_SPEC, replicas=exact_total + 10_000)
+    ts = model.topology_spread(spec, topology_key="zone")
+    if ts.zones != host.topology_spread(spec, topology_key="zone").zones:
+        raise AssertionError("(n5) topology_spread: card != host")
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    tg = model.topology_spread_grid(grid, topology_key="zone")
+    if (ff.LAUNCHES, fm.LAUNCHES) != (0, 0):
+        raise AssertionError("(n5) topology_spread_grid launched a kernel")
+    hg = host.topology_spread_grid(grid, topology_key="zone")
+    for s in (0, 499, 999):
+        one = host.topology_spread(pkg.PodSpec(
+            cpu_request_milli=int(grid.cpu_request_milli[s]),
+            mem_request_bytes=int(grid.mem_request_bytes[s])),
+            topology_key="zone").total
+        if int(tg[0][s]) != one:
+            raise AssertionError(f"(n5) topology_spread_grid[{s}] != "
+                                 "topology_spread")
+    if not (np.array_equal(tg[0], hg[0]) and np.array_equal(tg[1], hg[1])):
+        raise AssertionError("(n5) topology_spread_grid: card != host")
+    plan = model.nodes_needed(spec, SCHED_TEMPLATE)
+    if dataclasses.asdict(plan) != dataclasses.asdict(
+            host.nodes_needed(spec, SCHED_TEMPLATE)) or \
+            not plan.nodes_needed:
+        raise AssertionError("(n5) nodes_needed: card != host")
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    needed = model.nodes_needed_grid(grid, SCHED_TEMPLATE)
+    launches = (ff.LAUNCHES, fm.LAUNCHES)
+    out["launches"]["sweep_fit"]["(n5) nodes_needed_grid"] = launches[0]
+    if card and launches != (2, 0):
+        raise AssertionError(f"(n5) nodes_needed_grid: launches {launches}, "
+                             "want B1 twice (cluster, template)")
+    tmpl = pkg.snapshot_from_fixture(
+        {"nodes": [dict(SCHED_TEMPLATE, name="template-node", conditions=[
+            {"type": "Ready", "status": "True"}])], "pods": []},
+        semantics="strict")
+    cur = ff.sweep_snapshot_auto(snap, grid, mode="strict", kernel="exact",
+                                 node_mask=mask, device=device)[0]
+    per = ff.sweep_snapshot_auto(tmpl, grid, mode="strict", kernel="exact",
+                                 device=device)[0]
+    deficit = grid.replicas - cur
+    want = np.where(deficit <= 0, 0, np.where(
+        per > 0, -(-deficit // np.maximum(per, 1)), -1))
+    if not np.array_equal(needed, want):
+        raise AssertionError("(n5) nodes_needed_grid: differs from the "
+                             "exact program's closed form")
+    t1 = timed("(n5) topology_spread", lambda: model.topology_spread(
+        spec, topology_key="zone"))
+    t2 = timed("(n5) topology_spread_grid 1000", lambda: (
+        model.topology_spread_grid(grid, topology_key="zone")))
+    t3 = timed("(n5) nodes_needed", lambda: model.nodes_needed(
+        spec, SCHED_TEMPLATE))
+    t4 = timed("(n5) nodes_needed_grid 1000", lambda: (
+        model.nodes_needed_grid(grid, SCHED_TEMPLATE)))
+    log(f"(n5) topology_spread total {ts.total} over {len(ts.zones)} zones "
+        f"{t1:.3f} ms; grid 1000 = host {t2:.3f} ms; nodes_needed "
+        f"{plan.nodes_needed} (per node {plan.per_node_fit}) {t3:.3f} ms; "
+        f"grid 1000 = exact closed form, B1 launches {launches[0]}, "
+        f"{t4:.3f} ms ({identity})")
+
+    # (n6) the service.
+    server = CapacityServer(snap, fixture=fixture, device=device,
+                            batch_window_ms=0)
+    server.start()
+    try:
+        with CapacityClient(*server.address, connect_timeout_s=60,
+                            timeout_s=300, retry=None) as client:
+            spec256 = pkg.PodSpec(**SCHED_SPEC, replicas=256)
+            lib_place = model.place(spec256, policy="best-fit",
+                                    assignments=True)
+            lib_drain = model.drain(node)
+            lib_ts = model.topology_spread(spec, topology_key="zone")
+            lib_plan = model.nodes_needed(spec, SCHED_TEMPLATE)
+            lib_fit = model.evaluate(pkg.PodSpec(**SCHED_SPEC, priority=1000))
+            ops = {
+                "place": (lambda: client.place(
+                    **SCHED_WIRE, replicas="256", policy="best-fit"),
+                    lambda r: r["assignments"] == [
+                        snap.names[i] if i >= 0 else None
+                        for i in lib_place.assignments.tolist()]),
+                "drain": (lambda: client.drain(node),
+                          lambda r: r["assignments"] == lib_drain.assignments
+                          and r["blocked"] == lib_drain.blocked),
+                "topology_spread": (lambda: client.topology_spread(
+                    "zone", **SCHED_WIRE, replicas=str(spec.replicas)),
+                    lambda r: r["zones"] == lib_ts.zones
+                    and r["total"] == lib_ts.total),
+                "plan": (lambda: client.plan(
+                    SCHED_TEMPLATE, **SCHED_WIRE, replicas=str(spec.replicas)),
+                    lambda r: r["nodes_needed"] == lib_plan.nodes_needed
+                    and r["current_total"] == lib_plan.current_total),
+                "fit priority": (lambda: client.fit(
+                    **SCHED_WIRE, replicas="5000", priority=1000),
+                    lambda r: r["fits"] == lib_fit.fits.tolist()),
+                "sweep priorities": (lambda: client.sweep(
+                    random={"n": 1000, "seed": 7}, priorities=prio.tolist()),
+                    lambda r: r["totals"] == totals.tolist()
+                    and r["schedulable"] == sched.tolist()),
+            }
+            for name, (call, check) in ops.items():
+                res = timed_requests(call)
+                if not check(res["reply"]):
+                    raise AssertionError(f"(n6) {name}: the reply differs "
+                                         "from the library call")
+                out["ms"][f"(n6) {name}"] = res["median_ms"]
+                out["ms"][f"(n6) {name} p90"] = res["p90_ms"]
+                log(f"(n6) service {name}: = the library call, "
+                    f"{res['median_ms']:.3f} ms median, p90 "
+                    f"{res['p90_ms']:.3f} (host clock, 20 warm requests; "
+                    f"{identity})")
+    finally:
+        server.shutdown()
     return out
 
 
@@ -2447,6 +2915,10 @@ def main() -> int:
                                 tmp, identity)
     with tempfile.TemporaryDirectory() as tmp:
         live = phase_live(pkg, cli, fit, ff, fm, tmp, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (m)")
+    with tempfile.TemporaryDirectory() as tmp:
+        sched = phase_scheduling(pkg, cli, fit, ff, fm, tmp, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (n)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -2471,6 +2943,8 @@ def main() -> int:
         "service_launches": service["launches"],
         "live": live["times"],
         "live_launches": live["launches"],
+        "scheduling_ms": sched["ms"],
+        "scheduling_launches": sched["launches"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -2482,7 +2956,8 @@ def main() -> int:
         "launches": sum(main_launches.values())
         + sum(model["launches"]["sweep_fit"].values())
         + sum(service["launches"]["sweep_fit"].values())
-        + sum(live["launches"]["sweep_fit"].values()),
+        + sum(live["launches"]["sweep_fit"].values())
+        + sum(sched["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2505,7 +2980,8 @@ def main() -> int:
         "launches": sum(multi_paths["launches"].values())
         + sum(model["launches"]["sweep_multi"].values())
         + sum(service["launches"]["sweep_multi"].values())
-        + sum(live["launches"]["sweep_multi"].values()),
+        + sum(live["launches"]["sweep_multi"].values())
+        + sum(sched["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

@@ -21,20 +21,25 @@ L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
              cluster; the six reference flags; every other flag of the JAX
              CLI declared)
 L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
-             kernel B1, ``sweep_multi`` on kernel B2), :mod:`.explain`
+             kernel B1, ``sweep_multi`` on kernel B2, and scheduler
+             fidelity: ``place``, ``drain``, ``topology_spread``,
+             ``nodes_needed``, preemption), :mod:`.explain`
              (binding attribution, marginals, the fused sweep+explain)
 L2 report    :mod:`.report` (the reference transcript, JSON, tables),
              :mod:`.oracle` (the sequential bug-for-bug walk)
 L1 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
              :mod:`.scenario`, :mod:`.masks`, :mod:`.utils.quantity`,
              :mod:`.store` (per-row incremental repack), :mod:`.kubeapi`
-             (the stdlib apiserver client), :mod:`.pdb`
+             (the stdlib apiserver client), :mod:`.pdb` (the
+             disruption-budget gate), :mod:`.topology` (label domains)
 L0 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel B1
              in ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
              R-resource sweep, kernel B2 in ``csrc/sweep_multi.cu``),
              :mod:`.ops.fit` (the exact int64 programs and the fused
              sweep+explain / sweep+quantile programs, ``sweep_snapshot``
-             and its async fetch), :mod:`.devcache` (device-resident
+             and its async fetch), :mod:`.ops.placement` (the placement
+             scans), :mod:`.ops.preemption` (priority-threshold tables
+             and the preemptive sweep), :mod:`.devcache` (device-resident
              columns, re-staged in place on a snapshot swap)
 ===========  ===============================================================
 

@@ -4,7 +4,9 @@ a sweep of them.
 Counterpart of ``kubernetesclustercapacity_tpu/cli.py`` (its flag layer
 and dispatch, ``:544-609``, ``_run_explain``, ``:1575-1604``,
 ``_extended_names`` / ``_parse_extended_requests`` / ``_run_single`` /
-``_emit_report``, ``:1701-1873``, and ``_run_grid``, ``:1876-1983``).
+``_emit_report``, ``:1701-1873``, ``_run_grid``, ``:1876-1983``,
+``_run_drain``, ``:1606-1641``, and ``_run_drain_server``,
+``:1217-1249``).
 The reference's six flags parse exactly as there
 (``ClusterCapacity.go:50-83``), so an invalid memory or replicas value
 prints the reference's fatal line.  Then, for one spec, it prints the
@@ -14,7 +16,11 @@ binding attribution and marginals instead; a random ``-grid N`` sweep runs
 through :func:`..ops.fused_fit.sweep_snapshot_auto`, or, with
 ``-extended-request NAME=QTY``, through the R-resource
 :func:`..ops.fused_multi.sweep_multi_auto`, and prints the same JSON or
-table as the JAX CLI apart from the kernel label.
+table as the JAX CLI apart from the kernel label.  ``-drain NODE``
+prints the rehoming plan of a ``kubectl drain`` (strict semantics, each
+pod placed with its own requests, the disruption-budget gate; exit 1 when
+the node is not evictable), and ``-drain-server HOST:PORT`` drains a
+running capacity server.
 
 The source is ``-snapshot`` (a fixture ``.json`` or a checkpoint
 ``.npz``) or, without it, the live cluster of ``-kubeconfig`` (default
@@ -25,9 +31,9 @@ is the pure-Python oracle, the reference's sequential walk, as a
 cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
 ``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
 other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
-native``) and the drain, CaR, forecast, plan, gang, optimize, timeline,
-replay, doctor, profiling and federation surfaces are not ported yet and
-say so with exit 1.
+native``) and the CaR, forecast, plan, gang, optimize, timeline, replay,
+doctor, profiling and federation surfaces are not ported yet and say so
+with exit 1.
 
 Examples::
 
@@ -40,6 +46,8 @@ Examples::
         -snapshot cluster.npz -grid 1000 -semantics strict \\
         -extended-request nvidia.com/gpu=1 \\
         -extended-request ephemeral-storage=10Gi -output json
+    python -m kubernetesclustercapacity_tpu_torch.cli \
+        -snapshot cluster.json -semantics strict -drain node-7
 """
 
 from __future__ import annotations
@@ -58,8 +66,6 @@ __all__ = ["main", "build_parser", "load_source", "run"]
 # declared, so using it prints a "not yet ported" line and exits 1 (the
 # JAX CLI would run; argparse would exit 2 on an unknown flag).
 _UNPORTED_FLAGS = (
-    ("-drain", "value"),
-    ("-drain-policy", "value"),
     ("-doctor", "switch"),
     ("-doctor-timeout", "value"),
     ("-doctor-service", "value"),
@@ -90,8 +96,6 @@ _UNPORTED_FLAGS = (
     ("-dump", "value"),
     ("-dump-limit", "value"),
     ("-dump-tenant", "value"),
-    ("-drain-server", "value"),
-    ("-drain-timeout-s", "value"),
     ("-plane-status", "value"),
     ("-fed-status", "value"),
     ("-fed-sweep", "value"),
@@ -204,6 +208,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mean nodes per distinct node shape required before "
                         "sweeps run over node-shape groups (default 2, or "
                         "KCCAP_GROUP_MIN_COUNT)")
+    p.add_argument("-drain", default="", metavar="NODE",
+                   help="simulate kubectl drain: rehome NODE's pods (each "
+                        "with its own requests) onto the remaining nodes "
+                        "and print the plan; exit 1 if any pod cannot be "
+                        "rehomed (strict semantics, fixture/live sources)")
+    p.add_argument("-drain-policy", dest="drain_policy", default="best-fit",
+                   choices=("first-fit", "best-fit", "spread"),
+                   help="bin-packing policy for -drain rehoming")
+    p.add_argument("-drain-server", default=None, dest="drain_server",
+                   metavar="HOST:PORT",
+                   help="gracefully drain a running capacity server: it "
+                        "stops accepting compute/mutation ops, finishes "
+                        "in-flight work and emits its final drain record; "
+                        "prints the drain record and exits 1 if in-"
+                        "flight work outlived the timeout")
+    p.add_argument("-drain-timeout-s", type=float, default=None,
+                   dest="drain_timeout_s", metavar="SECONDS",
+                   help="with -drain-server: how long the server may "
+                        "wait for in-flight work (default: the "
+                        "server's own -drain-timeout-s)")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
     add_unported_flags(p, _UNPORTED_FLAGS)
@@ -231,6 +255,10 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(
         _split_single_dash_eq(sys.argv[1:] if argv is None else list(argv))
     )
+    unported = unported_flags_used(args, _UNPORTED_FLAGS)
+    if args.drain_server and not unported:
+        # A one-shot diagnostic, as in the JAX CLI: no spec, no source.
+        return _run_drain_server(args)
     try:
         scenario = scenario_from_flags(
             cpuRequests=args.cpuRequests,
@@ -243,7 +271,6 @@ def main(argv: list[str] | None = None) -> int:
         # The reference prints an ERROR line and exits 1 (:68-83).
         print(e.reference_line or f"ERROR : {e} ...exiting")
         return 1
-    unported = unported_flags_used(args, _UNPORTED_FLAGS)
     if args.backend == "native":
         unported.append("-backend native")
     if unported:
@@ -274,11 +301,14 @@ def main(argv: list[str] | None = None) -> int:
 
 def run(args, fixture, snapshot, scenario) -> int:
     """Everything after the source: the checkpoint, then the one surface
-    the flags ask for (``-explain``, ``-grid`` or the single spec)."""
+    the flags ask for (``-drain``, ``-explain``, ``-grid`` or the single
+    spec)."""
     if args.save_snapshot:
         snapshot.save(args.save_snapshot)
         print(f"snapshot checkpointed to {args.save_snapshot}",
               file=sys.stderr)
+    if args.drain:
+        return _run_drain(args, fixture, snapshot)
     if args.explain:
         return _run_explain(args, snapshot, scenario)
     if args.grid > 0:
@@ -292,8 +322,10 @@ def load_source(args, *, client=None):
     Returns ``(fixture, snapshot)``, or ``(None, None)`` after printing
     the error line.  A live source lists through ``client`` (a
     :class:`~.kubeapi.KubeClient`) when one is given, else through the
-    cluster of ``-kubeconfig``; either way the fixture is not kept (only
-    the JAX CLI's ``-drain`` reads it).
+    cluster of ``-kubeconfig``.  Only ``-drain`` reads a live source's
+    fixture: then ONE listing gives both the fixture and the packed
+    snapshot, so eviction candidates and target headroom are the same
+    instant of the cluster; otherwise the fixture is not kept.
     """
     from kubernetesclustercapacity_tpu_torch.snapshot import (
         snapshot_from_fixture,
@@ -326,13 +358,14 @@ def load_source(args, *, client=None):
               "(reference semantics has no extended-column concept)")
         return None, None
     try:
-        if client is not None:
+        if client is not None or args.drain:
             from kubernetesclustercapacity_tpu_torch.kubeapi import (
                 live_fixture,
             )
 
-            return None, snapshot_from_fixture(
-                live_fixture(client=client), semantics=args.semantics,
+            fixture = live_fixture(args.kubeconfig or None, client=client)
+            return fixture if args.drain else None, snapshot_from_fixture(
+                fixture, semantics=args.semantics,
                 extended_resources=extended,
             )
         return None, snapshot_from_live_cluster(
@@ -409,6 +442,106 @@ def _run_explain(args, snapshot, scenario) -> int:
     else:
         print(explain_table_report(result))
     return 0
+
+
+def _run_drain(args, fixture, snapshot) -> int:
+    """-drain NODE: print the rehoming plan; exit by the verdict."""
+    from kubernetesclustercapacity_tpu_torch.models import CapacityModel
+
+    if args.semantics != "strict":
+        print("ERROR : -drain requires strict semantics "
+              "(-semantics strict)")
+        return 1
+    # Live sources arrive WITH their fixture (load_source lists once for
+    # both); only an .npz checkpoint leaves it None, and the model's own
+    # error explains that limitation.
+    try:
+        model = CapacityModel(snapshot, mode="strict", fixture=fixture,
+                              device=args.device)
+        plan = model.drain(args.drain, policy=args.drain_policy)
+    except ValueError as e:
+        print(f"ERROR : {e}")
+        return 1
+    print(f"drain {plan.node}: {len(plan.pods)} pod(s) to rehome "
+          f"(policy {plan.policy})")
+    for pod, target in plan.by_pod().items():
+        line = f"  {pod:<48} -> {target if target else 'UNPLACEABLE'}"
+        if pod in plan.blocked:
+            line += f"  [BLOCKED by PDB {', '.join(plan.blocked[pod])}]"
+        print(line)
+    if plan.evictable:
+        print(f"verdict: {plan.node} is evictable")
+        return 0
+    stuck = sum(1 for a in plan.assignments if a is None)
+    reasons = []
+    if stuck:
+        reasons.append(f"{stuck} pod(s) cannot be rehomed")
+    if plan.blocked:
+        reasons.append(
+            f"{len(plan.blocked)} pod(s) blocked by disruption budgets"
+        )
+    print(f"verdict: {plan.node} is NOT evictable ({'; '.join(reasons)})")
+    return 1
+
+
+def _parse_addr(flag_name: str, value: str):
+    """``HOST:PORT`` → ``(host, port)`` or ``None`` (error printed)."""
+    host, _, port = value.rpartition(":")
+    try:
+        return (host or "127.0.0.1", int(port))
+    except ValueError:
+        print(f"ERROR : bad {flag_name} {value!r} (want HOST:PORT)",
+              file=sys.stderr)
+        return None
+
+
+def _diag_client(addr):
+    """The short-budget client every one-shot diagnostic flag uses."""
+    from kubernetesclustercapacity_tpu_torch.resilience import RetryPolicy
+    from kubernetesclustercapacity_tpu_torch.service.client import (
+        CapacityClient,
+    )
+
+    return CapacityClient(
+        *addr,
+        connect_timeout_s=5.0,
+        timeout_s=10.0,
+        retry=RetryPolicy(max_attempts=2, base_delay_s=0.1),
+        deadline_s=10.0,
+    )
+
+
+def _run_drain_server(args) -> int:
+    """-drain-server HOST:PORT: trigger a graceful drain over the wire
+    and print the server's drain record.  Exits by the verdict: 0 only
+    when every in-flight request finished inside the timeout."""
+    addr = _parse_addr("-drain-server", args.drain_server)
+    if addr is None:
+        return 1
+    # The drain op waits for in-flight work server-side: the client
+    # budget must comfortably outlive the server's wait.
+    wait = args.drain_timeout_s if args.drain_timeout_s is not None else 30.0
+    try:
+        with _diag_client(addr) as c:
+            record = c.drain_server(
+                timeout_s=args.drain_timeout_s,
+                deadline_s=wait + 10.0,
+            )
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot drain {addr[0]}:{addr[1]}: {e}",
+              file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(json.dumps(record, sort_keys=True))
+    else:
+        print(
+            f"drain {'complete' if record.get('drained') else 'TIMED OUT'}"
+            f" : inflight_at_start={record.get('inflight_at_start')}"
+            f" remaining={record.get('inflight_remaining')}"
+            f" waited_s={record.get('waited_s')}"
+            + (" (already draining)" if record.get("already") else "")
+        )
+    return 0 if record.get("drained") else 1
 
 
 def _run_single(args, fixture, snapshot, scenario) -> int:

@@ -50,6 +50,7 @@ __all__ = [
     "donate_enabled",
     "resolve_device",
     "to_device",
+    "int64_putter",
     "stage_exact",
     "stage_kernel",
 ]
@@ -103,6 +104,23 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if not a.flags.writeable:
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+def int64_putter(device):
+    """``(device, put)`` for a program staged per call: ``device``
+    resolved (:func:`resolve_device`), and ``put(a, dtype=torch.int64)``
+    giving numpy or a tensor as an int64 tensor on it (``torch.bool`` for
+    masks)."""
+    dev = resolve_device(device)
+
+    def put(a, dtype=torch.int64):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=dtype)
+        a = np.asarray(a).astype(
+            np.bool_ if dtype == torch.bool else np.int64, copy=False)
+        return to_device(a, dev)
+
+    return dev, put
 
 
 def exact_columns(arrays) -> list[np.ndarray]:

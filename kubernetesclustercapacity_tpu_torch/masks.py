@@ -15,6 +15,9 @@ from __future__ import annotations
 import numpy as np
 
 from kubernetesclustercapacity_tpu_torch.snapshot import ClusterSnapshot
+from kubernetesclustercapacity_tpu_torch.topology.model import (
+    node_name_index,
+)
 
 __all__ = [
     "tolerations_mask",
@@ -163,10 +166,9 @@ def anti_affinity_existing_mask(
     ``None`` matches cluster-wide (a what-if spec that models no
     namespace).  Hostname identity is the node name: a pod whose
     ``nodeName`` names no snapshot row repels nothing, and duplicate names
-    keep the last row (the JAX package's ``topology.model.node_name_index``
-    rule).
+    keep the last row (:func:`.topology.model.node_name_index`).
     """
-    node_index = {name: i for i, name in enumerate(snapshot.names)}
+    node_index = node_name_index(snapshot)
     mask = np.ones(snapshot.n_nodes, dtype=np.bool_)
     for pod in fixture.get("pods", []):
         if pod.get("phase") in ("Succeeded", "Failed"):

@@ -1,9 +1,10 @@
 """PodDisruptionBudget accounting for the drain simulation.
 
-Counterpart of ``kubernetesclustercapacity_tpu/pdb.py``, without
-``blocked_evictions`` (the drain simulation is not ported yet).  The
-port's :class:`~.store.ClusterStore` validates every PDB it admits
-through :func:`validate_selector` and :func:`budget_statuses`.
+Counterpart of ``kubernetesclustercapacity_tpu/pdb.py``.
+:meth:`..models.capacity.CapacityModel.drain` gates evictions through
+:func:`blocked_evictions`; the port's :class:`~.store.ClusterStore`
+validates every PDB it admits through :func:`validate_selector` and
+:func:`budget_statuses`.
 
 ``kubectl drain``'s other half — beyond finding room for rehomed pods —
 is the eviction API's budget check: an eviction is REFUSED while the
@@ -51,6 +52,7 @@ from kubernetesclustercapacity_tpu_torch.snapshot import _STRICT_TERMINATED
 
 __all__ = [
     "BudgetStatus",
+    "blocked_evictions",
     "budget_statuses",
     "validate_selector",
 ]
@@ -192,3 +194,44 @@ def budget_statuses(fixture: dict) -> list[BudgetStatus]:
             )
         )
     return out
+
+
+def blocked_evictions(
+    fixture: dict, pod_keys: list[str]
+) -> dict[str, list[str]]:
+    """Which of ``pod_keys`` ("namespace/name") the eviction API would
+    refuse right now, mapped to the responsible PDB names.
+
+    Two refusal modes, both upstream behavior: a pod whose ONE covering
+    budget has zero allowance ("would violate the pod's disruption
+    budget"), and a pod covered by TWO OR MORE budgets — the eviction
+    API errors out on multi-coverage regardless of allowances ("This
+    pod has more than one PodDisruptionBudget").  Unblocked pods are
+    absent from the result."""
+    statuses = budget_statuses(fixture)
+    if not statuses:
+        return {}
+    selectors = [
+        (s, (fixture_pdb.get("selector") or {}))
+        for s, fixture_pdb in zip(statuses, fixture.get("pdbs", []))
+    ]
+    by_key = {
+        f"{p.get('namespace', '')}/{p.get('name', '')}": p
+        for p in fixture.get("pods", [])
+    }
+    blocked: dict[str, list[str]] = {}
+    for key in pod_keys:
+        pod = by_key.get(key)
+        if pod is None:
+            continue
+        covering = [
+            s
+            for s, selector in selectors
+            if s.namespace == pod.get("namespace", "")
+            and _selector_matches(selector, pod.get("labels") or {})
+        ]
+        if len(covering) >= 2 or (
+            len(covering) == 1 and covering[0].allowed_disruptions <= 0
+        ):
+            blocked[key] = [s.name for s in covering]
+    return blocked

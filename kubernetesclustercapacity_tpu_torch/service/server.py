@@ -9,21 +9,23 @@ costs one launch of kernel B1 (``csrc/sweep_fit.cu``) and a
 the same eligibility routing as the library.  Concurrent sweeps of one
 generation fold into one launch (:mod:`.batching`).
 
-Ported ops: ``ping``, ``info``, ``fit`` (with the spec fields the port's
-``PodSpec`` has), ``sweep`` (solo and folded), ``sweep_multi``,
-``explain``, ``reload``, ``update`` (watch-style events applied through
-:class:`..store.ClusterStore`) and ``drain_server``, behind the auth
-token, the compute-slot bound and deadline shedding.  ``-follow`` keeps
-the served snapshot synced to a live cluster (:class:`..follower.
-ClusterFollower` → :class:`.coalesce.SnapshotCoalescer` → a publish that
-pre-stages the new generation on the card).  Replies equal the JAX server's
-apart from kernel labels (``cuda_``/``plain_``/``torch_int64`` for
-``pallas_``/``xla_int64``) and volatile fields (latencies, ids).  Every
-other op of the protocol — and a fit or sweep carrying ``priority`` /
-``priorities`` — is answered with an error reply saying it is not yet
-ported.  The port has no fast-path breaker (a kernel that fails to build
-or launch raises); ``info`` reports one that never opens, in the JAX
-snapshot's shape, for clients that read it.
+Ported ops: ``ping``, ``info``, ``fit`` (with every ``PodSpec`` field,
+``priority`` included), ``sweep`` (solo and folded, or with
+``priorities``), ``sweep_multi``, ``explain``, the scheduler-fidelity ops
+``place``, ``drain``, ``topology_spread`` and ``plan`` (its
+``node_template`` form), ``reload``, ``update`` (watch-style events
+applied through :class:`..store.ClusterStore`) and ``drain_server``,
+behind the auth token, the compute-slot bound and deadline shedding.
+``-follow`` keeps the served snapshot synced to a live cluster
+(:class:`..follower.ClusterFollower` → :class:`.coalesce.
+SnapshotCoalescer` → a publish that pre-stages the new generation on the
+card).  Replies equal the JAX server's apart from kernel labels
+(``cuda_``/``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and
+volatile fields (latencies, ids).  Every other op of the protocol — and a
+``plan`` carrying a ``catalog`` — is answered with an error reply saying
+it is not yet ported.  The port has no fast-path breaker (a kernel that
+fails to build or launch raises); ``info`` reports one that never opens,
+in the JAX snapshot's shape, for clients that read it.
 
     python -m kubernetesclustercapacity_tpu_torch.service.server \\
         -snapshot tests/fixtures/kind-3node.json -port 7077 -device cpu
@@ -79,8 +81,7 @@ __all__ = ["CapacityServer", "UNPORTED_OPS", "follow_publisher", "main"]
 #: error reply saying so.
 UNPORTED_OPS = frozenset(
     {
-        "place", "drain", "topology_spread", "plan", "car", "forecast",
-        "gang", "optimize", "dump", "timeline", "slo",
+        "car", "forecast", "gang", "optimize", "dump", "timeline", "slo",
     }
 )
 
@@ -388,6 +389,7 @@ class CapacityServer:
         self._store = None  # lazy ClusterStore, built on first update op
         self._fixture_dirty = False  # fixture lags the store until needed
         self._fixture_source = None  # lazy fixture provider (follower feed)
+        self._ptable_cache = None  # (fixture, snapshot, PriorityTable)
         self._implicit_mask = _implicit_taint_mask(snapshot)
         self._auth_token = auth_token
         self._max_inflight = max(1, int(max_inflight))
@@ -572,7 +574,10 @@ class CapacityServer:
     )
 
     # The compute ops: bounded by the inflight slots.
-    _COMPUTE_OPS = frozenset({"fit", "sweep", "sweep_multi", "explain"})
+    _COMPUTE_OPS = frozenset({
+        "fit", "sweep", "sweep_multi", "place", "drain", "topology_spread",
+        "plan", "explain",
+    })
 
     # The ops a graceful drain refuses and waits out: compute work plus
     # mutations.  ping/info stay answerable so load balancers and
@@ -772,13 +777,6 @@ class CapacityServer:
             raise NotImplementedError(
                 f"op {op!r} is not yet ported to the PyTorch package"
             )
-        if (op == "fit" and "priority" in msg) or (
-            op == "sweep" and "priorities" in msg
-        ):
-            raise NotImplementedError(
-                "priority (preemption-aware capacity) is not yet ported to "
-                "the PyTorch package"
-            )
         if op == "drain_server":
             return self._op_drain_server(msg)
         if op in self._COMPUTE_OPS:
@@ -819,8 +817,20 @@ class CapacityServer:
         with self._lock:
             snap = self.snapshot
             self._dispatch_tls.generation = self._generation
-            needs_fixture = op == "fit" and self._fit_consumes_fixture(
-                msg, snap.semantics
+            needs_fixture = (
+                op == "drain"  # always reads per-pod requests
+                # A sweep reads the fixture only on the priorities path
+                # (strict-only; no point rematerializing for a request the
+                # strict gate will refuse anyway).
+                or (
+                    op == "sweep"
+                    and "priorities" in msg
+                    and snap.semantics == "strict"
+                )
+                or (
+                    op in ("fit", "place", "topology_spread", "plan")
+                    and self._fit_consumes_fixture(msg, snap.semantics)
+                )
             )
             if needs_fixture and self._fixture_dirty and self._store is not None:
                 # Store-fed staleness rematerializes under the same lock
@@ -832,17 +842,23 @@ class CapacityServer:
             # fall back to packed-array walks) rather than stale objects.
             fixture = None if self._fixture_dirty else self.fixture
             # Follower-fed publishes swap snapshots without a fixture;
-            # pull one lazily — but only for the anti-affinity mask, which
-            # correlates fixture to snapshot BY NODE NAME and tolerates
-            # the follower moving a little ahead of the published
-            # snapshot.  The reference cpu cross-check pairs fits to rows
-            # POSITIONALLY, so it keeps the packed-array fallback.
+            # pull one lazily — but only for consumers that correlate
+            # fixture to snapshot BY NODE NAME (drain, anti-affinity, the
+            # priority table), which tolerate the follower moving a little
+            # ahead of the published snapshot.  The reference cpu
+            # cross-check pairs fits to rows POSITIONALLY, so it keeps the
+            # packed-array fallback.
             source = None
             if (
                 needs_fixture
                 and fixture is None
                 and self._fixture_source is not None
-                and "anti_affinity_labels" in msg
+                and (
+                    op == "drain"
+                    or "anti_affinity_labels" in msg
+                    or "priority" in msg
+                    or "priorities" in msg
+                )
             ):
                 source = self._fixture_source
             implicit_mask = self._implicit_mask
@@ -859,9 +875,17 @@ class CapacityServer:
         if op == "fit":
             return self._op_fit(msg, snap, fixture, implicit_mask)
         if op == "sweep":
-            return self._op_sweep(msg, snap, implicit_mask)
+            return self._op_sweep(msg, snap, implicit_mask, fixture)
         if op == "sweep_multi":
             return self._op_sweep_multi(msg, snap, implicit_mask)
+        if op == "place":
+            return self._op_place(msg, snap, fixture)
+        if op == "drain":
+            return self._op_drain(msg, snap, fixture)
+        if op == "topology_spread":
+            return self._op_topology_spread(msg, snap, fixture)
+        if op == "plan":
+            return self._op_plan(msg, snap, fixture)
         if op == "explain":
             return self._op_explain(msg, snap, implicit_mask)
         if op == "reload":
@@ -873,12 +897,14 @@ class CapacityServer:
     @staticmethod
     def _fit_consumes_fixture(msg: dict, semantics: str) -> bool:
         """The fit paths that read raw objects, not just packed arrays:
-        the reference cpu cross-check walk, and anti-affinity masks (pod
-        labels are not in the arrays).  Dispatch uses this to decide
+        the reference cpu cross-check walk, anti-affinity masks (pod
+        labels are not in the arrays) and preemption (the priority table
+        is built from raw pod objects).  Dispatch uses this to decide
         whether a store-dirty fixture must be rematerialized."""
         return (
             (msg.get("backend") == "cpu" and semantics == "reference")
             or "anti_affinity_labels" in msg
+            or "priority" in msg
         )
 
     def _resilience_info(self) -> dict:
@@ -955,7 +981,7 @@ class CapacityServer:
         return out
 
     # PodSpec extension fields a fit message may carry beyond the
-    # reference's six flags (``priority`` is refused before routing).
+    # reference's six flags (kube-scheduler constraint families).
     _SPEC_FIELDS = (
         "tolerations",
         "node_selector",
@@ -963,6 +989,7 @@ class CapacityServer:
         "anti_affinity_labels",
         "spread",
         "extended_requests",
+        "priority",
     )
 
     @staticmethod
@@ -983,11 +1010,14 @@ class CapacityServer:
 
     @staticmethod
     def _spec_from_msg(msg: dict, scenario):
-        """msg → PodSpec.  ``spread`` follows the protocol's string-flag
-        convention (``spread="2"`` and ``spread=2`` both work)."""
+        """msg → PodSpec: one copy of the spec-field wiring for fit, place,
+        topology_spread and plan.  ``spread`` follows the protocol's
+        string-flag convention (``spread="2"`` and ``spread=2`` both
+        work)."""
         from kubernetesclustercapacity_tpu_torch.models import PodSpec
 
         spread = msg.get("spread")
+        priority = msg.get("priority")
         try:
             return PodSpec(
                 cpu_request_milli=scenario.cpu_request_milli,
@@ -1003,6 +1033,7 @@ class CapacityServer:
                 ),
                 namespace=msg.get("namespace"),
                 spread=int(spread) if spread is not None else None,
+                priority=int(priority) if priority is not None else None,
                 extended_requests={
                     k: int(v)
                     for k, v in (msg.get("extended_requests") or {}).items()
@@ -1010,6 +1041,47 @@ class CapacityServer:
             )
         except (TypeError, KeyError, ValueError) as e:
             raise ValueError(f"bad pod spec: {e}") from e
+
+    def _priority_table_for(self, fixture: dict, snap: ClusterSnapshot):
+        """The preemption table, cached across dispatches.
+
+        Self-validating by ``(fixture, snapshot)`` object identity: both
+        are REPLACED, never mutated, on reload/update rematerialization,
+        so a stale pair cannot match and no invalidation hook is needed.
+        Concurrent misses may build twice; the atomic tuple swap keeps the
+        cache coherent either way.
+        """
+        from kubernetesclustercapacity_tpu_torch.ops.preemption import (
+            build_priority_table,
+        )
+
+        cached = self._ptable_cache
+        if (
+            cached is not None
+            and cached[0] is fixture
+            and cached[1] is snap
+        ):
+            return cached[2]
+        table = build_priority_table(
+            fixture, snap, tuple(sorted(snap.extended))
+        )
+        self._ptable_cache = (fixture, snap, table)
+        return table
+
+    def _model_for(self, spec, snap: ClusterSnapshot, fixture: dict | None):
+        """``CapacityModel`` on the server's device, with the cached
+        preemption table seeded when the spec needs one (and the fixture
+        exists to build it — a missing fixture keeps the model's own
+        error)."""
+        from kubernetesclustercapacity_tpu_torch.models import CapacityModel
+
+        table = None
+        if spec.priority is not None and fixture is not None:
+            table = self._priority_table_for(fixture, snap)
+        return CapacityModel(
+            snap, mode=snap.semantics, fixture=fixture, priority_table=table,
+            device=self._device,
+        )
 
     def _op_fit(
         self,
@@ -1103,17 +1175,12 @@ class CapacityServer:
         fixture: dict | None,
         scenario,
     ) -> dict:
-        """Constrained / multi-resource fit through ``CapacityModel``:
-        taint tolerations, nodeSelector, node (anti-)affinity, spread and
-        extended resources."""
-        from kubernetesclustercapacity_tpu_torch.models import CapacityModel
-
+        """Constrained / multi-resource / preemptive fit through
+        ``CapacityModel``: taint tolerations, nodeSelector, node
+        (anti-)affinity, spread, extended resources and priority."""
         spec = self._spec_from_msg(msg, scenario)
         try:
-            result = CapacityModel(
-                snap, mode=snap.semantics, fixture=fixture,
-                device=self._device,
-            ).evaluate(spec)
+            result = self._model_for(spec, snap, fixture).evaluate(spec)
         except (TypeError, KeyError, ValueError) as e:
             raise ValueError(f"bad pod spec: {e}") from e
         return {
@@ -1121,6 +1188,186 @@ class CapacityServer:
             "schedulable": result.schedulable,
             "fits": result.fits.tolist(),
             "report": self._render_report(msg, snap, result.fits, scenario),
+        }
+
+    def _op_place(
+        self, msg: dict, snap: ClusterSnapshot, fixture: dict | None
+    ) -> dict:
+        """Placement simulation over the wire: which node gets replica k.
+
+        Takes the same spec fields as fit (one shared msg→PodSpec parser),
+        so (anti-)affinity constraints bind placements too.
+        """
+        scenario = self._scenario_from_msg(msg)
+        spec = self._spec_from_msg(msg, scenario)
+        # Wire flag ``assignments``: false = counts only (the bulk engine).
+        # Absent/true = the scan WITH the per-replica order, at every R, so
+        # clients keep the reply shape they were built against.
+        want_order = msg.get("assignments", True)
+        if not isinstance(want_order, bool):
+            raise ValueError(
+                f"assignments must be a JSON bool, got {want_order!r}"
+            )
+        try:
+            result = self._model_for(spec, snap, fixture).place(
+                spec,
+                policy=msg.get("policy", "first-fit"),
+                assignments=want_order,
+            )
+        except (TypeError, KeyError, ValueError) as e:
+            # KeyError: an extended request naming a column the snapshot
+            # does not carry.
+            raise ValueError(f"bad pod spec: {e}") from e
+        return {
+            "assignments": (
+                None
+                if result.assignments is None
+                else [
+                    snap.names[i] if i >= 0 else None
+                    for i in result.assignments.tolist()
+                ]
+            ),
+            "by_node": result.by_node(),
+            "placed": result.placed,
+            "all_placed": result.all_placed,
+            "policy": result.policy,
+            "engine": result.engine,
+        }
+
+    def _op_drain(
+        self, msg: dict, snap: ClusterSnapshot, fixture: dict | None
+    ) -> dict:
+        """Drain simulation over the wire: a rehoming target per pod on
+        the named node, and the evictable verdict."""
+        from kubernetesclustercapacity_tpu_torch.models import CapacityModel
+
+        node = msg.get("node")
+        if not isinstance(node, str) or not node:
+            raise ValueError("drain wants a non-empty node name string")
+        if fixture is None:
+            raise ValueError(
+                "drain needs a fixture-backed source (.json); an .npz "
+                "checkpoint carries no per-pod requests"
+            )
+        try:
+            model = CapacityModel(
+                snap, mode=snap.semantics, fixture=fixture,
+                device=self._device,
+            )
+            result = model.drain(node, policy=msg.get("policy", "best-fit"))
+        except (TypeError, KeyError, ValueError) as e:
+            raise ValueError(f"bad drain request: {e}") from e
+        return {
+            "node": result.node,
+            "pods": result.pods,
+            "assignments": result.assignments,
+            "by_pod": result.by_pod(),
+            "blocked": result.blocked,
+            "evictable": result.evictable,
+            "policy": result.policy,
+        }
+
+    def _op_topology_spread(
+        self, msg: dict, snap: ClusterSnapshot, fixture: dict | None
+    ) -> dict:
+        """Capacity under a PodTopologySpread maxSkew constraint —
+        :meth:`CapacityModel.topology_spread` over the wire; a message
+        carrying scenario ARRAYS instead of the six flags takes the grid
+        path (``topology_spread_grid``)."""
+        from kubernetesclustercapacity_tpu_torch.models import CapacityModel
+
+        key = msg.get("topology_key")
+        if not isinstance(key, str) or not key:
+            raise ValueError(
+                "topology_spread wants a non-empty topology_key string"
+            )
+        if "cpu_request_milli" in msg:
+            try:
+                grid = ScenarioGrid(
+                    cpu_request_milli=np.asarray(msg["cpu_request_milli"]),
+                    mem_request_bytes=np.asarray(msg["mem_request_bytes"]),
+                    replicas=np.asarray(msg.get("replicas", [1])),
+                )
+                model = CapacityModel(
+                    snap, mode=snap.semantics, fixture=fixture,
+                    device=self._device,
+                )
+                totals, sched = model.topology_spread_grid(
+                    grid,
+                    topology_key=key,
+                    max_skew=int(msg.get("max_skew", 1)),
+                    node_taints_policy=msg.get(
+                        "node_taints_policy", "ignore"
+                    ),
+                    # The shared constraints the scalar branch honors via
+                    # the spec must not silently drop on the grid form.
+                    tolerations=tuple(msg.get("tolerations") or ()),
+                    node_selector=dict(msg.get("node_selector") or {}),
+                )
+            except (ScenarioError, KeyError, TypeError, ValueError) as e:
+                raise ValueError(
+                    f"bad topology_spread request: {e}"
+                ) from e
+            return {
+                "topology_key": key,
+                "max_skew": int(msg.get("max_skew", 1)),
+                "totals": totals.tolist(),
+                "schedulable": sched.tolist(),
+                "scenarios": grid.size,
+            }
+        scenario = self._scenario_from_msg(msg)
+        spec = self._spec_from_msg(msg, scenario)
+        try:
+            r = self._model_for(spec, snap, fixture).topology_spread(
+                spec,
+                topology_key=key,
+                max_skew=int(msg.get("max_skew", 1)),
+                node_taints_policy=msg.get("node_taints_policy", "ignore"),
+            )
+        except (TypeError, KeyError, ValueError) as e:
+            raise ValueError(f"bad topology_spread request: {e}") from e
+        return {
+            "topology_key": r.topology_key,
+            "max_skew": r.max_skew,
+            "zones": r.zones,
+            "allowed": r.allowed,
+            "total": r.total,
+            "schedulable": r.schedulable,
+            "unkeyed_nodes": r.unkeyed_nodes,
+        }
+
+    def _op_plan(
+        self, msg: dict, snap: ClusterSnapshot, fixture: dict | None
+    ) -> dict:
+        """Scale-up planning over the wire: the ``node_template`` form,
+        homogeneous :meth:`CapacityModel.nodes_needed` (``nodes_needed``
+        is null when unsatisfiable).  The ``catalog`` form (the certified
+        shape planner) is not ported yet."""
+        if "catalog" in msg:
+            raise NotImplementedError(
+                "op 'plan' with a 'catalog' (the certified shape planner) "
+                "is not yet ported to the PyTorch package"
+            )
+        template = msg.get("node_template")
+        if not isinstance(template, dict):
+            raise ValueError(
+                "plan wants a node_template object (or a 'catalog' "
+                "for the certified shape planner)"
+            )
+        scenario = self._scenario_from_msg(msg)
+        spec = self._spec_from_msg(msg, scenario)
+        try:
+            plan = self._model_for(spec, snap, fixture).nodes_needed(
+                spec, template
+            )
+        except (TypeError, KeyError, ValueError) as e:
+            raise ValueError(f"bad plan request: {e}") from e
+        return {
+            "replicas_requested": plan.replicas_requested,
+            "current_total": plan.current_total,
+            "per_node_fit": plan.per_node_fit,
+            "nodes_needed": plan.nodes_needed,
+            "satisfiable": plan.satisfiable,
         }
 
     def _batch_key(self, snap, kernel_req: str):
@@ -1187,7 +1434,11 @@ class CapacityServer:
         return out
 
     def _op_sweep(
-        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+        self,
+        msg: dict,
+        snap: ClusterSnapshot,
+        implicit_mask=None,
+        fixture: dict | None = None,
     ) -> dict:
         if "random" in msg:
             grid = random_scenario_grid(
@@ -1199,6 +1450,8 @@ class CapacityServer:
                 mem_request_bytes=np.asarray(msg["mem_request_bytes"]),
                 replicas=np.asarray(msg.get("replicas", [1])),
             )
+        if "priorities" in msg:
+            return self._sweep_with_priorities(msg, snap, grid, fixture)
         kernel_req = msg.get("kernel", "auto")
         if self._batcher is not None:
             # Validate BEFORE joining a batch: a bad grid must fail its
@@ -1244,6 +1497,38 @@ class CapacityServer:
                 "scenarios": grid.size,
                 "kernel": kernel,
             }
+
+    def _sweep_with_priorities(
+        self, msg, snap, grid, fixture: dict | None
+    ) -> dict:
+        """The preemption axis over the wire: scenario ``s`` evicts pods
+        below ``priorities[s]`` — :meth:`CapacityModel.sweep_preemption`
+        with the server's cached table seeded (the model's bare-spec taint
+        mask equals the implicit mask the plain sweep applies)."""
+        from kubernetesclustercapacity_tpu_torch.models import CapacityModel
+
+        if snap.semantics != "strict":
+            raise ValueError(
+                "priorities require strict semantics (the reference has "
+                "no priority concept)"
+            )
+        if fixture is None:
+            raise ValueError(
+                "priorities need a fixture-backed source (pod priorities "
+                "are not part of the dense snapshot)"
+            )
+        model = CapacityModel(
+            snap, mode="strict", fixture=fixture,
+            priority_table=self._priority_table_for(fixture, snap),
+            device=self._device,
+        )
+        totals, sched = model.sweep_preemption(grid, msg["priorities"])
+        return {
+            "totals": totals.tolist(),
+            "schedulable": sched.tolist(),
+            "scenarios": grid.size,
+            "kernel": "exact-preemption",
+        }
 
     def _dispatch_sweep_batch(self, key, items) -> list:
         """One launch for a micro-batch of folded requests.

@@ -163,8 +163,6 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
     [
         (["-snapshot", KIND, "-backend", "native"],
          "-backend native: not yet ported"),
-        (["-snapshot", KIND, "-drain", "kind-worker"],
-         "-drain: not yet ported"),
         (["-snapshot", KIND, "-car-spec", "spec.yaml"],
          "-car-spec: not yet ported"),
         (["-snapshot", KIND, "-forecast-spec", "spec.yaml"],
@@ -182,6 +180,18 @@ def test_unported_surfaces_say_so(argv, needle, capsys):
     assert rc == 1
     assert needle in out and out.startswith("ERROR : ")
     assert out.rstrip().endswith("...exiting")
+
+
+@pytest.mark.parametrize("extra", [["-semantics", "strict"], []],
+                         ids=["strict", "reference"])
+def test_drain_is_ported(extra, capsys):
+    """-drain answers as the JAX CLI does, byte for byte: the rehoming plan
+    under strict semantics, the strict-only error line otherwise."""
+    argv = ["-snapshot", KIND, "-drain", "kind-worker", *extra]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert (t_rc, t_out) == (j_rc, j_out)
+    assert "not yet ported" not in t_out
 
 
 @pytest.mark.parametrize("extra", [[], ["-semantics", "strict"],

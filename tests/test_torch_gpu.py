@@ -592,3 +592,71 @@ def test_strict_follow_sweep_multi_launches_b2_once(cuda):
         assert got["result"]["totals"] == want[0].tolist()
     finally:
         server.shutdown()
+
+
+# -- scheduler fidelity: the placement scans and preemption on the card ----
+
+def _sched_fixture(n, seed):
+    fx = synthetic_fixture(n, seed=seed, taint_frac=0.1)
+    rng = np.random.default_rng(seed + 1)
+    for pod in fx["pods"]:
+        pod["priority"] = int(rng.choice([0, 1000, 100000]))
+    return fx
+
+
+@pytest.mark.parametrize("policy", ["first-fit", "best-fit", "spread"])
+def test_placement_scans_on_card_equal_the_host_engines(cuda, policy):
+    from kubernetesclustercapacity_tpu_torch.ops import placement as pl
+
+    snap = snapshot_from_fixture(_sched_fixture(2_000, 3), semantics="strict")
+    cols = (snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+            snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+            snap.pods_count, snap.healthy)
+    kw = dict(n_replicas=256, policy=policy)
+    order, counts = pl.place_replicas(*cols, 500, 512 << 20, **kw)
+    trace, t_counts, placed = pl.place_replicas_trace(*cols, 500, 512 << 20,
+                                                      **kw)
+    np.testing.assert_array_equal(order, trace)
+    np.testing.assert_array_equal(counts, t_counts)
+    py_order, _ = pl.place_replicas_python(*cols, 500, 512 << 20, **kw)
+    np.testing.assert_array_equal(order, py_order)
+    assert placed == 256
+    zone = np.arange(snap.n_nodes) % 3
+    got = pl.place_replicas_spread(*cols, 500, 512 << 20, zone, n_zones=3,
+                                   **kw)
+    want = pl.place_replicas_spread(*cols, 500, 512 << 20, zone, n_zones=3,
+                                    device="cpu", **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    rng = np.random.default_rng(4)
+    reqs = np.stack([rng.integers(0, 4000, 64), rng.integers(0, 8 << 30, 64)])
+    alloc_rn, used_rn = snap.resource_matrix()
+    got = pl.place_pods_multi(alloc_rn, used_rn, snap.alloc_pods,
+                              snap.pods_count, snap.healthy, reqs,
+                              policy=policy)
+    want = pl.place_pods_multi_python(alloc_rn, used_rn, snap.alloc_pods,
+                                      snap.pods_count, snap.healthy, reqs,
+                                      policy=policy)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_nodes_needed_grid_launches_b1_on_the_card(cuda):
+    fx = _sched_fixture(3_000, 5)
+    snap = snapshot_from_fixture(fx, semantics="strict")
+    grid = random_scenario_grid(500, seed=6)
+    template = {"allocatable": {"cpu": "4", "memory": "16Gi", "pods": "58"}}
+    card = CapacityModel(snap, fixture=fx)
+    host = CapacityModel(snap, fixture=fx, device="cpu")
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    needed = card.nodes_needed_grid(grid, template)
+    assert (ff.LAUNCHES, fm.LAUNCHES) == (2, 0)
+    np.testing.assert_array_equal(needed,
+                                  host.nodes_needed_grid(grid, template))
+    prio = np.random.default_rng(7).choice([0, 1000, 100000], grid.size)
+    for g, w in zip(card.sweep_preemption(grid, prio),
+                    host.sweep_preemption(grid, prio)):
+        np.testing.assert_array_equal(g, w)
+    node = max(snap.names, key=lambda n: sum(p.get("nodeName") == n
+                                             for p in fx["pods"]))
+    assert card.drain(node).assignments == host.drain(node).assignments

@@ -16,6 +16,7 @@ from kubernetesclustercapacity_tpu_torch import cli as t_cli
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as tf
 from kubernetesclustercapacity_tpu_torch.ops import fused_multi as tm
 from kubernetesclustercapacity_tpu_torch.scenario import random_scenario_grid
+from kubernetesclustercapacity_tpu_torch.fixtures import synthetic_fixture
 from kubernetesclustercapacity_tpu_torch.snapshot import synthetic_snapshot
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -62,7 +63,8 @@ def test_the_scan_is_not_vacuous():
                    "utils/threads.py", "timeline/alerts.py", "store.py",
                    "kubeapi.py", "follower.py", "pdb.py",
                    "service/coalesce.py", "telemetry/compilewatch.py",
-                   "utils/guards.py"):
+                   "utils/guards.py", "ops/placement.py",
+                   "ops/preemption.py", "topology/model.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -157,6 +159,29 @@ _BLOCKED_RUN = textwrap.dedent(
                                snap.used_mem_req_bytes, snap.pods_count,
                                snap.healthy, 100, 1 << 20,
                                device="cpu") > 0]
+    from kubernetesclustercapacity_tpu_torch.ops import placement
+
+    for pod in fx["pods"]:
+        pod["priority"] = 1000 if len(pod["name"]) % 2 else 0
+    fx_snap = kt.snapshot_from_fixture(fx, semantics="strict")
+    sched_model = kt.CapacityModel(fx_snap, fixture=fx, device="cpu")
+    spec = kt.PodSpec(cpu_request_milli=100, mem_request_bytes=1 << 20,
+                      replicas=300)
+    busiest = max(fx_snap.names, key=lambda n: sum(
+        p.get("nodeName") == n for p in fx["pods"]))
+    scheduling = [
+        sched_model.place(spec, assignments=True).placed,
+        sched_model.place(spec, topology_key="zone").engine,
+        len(sched_model.drain(busiest).pods) > 0,
+        sched_model.topology_spread(spec, topology_key="zone").total > 0,
+        sched_model.nodes_needed(spec, {"allocatable": {
+            "cpu": "4", "memory": "16Gi", "pods": "58"}}).nodes_needed,
+        int(sched_model.sweep_preemption(
+            kt.random_scenario_grid(8, seed=5), [0, 1000] * 4)[0].sum()) > 0,
+        kt.CapacityModel(fx_snap, fixture=fx, device="cpu").evaluate(
+            kt.PodSpec(100, 1 << 20, priority=1000)).total > 0,
+        placement.POLICIES[0],
+    ]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -172,6 +197,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "model_total": model_total,
                       "service": [service_ping, service_kernel],
                       "live": live,
+                      "scheduling": scheduling,
                       "loaded": loaded}))
     """
 )
@@ -198,8 +224,11 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "model_total": doc["model_total"],
         "service": ["pong", "plain_i32_rcp_fused_grouped"],
         "live": [19, "", "ClusterFollower", "SnapshotCoalescer", True],
+        "scheduling": [doc["scheduling"][0], "scan", True, True,
+                       doc["scheduling"][4], True, True, "first-fit"],
         "loaded": [],
     }
+    assert doc["scheduling"][0] > 0
     assert doc["total"] > 0 and doc["model_total"] > 0
 
 
@@ -236,4 +265,39 @@ def test_cli_default_device_raises_without_cuda(no_cuda, capsys):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_cli.main(["-snapshot", "tests/fixtures/kind-3node.json",
                     "-grid", "4"])
+    assert capsys.readouterr().out == ""
+
+
+def test_scheduling_default_device_raises_without_cuda(no_cuda, capsys):
+    """The device scans, the drain and the preemption sweep never carry on
+    quietly on the host: without a card they raise (the closed-form host
+    engines, which the JAX package also runs on the host, stay usable)."""
+    from kubernetesclustercapacity_tpu_torch.models import (
+        CapacityModel,
+        PodSpec,
+    )
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        snapshot_from_fixture,
+    )
+
+    fx = synthetic_fixture(12, seed=2)
+    model = CapacityModel(snapshot_from_fixture(fx, semantics="strict"),
+                          fixture=fx)
+    spec = PodSpec(cpu_request_milli=100, mem_request_bytes=1 << 20,
+                   replicas=3)
+    for call in (
+        lambda: model.place(spec, assignments=True),
+        lambda: model.place(spec, topology_key="zone"),
+        lambda: model.drain(fx["nodes"][0]["name"]),
+        lambda: model.sweep_preemption(random_scenario_grid(4, seed=1),
+                                       [0, 1, 2, 3]),
+        lambda: model.topology_spread_grid(random_scenario_grid(4, seed=1),
+                                           topology_key="zone"),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert model.place(spec, assignments="trace").placed == 3
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cli.main(["-snapshot", "tests/fixtures/kind-3node.json",
+                    "-semantics", "strict", "-drain", "kind-worker"])
     assert capsys.readouterr().out == ""

@@ -53,6 +53,7 @@ from test_torch_service import (
     EXTENDED,
     TIMEOUT_S,
     _gpu_fixture,
+    fresh_jax_breaker,  # noqa: F401 - autouse here too
     _norm,
     _pair,
     _raw,
@@ -428,9 +429,12 @@ SPEC = ["-cpuRequests=200m", "-cpuLimits=400m", "-memRequests=250mb",
     ["-grid", "4", "-extended-request", "nvidia.com/gpu=1"],
     ["-grid", "4", "-kubeconfig", "MISSING"],
     ["-grid", "4", "-kubeconfig", "BADTOKEN"],
+    ["-semantics", "strict", "-drain", "node-00017"],
+    ["-semantics", "strict", "-drain", "node-00020", "-drain-policy",
+     "spread"],
 ], ids=["grid", "grid-strict-table", "grid-extended", "transcript",
         "strict-json", "backend-cpu", "explain", "extended-needs-strict",
-        "missing-kubeconfig", "refused-token"])
+        "missing-kubeconfig", "refused-token", "drain", "drain-spread"])
 def test_cli_live_run_matches_jax(extra, live_cluster, tmp_path, capsys):
     kubeconfig, srv = live_cluster
     argv = ["-kubeconfig", kubeconfig] + extra

@@ -151,11 +151,21 @@ def test_podspec_normalizes_like_jax():
         dataclasses.astuple(j_models.PodSpec.from_scenario(s))
 
 
-def test_podspec_priority_is_not_ported():
-    j_models.PodSpec(cpu_request_milli=1, mem_request_bytes=1, priority=5)
-    with pytest.raises(ValueError, match="preemption.*not yet ported"):
-        t_models.PodSpec(cpu_request_milli=1, mem_request_bytes=1,
-                         priority=5)
+def test_podspec_priority_matches_jax():
+    """``PodSpec(priority=5)`` is a spec in both packages, and a strict
+    model over the kind fixture evaluates it to the same fits."""
+    j, t = _specs(j_models, t_models, cpu_request_milli=1,
+                  mem_request_bytes=1, priority=5)
+    assert dataclasses.astuple(t) == dataclasses.astuple(j)
+    fx = _kind_fixture()
+    want = j_models.CapacityModel(
+        j_snapshot.snapshot_from_fixture(fx, semantics="strict"),
+        fixture=fx).evaluate(j)
+    got = t_models.CapacityModel(
+        t_snapshot.snapshot_from_fixture(fx, semantics="strict"),
+        fixture=fx, device="cpu").evaluate(t)
+    np.testing.assert_array_equal(got.fits, want.fits)
+    assert got.total == want.total > 0
 
 
 # -- evaluate --------------------------------------------------------------

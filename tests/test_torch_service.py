@@ -5,8 +5,12 @@ checkpoint, a tainted fixture with GPU and storage columns) are served by
 the JAX ``CapacityServer`` and the port's, and the same framed requests go
 to both: ``ping``, ``info``, ``fit`` (each output, the cpu backend, spec
 fields), ``sweep`` (explicit grid, ``random``, ``kernel=exact``),
-``sweep_multi``, ``explain`` (JSON and table), ``reload`` from ``.json``
-and ``.npz``, a refused token and an expired deadline.  Replies must be
+``sweep_multi``, ``explain`` (JSON and table), the scheduler-fidelity
+ops (``place``, ``drain``, ``topology_spread``, ``plan`` with a
+``node_template``, ``fit`` with ``priority``, ``sweep`` with
+``priorities``) on a fixture with priorities and disruption budgets, on a
+file-backed server and on an ``update``-fed one, ``reload`` from
+``.json`` and ``.npz``, a refused token and an expired deadline.  Replies must be
 equal, integers and bytes exactly, apart from the kernel labels
 (``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and the
 volatile fields (the JAX breaker's success counter, the seconds in a shed
@@ -56,6 +60,23 @@ EXTENDED = ("ephemeral-storage", "nvidia.com/gpu")
 TIMEOUT_S = 120.0
 
 
+@pytest.fixture(autouse=True)
+def fresh_jax_breaker(monkeypatch):
+    """The JAX package's fused-path breaker is process-global: its lifetime
+    counters (``failures``, ``rejected``, ``trips``) carry whatever an
+    earlier test in the same process did to it (``tests/test_resilience.py``
+    trips it on purpose).  Each test here starts from a fresh one, as a new
+    server process would; ``info`` then compares every counter with the
+    port's breaker, which is never used."""
+    from kubernetesclustercapacity_tpu.ops import pallas_fit
+    from kubernetesclustercapacity_tpu.resilience import CircuitBreaker
+
+    monkeypatch.setattr(pallas_fit, "_breaker", CircuitBreaker(
+        name="pallas_fused_sweep", failure_threshold=1,
+        recovery_timeout_s=None,
+        on_state_change=pallas_fit._breaker_transition))
+
+
 def _gpu_fixture():
     """A tainted 64-node fixture with 0-8 GPUs and 50-500 Gi of storage
     per node, and GPU/storage requests on every third pod."""
@@ -74,6 +95,38 @@ def _gpu_fixture():
     return fx
 
 
+APPS = [f"app-{i}" for i in range(8)]
+
+
+def _sched_fixture():
+    """A tainted 48-node fixture whose pods carry a priority from {0,
+    1000, 100000} and an ``app`` label, with 12 PDBs over the labels
+    (zero allowances, slack, and pods covered twice)."""
+    fx = synthetic_fixture(48, seed=41, taint_frac=0.1, unhealthy_frac=0.05)
+    rng = np.random.default_rng(42)
+    for pod in fx["pods"]:
+        pod["priority"] = int(rng.choice([0, 1000, 100000]))
+        pod["labels"] = {"app": str(rng.choice(APPS))}
+    namespaces = sorted({p.get("namespace", "") for p in fx["pods"]})
+    fx["pdbs"] = [
+        {"name": f"pdb-{k}", "namespace": namespaces[k % len(namespaces)],
+         "selector": {"matchLabels": {"app": APPS[k % len(APPS)]}},
+         ("minAvailable", "maxUnavailable", "minAvailable")[k % 3]:
+             ("100%", 1, 1)[k % 3]}
+        for k in range(12)
+    ]
+    return fx
+
+
+def _busiest(fx) -> str:
+    counts = {}
+    for p in fx["pods"]:
+        if p.get("nodeName") and p.get("phase") not in ("Succeeded",
+                                                        "Failed"):
+            counts[p["nodeName"]] = counts.get(p["nodeName"], 0) + 1
+    return min(counts, key=lambda n: (-counts[n], n))
+
+
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
     d = tmp_path_factory.mktemp("service")
@@ -85,7 +138,11 @@ def paths(tmp_path_factory):
     tainted = str(d / "tainted.json")
     with open(tainted, "w") as f:
         json.dump(synthetic_fixture(48, seed=12, taint_frac=0.4), f)
-    return {"kind": KIND, "npz": npz, "gpu": gpu, "tainted": tainted}
+    sched = str(d / "sched.json")
+    with open(sched, "w") as f:
+        json.dump(_sched_fixture(), f)
+    return {"kind": KIND, "npz": npz, "gpu": gpu, "tainted": tainted,
+            "sched": sched}
 
 
 # name -> (path key, semantics, extended columns)
@@ -94,6 +151,7 @@ SOURCES = {
     "kind-strict": ("kind", "strict", ()),
     "synthetic-npz": ("npz", None, ()),
     "gpu-strict": ("gpu", "strict", EXTENDED),
+    "sched-strict": ("sched", "strict", ()),
 }
 
 
@@ -220,7 +278,8 @@ GPU_REQUESTS = {
     "fit-node-selector": dict(FIT, node_selector={"no-such": "label"}),
 }
 
-CASES = [(src, name) for src in SOURCES for name in REQUESTS] + [
+CASES = [(src, name) for src in SOURCES if src != "sched-strict"
+         for name in REQUESTS] + [
     ("gpu-strict", name) for name in GPU_REQUESTS
 ]
 
@@ -256,26 +315,170 @@ def test_the_comparison_is_not_vacuous(pairs):
     assert t["result"]["kernel"] == "torch_int64"
 
 
-@pytest.mark.parametrize("op", sorted(UNPORTED_OPS))
+@pytest.mark.parametrize("op", sorted(UNPORTED_OPS) + ["plan-catalog"])
 def test_unported_ops_say_so(op, pairs):
-    _, t = _both(pairs["kind-reference"], {"op": op})
-    assert t == {
-        "ok": False,
-        "error": f"NotImplementedError: op {op!r} is not yet ported to "
-                 "the PyTorch package",
-        "generation": 1,
-    }
+    if op == "plan-catalog":
+        msg = {"op": "plan", "catalog": [{"name": "m5.xlarge"}],
+               "target": 10}
+        error = ("NotImplementedError: op 'plan' with a 'catalog' (the "
+                 "certified shape planner) is not yet ported to the "
+                 "PyTorch package")
+    else:
+        msg = {"op": op}
+        error = (f"NotImplementedError: op {op!r} is not yet ported to "
+                 "the PyTorch package")
+    _, t = _both(pairs["kind-reference"], msg)
+    assert t == {"ok": False, "error": error, "generation": 1}
 
 
-@pytest.mark.parametrize("msg", [
-    dict(FIT, priority=100),
-    {"op": "sweep", "random": {"n": 4}, "priorities": [0, 1, 2, 3]},
-], ids=["fit-priority", "sweep-priorities"])
-def test_priority_is_not_ported(msg, pairs):
-    _, t = _both(pairs["kind-strict"], msg)
-    assert not t["ok"]
-    assert t["error"].startswith("NotImplementedError: priority")
-    assert "not yet ported" in t["error"]
+# The scheduler-fidelity ops and the priority forms of fit and sweep.
+# ``NODE`` stands for the fixture's busiest node.
+PLACE = {"op": "place", "cpuRequests": "500m", "memRequests": "512mb",
+         "replicas": "40"}
+M5_XLARGE = {"allocatable": {"cpu": "4", "memory": "16Gi", "pods": "58"}}
+SCHED_REQUESTS = {
+    "place-first-fit": dict(PLACE),
+    "place-best-fit": dict(PLACE, policy="best-fit"),
+    "place-spread": dict(PLACE, policy="spread", spread="2"),
+    "place-counts": dict(PLACE, replicas="300", assignments=False),
+    "place-priority": dict(PLACE, policy="best-fit", priority=1000),
+    "place-selector": dict(PLACE, node_selector={"zone": "zone-1"}),
+    "place-bad-assignments": dict(PLACE, assignments="yes"),
+    "place-bad-policy": dict(PLACE, policy="worst-fit"),
+    "drain-best-fit": {"op": "drain", "node": "NODE"},
+    "drain-first-fit": {"op": "drain", "node": "NODE",
+                        "policy": "first-fit"},
+    "drain-spread": {"op": "drain", "node": "NODE", "policy": "spread"},
+    "drain-unknown": {"op": "drain", "node": "no-such-node"},
+    "drain-no-node": {"op": "drain"},
+    "spread-zone": {"op": "topology_spread", "topology_key": "zone",
+                    "cpuRequests": "500m", "memRequests": "512mb",
+                    "replicas": "200"},
+    "spread-honor": {"op": "topology_spread", "topology_key": "zone",
+                     "max_skew": 2, "node_taints_policy": "honor",
+                     "cpuRequests": "250m", "memRequests": "1gb",
+                     "priority": 1000},
+    "spread-grid": {"op": "topology_spread", "topology_key": "zone",
+                    "cpu_request_milli": [100, 250, 1500],
+                    "mem_request_bytes": [64 << 20, 512 << 20, 3 << 30],
+                    "replicas": [1, 200, 40]},
+    "spread-no-key": {"op": "topology_spread"},
+    "plan": {"op": "plan", "node_template": M5_XLARGE,
+             "cpuRequests": "500m", "memRequests": "512mb",
+             "replicas": "5000"},
+    "plan-fits": {"op": "plan", "node_template": M5_XLARGE,
+                  "replicas": "3"},
+    "plan-tainted-template": {
+        "op": "plan", "replicas": "5000",
+        "node_template": dict(M5_XLARGE, taints=[
+            {"key": "dedicated", "value": "gpu", "effect": "NoSchedule"}])},
+    "plan-priority": {"op": "plan", "node_template": M5_XLARGE,
+                      "replicas": "5000", "priority": 100000},
+    "plan-no-template": {"op": "plan", "replicas": "3"},
+    "fit-priority": dict(FIT, priority=100),
+    "fit-priority-json": dict(FIT, priority=1000, output="json"),
+    "sweep-priorities": {"op": "sweep", "random": {"n": 4},
+                         "priorities": [0, 1, 2, 3]},
+    "sweep-priorities-grid": {"op": "sweep", "random": {"n": 48, "seed": 3},
+                              "priorities": [0, 1000, 100000, 5] * 12},
+    "sweep-priorities-bad-shape": {"op": "sweep", "random": {"n": 4},
+                                   "priorities": [0, 1]},
+}
+SCHED_SOURCES = ("sched-strict", "kind-strict", "kind-reference",
+                 "synthetic-npz")
+SCHED_FAILS = {
+    "place-bad-assignments", "place-bad-policy", "drain-unknown",
+    "drain-no-node", "spread-no-key", "plan-no-template",
+    "sweep-priorities-bad-shape",
+}
+
+
+def _sched_msg(name, source, paths):
+    msg = copy.deepcopy(SCHED_REQUESTS[name])
+    if msg.get("node") == "NODE":
+        with open(paths[SOURCES[source][0]]) as f:
+            msg["node"] = _busiest(json.load(f))
+    return msg
+
+
+@pytest.mark.parametrize("name", sorted(SCHED_REQUESTS))
+@pytest.mark.parametrize("source", SCHED_SOURCES)
+def test_scheduling_reply_matches_the_jax_server(source, name, pairs,
+                                                 paths):
+    if source == "synthetic-npz" and SCHED_REQUESTS[name].get(
+            "node") == "NODE":
+        # An .npz source has no fixture: drain is refused on both sides.
+        msg = {"op": "drain", "node": "node-00001"}
+    else:
+        msg = _sched_msg(name, source, paths)
+    j_reply, t_reply = _both(pairs[source], msg)
+    assert _norm(t_reply) == _norm(j_reply)
+    if source == "sched-strict":
+        assert t_reply["ok"] is (name not in SCHED_FAILS), t_reply
+    if source == "sched-strict" and t_reply["ok"]:
+        res = t_reply["result"]
+        if name.startswith("drain"):
+            assert res["pods"] and res["blocked"] and not res["evictable"]
+        if name.startswith("place") and res["assignments"] is not None:
+            assert res["placed"] > 0
+
+
+def test_scheduling_ops_are_ported():
+    assert {"place", "drain", "topology_spread", "plan"}.isdisjoint(
+        UNPORTED_OPS)
+
+
+def test_update_fed_server_matches_jax(paths):
+    """A strict server fed by ``update``: the store's fixture is dirty
+    after each batch and is rematerialized for drain and the priority ops
+    (pairing pods to snapshot rows by node name); every reply equals the
+    JAX server's after each batch."""
+    with open(paths["sched"]) as f:
+        fx = json.load(f)
+    node = _busiest(fx)
+    j, t = _pair(paths["sched"], "strict", (), batch_window_ms=0)
+    batches = [
+        [{"type": "ADDED", "kind": "Pod", "object": {
+            "name": "urgent-0", "namespace": "default", "nodeName": node,
+            "phase": "Running", "priority": 100000,
+            "labels": {"app": "app-0"}, "containers": [{"resources": {
+                "requests": {"cpu": "1500m", "memory": "2Gi"}}}]}},
+         {"type": "DELETED", "kind": "Pod", "object": {
+             "name": fx["pods"][0]["name"],
+             "namespace": fx["pods"][0]["namespace"]}}],
+        [{"type": "ADDED", "kind": "Node", "object": {
+            "name": "node-new", "allocatable": {
+                "cpu": "16", "memory": "64Gi", "pods": "110"},
+            "conditions": [{"type": "Ready", "status": "True"}],
+            "labels": {"zone": "zone-9"}}},
+         {"type": "ADDED", "kind": "Pod", "object": {
+             "name": "batch-1", "namespace": "default",
+             "nodeName": "node-new", "phase": "Running", "priority": 0,
+             "labels": {"app": "app-3"}, "containers": [{"resources": {
+                 "requests": {"cpu": "4", "memory": "8Gi"}}}]}}],
+    ]
+    names = ("drain-best-fit", "sweep-priorities-grid", "fit-priority-json",
+             "place-priority", "spread-honor", "plan-priority",
+             "place-spread", "spread-grid")
+    try:
+        for events in batches:
+            j_reply, t_reply = _both((j, t), {"op": "update",
+                                              "events": events})
+            assert t_reply["ok"] and _norm(t_reply) == _norm(j_reply)
+            assert t._fixture_dirty
+            for name in names:
+                msg = copy.deepcopy(SCHED_REQUESTS[name])
+                if msg.get("node") == "NODE":
+                    msg["node"] = node
+                j_reply, t_reply = _both((j, t), msg)
+                assert t_reply["ok"], (name, t_reply)
+                assert _norm(t_reply) == _norm(j_reply), name
+                if name == "drain-best-fit":
+                    # The drain saw the batch: the fixture was rebuilt.
+                    assert "default/urgent-0" in t_reply["result"]["pods"]
+            assert not t._fixture_dirty
+    finally:
+        _stop(j, t)
 
 
 def test_expired_deadline_is_shed_like_jax(pairs):
