@@ -31,7 +31,14 @@ full repack.  Path (n) drives scheduler fidelity at 10,000 nodes: the
 placement scans on the card against the host engines, ``drain`` with its
 disruption-budget gate (and ``-drain`` through the CLI), preemption,
 topology spread and scale planning (B1 twice), and the service's
-``place``/``drain``/``topology_spread``/``plan`` and priority ops.  Any
+``place``/``drain``/``topology_spread``/``plan`` and priority ops.  Path
+(o) drives capacity at risk, forecasting and the certified catalog planner
+at 10,000 nodes: the seeded sampler on the card against the host (0
+mismatches over 3 x 65,536 draws), ``capacity_at_risk``, the
+``[16 x 512]`` horizon and the plan against their numpy oracles, the CLI's
+``-car-spec``/``-forecast-spec``/``-plan -catalog`` against their
+``-device cpu`` runs, and the service's ``car``/``forecast``/``plan``;
+kernels B1 and B2 are not on that path and launch 0 times there.  Any
 failure raises, so the script exits nonzero without
 its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
@@ -2698,6 +2705,294 @@ def phase_scheduling(pkg, cli, fit, ff, fm, tmp: str, identity: str,
     return out
 
 
+# --- Path (o): capacity at risk, forecasting and the certified planner --
+# (a)'s 10,000-node reference fleet and (b)'s strict taint-masked one, with
+# per-pod usage uncertain: cpu normal around 500m, memory lognormal around
+# 4 GiB with sigma 1 (the case where torch.special.erfinv and torch.exp
+# would move int64 samples).  The catalog holds the vCPU, memory and
+# max-pods shapes of four EC2 instance types, priced in proportion to their
+# vCPUs (nothing is fetched).
+STOCH_USAGE = {"cpu": {"dist": "normal", "mean": "500m", "std": "200m"},
+               "memory": {"dist": "lognormal", "mean": "4gb", "sigma": 1.0}}
+STOCH_DISTS = (
+    ("normal", {"mean": 500.0, "std": 200.0}),
+    ("lognormal", {"mean": float(4 << 30), "sigma": 1.0}),
+    ("empirical", {"values": (250, 500, 1000, 4000),
+                   "weights": (5.0, 3.0, 1.5, 0.5)}),
+)
+STOCH_CATALOG = [
+    {"name": "m5.xlarge", "cpu": "4", "memory": "16gb", "pods": 58,
+     "unit_cost": 4},
+    {"name": "m5.2xlarge", "cpu": "8", "memory": "32gb", "pods": 58,
+     "unit_cost": 8},
+    {"name": "m5.4xlarge", "cpu": "16", "memory": "64gb", "pods": 234,
+     "unit_cost": 16},
+    {"name": "c5.4xlarge", "cpu": "16", "memory": "32gb", "pods": 234,
+     "unit_cost": 16},
+]
+
+
+def check_car(name: str, got, want) -> None:
+    """Capacity-at-risk results equal in every integer and in the numpy
+    floats of equal integers."""
+    same = (np.array_equal(got.totals, want.totals)
+            and np.array_equal(got.samples_cpu, want.samples_cpu)
+            and np.array_equal(got.samples_mem, want.samples_mem)
+            and got.quantiles == want.quantiles
+            and got.quantile_samples == want.quantile_samples
+            and got.mean == want.mean and got.prob_fit == want.prob_fit)
+    if not same:
+        raise AssertionError(f"{name}: capacity at risk differs")
+
+
+def phase_stochastic(pkg, cli, ff, fm, tmp: str, identity: str,
+                     device: str = "cuda") -> dict:
+    """Path (o): the stochastic family at 10,000 nodes, through the
+    library, the CLI and the service, each answer on the card held against
+    its numpy oracle or its host run.
+
+    (o1) the seeded sampler draws 65,536 samples of a normal, a lognormal
+    (mean 4 GiB, sigma 1) and an empirical distribution on the card and on
+    the host: 0 int64 mismatches.  (o2) ``capacity_at_risk`` of 4,096
+    samples on (a) and on (b) with its taint mask, and 1,024 on (c)'s
+    grouped fleet, equals ``car_oracle`` and ``fused=False``.  (o3)
+    ``project_horizon`` of 16 steps x 512 samples (8,192 exact-sweep rows x
+    10,000 nodes in one dispatch) equals ``horizon_oracle``.  (o4)
+    ``plan_capacity`` of 1,024 samples over the four-shape catalog, target
+    above the current P95, with the drain dual, is certified.  (o5) the
+    CLI's ``-car-spec``, ``-forecast-spec`` (growth, and a trend from a
+    20-generation audit log of a 500-node fleet, which the port writes
+    here) and ``-plan -catalog``
+    on (a)'s ``.npz`` print what their ``-device cpu`` runs print, with
+    the same exit codes.  (o6) a server on (a) answers ``car``,
+    ``forecast`` and a catalog ``plan`` as the library does, 20 warm
+    requests each, and their status forms, which ``-car``/``-forecast``
+    render.  Kernels B1 and B2 are not on this path: the exact int64
+    program answers (as in the JAX package), so both launch 0 times."""
+    from kubernetesclustercapacity_tpu_torch import audit, forecast
+    from kubernetesclustercapacity_tpu_torch import stochastic as st
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+
+    out = {"ms": {}, "launches": {"sweep_fit": {}, "sweep_multi": {}},
+           "sampler_mismatches": 0}
+
+    def timed(name, fn, runs=5, warmup=1):
+        out["ms"][name] = host_median_ms(fn, runs=runs, warmup=warmup)
+        return out["ms"][name]
+
+    t_phase = time.perf_counter()
+    a = pkg.synthetic_snapshot(10_000, seed=1)
+    b = pkg.snapshot_from_fixture(
+        pkg.synthetic_fixture(10_000, seed=3, taint_frac=0.1),
+        semantics="strict")
+    mask_b = pkg.implicit_taint_mask(b)
+    c = pkg.synthetic_snapshot(100_000, seed=2, shapes=48)
+    ff.LAUNCHES = fm.LAUNCHES = 0
+
+    # (o1) the sampler on the card against the host.
+    n = 1 << 16
+    for kind, kw in STOCH_DISTS:
+        dist = st.UsageDistribution(kind=kind, **kw)
+        key = st.sample_key(11, 1)
+        card = st.sample_usage(dist, n, key, device=device)
+        t0 = time.perf_counter()
+        host = st.sample_usage(dist, n, key, device="cpu")
+        t_host = out["ms"][f"(o1) {kind} draw host"] = (
+            time.perf_counter() - t0) * 1e3
+        bad = int((card != host).sum())
+        out["sampler_mismatches"] += bad
+        t_card = timed(f"(o1) {kind} draw", lambda: st.sample_usage(
+            dist, n, key, device=device))
+        log(f"(o1) sampler {kind}: {n} draws, card vs host mismatches "
+            f"{bad}, card {t_card:.3f} ms median, host {t_host:.3f} ms "
+            f"once (host clock; {identity})")
+    if out["sampler_mismatches"]:
+        raise AssertionError(f"(o1) {out['sampler_mismatches']} draws "
+                             "differ between the card and the host")
+
+    # (o2) capacity at risk against the oracle and the unfused path.
+    def car_spec(samples):
+        return st.parse_stochastic_spec({
+            "usage": STOCH_USAGE, "replicas": 5000, "samples": samples,
+            "seed": 11})
+
+    for name, snap, mask, samples in (("(a)", a, None, 4096),
+                                      ("(b)", b, mask_b, 4096),
+                                      ("(c) grouped", c, None, 1024)):
+        spec = car_spec(samples)
+        got = st.capacity_at_risk(snap, spec, node_mask=mask, device=device)
+        check_car(f"(o2) {name}", got, st.car_oracle(snap, spec,
+                                                     node_mask=mask))
+        check_car(f"(o2) {name} unfused", st.capacity_at_risk(
+            snap, spec, node_mask=mask, fused=False, device=device), got)
+        t = timed(f"(o2) car {name}", lambda: st.capacity_at_risk(
+            snap, spec, node_mask=mask, device=device))
+        if name == "(a)" and device != "cpu":
+            out["trace"] = phase_trace(lambda: st.capacity_at_risk(
+                snap, spec, device=device), "elementwise", t, runs=5)
+        log(f"(o2) capacity_at_risk {name} {snap.n_nodes} nodes x "
+            f"{samples} samples ({snap.semantics}"
+            f"{', masked' if mask is not None else ''}): quantiles "
+            f"{got.to_wire()['quantiles']}, P(fit 5000) {got.prob_fit}, = "
+            f"car_oracle and fused=False, {t:.3f} ms median ({identity})")
+
+    # (o3) the horizon: one [16 x 512] dispatch.
+    spec = car_spec(512)
+    kw = dict(steps=16, step_s=3600.0, growth_cpu_per_s=2e-6)
+    hz = forecast.project_horizon(a, spec, device=device, **kw)
+    want = forecast.horizon_oracle(a, spec, **kw)
+    if not np.array_equal(hz.totals, want.totals) or \
+            hz.time_to_breach_s != want.time_to_breach_s:
+        raise AssertionError("(o3) project_horizon differs from the oracle")
+    t = timed("(o3) horizon 16x512", lambda: forecast.project_horizon(
+        a, spec, device=device, **kw))
+    log(f"(o3) project_horizon 16 x 512 on (a): p95 now "
+        f"{hz.to_wire()['now']['p95']}, time to breach "
+        f"{hz.to_wire()['time_to_breach_s']}, = horizon_oracle, {t:.3f} ms "
+        f"median ({identity})")
+
+    # (o4) the certified plan.
+    spec = car_spec(1024)
+    catalog = forecast.parse_catalog(STOCH_CATALOG)
+    p95 = st.capacity_at_risk(a, spec, bindings=False,
+                              device=device).quantiles[0.95]
+    target = p95 + 500
+    t0 = time.perf_counter()
+    plan = forecast.plan_capacity(a, spec, catalog, target=target,
+                                  drain=True, device=device)
+    t = out["ms"]["(o4) plan 1024"] = (time.perf_counter() - t0) * 1e3
+    if not plan.certified or plan.projected_quantile_capacity < target:
+        raise AssertionError(f"(o4) plan not certified: "
+                             f"{plan.uncertified_reason}")
+    host_plan = forecast.plan_capacity(a, spec, catalog, target=target,
+                                       drain=True, device="cpu")
+    if host_plan.to_wire() != plan.to_wire():
+        raise AssertionError("(o4) the plan differs from the host's")
+    log(f"(o4) plan_capacity target {target} (P95 {p95}): buy {plan.buy}, "
+        f"cost {plan.total_cost} vs LP bound {plan.lp_bound:.3f}, "
+        f"certified, drain free {plan.drain['free_count']} surplus "
+        f"{plan.drain['surplus_count']}, = the host run, {t:.3f} ms once "
+        f"({identity})")
+
+    # (o5) the CLI against its -device cpu runs.
+    a_npz = os.path.join(tmp, "a.npz")
+    a.save(a_npz)
+    audit_dir = os.path.join(tmp, "audit")
+    grow = pkg.synthetic_snapshot(500, seed=5)
+    with audit.AuditLog(audit_dir) as audit_log:
+        for g in range(1, 21):
+            audit_log.record_generation(dataclasses.replace(
+                grow,
+                used_cpu_req_milli=(np.asarray(grow.used_cpu_req_milli)
+                                    * (1.0 + 0.02 * g)).astype(np.int64),
+                used_mem_req_bytes=(np.asarray(grow.used_mem_req_bytes)
+                                    * (1.0 + 0.01 * g)).astype(np.int64),
+            ), g, ts=1_700_000_000.0 + 3600.0 * g)
+    base = {"usage": STOCH_USAGE, "replicas": 5000, "seed": 11}
+    docs = {
+        "car": dict(base, samples=1024),
+        "forecast": dict(base, samples=128, horizon={"steps": 8,
+                                                     "step_s": 3600},
+                         growth={"cpu_per_s": 2e-6, "memory_per_s": 1e-6}),
+        "forecast-audit": dict(base, samples=128,
+                               horizon={"steps": 8, "step_s": 3600},
+                               audit_dir=audit_dir),
+        "plan": dict(base, samples=512, target=target, drain=True),
+    }
+    files = {}
+    for name, doc in list(docs.items()) + [("catalog",
+                                            {"shapes": STOCH_CATALOG})]:
+        files[name] = os.path.join(tmp, f"{name}.json")
+        with open(files[name], "w") as f:
+            json.dump(doc, f)
+    argvs = {
+        "-car-spec": ["-car-spec", files["car"]],
+        "-forecast-spec growth": ["-forecast-spec", files["forecast"]],
+        "-forecast-spec audit_dir": ["-forecast-spec",
+                                     files["forecast-audit"]],
+        "-plan -catalog": ["-plan", files["plan"], "-catalog",
+                           files["catalog"]],
+    }
+    for name, args in argvs.items():
+        argv = ["-snapshot", a_npz, *args, "-output", "json"]
+        t0 = time.perf_counter()
+        rc, text = run_cli_rc(cli, argv + ["-device", device])
+        out["ms"][f"(o5) {name}"] = (time.perf_counter() - t0) * 1e3
+        rc_host, text_host = run_cli_rc(cli, argv + ["-device", "cpu"])
+        if (rc, text) != (rc_host, text_host) or not text:
+            raise AssertionError(f"(o5) {name}: the card's output differs "
+                                 "from -device cpu")
+        log(f"(o5) CLI {name}: exit {rc}, {len(text)} bytes = the -device "
+            f"cpu run, {out['ms'][f'(o5) {name}']:.1f} ms ({identity})")
+
+    # (o6) the service.
+    server = CapacityServer(a, device=device, batch_window_ms=0)
+    server.start()
+    try:
+        with CapacityClient(*server.address, connect_timeout_s=60,
+                            timeout_s=300, retry=None) as client:
+            car_req = dict(base, samples=1024)
+            fc_req = dict(base, samples=256, steps=16, step_s=3600,
+                          growth={"cpu_per_s": 2e-6, "memory_per_s": 0.0})
+            plan_req = dict(base, samples=256, target=target)
+            lib_car = st.capacity_at_risk(
+                a, car_spec(1024), mode=a.semantics, device=device).to_wire()
+            lib_fc = forecast.project_horizon(
+                a, car_spec(256), steps=16, step_s=3600.0,
+                growth_cpu_per_s=2e-6, growth_mem_per_s=0.0,
+                mode=a.semantics, device=device).to_wire()
+            lib_plan = forecast.plan_capacity(
+                a, car_spec(256), catalog, target=target, mode=a.semantics,
+                device=device).to_wire()
+            ops = {
+                "car": (lambda: client.car(**car_req),
+                        lambda r: r == lib_car),
+                "forecast": (lambda: client.forecast(**fc_req),
+                             lambda r: r == lib_fc),
+                "plan catalog": (lambda: client.plan(
+                    catalog=STOCH_CATALOG, **plan_req),
+                    lambda r: r == lib_plan),
+            }
+            for name, (call, check) in ops.items():
+                res = timed_requests(call)
+                if not check(res["reply"]):
+                    raise AssertionError(f"(o6) {name}: the reply differs "
+                                         "from the library call")
+                out["ms"][f"(o6) {name}"] = res["median_ms"]
+                out["ms"][f"(o6) {name} p90"] = res["p90_ms"]
+                log(f"(o6) service {name}: = the library call, "
+                    f"{res['median_ms']:.3f} ms median, p90 "
+                    f"{res['p90_ms']:.3f} (host clock, 20 warm requests; "
+                    f"{identity})")
+            off = {"enabled": False, "watches": {}, "breached": []}
+            if client.car() != off or client.forecast() != off:
+                raise AssertionError("(o6) a status form is not 'no watches'")
+        addr = f"{server.address[0]}:{server.address[1]}"
+        for flag in ("-car", "-forecast"):
+            rc, text = run_cli_rc(cli, [flag, addr])
+            if rc != 1 or "no " not in text:
+                raise AssertionError(f"(o6) {flag} rendered {text!r}, "
+                                     f"exit {rc}")
+        log("(o6) status forms: no watches; -car and -forecast render them "
+            "and exit 1")
+    finally:
+        server.shutdown()
+
+    out["launches"]["sweep_fit"]["(o)"] = ff.LAUNCHES
+    out["launches"]["sweep_multi"]["(o)"] = fm.LAUNCHES
+    if ff.LAUNCHES or fm.LAUNCHES:
+        raise AssertionError(f"(o) B1 launched {ff.LAUNCHES}, B2 "
+                             f"{fm.LAUNCHES} times: the stochastic family "
+                             "runs the exact program")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(o) B1 and B2 launches on the path: 0 and 0; path (o) took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -2919,6 +3214,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sched = phase_scheduling(pkg, cli, fit, ff, fm, tmp, identity)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (n)")
+    with tempfile.TemporaryDirectory() as tmp:
+        stoch = phase_stochastic(pkg, cli, ff, fm, tmp, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (o)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -2945,6 +3243,11 @@ def main() -> int:
         "live_launches": live["launches"],
         "scheduling_ms": sched["ms"],
         "scheduling_launches": sched["launches"],
+        "stochastic_ms": stoch["ms"],
+        "stochastic_launches": stoch["launches"],
+        "stochastic_sampler_mismatches": stoch["sampler_mismatches"],
+        "stochastic_s": stoch["seconds"],
+        "stochastic_trace": stoch.get("trace"),
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -2957,7 +3260,8 @@ def main() -> int:
         + sum(model["launches"]["sweep_fit"].values())
         + sum(service["launches"]["sweep_fit"].values())
         + sum(live["launches"]["sweep_fit"].values())
-        + sum(sched["launches"]["sweep_fit"].values()),
+        + sum(sched["launches"]["sweep_fit"].values())
+        + sum(stoch["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2981,7 +3285,8 @@ def main() -> int:
         + sum(model["launches"]["sweep_multi"].values())
         + sum(service["launches"]["sweep_multi"].values())
         + sum(live["launches"]["sweep_multi"].values())
-        + sum(sched["launches"]["sweep_multi"].values()),
+        + sum(sched["launches"]["sweep_multi"].values())
+        + sum(stoch["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

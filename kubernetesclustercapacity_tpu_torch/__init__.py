@@ -17,14 +17,19 @@ L5 service   :mod:`.service` (``CapacityServer``: the snapshot stays on the
              coalesced publish; ``CapacityClient``; the JAX package's wire
              protocol), with :mod:`.resilience` and :mod:`.telemetry`
 L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
-             ``-grid`` sweep, ``-extended-request``, on a file or a live
+             ``-grid`` sweep, ``-extended-request``, ``-car-spec``,
+             ``-forecast-spec``, ``-plan -catalog``, on a file or a live
              cluster; the six reference flags; every other flag of the JAX
              CLI declared)
 L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
              kernel B1, ``sweep_multi`` on kernel B2, and scheduler
              fidelity: ``place``, ``drain``, ``topology_spread``,
              ``nodes_needed``, preemption), :mod:`.explain`
-             (binding attribution, marginals, the fused sweep+explain)
+             (binding attribution, marginals, the fused sweep+explain),
+             :mod:`.stochastic` (the seeded sampler, capacity-at-risk on
+             the exact program), :mod:`.forecast` (trends, the horizon
+             projection, the certified catalog planner), :mod:`.audit`
+             (the audit log the trends are fitted from)
 L2 report    :mod:`.report` (the reference transcript, JSON, tables),
              :mod:`.oracle` (the sequential bug-for-bug walk)
 L1 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
@@ -104,4 +109,12 @@ from kubernetesclustercapacity_tpu_torch.models import (  # noqa: F401
 )
 from kubernetesclustercapacity_tpu_torch.report import (  # noqa: F401
     reference_report,
+)
+from kubernetesclustercapacity_tpu_torch.stochastic import (  # noqa: F401
+    CaRResult,
+    StochasticSpec,
+    UsageDistribution,
+    capacity_at_risk,
+    extract_usage_history,
+    load_stochastic_spec,
 )

@@ -5,8 +5,10 @@ Counterpart of ``kubernetesclustercapacity_tpu/cli.py`` (its flag layer
 and dispatch, ``:544-609``, ``_run_explain``, ``:1575-1604``,
 ``_extended_names`` / ``_parse_extended_requests`` / ``_run_single`` /
 ``_emit_report``, ``:1701-1873``, ``_run_grid``, ``:1876-1983``,
-``_run_drain``, ``:1606-1641``, and ``_run_drain_server``,
-``:1217-1249``).
+``_run_drain``, ``:1606-1641``, ``_run_drain_server``, ``:1217-1249``,
+and the stochastic family, ``_run_car_status``, ``_run_car_spec``,
+``_run_forecast_status``, ``_load_operator_doc``, ``_run_forecast_spec``
+and ``_run_plan``, ``:675-1010``).
 The reference's six flags parse exactly as there
 (``ClusterCapacity.go:50-83``), so an invalid memory or replicas value
 prints the reference's fatal line.  Then, for one spec, it prints the
@@ -20,7 +22,10 @@ table as the JAX CLI apart from the kernel label.  ``-drain NODE``
 prints the rehoming plan of a ``kubectl drain`` (strict semantics, each
 pod placed with its own requests, the disruption-budget gate; exit 1 when
 the node is not evictable), and ``-drain-server HOST:PORT`` drains a
-running capacity server.
+running capacity server.  ``-car-spec``, ``-forecast-spec`` (explicit
+growth or a trend fitted from an audit log) and ``-plan -catalog`` answer
+the stochastic questions offline, and ``-car``/``-forecast HOST:PORT``
+render a server's watch status.
 
 The source is ``-snapshot`` (a fixture ``.json`` or a checkpoint
 ``.npz``) or, without it, the live cluster of ``-kubeconfig`` (default
@@ -31,9 +36,8 @@ is the pure-Python oracle, the reference's sequential walk, as a
 cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
 ``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
 other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
-native``) and the CaR, forecast, plan, gang, optimize, timeline, replay,
-doctor, profiling and federation surfaces are not ported yet and say so
-with exit 1.
+native``) and the gang, optimize, timeline, replay, doctor, profiling and
+federation surfaces are not ported yet and say so with exit 1.
 
 Examples::
 
@@ -76,14 +80,6 @@ _UNPORTED_FLAGS = (
     ("-timeline", "value"),
     ("-timeline-since", "value"),
     ("-timeline-watch", "value"),
-    ("-car", "value"),
-    ("-car-spec", "value"),
-    ("-car-samples", "value"),
-    ("-car-seed", "value"),
-    ("-forecast", "value"),
-    ("-forecast-spec", "value"),
-    ("-plan", "value"),
-    ("-catalog", "value"),
     ("-gang", "value"),
     ("-gang-spec", "value"),
     ("-optimize", "switch"),
@@ -228,6 +224,61 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with -drain-server: how long the server may "
                         "wait for in-flight work (default: the "
                         "server's own -drain-timeout-s)")
+    p.add_argument("-car", default=None, metavar="HOST:PORT",
+                   help="render a running capacity service's "
+                        "capacity-at-risk status (per quantile watch: "
+                        "capacity at its confidence, probability-of-fit, "
+                        "alert state) and exit; -output json selects the "
+                        "structured form; exit 1 while any quantile "
+                        "watch is breached (or none are configured)")
+    p.add_argument("-car-spec", default="", dest="car_spec", metavar="FILE",
+                   help="offline capacity-at-risk: load a stochastic "
+                        "usage spec (YAML/JSON: per-pod cpu/memory "
+                        "distributions, replicas, samples, seed) and "
+                        "report capacity quantiles for the -snapshot "
+                        "source; deterministic in the seed; exit 1 when "
+                        "the spec's replicas miss its confidence bar")
+    p.add_argument("-car-samples", type=int, default=0, dest="car_samples",
+                   metavar="S",
+                   help="with -car-spec: override the spec's Monte "
+                        "Carlo sample count (0 = keep the spec's / the "
+                        "KCCAP_CAR_SAMPLES default)")
+    p.add_argument("-car-seed", type=int, default=None, dest="car_seed",
+                   metavar="N",
+                   help="with -car-spec: override the spec's sampling "
+                        "seed (explicit seeds make every run replayable)")
+    p.add_argument("-forecast", default=None, metavar="HOST:PORT",
+                   help="render a running capacity service's forecast "
+                        "status (per horizon watch: current capacity at "
+                        "its quantile, projected horizon minimum, "
+                        "time-to-breach, alert state) and exit; -output "
+                        "json selects the structured form; exit 1 while "
+                        "any horizon watch is breached (or none are "
+                        "configured)")
+    p.add_argument("-forecast-spec", default="", dest="forecast_spec",
+                   metavar="FILE",
+                   help="offline capacity forecast: load a stochastic "
+                        "usage spec extended with a horizon block "
+                        "(steps, step_s) and either explicit growth "
+                        "rates (growth: cpu_per_s/memory_per_s) or an "
+                        "audit_dir to fit them from verified history, "
+                        "then project the quantile ladder over the "
+                        "horizon against the -snapshot source; exit 1 "
+                        "when any projected quantile crosses the "
+                        "threshold within the horizon")
+    p.add_argument("-plan", default="", dest="plan_spec", metavar="FILE",
+                   help="offline certified capacity plan: load a "
+                        "stochastic usage spec (plus optional target, "
+                        "quantile, drain fields) and answer 'cheapest "
+                        "node set from -catalog that restores the "
+                        "quantile to the target' for the -snapshot "
+                        "source, with an LP lower bound and host-side "
+                        "certification; exit 1 unless the plan is "
+                        "certified")
+    p.add_argument("-catalog", default="", metavar="FILE",
+                   help="with -plan: the node-shape catalog (YAML/JSON: "
+                        "shapes with name, cpu, memory, pods, "
+                        "unit_cost, max_count)")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
     add_unported_flags(p, _UNPORTED_FLAGS)
@@ -256,8 +307,12 @@ def main(argv: list[str] | None = None) -> int:
         _split_single_dash_eq(sys.argv[1:] if argv is None else list(argv))
     )
     unported = unported_flags_used(args, _UNPORTED_FLAGS)
+    # The one-shot diagnostics, as in the JAX CLI: no spec, no source.
+    if args.car and not unported:
+        return _run_car_status(args)
+    if args.forecast and not unported:
+        return _run_forecast_status(args)
     if args.drain_server and not unported:
-        # A one-shot diagnostic, as in the JAX CLI: no spec, no source.
         return _run_drain_server(args)
     try:
         scenario = scenario_from_flags(
@@ -301,12 +356,18 @@ def main(argv: list[str] | None = None) -> int:
 
 def run(args, fixture, snapshot, scenario) -> int:
     """Everything after the source: the checkpoint, then the one surface
-    the flags ask for (``-drain``, ``-explain``, ``-grid`` or the single
-    spec)."""
+    the flags ask for (``-car-spec``, ``-forecast-spec``, ``-plan``,
+    ``-drain``, ``-explain``, ``-grid`` or the single spec)."""
     if args.save_snapshot:
         snapshot.save(args.save_snapshot)
         print(f"snapshot checkpointed to {args.save_snapshot}",
               file=sys.stderr)
+    if args.car_spec:
+        return _run_car_spec(args, snapshot)
+    if args.forecast_spec:
+        return _run_forecast_spec(args, snapshot)
+    if args.plan_spec:
+        return _run_plan(args, snapshot)
     if args.drain:
         return _run_drain(args, fixture, snapshot)
     if args.explain:
@@ -542,6 +603,339 @@ def _run_drain_server(args) -> int:
             + (" (already draining)" if record.get("already") else "")
         )
     return 0 if record.get("drained") else 1
+
+
+def _run_car_status(args) -> int:
+    """-car HOST:PORT: fetch and render a service's capacity-at-risk
+    watch status.  Exits by the verdict: a breached quantile watch is a
+    scriptable failure, and so is a server with no quantile watches at
+    all (the port's server has none: it has no timeline)."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        car_status_json_report,
+        car_status_table_report,
+    )
+
+    addr = _parse_addr("-car", args.car)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.car()
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch capacity-at-risk status from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(car_status_json_report(result))
+    else:
+        print(car_status_table_report(result))
+    if not result.get("enabled", False):
+        return 1
+    return 1 if result.get("breached") else 0
+
+
+def _run_car_spec(args, snapshot) -> int:
+    """-car-spec FILE: offline capacity-at-risk against the -snapshot
+    source.  Applies the same implicit strict-mode taint mask as every
+    other surface, prints the quantile ladder (table or JSON), and
+    exits by the spec's own confidence bar: 1 when
+    ``P(fit replicas) < confidence``."""
+    import dataclasses as _dc
+
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.report import (
+        car_json_report,
+        car_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.stochastic import (
+        DistributionError,
+        capacity_at_risk,
+        load_stochastic_spec,
+    )
+
+    if args.backend != "torch":
+        print("ERROR : -car-spec runs on the device programs (-backend "
+              "torch); cpu/native backends are fit-only cross-checks "
+              "...exiting")
+        return 1
+    try:
+        spec = load_stochastic_spec(args.car_spec)
+    except (OSError, DistributionError) as e:
+        print(f"ERROR : bad -car-spec: {e}")
+        return 1
+    if args.car_samples:
+        if args.car_samples < 2:
+            print("ERROR : -car-samples must be >= 2 ...exiting")
+            return 1
+        spec = _dc.replace(spec, samples=args.car_samples)
+    if args.car_seed is not None:
+        spec = _dc.replace(spec, seed=args.car_seed)
+    try:
+        result = capacity_at_risk(
+            snapshot, spec, mode=args.semantics,
+            node_mask=implicit_taint_mask(snapshot), device=args.device,
+        )
+    except (DistributionError, ValueError) as e:
+        print(f"ERROR : {e}")
+        return 1
+    if args.output == "json":
+        print(car_json_report(result.to_wire()))
+    else:
+        print(car_table_report(result.to_wire()))
+    return 0 if result.schedulable else 1
+
+
+def _run_forecast_status(args) -> int:
+    """-forecast HOST:PORT: fetch and render a service's forecast
+    (horizon) watch status.  Exits by the verdict, like -car."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        forecast_status_json_report,
+        forecast_status_table_report,
+    )
+
+    addr = _parse_addr("-forecast", args.forecast)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.forecast()
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch forecast status from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(forecast_status_json_report(result))
+    else:
+        print(forecast_status_table_report(result))
+    if not result.get("enabled", False):
+        return 1
+    return 1 if result.get("breached") else 0
+
+
+def _load_operator_doc(path: str):
+    """YAML-when-PyYAML-else-strict-JSON — the same loader split every
+    operator file (stochastic spec, catalog) uses."""
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    try:
+        import yaml  # type: ignore[import-untyped]
+
+        data = yaml.safe_load(text)
+    except ImportError:
+        try:
+            data = json.loads(text)
+        except ValueError as e:
+            raise ValueError(
+                f"{path}: not valid JSON (and PyYAML is unavailable): {e}"
+            ) from e
+    except Exception as e:  # yaml.YAMLError — malformed document
+        raise ValueError(f"{path}: cannot parse: {e}") from e
+    return data
+
+
+def _run_forecast_spec(args, snapshot) -> int:
+    """-forecast-spec FILE: offline horizon projection against the
+    -snapshot source.
+
+    The file extends the stochastic usage-spec grammar with a
+    ``horizon:`` block (steps, step_s), an optional ``threshold``, and
+    growth provenance: either explicit ``growth: {cpu_per_s,
+    memory_per_s}`` relative rates or ``audit_dir:`` pointing at an
+    audit log (either package's), in which case the trend is Theil–Sen
+    fitted from the digest-verified generations.  Exits 1 when any
+    projected quantile crosses the threshold within the horizon."""
+    from kubernetesclustercapacity_tpu_torch.forecast import (
+        DEFAULT_STEP_S,
+        DEFAULT_STEPS,
+        max_steps,
+        project_horizon,
+        trend_from_audit,
+    )
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.report import (
+        forecast_json_report,
+        forecast_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.stochastic import (
+        DistributionError,
+        InsufficientHistoryError,
+        parse_stochastic_spec,
+    )
+
+    if args.backend != "torch":
+        print("ERROR : -forecast-spec runs on the device programs (-backend "
+              "torch); cpu/native backends are fit-only cross-checks "
+              "...exiting")
+        return 1
+    try:
+        doc = _load_operator_doc(args.forecast_spec)
+    except (OSError, ValueError) as e:
+        print(f"ERROR : bad -forecast-spec: {e}")
+        return 1
+    if not isinstance(doc, dict):
+        print("ERROR : bad -forecast-spec: expected a mapping")
+        return 1
+    doc = dict(doc)
+    horizon = doc.pop("horizon", None) or {}
+    growth = doc.pop("growth", None)
+    audit_dir = doc.pop("audit_dir", None)
+    threshold = doc.pop("threshold", None)
+    quantiles = doc.pop("quantiles", None)
+    try:
+        spec = parse_stochastic_spec(doc)
+        if not isinstance(horizon, dict) or not set(horizon) <= {
+            "steps", "step_s"
+        }:
+            raise ValueError(
+                "horizon: wants a mapping with steps and/or step_s"
+            )
+        steps = horizon.get("steps", DEFAULT_STEPS)
+        step_s = horizon.get("step_s", DEFAULT_STEP_S)
+        if (growth is None) == (audit_dir is None):
+            raise ValueError(
+                "exactly one of growth: {cpu_per_s, memory_per_s} or "
+                "audit_dir: is required"
+            )
+        if threshold is not None and (
+            isinstance(threshold, bool) or not isinstance(threshold, int)
+        ):
+            raise ValueError(f"threshold: expected an int, got {threshold!r}")
+        if quantiles is not None:
+            if not isinstance(quantiles, list) or not quantiles:
+                raise ValueError("quantiles: expected a non-empty list")
+            quantiles = tuple(float(q) for q in quantiles)
+    except (DistributionError, ValueError, TypeError) as e:
+        print(f"ERROR : bad -forecast-spec: {e}")
+        return 1
+
+    trend_wire = {}
+    degraded = False
+    if audit_dir is not None:
+        try:
+            fit_cpu, series = trend_from_audit(audit_dir, "cpu", "usage")
+            fit_mem, _ = trend_from_audit(audit_dir, "memory", "usage")
+        except (OSError, InsufficientHistoryError, ValueError) as e:
+            print(f"ERROR : cannot fit trend from {audit_dir}: {e}")
+            return 1
+        growth_cpu = max(fit_cpu.relative_slope_per_s, 0.0)
+        growth_mem = max(fit_mem.relative_slope_per_s, 0.0)
+        degraded = series.degraded_time_axis
+        trend_wire = {
+            "source": str(audit_dir),
+            "cpu": fit_cpu.to_wire(),
+            "memory": fit_mem.to_wire(),
+        }
+    else:
+        if not isinstance(growth, dict) or not set(growth) <= {
+            "cpu_per_s", "memory_per_s"
+        }:
+            print("ERROR : bad -forecast-spec: growth wants cpu_per_s "
+                  "and/or memory_per_s")
+            return 1
+        try:
+            growth_cpu = float(growth.get("cpu_per_s", 0.0))
+            growth_mem = float(growth.get("memory_per_s", 0.0))
+        except (TypeError, ValueError):
+            print("ERROR : bad -forecast-spec: growth rates must be numbers")
+            return 1
+    try:
+        result = project_horizon(
+            snapshot, spec,
+            steps=int(steps), step_s=float(step_s),
+            growth_cpu_per_s=growth_cpu, growth_mem_per_s=growth_mem,
+            mode=args.semantics or snapshot.semantics,
+            node_mask=implicit_taint_mask(snapshot),
+            **({"quantiles": quantiles} if quantiles else {}),
+            threshold=threshold,
+            degraded_time_axis=degraded,
+            device=args.device,
+        )
+    except (DistributionError, ValueError, TypeError) as e:
+        print(f"ERROR : {e} (steps must stay within "
+              f"KCCAP_FORECAST_MAX_STEPS={max_steps()})")
+        return 1
+    result.trend = trend_wire
+    wire = result.to_wire()
+    if args.output == "json":
+        print(forecast_json_report(wire))
+    else:
+        print(forecast_table_report(wire))
+    return 1 if wire["breached_within_horizon"] else 0
+
+
+def _run_plan(args, snapshot) -> int:
+    """-plan FILE -catalog FILE: offline certified capacity planning
+    against the -snapshot source.
+
+    The plan file is the stochastic usage-spec grammar plus optional
+    ``target`` (replicas to restore, default the spec's), ``quantile``
+    (default 0.95) and ``drain: true`` (also compute the scale-down
+    dual).  Exits 0 only when the plan is certified."""
+    from kubernetesclustercapacity_tpu_torch.forecast import (
+        PlannerError,
+        load_catalog,
+        plan_capacity,
+    )
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.report import (
+        plan_json_report,
+        plan_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.stochastic import (
+        DistributionError,
+        parse_stochastic_spec,
+    )
+
+    if args.backend != "torch":
+        print("ERROR : -plan runs on the device programs (-backend torch); "
+              "cpu/native backends are fit-only cross-checks ...exiting")
+        return 1
+    if not args.catalog:
+        print("ERROR : -plan needs -catalog FILE (the node-shape "
+              "catalog to buy from) ...exiting")
+        return 1
+    try:
+        catalog = load_catalog(args.catalog)
+    except (OSError, PlannerError) as e:
+        print(f"ERROR : bad -catalog: {e}")
+        return 1
+    try:
+        doc = _load_operator_doc(args.plan_spec)
+    except (OSError, ValueError) as e:
+        print(f"ERROR : bad -plan: {e}")
+        return 1
+    if not isinstance(doc, dict):
+        print("ERROR : bad -plan: expected a mapping")
+        return 1
+    doc = dict(doc)
+    target = doc.pop("target", None)
+    quantile = doc.pop("quantile", 0.95)
+    drain = doc.pop("drain", False)
+    try:
+        spec = parse_stochastic_spec(doc)
+        if target is not None and (
+            isinstance(target, bool) or not isinstance(target, int)
+        ):
+            raise ValueError(f"target: expected an int, got {target!r}")
+        if not isinstance(drain, bool):
+            raise ValueError(f"drain: expected a bool, got {drain!r}")
+        result = plan_capacity(
+            snapshot, spec, catalog,
+            target=target, quantile=float(quantile),
+            mode=args.semantics or snapshot.semantics,
+            node_mask=implicit_taint_mask(snapshot),
+            drain=drain,
+            device=args.device,
+        )
+    except (DistributionError, PlannerError, ValueError, TypeError) as e:
+        print(f"ERROR : bad -plan: {e}")
+        return 1
+    wire = result.to_wire()
+    if args.output == "json":
+        print(plan_json_report(wire))
+    else:
+        print(plan_table_report(wire))
+    return 0 if result.certified else 1
 
 
 def _run_single(args, fixture, snapshot, scenario) -> int:

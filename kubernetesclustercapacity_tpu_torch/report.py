@@ -1,8 +1,8 @@
 """Verdict reporting: the reference's transcript, byte for byte, and the
 structured views.
 
-Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec
-and explain renderers).  The reference's whole observability story is
+Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec,
+explain, capacity-at-risk, forecast and plan renderers).  The reference's whole observability story is
 ``fmt.Printf`` to stdout (SURVEY.md §5); :func:`reference_report`
 reproduces that text exactly, the typos ("allocatbale", "scehdule") and Go's
 NaN/±Inf float rendering included, and :func:`json_report`,
@@ -27,6 +27,16 @@ __all__ = [
     "table_report",
     "explain_table_report",
     "explain_json_report",
+    "car_table_report",
+    "car_json_report",
+    "car_status_table_report",
+    "car_status_json_report",
+    "forecast_table_report",
+    "forecast_json_report",
+    "forecast_status_table_report",
+    "forecast_status_json_report",
+    "plan_table_report",
+    "plan_json_report",
 ]
 
 _RULE = "=" * 110  # the reference prints 110 '=' (ClusterCapacity.go:142,149)
@@ -347,3 +357,291 @@ def table_report(
         f"verdict: {verdict}"
     )
     return "\n".join(lines)
+
+
+# The stochastic family's renderers (the JAX module's, verbatim): each takes
+# the op's wire shape, so the library result, the service reply and the
+# CLI print the same text.
+
+
+def car_table_report(car: dict) -> str:
+    """One capacity-at-risk evaluation (the ``car`` op's wire shape /
+    ``CaRResult.to_wire()``) as operator-readable text: the quantile
+    ladder with per-quantile binding attribution, then the
+    probability-of-fit verdict a deployment gate would script on."""
+    lines = [
+        f"capacity at risk ({car.get('mode')} semantics, "
+        f"{car.get('samples')} samples, seed {car.get('seed')})"
+    ]
+    binding = car.get("binding", {})
+    header = f"{'QUANTILE':<10} {'CAPACITY':>10}  BINDING"
+    lines += [header, "-" * len(header)]
+    for label in sorted(
+        car.get("quantiles", {}),
+        key=lambda p: float(p[1:]),
+    ):
+        counts = binding.get(label, {})
+        bind = "  ".join(
+            f"{k}={v}" for k, v in counts.items() if v
+        )
+        lines.append(
+            f"{label:<10} {car['quantiles'][label]:>10}  {bind}"
+        )
+    lines.append("-" * len(header))
+    lines.append(
+        f"mean capacity: {car.get('mean')}   sample range: "
+        f"[{car.get('min_total')}, {car.get('max_total')}]"
+    )
+    replicas = car.get("replicas")
+    prob = car.get("prob_fit")
+    confidence = car.get("confidence")
+    verdict = (
+        "SCHEDULABLE" if car.get("schedulable") else "NOT SCHEDULABLE"
+    )
+    lines.append(
+        f"P(fit {replicas} replicas) = {prob}   required confidence: "
+        f"{confidence}   verdict: {verdict}"
+    )
+    return "\n".join(lines)
+
+
+def car_json_report(car: dict) -> str:
+    """``kccap -car-spec -output json``: the wire shape verbatim."""
+    return json.dumps(car, indent=2, sort_keys=True)
+
+
+def car_status_table_report(status: dict) -> str:
+    """The ``car`` op's watch-status form as operator-readable text:
+    one row per quantile watch (capacity at its confidence, the
+    probability-of-fit, the alert state)."""
+    if not status.get("enabled", False):
+        return (
+            "capacity at risk: no quantile watches on this server "
+            "(-watch entries need a quantile: field)"
+        )
+    header = (
+        f"{'WATCH':<24} {'QUANTILE':>9} {'CAPACITY':>9} {'MIN':>6} "
+        f"{'P(FIT)':>8} {'SAMPLES':>8}  STATE"
+    )
+    lines = [
+        f"capacity at risk: serving generation {status.get('generation')}",
+        header,
+        "-" * len(header),
+    ]
+    def _cell(v):
+        return "-" if v is None else v
+
+    for name in sorted(status.get("watches", {})):
+        w = status["watches"][name]
+        alert = w.get("alert", {})
+        qlabel = f"p{w['quantile'] * 100:g}"
+        lines.append(
+            f"{name:<24} "
+            f"{qlabel:>9} "
+            f"{_cell(w.get('last_total')):>9} "
+            f"{_cell(w.get('min_replicas')):>6} "
+            f"{_cell(w.get('prob_fit')):>8} "
+            f"{w.get('samples'):>8}  {alert.get('state')}"
+        )
+    lines.append("-" * len(header))
+    breached = status.get("breached", [])
+    lines.append(
+        "verdict: "
+        + (
+            "BREACHED — " + ", ".join(breached)
+            if breached
+            else "ok — every quantile watch above its threshold"
+        )
+    )
+    return "\n".join(lines)
+
+
+def car_status_json_report(status: dict) -> str:
+    """``kccap -car -output json``: the wire shape verbatim."""
+    return json.dumps(status, indent=2, sort_keys=True)
+
+
+def _ttb_cell(ttb) -> str:
+    """Render a ``time_to_breach_s`` value: seconds (with an hour
+    translation when it earns one) or ``-`` for "no breach within the
+    horizon"."""
+    if ttb is None:
+        return "-"
+    s = float(ttb)
+    if s >= 3600.0:
+        return f"{s:.0f}s (~{s / 3600.0:.1f}h)"
+    return f"{s:.0f}s"
+
+
+def forecast_table_report(fc: dict) -> str:
+    """One horizon projection (the ``forecast`` op's wire shape /
+    ``HorizonResult.to_wire()``) as operator-readable text: per
+    quantile the current capacity, the horizon minimum, and the
+    time-to-breach verdict an autoscaler would script on."""
+    growth = fc.get("growth", {})
+    lines = [
+        f"capacity forecast ({fc.get('mode')} semantics, "
+        f"{fc.get('samples')} samples, seed {fc.get('seed')}): "
+        f"{fc.get('steps')} step(s) x {fc.get('step_s')}s = "
+        f"{fc.get('horizon_s')}s horizon",
+        f"growth: cpu {growth.get('cpu_per_s')}/s   "
+        f"memory {growth.get('memory_per_s')}/s   "
+        f"threshold: {fc.get('threshold')} replicas",
+    ]
+    if fc.get("degraded_time_axis"):
+        lines.append(
+            "WARNING: degraded time axis — trend fitted on record "
+            "ordinals, not timestamps"
+        )
+    header = (
+        f"{'QUANTILE':<10} {'NOW':>10} {'HORIZON MIN':>12}  "
+        f"TIME TO BREACH"
+    )
+    lines += [header, "-" * len(header)]
+    ttb = fc.get("time_to_breach_s", {})
+    now = fc.get("now", {})
+    for label in sorted(fc.get("quantiles", {}), key=lambda p: float(p[1:])):
+        ladder = fc["quantiles"][label]
+        lines.append(
+            f"{label:<10} {now.get(label):>10} {min(ladder):>12}  "
+            f"{_ttb_cell(ttb.get(label))}"
+        )
+    lines.append("-" * len(header))
+    breached = fc.get("breached_within_horizon", [])
+    lines.append(
+        "verdict: "
+        + (
+            "BREACH WITHIN HORIZON — " + ", ".join(breached)
+            if breached
+            else "ok — no quantile crosses the threshold within the horizon"
+        )
+    )
+    return "\n".join(lines)
+
+
+def forecast_json_report(fc: dict) -> str:
+    """``kccap -forecast-spec -output json``: the wire shape verbatim."""
+    return json.dumps(fc, indent=2, sort_keys=True)
+
+
+def forecast_status_table_report(status: dict) -> str:
+    """The ``forecast`` op's watch-status form as operator-readable
+    text: one row per horizon watch (current capacity at its quantile,
+    the projected horizon minimum, time-to-breach, the alert state)."""
+    if not status.get("enabled", False):
+        return (
+            "capacity forecast: no horizon watches on this server "
+            "(-watch entries need a horizon: block)"
+        )
+    header = (
+        f"{'WATCH':<24} {'QUANTILE':>9} {'NOW':>9} {'HMIN':>9} "
+        f"{'MIN':>6} {'TTB':>14}  STATE"
+    )
+    lines = [
+        f"capacity forecast: serving generation {status.get('generation')}",
+        header,
+        "-" * len(header),
+    ]
+
+    def _cell(v):
+        return "-" if v is None else v
+
+    for name in sorted(status.get("watches", {})):
+        w = status["watches"][name]
+        alert = w.get("alert", {})
+        qlabel = f"p{w['quantile'] * 100:g}"
+        ttb = w.get("time_to_breach_s")
+        lines.append(
+            f"{name:<24} "
+            f"{qlabel:>9} "
+            f"{_cell(w.get('last_total')):>9} "
+            f"{_cell(w.get('horizon_min_capacity')):>9} "
+            f"{_cell(w.get('min_replicas')):>6} "
+            f"{_ttb_cell(ttb):>14}  {alert.get('state')}"
+        )
+    lines.append("-" * len(header))
+    breached = status.get("breached", [])
+    lines.append(
+        "verdict: "
+        + (
+            "BREACHED — " + ", ".join(breached)
+            if breached
+            else "ok — every horizon watch above its threshold"
+        )
+    )
+    return "\n".join(lines)
+
+
+def forecast_status_json_report(status: dict) -> str:
+    """``kccap -forecast -output json``: the wire shape verbatim."""
+    return json.dumps(status, indent=2, sort_keys=True)
+
+
+def plan_table_report(plan: dict) -> str:
+    """One capacity plan (the ``plan`` op's catalog form /
+    ``PlanResult.to_wire()``) as operator-readable text: the purchase
+    list with the certified-vs-LP-bound gap, the shadow-price
+    attribution, and the drain dual when requested."""
+    lines = [
+        f"capacity plan ({plan.get('mode')} semantics, "
+        f"{plan.get('samples')} samples, seed {plan.get('seed')}): "
+        f"target {plan.get('target')} replicas at "
+        f"{plan.get('quantile')}",
+        f"base {plan.get('quantile')} capacity: "
+        f"{plan.get('base_quantile_capacity')}   projected: "
+        f"{plan.get('projected_quantile_capacity')}",
+    ]
+    buy = plan.get("buy", [])
+    if buy:
+        header = f"{'SHAPE':<20} {'COUNT':>6} {'UNIT COST':>10} {'COST':>10}"
+        lines += [header, "-" * len(header)]
+        for row in buy:
+            lines.append(
+                f"{row.get('shape'):<20} {row.get('count'):>6} "
+                f"{row.get('unit_cost'):>10} {row.get('cost'):>10}"
+            )
+        lines.append("-" * len(header))
+    else:
+        lines.append("buy: nothing — the target already holds")
+    lp = plan.get("lp_bound")
+    lines.append(
+        f"total cost: {plan.get('total_cost')}   LP bound: "
+        f"{'-' if lp is None else lp}   gap: {plan.get('gap_pct')}%"
+    )
+    shadow = plan.get("shadow_prices", {})
+    if shadow:
+        lines.append(
+            "shadow prices: "
+            + "  ".join(f"{k}={v}" for k, v in sorted(shadow.items()))
+        )
+    if plan.get("demand_price") is not None:
+        lines.append(
+            f"marginal replica price: {plan.get('demand_price')}"
+        )
+    drain = plan.get("drain")
+    if drain:
+        lines.append(
+            f"drain: {drain.get('free_count')} node(s) free "
+            f"(verified={drain.get('free_verified')}), "
+            f"{drain.get('surplus_count')} more drainable holding "
+            f"{plan.get('quantile')} >= target "
+            f"(capacity after: {drain.get('quantile_after_drain')})"
+        )
+        if drain.get("free_nodes"):
+            lines.append(f"  free: {', '.join(drain['free_nodes'])}")
+        if drain.get("surplus_nodes"):
+            lines.append(
+                f"  surplus: {', '.join(drain['surplus_nodes'])}"
+            )
+    verdict = plan.get("status", "uncertified").upper()
+    reason = plan.get("uncertified_reason")
+    lines.append(
+        f"verdict: {verdict}"
+        + (f" — {reason}" if reason else "")
+    )
+    return "\n".join(lines)
+
+
+def plan_json_report(plan: dict) -> str:
+    """``kccap -plan ... -output json``: the wire shape verbatim."""
+    return json.dumps(plan, indent=2, sort_keys=True)

@@ -13,17 +13,21 @@ Ported ops: ``ping``, ``info``, ``fit`` (with every ``PodSpec`` field,
 ``priority`` included), ``sweep`` (solo and folded, or with
 ``priorities``), ``sweep_multi``, ``explain``, the scheduler-fidelity ops
 ``place``, ``drain``, ``topology_spread`` and ``plan`` (its
-``node_template`` form), ``reload``, ``update`` (watch-style events
-applied through :class:`..store.ClusterStore`) and ``drain_server``,
-behind the auth token, the compute-slot bound and deadline shedding.
+``node_template`` form and its ``catalog`` form, the certified planner of
+:mod:`..forecast.planner`), the stochastic ops ``car`` (capacity-at-risk)
+and ``forecast`` (the horizon projection), ``reload``, ``update``
+(watch-style events applied through :class:`..store.ClusterStore`) and
+``drain_server``, behind the auth token, the compute-slot bound and
+deadline shedding.  The port has no timeline, so ``car`` and ``forecast``
+without a ``usage`` block (their watch-status forms) answer as the JAX
+server does without ``-watch``: no watches.
 ``-follow`` keeps the served snapshot synced to a live cluster
 (:class:`..follower.ClusterFollower` → :class:`.coalesce.
 SnapshotCoalescer` → a publish that pre-stages the new generation on the
 card).  Replies equal the JAX server's apart from kernel labels
 (``cuda_``/``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and
-volatile fields (latencies, ids).  Every other op of the protocol — and a
-``plan`` carrying a ``catalog`` — is answered with an error reply saying
-it is not yet ported.  The port has no fast-path breaker (a kernel that
+volatile fields (latencies, ids, ``eval_ms``).  Every other op of the
+protocol is answered with an error reply saying it is not yet ported.  The port has no fast-path breaker (a kernel that
 fails to build or launch raises); ``info`` reports one that never opens,
 in the JAX snapshot's shape, for clients that read it.
 
@@ -80,9 +84,7 @@ __all__ = ["CapacityServer", "UNPORTED_OPS", "follow_publisher", "main"]
 #: Ops of the protocol this server does not answer yet: each gets an
 #: error reply saying so.
 UNPORTED_OPS = frozenset(
-    {
-        "car", "forecast", "gang", "optimize", "dump", "timeline", "slo",
-    }
+    {"gang", "optimize", "dump", "timeline", "slo"}
 )
 
 #: ``info``'s ``fast_path_breaker``: the port has no breaker (a failed
@@ -573,10 +575,11 @@ class CapacityServer:
         }
     )
 
-    # The compute ops: bounded by the inflight slots.
+    # The compute ops: bounded by the inflight slots (the JAX server's set:
+    # ``forecast`` is drain-gated but takes no slot there either).
     _COMPUTE_OPS = frozenset({
         "fit", "sweep", "sweep_multi", "place", "drain", "topology_spread",
-        "plan", "explain",
+        "plan", "explain", "car",
     })
 
     # The ops a graceful drain refuses and waits out: compute work plus
@@ -885,9 +888,13 @@ class CapacityServer:
         if op == "topology_spread":
             return self._op_topology_spread(msg, snap, fixture)
         if op == "plan":
-            return self._op_plan(msg, snap, fixture)
+            return self._op_plan(msg, snap, fixture, implicit_mask)
         if op == "explain":
             return self._op_explain(msg, snap, implicit_mask)
+        if op == "car":
+            return self._op_car(msg, snap, implicit_mask)
+        if op == "forecast":
+            return self._op_forecast(msg, snap, implicit_mask)
         if op == "reload":
             return self._op_reload(msg, snap)
         if op == "update":
@@ -1337,17 +1344,26 @@ class CapacityServer:
         }
 
     def _op_plan(
-        self, msg: dict, snap: ClusterSnapshot, fixture: dict | None
+        self,
+        msg: dict,
+        snap: ClusterSnapshot,
+        fixture: dict | None,
+        implicit_mask=None,
     ) -> dict:
-        """Scale-up planning over the wire: the ``node_template`` form,
-        homogeneous :meth:`CapacityModel.nodes_needed` (``nodes_needed``
-        is null when unsatisfiable).  The ``catalog`` form (the certified
-        shape planner) is not ported yet."""
+        """Scale-up planning over the wire, two forms:
+
+        * **catalog** (``catalog`` present): the certified planner —
+          :func:`~..forecast.planner.plan_capacity` over a declarative
+          node-shape catalog, answering "cheapest node set restoring
+          the quantile capacity to ``target``" with the LP lower
+          bound, cannot-lie certification, shadow prices, and (with
+          ``drain: true``) the scale-down dual;
+        * **node_template**: homogeneous
+          :meth:`CapacityModel.nodes_needed` (``nodes_needed`` is null
+          when unsatisfiable).
+        """
         if "catalog" in msg:
-            raise NotImplementedError(
-                "op 'plan' with a 'catalog' (the certified shape planner) "
-                "is not yet ported to the PyTorch package"
-            )
+            return self._op_plan_catalog(msg, snap, implicit_mask)
         template = msg.get("node_template")
         if not isinstance(template, dict):
             raise ValueError(
@@ -1369,6 +1385,244 @@ class CapacityServer:
             "nodes_needed": plan.nodes_needed,
             "satisfiable": plan.satisfiable,
         }
+
+    @staticmethod
+    def _stochastic_spec(msg: dict):
+        """The stochastic usage spec riding a ``car``/``forecast``/``plan``
+        request (``usage`` plus the optional spec fields), validated; a
+        grammar error is a bad request."""
+        from kubernetesclustercapacity_tpu_torch.stochastic.distributions import (  # noqa: E501
+            DistributionError,
+            parse_stochastic_spec,
+        )
+
+        data = {"usage": msg["usage"]}
+        for field in ("replicas", "samples", "seed", "confidence"):
+            if field in msg:
+                data[field] = msg[field]
+        try:
+            return parse_stochastic_spec(data)
+        except DistributionError as e:
+            raise ValueError(str(e)) from e
+
+    @staticmethod
+    def _quantiles_from_msg(msg: dict):
+        """The optional ``quantiles`` list, validated (``None`` when
+        absent)."""
+        quantiles = msg.get("quantiles")
+        if quantiles is None:
+            return None
+        if not isinstance(quantiles, list) or not quantiles:
+            raise ValueError("quantiles must be a non-empty list")
+        for q in quantiles:
+            if (
+                isinstance(q, bool)
+                or not isinstance(q, (int, float))
+                or not 0.0 < float(q) < 1.0
+            ):
+                raise ValueError(
+                    f"quantiles must lie strictly inside (0, 1), got {q!r}"
+                )
+        return tuple(float(q) for q in quantiles)
+
+    def _op_plan_catalog(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """The catalog form of the ``plan`` op: a stochastic usage spec
+        plus a node-shape catalog → the certified cheapest purchase.
+        The served semantics and implicit strict-mode taint mask apply
+        exactly as they do to ``car``, so the plan restores the same
+        capacity that op reports."""
+        from kubernetesclustercapacity_tpu_torch.forecast.planner import (
+            PlannerError,
+            parse_catalog,
+            plan_capacity,
+        )
+
+        if "usage" not in msg:
+            raise ValueError(
+                "plan with a catalog wants a 'usage' distribution "
+                "block (the demand the purchase must hold)"
+            )
+        spec = self._stochastic_spec(msg)
+        try:
+            catalog = parse_catalog(msg["catalog"])
+        except PlannerError as e:
+            raise ValueError(str(e)) from e
+        target = msg.get("target")
+        if target is not None and (
+            isinstance(target, bool) or not isinstance(target, int)
+        ):
+            raise ValueError("plan target must be an integer")
+        quantile = msg.get("quantile", 0.95)
+        if isinstance(quantile, bool) or not isinstance(
+            quantile, (int, float)
+        ):
+            raise ValueError("plan quantile must be a number in (0, 1)")
+        drain = msg.get("drain", False)
+        if not isinstance(drain, bool):
+            raise ValueError("plan drain must be a boolean")
+        try:
+            result = plan_capacity(
+                snap, spec, catalog,
+                target=target,
+                quantile=float(quantile),
+                mode=snap.semantics,
+                node_mask=implicit_mask,
+                drain=drain,
+                device=self._device,
+            )
+        except PlannerError as e:
+            raise ValueError(str(e)) from e
+        out = result.to_wire()
+        output = msg.get("output")
+        if output in ("table", "json"):
+            from kubernetesclustercapacity_tpu_torch.report import (
+                plan_json_report,
+                plan_table_report,
+            )
+
+            out["report"] = (
+                plan_table_report(out)
+                if output == "table"
+                else plan_json_report(out)
+            )
+        return out
+
+    def _op_car(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """Capacity-at-risk over the wire, two forms:
+
+        * **evaluate** (``usage`` present): parse the stochastic spec
+          (``usage``/``replicas``/``samples``/``seed``/``confidence``,
+          optional ``quantiles`` list), draw the seed-deterministic
+          Monte Carlo samples, sweep them on the card (same semantics
+          and implicit taint mask as fit/sweep), and return capacity
+          quantiles + mean + probability-of-fit + per-quantile binding
+          attribution;
+        * **watch status** (no ``usage``): the quantile watches of the
+          timeline, which the port does not have: no watches (what
+          ``kccap-torch -car HOST:PORT`` renders and exits 1 by).
+        """
+        from kubernetesclustercapacity_tpu_torch.stochastic.car import (
+            DEFAULT_QUANTILES,
+            capacity_at_risk,
+        )
+
+        if "usage" not in msg:
+            return {"enabled": False, "watches": {}, "breached": []}
+        spec = self._stochastic_spec(msg)
+        quantiles = self._quantiles_from_msg(msg)
+        result = capacity_at_risk(
+            snap, spec,
+            mode=snap.semantics,
+            node_mask=implicit_mask,
+            quantiles=quantiles or DEFAULT_QUANTILES,
+            device=self._device,
+        )
+        clk = _phases.current()
+        with clk.phase("serialize"):
+            out = result.to_wire()
+            output = msg.get("output")
+            if output in ("table", "json"):
+                from kubernetesclustercapacity_tpu_torch.report import (
+                    car_json_report,
+                    car_table_report,
+                )
+
+                out["report"] = (
+                    car_table_report(out)
+                    if output == "table"
+                    else car_json_report(out)
+                )
+        return out
+
+    def _op_forecast(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """Capacity forecasting over the wire, two forms:
+
+        * **evaluate** (``usage`` present): the capacity-at-risk spec
+          plus a projection — ``steps``/``step_s`` and an EXPLICIT
+          ``growth`` block (``{cpu_per_s, memory_per_s}`` relative
+          rates) — answered with per-step capacity quantile ladders and
+          ``time_to_breach_s``, one ``[steps·samples]`` sweep on the
+          card.  Growth is explicit by design: the op stays a pure
+          function of the served snapshot (trend fitting from history
+          lives client-side in :func:`~..forecast.trend.
+          trend_from_audit`);
+        * **watch status** (no ``usage``): the horizon watches of the
+          timeline, which the port does not have: no watches.
+        """
+        from kubernetesclustercapacity_tpu_torch.forecast.horizon import (
+            DEFAULT_STEP_S,
+            DEFAULT_STEPS,
+            project_horizon,
+        )
+
+        if "usage" not in msg:
+            return {"enabled": False, "watches": {}, "breached": []}
+        spec = self._stochastic_spec(msg)
+        steps = msg.get("steps", DEFAULT_STEPS)
+        if isinstance(steps, bool) or not isinstance(steps, int):
+            raise ValueError("forecast steps must be an integer")
+        step_s = msg.get("step_s", DEFAULT_STEP_S)
+        if isinstance(step_s, bool) or not isinstance(step_s, (int, float)):
+            raise ValueError("forecast step_s must be a number")
+        growth = msg.get("growth", {})
+        if not isinstance(growth, dict):
+            raise ValueError(
+                "forecast growth must be an object like "
+                '{"cpu_per_s": 1e-6, "memory_per_s": 0}'
+            )
+        unknown = set(growth) - {"cpu_per_s", "memory_per_s"}
+        if unknown:
+            raise ValueError(
+                f"unknown growth field(s) {sorted(unknown)} "
+                "(want cpu_per_s/memory_per_s)"
+            )
+        rates = {}
+        for key in ("cpu_per_s", "memory_per_s"):
+            v = growth.get(key, 0.0)
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError(f"growth.{key} must be a number")
+            rates[key] = float(v)
+        threshold = msg.get("threshold")
+        if threshold is not None and (
+            isinstance(threshold, bool) or not isinstance(threshold, int)
+        ):
+            raise ValueError("forecast threshold must be an integer")
+        quantiles = self._quantiles_from_msg(msg)
+        try:
+            result = project_horizon(
+                snap, spec,
+                steps=steps,
+                step_s=float(step_s),
+                growth_cpu_per_s=rates["cpu_per_s"],
+                growth_mem_per_s=rates["memory_per_s"],
+                mode=snap.semantics,
+                node_mask=implicit_mask,
+                **({"quantiles": quantiles} if quantiles else {}),
+                threshold=threshold,
+                device=self._device,
+            )
+        except ValueError as e:
+            raise ValueError(f"bad forecast request: {e}") from e
+        out = result.to_wire()
+        output = msg.get("output")
+        if output in ("table", "json"):
+            from kubernetesclustercapacity_tpu_torch.report import (
+                forecast_json_report,
+                forecast_table_report,
+            )
+
+            out["report"] = (
+                forecast_table_report(out)
+                if output == "table"
+                else forecast_json_report(out)
+            )
+        return out
 
     def _batch_key(self, snap, kernel_req: str):
         """The micro-batch key: the generation ``_dispatch_inner``

@@ -1,7 +1,7 @@
 """Capacity timeline (counterpart of ``kubernetesclustercapacity_tpu/timeline/``).
 
-Only :mod:`.alerts` is ported so far: the ok → breached → recovered state
-machine that the device-memory ledger's leak alert rides.  The
-per-generation history, the watchlist and the node-set diff wait for a
-later slice.
+Ported so far: :mod:`.alerts`, the ok → breached → recovered state machine
+that the device-memory ledger's leak alert rides, and :mod:`.diff`, the
+node-set diff the audit log records generations with.  The
+per-generation history and the watchlist wait for a later slice.
 """

@@ -3,6 +3,7 @@ output, byte for byte apart from the kernel label, on a fixture and on
 ``.npz`` checkpoints in both semantics, with and without
 ``-extended-request`` (the R-resource sweep), and the same error lines."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -163,12 +164,12 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
     [
         (["-snapshot", KIND, "-backend", "native"],
          "-backend native: not yet ported"),
-        (["-snapshot", KIND, "-car-spec", "spec.yaml"],
-         "-car-spec: not yet ported"),
-        (["-snapshot", KIND, "-forecast-spec", "spec.yaml"],
-         "-forecast-spec: not yet ported"),
+        (["-snapshot", KIND, "-gang", "127.0.0.1:1"],
+         "-gang: not yet ported"),
+        (["-snapshot", KIND, "-replay", "audit-dir"],
+         "-replay: not yet ported"),
         (["-snapshot", KIND, "-plan", "spec.yaml", "-optimize"],
-         "-plan, -optimize: not yet ported"),
+         "-optimize: not yet ported"),
         (["-snapshot", KIND, "-gang-spec", "gang.yaml", "-grid", "4"],
          "-gang-spec: not yet ported"),
         (["-snapshot", KIND, "-timeline", "audit-dir"],
@@ -455,3 +456,240 @@ def test_node_bucket_floor_is_noted_and_ignored(capsys):
     assert rc == rc2 == 0
     assert captured.out == plain
     assert captured.err.strip() == t_cli.NO_BUCKET_LADDER
+
+
+# The stochastic family: -car-spec, -forecast-spec (explicit growth or a
+# trend fitted from an audit log), -plan -catalog, and -car / -forecast
+# against running servers, byte for byte with the JAX CLI, exit codes
+# included.  The port's -backend torch is the JAX CLI's -backend tpu.
+
+CAR_SPEC = """usage:
+  cpu: {dist: normal, mean: 200m, std: 80m}
+  memory: {dist: lognormal, mean: 250mb, sigma: 0.6}
+replicas: 10
+samples: 128
+seed: 7
+"""
+FORECAST_GROWTH = CAR_SPEC.replace("samples: 128", "samples: 64") + """\
+horizon: {steps: 8, step_s: 3600}
+growth: {cpu_per_s: 2.0e-5, memory_per_s: 1.0e-6}
+threshold: 60
+"""
+PLAN_SPEC = CAR_SPEC.replace("samples: 128", "samples: 48") + """\
+target: 400
+drain: true
+"""
+CATALOG = """shapes:
+  - {name: m5.xlarge, cpu: "4", memory: 16gb, pods: 58, unit_cost: 4}
+  - {name: m5.2xlarge, cpu: "8", memory: 32gb, pods: 58, unit_cost: 8}
+  - {name: c5.4xlarge, cpu: "16", memory: 32gb, pods: 234, unit_cost: 16}
+"""
+
+
+@pytest.fixture(scope="module")
+def stochastic_files(tmp_path_factory):
+    """The spec files, and an audit log of 20 generations the JAX package
+    wrote (usage growing) for -forecast-spec's audit_dir form."""
+    from kubernetesclustercapacity_tpu.audit.log import AuditLog
+
+    d = tmp_path_factory.mktemp("stochastic")
+    files = {}
+    audit = str(d / "audit")
+    base = j_snapshot.snapshot_from_fixture(
+        json.load(open(KIND)), semantics="reference")
+    with AuditLog(audit, checkpoint_every=4) as log:
+        for g in range(1, 21):
+            log.record_generation(dataclasses.replace(
+                base,
+                used_cpu_req_milli=(np.asarray(base.used_cpu_req_milli)
+                                    * (1 + g / 10)).astype(np.int64),
+                used_mem_req_bytes=(np.asarray(base.used_mem_req_bytes)
+                                    * (1 + g / 20)).astype(np.int64),
+            ), g, ts=1000.0 + 600.0 * g)
+    docs = {
+        "car": CAR_SPEC,
+        "forecast": FORECAST_GROWTH,
+        "forecast_audit": CAR_SPEC + "horizon: {steps: 6, step_s: 1800}\n"
+                          f"audit_dir: {audit}\nquantiles: [0.5, 0.95]\n",
+        "plan": PLAN_SPEC,
+        "plan_uncertified": PLAN_SPEC.replace("target: 400",
+                                              "target: 10000000"),
+        "catalog": CATALOG,
+        "car_unschedulable": CAR_SPEC.replace("replicas: 10",
+                                              "replicas: 75"),
+        "bad_car": "usage: {cpu: {dist: gauss}, memory: 1gb}\n",
+        "not_mapping": "- 1\n- 2\n",
+        "forecast_both": FORECAST_GROWTH + f"audit_dir: {audit}\n",
+        "forecast_neither": CAR_SPEC,
+        "forecast_bad_horizon": CAR_SPEC + "horizon: {steps: 2, bogus: 1}\n"
+                                "growth: {cpu_per_s: 0}\n",
+        "forecast_bad_threshold": CAR_SPEC + "threshold: many\n"
+                                  "growth: {cpu_per_s: 0}\n",
+        "forecast_bad_growth": CAR_SPEC + "growth: {gpu_per_s: 1}\n",
+        "forecast_bad_rate": CAR_SPEC + "growth: {cpu_per_s: fast}\n",
+        "forecast_long": CAR_SPEC + "horizon: {steps: 100000}\n"
+                         "growth: {cpu_per_s: 0}\n",
+        "forecast_thin_audit": CAR_SPEC + f"audit_dir: {d / 'nothing'}\n",
+        "plan_bad_target": PLAN_SPEC.replace("target: 400", "target: lots"),
+        "plan_bad_drain": PLAN_SPEC.replace("drain: true", "drain: maybe"),
+        "bad_catalog": "shapes: [{name: x, cpu: '4'}]\n",
+    }
+    for name, text in docs.items():
+        files[name] = str(d / f"{name}.yaml")
+        with open(files[name], "w") as f:
+            f.write(text)
+    files["audit"] = audit
+    files["missing"] = str(d / "missing.yaml")
+    return files
+
+
+STOCHASTIC_ARGV = {
+    "car": ["-car-spec", "{car}"],
+    "car-json": ["-car-spec", "{car}", "-output", "json"],
+    "car-strict": ["-car-spec", "{car}", "-semantics", "strict"],
+    "car-overrides": ["-car-spec", "{car}", "-car-samples", "33",
+                      "-car-seed", "99", "-output", "json"],
+    "car-unschedulable": ["-car-spec", "{car_unschedulable}",
+                          "-car-samples", "16", "-car-seed", "1"],
+    "forecast": ["-forecast-spec", "{forecast}"],
+    "forecast-json": ["-forecast-spec", "{forecast}", "-output", "json"],
+    "forecast-audit": ["-forecast-spec", "{forecast_audit}"],
+    "forecast-audit-json": ["-forecast-spec", "{forecast_audit}", "-output",
+                            "json", "-semantics", "strict"],
+    "plan": ["-plan", "{plan}", "-catalog", "{catalog}"],
+    "plan-json": ["-plan", "{plan}", "-catalog", "{catalog}", "-output",
+                  "json"],
+    "plan-uncertified": ["-plan", "{plan_uncertified}", "-catalog",
+                         "{catalog}"],
+    # Error lines and exit codes.
+    "car-bad-spec": ["-car-spec", "{bad_car}"],
+    "car-missing-spec": ["-car-spec", "{missing}"],
+    "car-samples-1": ["-car-spec", "{car}", "-car-samples", "1"],
+    "car-backend-cpu": ["-car-spec", "{car}", "-backend", "cpu"],
+    "forecast-not-mapping": ["-forecast-spec", "{not_mapping}"],
+    "forecast-both": ["-forecast-spec", "{forecast_both}"],
+    "forecast-neither": ["-forecast-spec", "{forecast_neither}"],
+    "forecast-bad-horizon": ["-forecast-spec", "{forecast_bad_horizon}"],
+    "forecast-bad-threshold": ["-forecast-spec", "{forecast_bad_threshold}"],
+    "forecast-bad-growth": ["-forecast-spec", "{forecast_bad_growth}"],
+    "forecast-bad-rate": ["-forecast-spec", "{forecast_bad_rate}"],
+    "forecast-too-long": ["-forecast-spec", "{forecast_long}"],
+    "forecast-thin-audit": ["-forecast-spec", "{forecast_thin_audit}"],
+    "forecast-backend-cpu": ["-forecast-spec", "{forecast}", "-backend",
+                             "cpu"],
+    "plan-no-catalog": ["-plan", "{plan}"],
+    "plan-bad-catalog": ["-plan", "{plan}", "-catalog", "{bad_catalog}"],
+    "plan-missing-catalog": ["-plan", "{plan}", "-catalog", "{missing}"],
+    "plan-bad-target": ["-plan", "{plan_bad_target}", "-catalog",
+                        "{catalog}"],
+    "plan-bad-drain": ["-plan", "{plan_bad_drain}", "-catalog",
+                       "{catalog}"],
+    "plan-not-mapping": ["-plan", "{not_mapping}", "-catalog", "{catalog}"],
+    "plan-backend-cpu": ["-plan", "{plan}", "-catalog", "{catalog}",
+                         "-backend", "cpu"],
+}
+_BACKEND_LINE = {  # the JAX CLI names its own backend, the port its own
+    "runs on the JAX kernels (-backend tpu); ":
+        "runs on the device programs (-backend torch); ",
+    "runs on the JAX kernels (-backend \ntpu); ":
+        "runs on the device programs (-backend \ntorch); ",
+}
+
+
+@pytest.mark.parametrize("name", list(STOCHASTIC_ARGV))
+def test_stochastic_surfaces_match_jax(name, stochastic_files, capsys):
+    argv = ["-snapshot", KIND] + [a.format(**stochastic_files)
+                                  for a in STOCHASTIC_ARGV[name]]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    if name.endswith("backend-cpu"):
+        assert "-backend tpu" in j_out and "-backend torch" in t_out
+        j_out = (j_out.replace("the JAX kernels", "the device programs")
+                 .replace("-backend tpu", "-backend torch")
+                 .replace("(-backend tpu)", "(-backend torch)"))
+    assert (t_rc, t_out) == (j_rc, j_out)
+    ok = name in ("car", "car-json", "car-strict", "car-overrides",
+                  "forecast-audit", "forecast-audit-json", "plan",
+                  "plan-json")
+    assert t_rc == (0 if ok else 1), t_out
+    assert "not yet ported" not in t_out and t_out
+
+
+def test_forecast_audit_dir_reads_port_written_logs(stochastic_files,
+                                                    tmp_path, capsys):
+    """The audit_dir form fits the same trend from a log the port's
+    AuditLog wrote as from the JAX package's."""
+    from kubernetesclustercapacity_tpu.audit.log import AuditReader
+    from kubernetesclustercapacity_tpu_torch.audit import AuditLog
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        ClusterSnapshot as TorchSnapshot,
+    )
+
+    reader = AuditReader.load(stochastic_files["audit"])
+    port_dir = str(tmp_path / "port-audit")
+    with AuditLog(port_dir, checkpoint_every=4) as log:
+        for rec in reader.generations():
+            snap = reader.snapshot_at(rec["generation"])
+            log.record_generation(TorchSnapshot(**{
+                f.name: getattr(snap, f.name)
+                for f in dataclasses.fields(TorchSnapshot)
+            }), rec["generation"], ts=rec["ts"])
+    spec = tmp_path / "fc.yaml"
+    with open(stochastic_files["forecast_audit"]) as f:
+        spec.write_text(f.read().replace(stochastic_files["audit"],
+                                         port_dir))
+    argv = ["-snapshot", KIND, "-forecast-spec", str(spec), "-output",
+            "json"]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    assert (t_rc, t_out) == (j_rc, j_out)
+    assert json.loads(t_out)["trend"]["source"] == port_dir
+
+
+@pytest.mark.parametrize("flag", ["-car", "-forecast"])
+@pytest.mark.parametrize("output", ["table", "json"])
+def test_status_flags_against_servers_match_jax(flag, output, capsys):
+    """-car / -forecast HOST:PORT against the port's server and the JAX
+    server: the same rendered status (no watches: the port has no
+    timeline, the JAX server none without -watch) and exit 1."""
+    from kubernetesclustercapacity_tpu.service.server import (
+        CapacityServer as JaxServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        CapacityServer as TorchServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        synthetic_snapshot as t_synthetic,
+    )
+
+    servers = [JaxServer(j_snapshot.synthetic_snapshot(16, seed=1)),
+               TorchServer(t_synthetic(16, seed=1), device="cpu")]
+    for s in servers:
+        s.start()
+    try:
+        outs = []
+        for server in servers:
+            addr = f"{server.address[0]}:{server.address[1]}"
+            argv = [flag, addr, "-output", output]
+            outs.append(_run(j_cli.main, argv, capsys))
+            outs.append(_run(t_cli.main, argv, capsys))
+    finally:
+        for s in servers:
+            s.shutdown()
+    assert all(o == outs[0] for o in outs)
+    rc, out = outs[0]
+    assert rc == 1
+    assert ("no quantile watches" in out or "no horizon watches" in out
+            or '"enabled": false' in out)
+
+
+@pytest.mark.parametrize("flag", ["-car", "-forecast"])
+def test_status_flags_bad_address_like_jax(flag, capsys):
+    outs = []
+    for main in (j_cli.main, t_cli.main):
+        for addr in ("nowhere", "127.0.0.1:1"):
+            rc = main([flag, addr])
+            captured = capsys.readouterr()
+            outs.append((rc, captured.out, captured.err))
+    assert outs[:2] == outs[2:]
+    assert all(o[0] == 1 and o[2].startswith("ERROR : ") for o in outs)

@@ -1,7 +1,9 @@
 """The CUDA sweep kernels (B1 ``sweep_fit``, B2 ``sweep_multi``) against
 their plain PyTorch versions, on the card, and the entry points above them
 (``CapacityModel``'s sweeps launch each kernel once; the explain and
-quantile programs equal their host runs).
+quantile programs equal their host runs), and the stochastic family on the
+card (the seeded draws equal the host's; capacity-at-risk, the horizon and
+the catalog plan equal their oracles and host runs).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -28,6 +30,8 @@ from kubernetesclustercapacity_tpu_torch import (
     synthetic_fixture,
     synthetic_snapshot,
 )
+from kubernetesclustercapacity_tpu_torch import forecast as _forecast
+from kubernetesclustercapacity_tpu_torch import stochastic as _stochastic
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as ff
 from kubernetesclustercapacity_tpu_torch.ops import fused_multi as fm
 
@@ -660,3 +664,78 @@ def test_nodes_needed_grid_launches_b1_on_the_card(cuda):
     node = max(snap.names, key=lambda n: sum(p.get("nodeName") == n
                                              for p in fx["pods"]))
     assert card.drain(node).assignments == host.drain(node).assignments
+
+
+# The stochastic family on the card: the seeded sampler's draws equal its
+# host draws (the same XLA-order arithmetic; the one libm log runs on the
+# host for both), and capacity-at-risk, the horizon and the plan equal
+# their numpy oracles / host runs.
+
+_SAMPLER_CASES = [
+    ("normal", {"mean": 500.0, "std": 150.0}),
+    ("normal", {"mean": 10.0, "std": 1e6}),
+    ("lognormal", {"mean": float(4 << 30), "sigma": 1.0}),
+    ("lognormal", {"mean": 1e9, "sigma": 4.0}),
+    ("empirical", {"values": (100, 200, 900), "weights": (8.0, 1.0, 1.0)}),
+]
+
+
+@pytest.mark.parametrize("case", _SAMPLER_CASES,
+                         ids=[k for k, _ in _SAMPLER_CASES])
+def test_card_draws_equal_host_draws(cuda, case):
+    kind, kw = case
+    dist = _stochastic.UsageDistribution(kind=kind, **kw)
+    for seed, stream in ((0, 0), (11, 1), (-5, 1)):
+        key = _stochastic.sample_key(seed, stream)
+        host = _stochastic.sample_usage(dist, 1 << 16, key, device="cpu")
+        card = _stochastic.sample_usage(dist, 1 << 16, key, device=cuda)
+        assert np.array_equal(card, host), int((card != host).sum())
+
+
+_CAR_DOC = {
+    "usage": {"cpu": {"dist": "normal", "mean": "500m", "std": "200m"},
+              "memory": {"dist": "lognormal", "mean": "4gb", "sigma": 1.0}},
+    "replicas": 5000, "samples": 512, "seed": 11,
+}
+
+
+@pytest.mark.parametrize("mode", ["reference", "strict"])
+@pytest.mark.parametrize("shapes", [None, 12])
+def test_capacity_at_risk_on_the_card_equals_the_oracle(cuda, mode, shapes):
+    snap = synthetic_snapshot(2000, seed=1, **({"shapes": shapes}
+                                                 if shapes else {}))
+    spec = _stochastic.parse_stochastic_spec(_CAR_DOC)
+    mask = np.random.default_rng(2).random(snap.n_nodes) > 0.2
+    want = _stochastic.car_oracle(snap, spec, mode=mode, node_mask=mask)
+    for fused in (True, False):
+        got = _stochastic.capacity_at_risk(snap, spec, mode=mode,
+                                           node_mask=mask, fused=fused,
+                                           device=cuda)
+        assert np.array_equal(got.totals, want.totals)
+        assert got.quantiles == want.quantiles
+        assert got.quantile_samples == want.quantile_samples
+        assert (got.mean, got.prob_fit) == (want.mean, want.prob_fit)
+    host = _stochastic.capacity_at_risk(snap, spec, mode=mode,
+                                        node_mask=mask, device="cpu")
+    assert got.bindings == host.bindings
+
+
+def test_horizon_and_plan_on_the_card_equal_the_host(cuda):
+    snap = synthetic_snapshot(2000, seed=1)
+    spec = _stochastic.parse_stochastic_spec(dict(_CAR_DOC, samples=128))
+    kw = dict(steps=8, step_s=3600.0, growth_cpu_per_s=2e-6)
+    card = _forecast.project_horizon(snap, spec, device=cuda, **kw)
+    want = _forecast.horizon_oracle(snap, spec, **kw)
+    assert np.array_equal(card.totals, want.totals)
+    assert card.time_to_breach_s == want.time_to_breach_s
+    catalog = _forecast.parse_catalog([
+        {"name": "m5.xlarge", "cpu": "4", "memory": "16gb", "pods": 58,
+         "unit_cost": 4},
+        {"name": "c5.4xlarge", "cpu": "16", "memory": "32gb", "pods": 234,
+         "unit_cost": 16}])
+    target = card.quantiles[0.95][0] + 500
+    got = _forecast.plan_capacity(snap, spec, catalog, target=target,
+                                  drain=True, device=cuda).to_wire()
+    host = _forecast.plan_capacity(snap, spec, catalog, target=target,
+                                   drain=True, device="cpu").to_wire()
+    assert got == host and got["status"] == "certified"

@@ -64,7 +64,11 @@ def test_the_scan_is_not_vacuous():
                    "kubeapi.py", "follower.py", "pdb.py",
                    "service/coalesce.py", "telemetry/compilewatch.py",
                    "utils/guards.py", "ops/placement.py",
-                   "ops/preemption.py", "topology/model.py"):
+                   "ops/preemption.py", "topology/model.py",
+                   "stochastic/distributions.py", "stochastic/car.py",
+                   "stochastic/history.py", "forecast/trend.py",
+                   "forecast/horizon.py", "forecast/planner.py",
+                   "audit/log.py", "timeline/diff.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -182,6 +186,40 @@ _BLOCKED_RUN = textwrap.dedent(
             kt.PodSpec(100, 1 << 20, priority=1000)).total > 0,
         placement.POLICIES[0],
     ]
+    from kubernetesclustercapacity_tpu_torch import audit, forecast, stochastic
+
+    spec = stochastic.parse_stochastic_spec({
+        "usage": {"cpu": {"dist": "normal", "mean": "300m", "std": "90m"},
+                  "memory": {"dist": "lognormal", "mean": "512mb",
+                             "sigma": 0.8}},
+        "replicas": 40, "samples": 32, "seed": 3})
+    car = stochastic.capacity_at_risk(snap, spec, device="cpu")
+    horizon = forecast.project_horizon(snap, spec, steps=3,
+                                       growth_cpu_per_s=1e-5, device="cpu")
+    plan = forecast.plan_capacity(
+        snap, spec, forecast.parse_catalog([
+            {"name": "m5.xlarge", "cpu": "4", "memory": "16gb", "pods": 58,
+             "unit_cost": 4}]),
+        target=car.quantiles[0.95] + 100, device="cpu")
+    audit_dir = fx_path + ".audit"
+    with audit.AuditLog(audit_dir) as log:
+        for g in range(1, 4):
+            log.record_generation(snap, g, ts=float(g))
+    car_cli = io.StringIO()
+    spec_path = fx_path + ".car.json"
+    with open(spec_path, "w") as f:
+        json.dump({"usage": {"cpu": "200m", "memory": "256mb"},
+                   "replicas": 5, "samples": 8}, f)
+    with contextlib.redirect_stdout(car_cli):
+        rc += cli.main(["-snapshot", fx_path, "-car-spec", spec_path,
+                        "-device", "cpu", "-output", "json"])
+    stochastic_results = [
+        car.quantiles[0.95] > 0,
+        horizon.totals.shape,
+        plan.certified,
+        audit.AuditReader.load(audit_dir).verify_chain(),
+        json.loads(car_cli.getvalue())["samples"],
+    ]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -198,6 +236,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "service": [service_ping, service_kernel],
                       "live": live,
                       "scheduling": scheduling,
+                      "stochastic": stochastic_results,
                       "loaded": loaded}))
     """
 )
@@ -226,6 +265,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "live": [19, "", "ClusterFollower", "SnapshotCoalescer", True],
         "scheduling": [doc["scheduling"][0], "scan", True, True,
                        doc["scheduling"][4], True, True, "first-fit"],
+        "stochastic": [True, [3, 32], True, [1, 2, 3], 8],
         "loaded": [],
     }
     assert doc["scheduling"][0] > 0

@@ -408,3 +408,82 @@ def test_extended_request_needs_the_torch_backend(sources, capsys):
     t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
     assert j_rc == t_rc == 1
     assert t_out == j_out.replace("-backend tpu", "-backend torch")
+
+
+# The stochastic family's renderers: the wire shapes of real JAX results
+# and hand-made status forms (watches on, breached, cells missing), each
+# through both packages' renderers.
+
+def _stochastic_wires():
+    from kubernetesclustercapacity_tpu import forecast as jf
+    from kubernetesclustercapacity_tpu import stochastic as js
+
+    snap = j_snapshot.synthetic_snapshot(30, seed=12)
+    spec = js.parse_stochastic_spec({
+        "usage": {"cpu": {"dist": "normal", "mean": "500m", "std": "150m"},
+                  "memory": {"dist": "lognormal", "mean": "1gb",
+                             "sigma": 0.4}},
+        "replicas": 50, "samples": 24, "seed": 5})
+    catalog = jf.parse_catalog([
+        {"name": "small", "cpu": "4", "memory": "16gb", "pods": 110,
+         "unit_cost": 1.0},
+        {"name": "big", "cpu": "16", "memory": "128gb", "pods": 250,
+         "unit_cost": 6.5}])
+    car = js.capacity_at_risk(snap, spec).to_wire()
+    horizon = jf.project_horizon(snap, spec, steps=5, step_s=7200.0,
+                                 growth_cpu_per_s=1e-4, threshold=800)
+    horizon.trend = {"source": "audit", "cpu": {"slope_per_s": 1.0}}
+    fc = horizon.to_wire()
+    fc_degraded = dict(fc, degraded_time_axis=True,
+                       time_to_breach_s={"p50": None, "p90": 1800.0,
+                                         "p95": 0.0, "p99": 1e5})
+    plan = jf.plan_capacity(snap, spec, catalog, target=900,
+                            drain=True).to_wire()
+    holds = jf.plan_capacity(snap, spec, catalog, target=1).to_wire()
+    stuck = jf.plan_capacity(snap, spec, jf.parse_catalog([
+        {"name": "t", "cpu": 1000, "memory": 1 << 30, "pods": 4,
+         "unit_cost": 1.0, "max_count": 1}]), target=10 ** 6).to_wire()
+    car_status = {
+        "enabled": True, "generation": 7, "breached": ["tight"],
+        "watches": {
+            "tight": {"quantile": 0.95, "last_total": 12, "min_replicas": 40,
+                      "prob_fit": 0.25, "samples": 64,
+                      "alert": {"state": "breached"}},
+            "loose": {"quantile": 0.5, "last_total": None,
+                      "min_replicas": None, "prob_fit": None,
+                      "samples": 32, "alert": {"state": "ok"}},
+        },
+    }
+    fc_status = {
+        "enabled": True, "generation": 9, "breached": [],
+        "watches": {
+            "horizon": {"quantile": 0.99, "last_total": 300,
+                        "horizon_min_capacity": 120, "min_replicas": 100,
+                        "time_to_breach_s": 7200.0,
+                        "alert": {"state": "ok"}},
+            "short": {"quantile": 0.9, "last_total": None,
+                      "horizon_min_capacity": None, "min_replicas": 5,
+                      "time_to_breach_s": None,
+                      "alert": {"state": "recovered"}},
+        },
+    }
+    off = {"enabled": False, "watches": {}, "breached": []}
+    return [
+        ("car", car), ("forecast", fc), ("forecast", fc_degraded),
+        ("plan", plan), ("plan", holds), ("plan", stuck),
+        ("car_status", car_status), ("car_status", off),
+        ("forecast_status", fc_status), ("forecast_status", off),
+    ]
+
+
+STOCHASTIC_WIRES = _stochastic_wires()
+
+
+@pytest.mark.parametrize("kind,wire", STOCHASTIC_WIRES,
+                         ids=[f"{k}{i}" for i, (k, _) in
+                              enumerate(STOCHASTIC_WIRES)])
+@pytest.mark.parametrize("form", ["table", "json"])
+def test_stochastic_renderers_match_jax(kind, wire, form):
+    name = f"{kind}_{form}_report"
+    assert getattr(t_report, name)(wire) == getattr(j_report, name)(wire)
+    assert name in t_report.__all__

@@ -315,20 +315,129 @@ def test_the_comparison_is_not_vacuous(pairs):
     assert t["result"]["kernel"] == "torch_int64"
 
 
-@pytest.mark.parametrize("op", sorted(UNPORTED_OPS) + ["plan-catalog"])
+@pytest.mark.parametrize("op", sorted(UNPORTED_OPS))
 def test_unported_ops_say_so(op, pairs):
-    if op == "plan-catalog":
-        msg = {"op": "plan", "catalog": [{"name": "m5.xlarge"}],
-               "target": 10}
-        error = ("NotImplementedError: op 'plan' with a 'catalog' (the "
-                 "certified shape planner) is not yet ported to the "
-                 "PyTorch package")
-    else:
-        msg = {"op": op}
-        error = (f"NotImplementedError: op {op!r} is not yet ported to "
-                 "the PyTorch package")
+    msg = {"op": op}
+    error = (f"NotImplementedError: op {op!r} is not yet ported to "
+             "the PyTorch package")
     _, t = _both(pairs["kind-reference"], msg)
     assert t == {"ok": False, "error": error, "generation": 1}
+
+
+# The stochastic ops: ``car``, ``forecast`` and the catalog form of
+# ``plan``, with their reports, status forms and bad requests.
+USAGE = {"cpu": {"dist": "normal", "mean": "200m", "std": "80m"},
+         "memory": {"dist": "lognormal", "mean": "250mb", "sigma": 0.6}}
+CAR = {"op": "car", "usage": USAGE, "replicas": 30, "samples": 64,
+       "seed": 5}
+FORECAST = {"op": "forecast", "usage": USAGE, "replicas": 30,
+            "samples": 48, "seed": 8, "steps": 6, "step_s": 600,
+            "growth": {"cpu_per_s": 2e-4, "memory_per_s": 1e-5}}
+SHAPES = [
+    {"name": "m5.xlarge", "cpu": "4", "memory": "16gb", "pods": 58,
+     "unit_cost": 4},
+    {"name": "m5.2xlarge", "cpu": "8", "memory": "32gb", "pods": 58,
+     "unit_cost": 8},
+    {"name": "c5.4xlarge", "cpu": "16", "memory": "32gb", "pods": 234,
+     "unit_cost": 16, "max_count": 5},
+]
+PLAN = {"op": "plan", "usage": USAGE, "replicas": 30, "samples": 32,
+        "seed": 2, "catalog": SHAPES, "target": 400}
+STOCHASTIC_REQUESTS = {
+    "car": CAR,
+    "car-quantiles": dict(CAR, quantiles=[0.5, 0.975]),
+    "car-table": dict(CAR, output="table"),
+    "car-json": dict(CAR, output="json", confidence=0.5),
+    "car-point": dict(CAR, usage={"cpu": "300m", "memory": "1gb"}),
+    "car-status": {"op": "car"},
+    "car-bad-dist": dict(CAR, usage={"cpu": {"dist": "gauss"},
+                                     "memory": "1gb"}),
+    "car-bad-quantiles": dict(CAR, quantiles=[0.5, 1.5]),
+    "car-empty-quantiles": dict(CAR, quantiles=[]),
+    "car-bad-samples": dict(CAR, samples=1),
+    "forecast": FORECAST,
+    "forecast-threshold": dict(FORECAST, threshold=1500, output="table"),
+    "forecast-json": dict(FORECAST, output="json",
+                          quantiles=[0.5, 0.8]),
+    "forecast-defaults": {"op": "forecast", "usage": USAGE,
+                          "samples": 8},
+    "forecast-status": {"op": "forecast"},
+    "forecast-bad-growth": dict(FORECAST, growth={"gpu_per_s": 1}),
+    "forecast-bad-growth-type": dict(FORECAST, growth=[1]),
+    "forecast-bad-rate": dict(FORECAST, growth={"cpu_per_s": "fast"}),
+    "forecast-bad-steps": dict(FORECAST, steps="6"),
+    "forecast-bad-step-s": dict(FORECAST, step_s=True),
+    "forecast-too-many-steps": dict(FORECAST, steps=100_000),
+    "forecast-bad-threshold": dict(FORECAST, threshold=1.5),
+    "plan-catalog": PLAN,
+    "plan-catalog-drain": dict(PLAN, drain=True, output="table"),
+    "plan-catalog-json": dict(PLAN, output="json", quantile=0.9,
+                              target=150),
+    "plan-catalog-unsatisfiable": dict(PLAN, target=10 ** 7),
+    "plan-catalog-holds": dict(PLAN, target=1, drain=True),
+    "plan-catalog-no-usage": {"op": "plan", "catalog": SHAPES},
+    "plan-catalog-bad-catalog": dict(PLAN, catalog=[{"name": "x"}]),
+    "plan-catalog-bad-target": dict(PLAN, target="400"),
+    "plan-catalog-bad-quantile": dict(PLAN, quantile="p95"),
+    "plan-catalog-bad-drain": dict(PLAN, drain="yes"),
+    "plan-catalog-out-of-range": dict(PLAN, quantile=1.0),
+}
+STOCHASTIC_FAILS = ("bad", "empty-quantiles", "too-many-steps", "no-usage",
+                    "out-of-range")
+STOCHASTIC_CASES = [
+    (src, name) for src in ("kind-reference", "kind-strict",
+                            "synthetic-npz", "gpu-strict")
+    for name in STOCHASTIC_REQUESTS
+]
+
+
+@pytest.mark.parametrize("source,name", STOCHASTIC_CASES)
+def test_stochastic_reply_matches_the_jax_server(source, name, pairs):
+    msg = STOCHASTIC_REQUESTS[name]
+    j_reply, t_reply = _both(pairs[source], msg)
+    assert t_reply == j_reply
+    assert t_reply["ok"] is (not any(f in name for f in STOCHASTIC_FAILS)), \
+        t_reply
+    res = t_reply.get("result")
+    if name.endswith("-status"):
+        assert res == {"enabled": False, "watches": {}, "breached": []}
+    elif t_reply["ok"] and name.startswith("car"):
+        assert res["samples"] == msg.get("samples") and res["quantiles"]
+    elif t_reply["ok"] and name.startswith("forecast"):
+        assert len(next(iter(res["quantiles"].values()))) == msg.get(
+            "steps", 16)
+    if name == "plan-catalog-unsatisfiable":
+        assert res["status"] == "uncertified"
+    elif name.startswith("plan") and t_reply["ok"]:
+        assert res["status"] == "certified"
+
+
+def test_stochastic_comparison_is_not_vacuous(pairs):
+    """The plan buys nodes, the forecast breaches, the strict CaR is
+    masked (a taint-masked fleet reports less than its unmasked twin)."""
+    _, t = _both(pairs["kind-reference"], STOCHASTIC_REQUESTS["plan-catalog"])
+    assert t["result"]["buy"] and t["result"]["nodes_bought"] > 0
+    _, t = _both(pairs["gpu-strict"], STOCHASTIC_REQUESTS[
+        "forecast-threshold"])
+    ttb = t["result"]["time_to_breach_s"]
+    assert t["result"]["breached_within_horizon"] and ttb["p95"] > 0.0
+    assert "capacity forecast" in t["result"]["report"]
+    _, t = _both(pairs["kind-strict"], STOCHASTIC_REQUESTS["car-table"])
+    assert "capacity at risk (strict semantics" in t["result"]["report"]
+
+
+def test_stochastic_ops_are_ported():
+    assert {"car", "forecast", "plan"}.isdisjoint(UNPORTED_OPS)
+
+
+@pytest.mark.parametrize("name", ["car", "forecast", "plan-catalog",
+                                  "car-status"])
+def test_stochastic_cross_clients_and_servers(name, pairs):
+    j, t = pairs["synthetic-npz"]
+    msg = STOCHASTIC_REQUESTS[name]
+    jax_to_port = _call(JaxClient, t, msg)
+    port_to_jax = _call(TorchClient, j, msg)
+    assert jax_to_port == port_to_jax == _call(JaxClient, j, msg)
 
 
 # The scheduler-fidelity ops and the priority forms of fit and sweep.
