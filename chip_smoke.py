@@ -38,7 +38,15 @@ mismatches over 3 x 65,536 draws), ``capacity_at_risk``, the
 ``[16 x 512]`` horizon and the plan against their numpy oracles, the CLI's
 ``-car-spec``/``-forecast-spec``/``-plan -catalog`` against their
 ``-device cpu`` runs, and the service's ``car``/``forecast``/``plan``;
-kernels B1 and B2 are not on that path and launch 0 times there.  Any
+kernels B1 and B2 are not on that path and launch 0 times there.  Path
+(p) drives gang capacity and the certified optimizer: a 64-rank rack gang
+on a 1,000,000-node hierarchical fleet (grouped engine) and zone/rack and
+host-anti-affinity gangs at 10,000 nodes x 1,000 scenarios (per-node
+engine, the spread searches) against ``gang_oracle`` and the host, the
+PDHG at the JAX bench's config (certified, verified, ``rounded == ffd``,
+integers equal to the host run) and ungrouped, ``-gang-spec`` and
+``-optimize`` against their ``-device cpu`` runs, and the service's
+``gang`` and ``optimize``; B1 and B2 launch 0 times there too.  Any
 failure raises, so the script exits nonzero without
 its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
@@ -2993,6 +3001,362 @@ def phase_stochastic(pkg, cli, ff, fm, tmp: str, identity: str,
     return out
 
 
+# --- Path (p): gang capacity and the certified LP optimizer ---------------
+# (p1) the JAX bench's 1M-node hierarchical fleet (384 machine shapes, 4
+# zones x 8 racks) with a 64-rank rack-colocated training gang; (p2) a
+# heterogeneous 10,000-node fleet of the same hierarchy, strict, with a
+# 64-rank zone gang spread at most 16 ranks a rack and a 16-rank rack gang
+# with one rank a host; (p3) the JAX bench's optimizer config (10,000
+# nodes, 48 shapes, 64 scenarios, half of them demanding 10^8 replicas).
+GANG_SPREAD = {"ranks": 64, "colocate": "zone", "spread_level": "rack",
+               "max_ranks_per_domain": 16}
+GANG_ANTI = {"ranks": 16, "colocate": "rack", "anti_affinity_host": True}
+GANG_POD = {"cpuRequests": "2", "memRequests": "8gb"}
+# Requests of the service's LP solve on (p2)'s ungrouped fleet (16,384
+# padded groups, the whole 20,000-step budget a solve), after the library's
+# own solve as the warm-up; every other op of (p5) takes 20 after 3
+# warm-ups.
+OPT_SERVICE_RUNS = 3
+
+
+def opt_bench_grid(pkg, s: int = 64):
+    """The 64-scenario grid of the JAX bench's optimizer row (rng 23; even
+    scenarios demand 10^8 replicas, odd ones 1-4,999)."""
+    rng = np.random.default_rng(23)
+    replicas = np.where(np.arange(s) % 2 == 0, 10**8,
+                        rng.integers(1, 5000, s)).astype(np.int64)
+    return pkg.ScenarioGrid(
+        cpu_request_milli=rng.integers(100, 4000, s),
+        mem_request_bytes=rng.integers(64 * 2**20, 4 * 2**30, s),
+        replicas=replicas)
+
+
+def labelled_strict(pkg, topo_mod, snap):
+    """``snap`` as a strict snapshot whose node labels carry its attached
+    zone/rack hierarchy (so a checkpoint of it keeps the hierarchy), with
+    the attached codes memoized on it too."""
+    topo = topo_mod.topology_from_snapshot(snap)
+    keys = topo_mod.TopologyKeys()
+    labels = [{keys.zone: f"zone-{z}", keys.rack: f"rack-{r}",
+               keys.host: name}
+              for z, r, name in zip(topo.zone_code.tolist(),
+                                    topo.rack_code.tolist(), snap.names)]
+    out = dataclasses.replace(snap, semantics="strict", labels=labels)
+    topo_mod.attach_topology(out, topo.zone_code, topo.rack_code)
+    return out
+
+
+def exact_per_node_fits(snap, grid, mode: str, device) -> np.ndarray:
+    """``[S, N]`` per-node fits from the exact ungrouped int64 program on
+    ``device``."""
+    from kubernetesclustercapacity_tpu_torch.ops.fit import sweep_grid
+
+    dev = torch.device(device)
+    cols = [torch.from_numpy(np.ascontiguousarray(getattr(snap, c))).to(dev)
+            for c in ("alloc_cpu_milli", "alloc_mem_bytes", "alloc_pods",
+                      "used_cpu_req_milli", "used_mem_req_bytes",
+                      "pods_count", "healthy")]
+    scen = [torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+            for a in (grid.cpu_request_milli, grid.mem_request_bytes,
+                      grid.replicas)]
+    return sweep_grid(*cols, *scen, mode=mode,
+                      return_per_node=True)[2].cpu().numpy()
+
+
+def gang_fields(res) -> tuple:
+    return (res.to_wire(), res.largest_cap.tolist(), res.largest_domain,
+            None if res.co_caps is None else res.co_caps.tolist(),
+            res.co_domains)
+
+
+def optimize_integers(res) -> dict:
+    return {"demand": res.demand.tolist(), "rounded": res.rounded.tolist(),
+            "ffd": res.ffd.tolist(), "ffd_totals": res.ffd_totals.tolist(),
+            "schedulable": res.schedulable.tolist()}
+
+
+def phase_gang_opt(pkg, cli, ff, fm, tmp: str, identity: str,
+                   device: str = "cuda") -> dict:
+    """Path (p): gang capacity and the certified optimizer through the
+    library, the CLI and the service, each answer on the card held against
+    the numpy oracle or its host run.
+
+    (p1) ``gang_capacity`` of a 64-rank rack gang on the 1M-node fleet
+    (grouped engine) equals ``gang_oracle`` over the exact ungrouped
+    per-node fits.  (p2) the zone/rack spread gang and the rack gang with
+    host anti-affinity (a ``[1000, 10000]`` int64 search state) on the
+    10,000-node strict fleet x 1,000 scenarios (per-node engine) equal
+    ``gang_oracle`` and the ``device="cpu"`` run; ``gang_explain`` of
+    scenario 0 equals the host's.  (p3) ``optimize_snapshot`` at the
+    bench's config is certified and verified, ``rounded == ffd``, its
+    integers equal the host run's and its bound is within tol of
+    ``lp_bound_oracle``; the same fleet ungrouped (16,384 padded groups)
+    too.  (p4) ``-gang-spec`` and ``-optimize`` (one spec, ``-grid 64``,
+    ``-opt-backend ffd``) on both fleets as ``.npz`` equal their
+    ``-device cpu`` runs.  (p5) a server on (p2)'s fleet answers ``gang``
+    and ``optimize`` as the library does.  Kernels B1 and B2 are not on
+    this path (the exact int64 program answers, as in the JAX package),
+    so both launch 0 times."""
+    from kubernetesclustercapacity_tpu_torch import optimize, topology
+    from kubernetesclustercapacity_tpu_torch.audit.log import (
+        canonical_result_digest,
+    )
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+
+    out = {"ms": {}, "launches": {"sweep_fit": {}, "sweep_multi": {}},
+           "opt": {}}
+
+    def timed(name, fn, runs=5, warmup=1):
+        out["ms"][name] = host_median_ms(fn, runs=runs, warmup=warmup)
+        return out["ms"][name]
+
+    t_phase = time.perf_counter()
+    ff.LAUNCHES = fm.LAUNCHES = 0
+
+    # (p1) the 1M-node grouped gang.
+    big = pkg.synthetic_snapshot(1_000_000, seed=21, shapes=384,
+                                 topology=(4, 8))
+    grid4 = pkg.random_scenario_grid(4, seed=777)
+    spec = topology.GangSpec(ranks=64, colocate="rack")
+    res = topology.gang_capacity(big, grid4, spec, mode="reference",
+                                 device=device)
+    if res.engine != "grouped":
+        raise AssertionError(f"(p1) engine {res.engine}, want grouped")
+    fits = exact_per_node_fits(big, grid4, "reference", device)
+    want = topology.gang_oracle(fits, topology.topology_from_snapshot(big),
+                                spec)
+    if res.gangs.tolist() != want:
+        raise AssertionError(f"(p1) gangs {res.gangs.tolist()} != oracle "
+                             f"{want}")
+    t = timed("(p1) gang 1M x 4 grouped", lambda: topology.gang_capacity(
+        big, grid4, spec, mode="reference", device=device))
+    log(f"(p1) gang_capacity 64-rank rack gang, 1,000,000 nodes "
+        f"({pkg.grouped_for_dispatch(big).n_groups} groups, 32 racks) x 4: "
+        f"gangs {res.gangs.tolist()} = gang_oracle over the exact per-node "
+        f"fits, engine grouped, {t:.3f} ms median ({identity})")
+    del fits, big
+
+    # (p2) the per-node engine with the spread searches, 10k x 1k strict.
+    fleet = labelled_strict(pkg, topology, pkg.synthetic_snapshot(
+        10_000, seed=12, topology=(4, 8)))
+    if pkg.grouped_for_dispatch(fleet) is not None:
+        os.environ["KCCAP_GANG_GROUPED"] = "0"
+    grid = pkg.random_scenario_grid(1000, seed=12)
+    fits = exact_per_node_fits(fleet, grid, "strict", device)
+    topo = topology.topology_from_snapshot(fleet)
+    for name, kw in (("zone/rack spread", GANG_SPREAD),
+                     ("rack + host anti-affinity", GANG_ANTI)):
+        spec = topology.GangSpec(**kw)
+        res = topology.gang_capacity(fleet, grid, spec, device=device)
+        host = topology.gang_capacity(fleet, grid, spec, device="cpu")
+        if res.engine != "per-node":
+            raise AssertionError(f"(p2) {name}: engine {res.engine}")
+        if gang_fields(res) != gang_fields(host):
+            raise AssertionError(f"(p2) {name}: the card differs from the "
+                                 "host run")
+        if res.gangs.tolist() != topology.gang_oracle(fits, topo, spec):
+            raise AssertionError(f"(p2) {name}: differs from gang_oracle")
+        ex = topology.gang_explain(fleet, grid, spec, device=device)
+        if ex != topology.gang_explain(fleet, grid, spec, device="cpu"):
+            raise AssertionError(f"(p2) {name}: gang_explain differs")
+        t = timed(f"(p2) gang 10k x 1k {name}",
+                  lambda: topology.gang_capacity(fleet, grid, spec,
+                                                 device=device))
+        if device != "cpu" and kw is GANG_ANTI:
+            out["trace_gang"] = phase_trace(
+                lambda: topology.gang_capacity(fleet, grid, spec,
+                                               device=device),
+                "elementwise", t, runs=5)
+        log(f"(p2) gang_capacity {name} 10,000 nodes x 1,000 strict: "
+            f"{int(res.gangs.sum())} gangs in all, {int(res.schedulable.sum())}"
+            f" scenarios schedulable, = gang_oracle and the host run; "
+            f"scenario 0 binds at {ex['binding']}; {t:.3f} ms median "
+            f"({identity})")
+    os.environ.pop("KCCAP_GANG_GROUPED", None)
+    del fits
+
+    # (p3) the optimizer at the JAX bench's config; then the same fleet
+    # with grouping off (10,000 groups padded to 16,384).  The ungrouped
+    # solve is held to the grouped one's integers and to a valid bound: its
+    # host run would take minutes of CPU.
+    opt_fleet = dataclasses.replace(pkg.synthetic_snapshot(
+        10_000, seed=23, shapes=48), semantics="strict")
+    opt_grid = opt_bench_grid(pkg)
+    truth = optimize.lp_bound_oracle(opt_fleet, opt_grid)
+    grouped_res = None
+    for label, grouping in (("grouped", "1"), ("ungrouped", "0")):
+        os.environ["KCCAP_GROUPING"] = grouping
+        try:
+            t0 = time.perf_counter()
+            res = optimize.optimize_snapshot(opt_fleet, opt_grid,
+                                             verify=True, device=device)
+            t = (time.perf_counter() - t0) * 1e3
+            host = (optimize.optimize_snapshot(opt_fleet, opt_grid,
+                                               verify=True, device="cpu")
+                    if grouping == "1" else grouped_res)
+        finally:
+            os.environ.pop("KCCAP_GROUPING", None)
+        if not res.verified.all():
+            raise AssertionError(f"(p3) {label}: rounding not verified")
+        if not np.array_equal(res.rounded, res.ffd):
+            raise AssertionError(f"(p3) {label}: rounded != ffd")
+        if optimize_integers(res) != optimize_integers(host) or \
+                canonical_result_digest("optimize", res.to_wire()) != \
+                canonical_result_digest("optimize", host.to_wire()):
+            raise AssertionError(f"(p3) {label}: integers differ from the "
+                                 "host run")
+        rel = np.abs(res.lp_bound - truth) / np.maximum(np.abs(truth), 1.0)
+        if (rel[res.certified] > res.tol * 4).any() or \
+                (res.lp_bound < truth * (1.0 - res.tol) - 1e-6).any():
+            raise AssertionError(f"(p3) {label}: bound off the oracle")
+        if grouping == "1":
+            if not res.all_certified:
+                raise AssertionError("(p3) grouped: not certified")
+            grouped_res = res
+            if device != "cpu":
+                def solve():  # one 500-step chunk and its certificate
+                    return optimize.optimize_snapshot(
+                        opt_fleet, opt_grid, verify=False, max_iters=500,
+                        device=device)
+
+                out["trace_opt"] = phase_trace(
+                    solve, "elementwise",
+                    host_median_ms(solve, runs=1, warmup=0), runs=1)
+        out["opt"][label] = {"iterations": res.iterations,
+                             "groups": res.groups, "solve_ms": t,
+                             "certified": int(res.certified.sum()),
+                             "host_iterations": host.iterations,
+                             "bound_rel_err": float(rel.max())}
+        out["ms"][f"(p3) optimize {label}"] = t
+        log(f"(p3) optimize_snapshot {label}: {res.groups} groups, "
+            f"{res.iterations} iterations (host {host.iterations}), "
+            f"{int(res.certified.sum())}/64 certified, verified, rounded == "
+            f"ffd, integers = the host run, bound within "
+            f"{float(rel.max()):.2e} of lp_bound_oracle, {t:.1f} ms once "
+            f"({identity})")
+
+    # (p4) the CLI on both fleets as .npz, against -device cpu.
+    fleet_npz = os.path.join(tmp, "fleet.npz")
+    fleet.save(fleet_npz)
+    opt_npz = os.path.join(tmp, "opt.npz")
+    opt_fleet.save(opt_npz)
+    gang_path = os.path.join(tmp, "gang.json")
+    with open(gang_path, "w") as f:
+        json.dump({"pod": GANG_POD, "gang": GANG_SPREAD}, f)
+    spec_flags = ["-cpuRequests=500m", "-memRequests=1gb",
+                  "-replicas=100000000"]
+    argvs = {
+        "-gang-spec json": ["-snapshot", fleet_npz, "-gang-spec", gang_path,
+                            "-output", "json"],
+        "-gang-spec table": ["-snapshot", fleet_npz, "-gang-spec", gang_path],
+        "-optimize": ["-snapshot", opt_npz, "-optimize", "-output", "json",
+                      *spec_flags],
+        "-optimize -grid 64": ["-snapshot", opt_npz, "-optimize", "-grid",
+                               "64", "-output", "json"],
+        "-opt-backend ffd": ["-snapshot", opt_npz, "-optimize",
+                             "-opt-backend", "ffd", "-output", "json",
+                             *spec_flags],
+    }
+    for name, argv in argvs.items():
+        t0 = time.perf_counter()
+        rc, text = run_cli_rc(cli, argv + ["-device", device])
+        out["ms"][f"(p4) {name}"] = (time.perf_counter() - t0) * 1e3
+        rc_host, text_host = run_cli_rc(cli, argv + ["-device", "cpu"])
+        if rc != rc_host or not text:
+            raise AssertionError(f"(p4) {name}: exit {rc} vs {rc_host}")
+        if name.startswith("-gang-spec") or "ffd" in name:
+            same = text == text_host
+        else:
+            got, want = json.loads(text), json.loads(text_host)
+            same = (canonical_result_digest("optimize", got)
+                    == canonical_result_digest("optimize", want)
+                    and all(got[k] == want[k] for k in (
+                        "demand", "rounded", "ffd", "schedulable")))
+        if not same:
+            raise AssertionError(f"(p4) {name}: the card's output differs "
+                                 "from -device cpu")
+        log(f"(p4) CLI {name}: exit {rc}, = the -device cpu run, "
+            f"{out['ms'][f'(p4) {name}']:.1f} ms ({identity})")
+
+    # (p5) the service on (p2)'s fleet.
+    server = CapacityServer(fleet, device=device, batch_window_ms=0)
+    server.start()
+    try:
+        with CapacityClient(*server.address, connect_timeout_s=60,
+                            timeout_s=600, retry=None) as client:
+            one = pkg.ScenarioGrid.from_scenarios([pkg.scenario_from_flags(
+                cpuRequests="2", memRequests="8gb", replicas="1")])
+            lib_one = topology.gang_capacity(
+                fleet, one, topology.GangSpec(**GANG_SPREAD),
+                device=device).to_wire()
+            lib_one["explain"] = topology.gang_explain(
+                fleet, one, topology.GangSpec(**GANG_SPREAD), device=device)
+            lib_grid = topology.gang_capacity(
+                fleet, grid, topology.GangSpec(**GANG_SPREAD),
+                device=device).to_wire()
+            arrays = {"cpu_request_milli": grid.cpu_request_milli.tolist(),
+                      "mem_request_bytes": grid.mem_request_bytes.tolist(),
+                      "replicas": grid.replicas.tolist()}
+            opt_arrays = {
+                "cpu_request_milli": opt_grid.cpu_request_milli.tolist(),
+                "mem_request_bytes": opt_grid.mem_request_bytes.tolist(),
+                "replicas": opt_grid.replicas.tolist()}
+            lib_opt = optimize.optimize_snapshot(fleet, opt_grid,
+                                                 device=device).to_wire()
+            digest = canonical_result_digest
+            ops = {
+                "gang explain": (lambda: client.gang(**GANG_SPREAD,
+                                                     **GANG_POD),
+                                 lambda r: r == lib_one, 20),
+                "gang 1000": (lambda: client.gang(**GANG_SPREAD, **arrays),
+                              lambda r: r == lib_grid, 20),
+                "gang status": (lambda: client.gang(),
+                                lambda r: r == {"enabled": False,
+                                                "watches": {},
+                                                "breached": []}, 20),
+                "optimize lp 64": (
+                    lambda: client.optimize(**opt_arrays),
+                    lambda r: digest("optimize", r) == digest(
+                        "optimize", lib_opt), OPT_SERVICE_RUNS),
+                "optimize ffd 64": (
+                    lambda: client.optimize(backend="ffd", **opt_arrays),
+                    lambda r: r["ffd"] == lib_opt["ffd"], 20),
+            }
+            for name, (call, check, runs) in ops.items():
+                res = timed_requests(call, runs=runs,
+                                     warmup=3 if runs == 20 else 0)
+                if not check(res["reply"]):
+                    raise AssertionError(f"(p5) {name}: the reply differs "
+                                         "from the library call")
+                out["ms"][f"(p5) {name}"] = res["median_ms"]
+                out["ms"][f"(p5) {name} p90"] = res["p90_ms"]
+                log(f"(p5) service {name}: = the library call, "
+                    f"{res['median_ms']:.3f} ms median, p90 "
+                    f"{res['p90_ms']:.3f} (host clock, {runs} warm "
+                    f"requests; {identity})")
+        addr = f"{server.address[0]}:{server.address[1]}"
+        rc, text = run_cli_rc(cli, ["-gang", addr])
+        if rc != 1 or "no gang watches" not in text:
+            raise AssertionError(f"(p5) -gang rendered {text!r}, exit {rc}")
+        log("(p5) status form: no watches; -gang renders it and exits 1")
+    finally:
+        server.shutdown()
+
+    out["launches"]["sweep_fit"]["(p)"] = ff.LAUNCHES
+    out["launches"]["sweep_multi"]["(p)"] = fm.LAUNCHES
+    if ff.LAUNCHES or fm.LAUNCHES:
+        raise AssertionError(f"(p) B1 launched {ff.LAUNCHES}, B2 "
+                             f"{fm.LAUNCHES} times: gang and optimize run "
+                             "the exact program")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(p) B1 and B2 launches on the path: 0 and 0; path (p) took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -3217,6 +3581,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         stoch = phase_stochastic(pkg, cli, ff, fm, tmp, identity)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (o)")
+    with tempfile.TemporaryDirectory() as tmp:
+        gopt = phase_gang_opt(pkg, cli, ff, fm, tmp, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (p)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -3248,6 +3615,12 @@ def main() -> int:
         "stochastic_sampler_mismatches": stoch["sampler_mismatches"],
         "stochastic_s": stoch["seconds"],
         "stochastic_trace": stoch.get("trace"),
+        "gang_opt_ms": gopt["ms"],
+        "gang_opt_launches": gopt["launches"],
+        "gang_opt_solves": gopt["opt"],
+        "gang_opt_s": gopt["seconds"],
+        "gang_opt_trace": {k: gopt.get(k) for k in ("trace_gang",
+                                                    "trace_opt")},
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -3261,7 +3634,8 @@ def main() -> int:
         + sum(service["launches"]["sweep_fit"].values())
         + sum(live["launches"]["sweep_fit"].values())
         + sum(sched["launches"]["sweep_fit"].values())
-        + sum(stoch["launches"]["sweep_fit"].values()),
+        + sum(stoch["launches"]["sweep_fit"].values())
+        + sum(gopt["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -3286,7 +3660,8 @@ def main() -> int:
         + sum(service["launches"]["sweep_multi"].values())
         + sum(live["launches"]["sweep_multi"].values())
         + sum(sched["launches"]["sweep_multi"].values())
-        + sum(stoch["launches"]["sweep_multi"].values()),
+        + sum(stoch["launches"]["sweep_multi"].values())
+        + sum(gopt["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

@@ -18,9 +18,9 @@ L5 service   :mod:`.service` (``CapacityServer``: the snapshot stays on the
              protocol), with :mod:`.resilience` and :mod:`.telemetry`
 L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
              ``-grid`` sweep, ``-extended-request``, ``-car-spec``,
-             ``-forecast-spec``, ``-plan -catalog``, on a file or a live
-             cluster; the six reference flags; every other flag of the JAX
-             CLI declared)
+             ``-forecast-spec``, ``-plan -catalog``, ``-gang-spec``,
+             ``-optimize``, on a file or a live cluster; the six reference
+             flags; every other flag of the JAX CLI declared)
 L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
              kernel B1, ``sweep_multi`` on kernel B2, and scheduler
              fidelity: ``place``, ``drain``, ``topology_spread``,
@@ -29,14 +29,17 @@ L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
              :mod:`.stochastic` (the seeded sampler, capacity-at-risk on
              the exact program), :mod:`.forecast` (trends, the horizon
              projection, the certified catalog planner), :mod:`.audit`
-             (the audit log the trends are fitted from)
+             (the audit log the trends are fitted from), :mod:`.topology`
+             (whole-gang capacity over the zone/rack/host hierarchy),
+             :mod:`.optimize` (the certified LP/PDHG packing)
 L2 report    :mod:`.report` (the reference transcript, JSON, tables),
              :mod:`.oracle` (the sequential bug-for-bug walk)
 L1 snapshot  :mod:`.snapshot`, :mod:`.fixtures`, :mod:`.sources`,
              :mod:`.scenario`, :mod:`.masks`, :mod:`.utils.quantity`,
              :mod:`.store` (per-row incremental repack), :mod:`.kubeapi`
              (the stdlib apiserver client), :mod:`.pdb` (the
-             disruption-budget gate), :mod:`.topology` (label domains)
+             disruption-budget gate), :mod:`.topology.model` (the
+             zone/rack/host code columns)
 L0 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel B1
              in ``csrc/sweep_fit.cu``), :mod:`.ops.fused_multi` (the fused
              R-resource sweep, kernel B2 in ``csrc/sweep_multi.cu``),

@@ -8,7 +8,8 @@ and dispatch, ``:544-609``, ``_run_explain``, ``:1575-1604``,
 ``_run_drain``, ``:1606-1641``, ``_run_drain_server``, ``:1217-1249``,
 and the stochastic family, ``_run_car_status``, ``_run_car_spec``,
 ``_run_forecast_status``, ``_load_operator_doc``, ``_run_forecast_spec``
-and ``_run_plan``, ``:675-1010``).
+and ``_run_plan``, ``:675-1010``, and ``_run_gang_status``,
+``_run_gang_spec`` and ``_run_optimize``, ``:1012-1148``).
 The reference's six flags parse exactly as there
 (``ClusterCapacity.go:50-83``), so an invalid memory or replicas value
 prints the reference's fatal line.  Then, for one spec, it prints the
@@ -24,8 +25,10 @@ pod placed with its own requests, the disruption-budget gate; exit 1 when
 the node is not evictable), and ``-drain-server HOST:PORT`` drains a
 running capacity server.  ``-car-spec``, ``-forecast-spec`` (explicit
 growth or a trend fitted from an audit log) and ``-plan -catalog`` answer
-the stochastic questions offline, and ``-car``/``-forecast HOST:PORT``
-render a server's watch status.
+the stochastic questions offline; ``-gang-spec`` counts whole gangs over
+the zone/rack/host hierarchy and ``-optimize`` (``-opt-backend lp|ffd``)
+answers with the certified LP packing; ``-car``/``-forecast``/``-gang
+HOST:PORT`` render a server's watch status.
 
 The source is ``-snapshot`` (a fixture ``.json`` or a checkpoint
 ``.npz``) or, without it, the live cluster of ``-kubeconfig`` (default
@@ -36,8 +39,8 @@ is the pure-Python oracle, the reference's sequential walk, as a
 cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
 ``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
 other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
-native``) and the gang, optimize, timeline, replay, doctor, profiling and
-federation surfaces are not ported yet and say so with exit 1.
+native``) and the timeline, replay, doctor, profiling and federation
+surfaces are not ported yet and say so with exit 1.
 
 Examples::
 
@@ -80,10 +83,6 @@ _UNPORTED_FLAGS = (
     ("-timeline", "value"),
     ("-timeline-since", "value"),
     ("-timeline-watch", "value"),
-    ("-gang", "value"),
-    ("-gang-spec", "value"),
-    ("-optimize", "switch"),
-    ("-opt-backend", "value"),
     ("-replay", "value"),
     ("-replay-ref", "value"),
     ("-replay-generation", "value"),
@@ -279,6 +278,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with -plan: the node-shape catalog (YAML/JSON: "
                         "shapes with name, cpu, memory, pods, "
                         "unit_cost, max_count)")
+    p.add_argument("-gang", default=None, metavar="HOST:PORT",
+                   help="render a running capacity service's gang-watch "
+                        "status (per gang watch: last whole-gang count, "
+                        "binding topology level, alert state) and exit; "
+                        "-output json selects the structured form; exit "
+                        "1 while any gang watch is breached (or none "
+                        "are configured)")
+    p.add_argument("-gang-spec", default="", dest="gang_spec",
+                   metavar="FILE",
+                   help="offline gang capacity: load a gang spec "
+                        "(YAML/JSON: the watchlist pod-block grammar "
+                        "plus a gang block — ranks, count, colocate, "
+                        "spread_level, max_ranks_per_domain, "
+                        "anti_affinity_host) and count whole gangs "
+                        "against the -snapshot source's zone/rack/host "
+                        "hierarchy; exit code by schedulability (1 when "
+                        "fewer than 'count' gangs fit)")
+    p.add_argument("-optimize", action="store_true",
+                   help="answer the spec (or -grid sweep) with the "
+                        "optimization backend instead of the fit "
+                        "report: certified LP upper bound, rounded "
+                        "integral packing, first-fit baseline, "
+                        "optimality gap, and per-resource shadow "
+                        "prices; every answer carries a duality "
+                        "certificate or is marked uncertified; exit 1 "
+                        "when unschedulable or any solve is "
+                        "uncertified (-backend torch only)")
+    p.add_argument("-opt-backend", dest="opt_backend",
+                   choices=("ffd", "lp"), default="lp",
+                   help="with -optimize: the certified LP/PDHG solver "
+                        "(lp, default) or the bug-compatible first-fit "
+                        "reference walk alone (ffd)")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
     add_unported_flags(p, _UNPORTED_FLAGS)
@@ -312,6 +343,8 @@ def main(argv: list[str] | None = None) -> int:
         return _run_car_status(args)
     if args.forecast and not unported:
         return _run_forecast_status(args)
+    if args.gang and not unported:
+        return _run_gang_status(args)
     if args.drain_server and not unported:
         return _run_drain_server(args)
     try:
@@ -357,7 +390,7 @@ def main(argv: list[str] | None = None) -> int:
 def run(args, fixture, snapshot, scenario) -> int:
     """Everything after the source: the checkpoint, then the one surface
     the flags ask for (``-car-spec``, ``-forecast-spec``, ``-plan``,
-    ``-drain``, ``-explain``, ``-grid`` or the single spec)."""
+    ``-gang-spec``, ``-optimize``, ``-drain``, ``-explain``, ``-grid`` or the single spec)."""
     if args.save_snapshot:
         snapshot.save(args.save_snapshot)
         print(f"snapshot checkpointed to {args.save_snapshot}",
@@ -368,6 +401,10 @@ def run(args, fixture, snapshot, scenario) -> int:
         return _run_forecast_spec(args, snapshot)
     if args.plan_spec:
         return _run_plan(args, snapshot)
+    if args.gang_spec:
+        return _run_gang_spec(args, snapshot)
+    if args.optimize:
+        return _run_optimize(args, snapshot, scenario)
     if args.drain:
         return _run_drain(args, fixture, snapshot)
     if args.explain:
@@ -936,6 +973,157 @@ def _run_plan(args, snapshot) -> int:
     else:
         print(plan_table_report(wire))
     return 0 if result.certified else 1
+
+
+def _run_gang_status(args) -> int:
+    """-gang HOST:PORT: fetch and render a service's gang-watch status
+    (the gang slice of the timeline).  Exits by the verdict, like -car:
+    a breached gang watch — fewer than N whole gangs fit — is a
+    scriptable failure, and so is a server with no gang watches (the
+    port's server has none: it has no timeline)."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        gang_status_json_report,
+        gang_status_table_report,
+    )
+
+    addr = _parse_addr("-gang", args.gang)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.gang()
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch gang status from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(gang_status_json_report(result))
+    else:
+        print(gang_status_table_report(result))
+    if not result.get("enabled", False):
+        return 1
+    return 1 if result.get("breached") else 0
+
+
+def _run_gang_spec(args, snapshot) -> int:
+    """-gang-spec FILE: offline whole-gang capacity against the
+    -snapshot source's topology hierarchy.  Applies the same implicit
+    strict-mode taint mask as every other surface, prints the gang
+    verdict with its binding-level explanation, and exits by
+    schedulability: 1 when fewer than the spec's ``count`` gangs fit."""
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.report import (
+        gang_json_report,
+        gang_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.scenario import ScenarioGrid
+    from kubernetesclustercapacity_tpu_torch.topology import (
+        GangSpecError,
+        gang_capacity,
+        gang_explain,
+        load_gang_spec,
+    )
+
+    if args.backend != "torch":
+        print("ERROR : -gang-spec runs on the device programs (-backend "
+              "torch); cpu/native backends are fit-only cross-checks "
+              "...exiting")
+        return 1
+    try:
+        scenario, spec = load_gang_spec(args.gang_spec)
+    except (OSError, GangSpecError) as e:
+        print(f"ERROR : bad -gang-spec: {e}")
+        return 1
+    grid = ScenarioGrid.from_scenarios([scenario])
+    mask = implicit_taint_mask(snapshot)
+    try:
+        result = gang_capacity(
+            snapshot, grid, spec, mode=args.semantics, node_mask=mask,
+            device=args.device,
+        )
+        wire = result.to_wire()
+        wire["explain"] = gang_explain(
+            snapshot, grid, spec, mode=args.semantics, node_mask=mask,
+            device=args.device,
+        )
+    except (GangSpecError, ValueError) as e:
+        print(f"ERROR : {e}")
+        return 1
+    if args.output == "json":
+        print(gang_json_report(wire))
+    else:
+        print(gang_table_report(wire))
+    return 0 if bool(result.schedulable[0]) else 1
+
+
+def _run_optimize(args, snapshot, scenario) -> int:
+    """-optimize: the optimization-based packing backend, offline.
+
+    Answers the six-flag spec (or a ``-grid N`` random sweep) with the
+    chosen ``-opt-backend`` against the -snapshot source, under the
+    same implicit strict-mode taint mask as every other surface.
+    Exits 1 when the spec is unschedulable by the integral packing, or
+    when any LP solve failed to certify — an uncertified bound is a
+    scriptable failure, not a silent one.
+    """
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.ops.fit import sweep_snapshot
+    from kubernetesclustercapacity_tpu_torch.optimize import (
+        OptimizeError,
+        optimize_snapshot,
+    )
+    from kubernetesclustercapacity_tpu_torch.report import (
+        optimize_json_report,
+        optimize_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.scenario import (
+        ScenarioGrid,
+        random_scenario_grid,
+    )
+
+    if args.backend != "torch":
+        print("ERROR : -optimize runs on the device programs (-backend "
+              "torch); cpu/native backends are fit-only cross-checks "
+              "...exiting")
+        return 1
+    if args.grid > 0:
+        grid = random_scenario_grid(args.grid, seed=args.seed)
+    else:
+        grid = ScenarioGrid.from_scenarios([scenario])
+    mask = implicit_taint_mask(snapshot)
+    mode = args.semantics or snapshot.semantics
+    if args.opt_backend == "ffd":
+        totals, _ = sweep_snapshot(snapshot, grid, mode=mode,
+                                   node_mask=mask, device=args.device)[:2]
+        totals = np.asarray(totals, dtype=np.int64)
+        demand = np.asarray(grid.replicas, dtype=np.int64)
+        wire = {
+            "backend": "ffd",
+            "mode": mode,
+            "scenarios": grid.size,
+            "demand": demand.tolist(),
+            "ffd": np.clip(totals, 0, demand).tolist(),
+            "totals": totals.tolist(),
+            "schedulable": (totals >= demand).tolist(),
+        }
+        if args.output == "json":
+            print(optimize_json_report(wire))
+        else:
+            print(optimize_table_report(wire))
+        return 0 if all(wire["schedulable"]) else 1
+    try:
+        result = optimize_snapshot(snapshot, grid, mode=mode,
+                                   node_mask=mask, device=args.device)
+    except OptimizeError as e:
+        print(f"ERROR : {e}")
+        return 1
+    wire = result.to_wire()
+    if args.output == "json":
+        print(optimize_json_report(wire))
+    else:
+        print(optimize_table_report(wire))
+    ok = result.all_certified and bool(result.schedulable.all())
+    return 0 if ok else 1
 
 
 def _run_single(args, fixture, snapshot, scenario) -> int:

@@ -4,8 +4,7 @@ Counterpart of ``kubernetesclustercapacity_tpu/fixtures.py``: the same
 deterministic, seedable generator of node/pod fixtures in the reference's
 schema (memory in ``Ki``, the legacy 5-condition layout, ~110-pod
 capacity), so the same seed gives the same fixture in both packages.
-The ``topology=`` labels and the R-resource workload helper are not
-ported yet.
+The R-resource workload helper is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ def synthetic_fixture(
     unparseable_mem_frac: float = 0.02,
     unscheduled_running_pods: int = 0,
     taint_frac: float = 0.0,
+    topology: tuple[int, int] | None = None,
 ) -> dict:
     """Generate a deterministic fixture of ``n_nodes`` nodes and their pods.
 
@@ -50,6 +50,14 @@ def synthetic_fixture(
       selector (Q4).
     * ``taint_frac`` of nodes carry a NoSchedule taint (used by the
       constraint-mask layer; invisible to reference semantics).
+    * ``topology=(zones, racks_per_zone)`` labels every node with the
+      well-known ``topology.kubernetes.io/{zone,rack}`` keys,
+      round-robin over ``zones * racks_per_zone`` racks.  Rack label
+      VALUES repeat across zones (``r0`` exists in every zone) on
+      purpose — the topology model must nest them into distinct
+      domains.  Assignment is columnar (two numpy gathers feeding the
+      per-node dict literal), so hierarchical fleets build without any
+      new per-node Python work.
 
     Pod phases are mostly Running with a sprinkle of every excluded phase, so
     the Running-only field-selector semantics (Q7) are exercised.
@@ -197,6 +205,39 @@ def synthetic_fixture(
     _cores_str = {c: str(c) for c in _CPU_CORES_CHOICES}
     _taint = {"key": "dedicated", "value": "batch", "effect": "NoSchedule"}
 
+    # Topology label columns (interned string tables gathered through
+    # object arrays — the same columnar technique as every other column).
+    topo_col: list = [None] * n_nodes
+    if topology is not None:
+        t_zones, racks_per = topology
+        if t_zones < 1 or racks_per < 1:
+            raise ValueError(
+                f"topology wants (zones >= 1, racks_per_zone >= 1), "
+                f"got {topology!r}"
+            )
+        n_racks = t_zones * racks_per
+        rack_idx = np.arange(n_nodes) % n_racks
+        zone_tbl = np.asarray(
+            [f"tz-{z}" for z in range(t_zones)], dtype=object
+        )
+        rack_tbl = np.asarray(
+            [f"r{r}" for r in range(racks_per)], dtype=object
+        )
+        # One interned {zone, rack} label-pair dict per rack: n_racks
+        # distinct dicts serve all N nodes.
+        pair_tbl = np.asarray(
+            [
+                {
+                    "topology.kubernetes.io/zone": zone_tbl[r // racks_per],
+                    "topology.kubernetes.io/rack": rack_tbl[r % racks_per],
+                }
+                for r in range(n_racks)
+            ],
+            dtype=object,
+        )
+        topo_col = pair_tbl[rack_idx].tolist()
+    _no_topo: dict = {}
+
     # The bulk-assembly phase allocates ~N + ΣP acyclic dicts; pausing the
     # cyclic GC for it avoids ~500 young-generation scans over an
     # ever-growing live set (the objects survive anyway — nothing here is
@@ -233,12 +274,13 @@ def synthetic_fixture(
                     "kubernetes.io/hostname": nm,
                     "zone": _zones[i % 3],
                     "pool": "default" if i % 4 else "highmem",
+                    **(_no_topo if tp is None else tp),
                 },
                 "taints": [_taint.copy()] if tn else [],
             }
-            for i, nm, cores, ms, cd, tn in zip(
+            for i, nm, cores, ms, cd, tn, tp in zip(
                 n_range, node_names, cores_all, mem_strs, conds_col,
-                tainted_all,
+                tainted_all, topo_col,
             )
         ]
 

@@ -2,7 +2,7 @@
 structured views.
 
 Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec,
-explain, capacity-at-risk, forecast and plan renderers).  The reference's whole observability story is
+explain, capacity-at-risk, forecast, plan, gang and optimize renderers).  The reference's whole observability story is
 ``fmt.Printf`` to stdout (SURVEY.md §5); :func:`reference_report`
 reproduces that text exactly, the typos ("allocatbale", "scehdule") and Go's
 NaN/±Inf float rendering included, and :func:`json_report`,
@@ -37,6 +37,12 @@ __all__ = [
     "forecast_status_json_report",
     "plan_table_report",
     "plan_json_report",
+    "gang_table_report",
+    "gang_json_report",
+    "optimize_table_report",
+    "optimize_json_report",
+    "gang_status_table_report",
+    "gang_status_json_report",
 ]
 
 _RULE = "=" * 110  # the reference prints 110 '=' (ClusterCapacity.go:142,149)
@@ -645,3 +651,185 @@ def plan_table_report(plan: dict) -> str:
 def plan_json_report(plan: dict) -> str:
     """``kccap -plan ... -output json``: the wire shape verbatim."""
     return json.dumps(plan, indent=2, sort_keys=True)
+
+
+def gang_table_report(gang: dict) -> str:
+    """A gang evaluation (the ``gang`` op's wire shape / ``kccap
+    -gang-spec``) as operator-readable text: the whole-gang verdict,
+    the constraint vocabulary in force, and the binding-level
+    explanation when present."""
+    spread = (
+        f"{gang.get('spread_level')}<={gang.get('max_ranks_per_domain')}"
+        if gang.get("spread_level")
+        else ("host<=1" if gang.get("anti_affinity_host") else "-")
+    )
+    gangs = gang.get("gangs", [])
+    sched = gang.get("schedulable", [])
+    lines = [
+        f"gang capacity: {gang.get('ranks')} rank(s)/gang, "
+        f"{gang.get('count')} gang(s) requested  "
+        f"[colocate={gang.get('colocate') or 'cluster'} spread={spread} "
+        f"mode={gang.get('mode')} engine={gang.get('engine')}]",
+    ]
+    for s, (g, ok) in enumerate(zip(gangs, sched)):
+        pods = gang.get("pod_totals", [None] * len(gangs))[s]
+        lines.append(
+            f"  scenario {s}: {g} whole gang(s) fit "
+            f"(pod capacity {pods}) — "
+            + ("schedulable" if ok else "NOT schedulable")
+        )
+    ex = gang.get("explain")
+    if ex:
+        lines.append(f"  {ex.get('summary')}")
+        largest = ex.get("largest_domain") or {}
+        if largest.get("name") is not None:
+            lines.append(
+                f"  largest {ex.get('colocate') or 'domain'}: "
+                f"{largest.get('name')} holds {largest.get('capacity')} "
+                f"rank(s) = {largest.get('whole_gangs')} whole gang(s)"
+            )
+        if ex.get("excluded_nodes"):
+            lines.append(
+                f"  excluded nodes (missing topology labels): "
+                f"{ex['excluded_nodes']}"
+            )
+    return "\n".join(lines)
+
+
+def gang_json_report(gang: dict) -> str:
+    """``-output json``: the wire shape verbatim."""
+    return json.dumps(gang, indent=2, sort_keys=True)
+
+
+def optimize_table_report(opt: dict) -> str:
+    """An optimize evaluation (the ``optimize`` op's wire shape /
+    ``kccap -optimize``) as operator-readable text: per scenario the
+    certified LP bound vs the rounded integral packing vs the
+    first-fit baseline, the certificate verdict, and the shadow-price
+    story ("memory is the priced-out resource on 60% of capacity")."""
+    if opt.get("backend") == "ffd":
+        lines = [
+            f"packing (first-fit reference, mode={opt.get('mode')}):",
+        ]
+        for s in range(opt.get("scenarios", 0)):
+            lines.append(
+                f"  scenario {s}: placed {opt['ffd'][s]} of "
+                f"{opt['demand'][s]} requested (fit total "
+                f"{opt['totals'][s]}) — "
+                + (
+                    "schedulable"
+                    if opt["schedulable"][s]
+                    else "NOT schedulable"
+                )
+            )
+        return "\n".join(lines)
+    header = (
+        f"{'S':>3} {'DEMAND':>9} {'LP BOUND':>12} {'ROUNDED':>9} "
+        f"{'FFD':>9} {'GAP%':>7}  STATUS"
+    )
+    lines = [
+        f"optimized packing (LP/PDHG, mode={opt.get('mode')}): "
+        f"{opt.get('groups')} group(s) over {opt.get('nodes')} node(s)"
+        + (
+            " [grouped]"
+            if opt.get("grouping_engaged")
+            else " [ungrouped]"
+        ),
+        f"solver: {opt.get('iterations')} iteration(s), tol "
+        f"{opt.get('tol')}, {opt.get('solve_seconds')}s",
+        header,
+        "-" * len(header),
+    ]
+    for s in range(opt.get("scenarios", 0)):
+        flags = ""
+        if opt.get("ffd_exceeds_bound", [False] * (s + 1))[s]:
+            flags = " (ffd exceeds sane bound: reference quirk)"
+        verified = opt.get("verified")
+        if verified is not None and not verified[s]:
+            flags += " (ROUNDING UNVERIFIED)"
+        lines.append(
+            f"{s:>3} {opt['demand'][s]:>9} {opt['lp_bound'][s]:>12.2f} "
+            f"{opt['rounded'][s]:>9} {opt['ffd'][s]:>9} "
+            f"{opt['gap_pct'][s]:>7.3f}  {opt['status'][s]}" + flags
+        )
+    lines.append("-" * len(header))
+    for s, shadow in enumerate(opt.get("shadow_prices", [])):
+        priced = shadow.get("priced_out", {})
+        top = max(priced, key=priced.get) if priced else None
+        if top is not None and priced[top] > 0:
+            lines.append(
+                f"  scenario {s}: {top} is the priced-out resource on "
+                f"{priced[top] * 100:.0f}% of capacity "
+                f"(demand price {shadow.get('demand_price')})"
+            )
+        else:
+            lines.append(
+                f"  scenario {s}: demand-bound — no capacity is "
+                f"priced (demand price {shadow.get('demand_price')})"
+            )
+    lines.append(
+        "verdict: "
+        + (
+            "certified — every bound carries a duality certificate"
+            if opt.get("certified")
+            else "UNCERTIFIED — bound(s) valid but loose; raise "
+            "KCCAP_OPT_ITERS or tol"
+        )
+    )
+    return "\n".join(lines)
+
+
+def optimize_json_report(opt: dict) -> str:
+    """``-output json``: the wire shape verbatim."""
+    return json.dumps(opt, indent=2, sort_keys=True)
+
+
+def gang_status_table_report(status: dict) -> str:
+    """The ``gang`` op's watch-status form (``kccap -gang HOST:PORT``):
+    one row per gang watch — last whole-gang count, binding level,
+    alert state — and the scriptable verdict line."""
+    if not status.get("enabled", False):
+        return (
+            "gang capacity: no gang watches on this server "
+            "(-watch entries need a gang: block)"
+        )
+    header = (
+        f"{'WATCH':<24} {'RANKS':>6} {'WANT':>5} {'GANGS':>6} "
+        f"{'MIN':>5} {'BINDS':>8}  STATE"
+    )
+    lines = [
+        f"gang capacity: serving generation {status.get('generation')}",
+        header,
+        "-" * len(header),
+    ]
+
+    def _cell(v):
+        return "-" if v is None else v
+
+    for name in sorted(status.get("watches", {})):
+        w = status["watches"][name]
+        alert = w.get("alert", {})
+        lines.append(
+            f"{name:<24} "
+            f"{w.get('ranks'):>6} "
+            f"{w.get('count'):>5} "
+            f"{_cell(w.get('last_gangs')):>6} "
+            f"{_cell(w.get('min_replicas')):>5} "
+            f"{_cell(w.get('binding')):>8}  {alert.get('state')}"
+        )
+    lines.append("-" * len(header))
+    breached = status.get("breached", [])
+    lines.append(
+        "verdict: "
+        + (
+            "BREACHED — " + ", ".join(breached)
+            if breached
+            else "ok — every gang watch above its threshold"
+        )
+    )
+    return "\n".join(lines)
+
+
+def gang_status_json_report(status: dict) -> str:
+    """``kccap -gang -output json``: the wire shape verbatim."""
+    return json.dumps(status, indent=2, sort_keys=True)

@@ -15,12 +15,15 @@ Ported ops: ``ping``, ``info``, ``fit`` (with every ``PodSpec`` field,
 ``place``, ``drain``, ``topology_spread`` and ``plan`` (its
 ``node_template`` form and its ``catalog`` form, the certified planner of
 :mod:`..forecast.planner`), the stochastic ops ``car`` (capacity-at-risk)
-and ``forecast`` (the horizon projection), ``reload``, ``update``
+and ``forecast`` (the horizon projection), ``gang`` (whole gangs over
+the zone/rack/host hierarchy) and ``optimize`` (the certified LP packing,
+or the first-fit baseline), ``reload``, ``update``
 (watch-style events applied through :class:`..store.ClusterStore`) and
 ``drain_server``, behind the auth token, the compute-slot bound and
 deadline shedding.  The port has no timeline, so ``car`` and ``forecast``
-without a ``usage`` block (their watch-status forms) answer as the JAX
-server does without ``-watch``: no watches.
+without a ``usage`` block, and ``gang`` without ``ranks`` (their
+watch-status forms), answer as the JAX server does without ``-watch``: no
+watches.
 ``-follow`` keeps the served snapshot synced to a live cluster
 (:class:`..follower.ClusterFollower` → :class:`.coalesce.
 SnapshotCoalescer` → a publish that pre-stages the new generation on the
@@ -83,9 +86,7 @@ __all__ = ["CapacityServer", "UNPORTED_OPS", "follow_publisher", "main"]
 
 #: Ops of the protocol this server does not answer yet: each gets an
 #: error reply saying so.
-UNPORTED_OPS = frozenset(
-    {"gang", "optimize", "dump", "timeline", "slo"}
-)
+UNPORTED_OPS = frozenset({"dump", "timeline", "slo"})
 
 #: ``info``'s ``fast_path_breaker``: the port has no breaker (a failed
 #: build or launch raises), so it reports one that is never used and so
@@ -576,10 +577,11 @@ class CapacityServer:
     )
 
     # The compute ops: bounded by the inflight slots (the JAX server's set:
-    # ``forecast`` is drain-gated but takes no slot there either).
+    # ``forecast`` and ``optimize`` are drain-gated but take no slot there
+    # either).
     _COMPUTE_OPS = frozenset({
         "fit", "sweep", "sweep_multi", "place", "drain", "topology_spread",
-        "plan", "explain", "car",
+        "plan", "explain", "car", "gang",
     })
 
     # The ops a graceful drain refuses and waits out: compute work plus
@@ -895,6 +897,10 @@ class CapacityServer:
             return self._op_car(msg, snap, implicit_mask)
         if op == "forecast":
             return self._op_forecast(msg, snap, implicit_mask)
+        if op == "gang":
+            return self._op_gang(msg, snap, implicit_mask)
+        if op == "optimize":
+            return self._op_optimize(msg, snap, implicit_mask)
         if op == "reload":
             return self._op_reload(msg, snap)
         if op == "update":
@@ -1634,6 +1640,154 @@ class CapacityServer:
         if generation is None:
             generation = ("snap-id", id(snap))
         return (generation, snap.semantics, kernel_req)
+
+    def _op_gang(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """Gang capacity over the wire, two forms:
+
+        * **evaluate** (``ranks`` present): the six per-rank flag fields
+          (or the sweep op's scenario-array grammar) plus the gang
+          constraint fields (``ranks``/``count``/``colocate``/
+          ``spread_level``/``max_ranks_per_domain``/
+          ``anti_affinity_host``), answered with whole-gang counts per
+          scenario on the card — same semantics and implicit taint mask
+          as fit/sweep.  Single-scenario requests (and any request with
+          ``explain: true``) also carry the binding-level explanation.
+        * **watch status** (no ``ranks``): the gang watches of the
+          timeline, which the port does not have: no watches (what
+          ``kccap-torch -gang HOST:PORT`` renders and exits 1 by).
+        """
+        from kubernetesclustercapacity_tpu_torch.topology.gang import (
+            GangSpecError,
+            gang_capacity,
+            gang_explain,
+            gang_spec_from_msg,
+        )
+
+        if "ranks" not in msg:
+            return {"enabled": False, "watches": {}, "breached": []}
+        grid = self._grid_from_msg(msg, "gang")
+        try:
+            spec = gang_spec_from_msg(msg)
+            result = gang_capacity(
+                snap, grid, spec,
+                mode=snap.semantics, node_mask=implicit_mask,
+                device=self._device,
+            )
+        except (GangSpecError, ScenarioError, ValueError) as e:
+            raise ValueError(f"bad gang request: {e}") from e
+        out = result.to_wire()
+        if grid.size == 1 or msg.get("explain"):
+            out["explain"] = gang_explain(
+                snap, grid, spec,
+                mode=snap.semantics, node_mask=implicit_mask,
+                device=self._device,
+            )
+        return out
+
+    def _grid_from_msg(self, msg: dict, op: str) -> ScenarioGrid:
+        """The sweep grammar of ``gang`` and ``optimize``: scenario arrays,
+        or the six flag fields as one scenario."""
+        if "cpu_request_milli" not in msg:
+            return ScenarioGrid.from_scenarios([self._scenario_from_msg(msg)])
+        try:
+            return ScenarioGrid(
+                cpu_request_milli=np.asarray(msg["cpu_request_milli"]),
+                mem_request_bytes=np.asarray(msg["mem_request_bytes"]),
+                replicas=np.asarray(msg.get("replicas", [1])),
+            )
+        except (ScenarioError, KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"bad {op} request: {e}") from e
+
+    def _op_optimize(
+        self, msg: dict, snap: ClusterSnapshot, implicit_mask=None
+    ) -> dict:
+        """Optimization-based packing over the wire: the sweep grammar
+        (scenario arrays or the six flags), answered by the chosen
+        ``backend``:
+
+        * ``"lp"`` (default) — the certified LP solve on the card
+          (:func:`~..optimize.optimize_snapshot`): certified dual
+          bound, integral rounded packing, FFD baseline, per-resource
+          shadow prices, and the duality certificate;
+        * ``"ffd"`` — the bug-compatible first-fit reference alone
+          (the production fit path's placed counts).
+
+        Same semantics and implicit strict-mode taint mask as fit/sweep.
+        The port has no admission controller, so no shadow price is fed
+        to one (as in a JAX server without one).
+        """
+        from kubernetesclustercapacity_tpu_torch.ops.fit import sweep_snapshot
+        from kubernetesclustercapacity_tpu_torch.optimize import (
+            OptimizeError,
+            optimize_snapshot,
+        )
+
+        backend = msg.get("backend", "lp")
+        if backend not in ("lp", "ffd"):
+            raise ValueError(
+                f"optimize backend must be 'lp' or 'ffd', got {backend!r}"
+            )
+        grid = self._grid_from_msg(msg, "optimize")
+        if backend == "ffd":
+            grid.validate()
+            totals, _ = sweep_snapshot(
+                snap, grid, mode=snap.semantics, node_mask=implicit_mask,
+                device=self._device,
+            )[:2]
+            totals = np.asarray(totals, dtype=np.int64)
+            demand = np.asarray(grid.replicas, dtype=np.int64)
+            out = {
+                "backend": "ffd",
+                "mode": snap.semantics,
+                "scenarios": grid.size,
+                "demand": demand.tolist(),
+                "ffd": np.clip(totals, 0, demand).tolist(),
+                "totals": totals.tolist(),
+                "schedulable": (totals >= demand).tolist(),
+            }
+        else:
+            kwargs = {}
+            for key, cast in (("iters", int), ("tol", float)):
+                if key in msg:
+                    v = msg[key]
+                    if isinstance(v, bool) or not isinstance(
+                        v, (int, float)
+                    ):
+                        raise ValueError(
+                            f"{key} must be a number, got {v!r}"
+                        )
+                    kwargs["max_iters" if key == "iters" else key] = cast(v)
+            verify = msg.get("verify", True)
+            if not isinstance(verify, bool):
+                raise ValueError(f"verify must be a bool, got {verify!r}")
+            try:
+                result = optimize_snapshot(
+                    snap,
+                    grid,
+                    mode=snap.semantics,
+                    node_mask=implicit_mask,
+                    verify=verify,
+                    device=self._device,
+                    **kwargs,
+                )
+            except (OptimizeError, ScenarioError) as e:
+                raise ValueError(f"bad optimize request: {e}") from e
+            out = result.to_wire()
+        output = msg.get("output")
+        if output in ("table", "json"):
+            from kubernetesclustercapacity_tpu_torch.report import (
+                optimize_json_report,
+                optimize_table_report,
+            )
+
+            out["report"] = (
+                optimize_table_report(out)
+                if output == "table"
+                else optimize_json_report(out)
+            )
+        return out
 
     def _op_explain(
         self, msg: dict, snap: ClusterSnapshot, implicit_mask=None

@@ -310,6 +310,11 @@ class GroupedSnapshot:
     def semantics(self) -> str:
         return self.snapshot.semantics
 
+    def representative_names(self) -> list[str]:
+        """One real node name per group (the first row with the shape)."""
+        names = self.snapshot.names
+        return [names[int(i)] for i in self.representative]
+
     def effective_counts(self, node_mask=None) -> np.ndarray:
         """Per-group node multiplicity, optionally restricted to a ``[N]``
         bool ``node_mask``.  A masked-out node contributes fit 0 in every
@@ -879,6 +884,7 @@ def synthetic_snapshot(
     alloc_pods: int = 110,
     kib_quantized: bool = True,
     shapes: int | None = None,
+    topology: tuple[int, int] | None = None,
 ) -> ClusterSnapshot:
     """Array-level synthetic cluster, drawn in O(N) with numpy.
 
@@ -887,8 +893,13 @@ def synthetic_snapshot(
     kubelets report), so the fused int32 KiB-rescaled kernel stays
     eligible.  ``shapes=K`` draws only K distinct rows and assigns every
     node one of them — the degenerate-fleet profile
-    :meth:`ClusterSnapshot.grouped` compresses.  (The JAX package's
-    ``topology=`` option is not ported yet.)
+    :meth:`ClusterSnapshot.grouped` compresses.
+
+    ``topology=(zones, racks_per_zone)`` attaches a zone/rack/host
+    hierarchy as dense code columns (round-robin racks, nested zones,
+    unique hosts) through :func:`~.topology.model.attach_topology`: no
+    per-node label dicts are built, so hierarchical 1M-node fleets stay
+    O(N) numpy.
     """
     rng = np.random.default_rng(seed)
     n_draw = n_nodes if shapes is None else int(shapes)
@@ -918,7 +929,7 @@ def synthetic_snapshot(
         used_mem = used_mem[assign]
         pods = pods[assign]
 
-    return ClusterSnapshot(
+    snap = ClusterSnapshot(
         names=[f"node-{i:05d}" for i in range(n_nodes)],
         alloc_cpu_milli=alloc_cpu,
         alloc_mem_bytes=alloc_mem,
@@ -931,6 +942,22 @@ def synthetic_snapshot(
         healthy=np.ones(n_nodes, dtype=np.bool_),
         semantics="reference",
     )
+    if topology is not None:
+        from kubernetesclustercapacity_tpu_torch.topology.model import (
+            attach_topology,
+        )
+
+        t_zones, racks_per = topology
+        if t_zones < 1 or racks_per < 1:
+            raise ValueError(
+                f"topology wants (zones >= 1, racks_per_zone >= 1), "
+                f"got {topology!r}"
+            )
+        rack_code = np.arange(n_nodes, dtype=np.int64) % (
+            t_zones * racks_per
+        )
+        attach_topology(snap, rack_code // racks_per, rack_code)
+    return snap
 
 
 def snapshot_from_live_cluster(

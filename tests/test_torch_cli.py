@@ -164,14 +164,14 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
     [
         (["-snapshot", KIND, "-backend", "native"],
          "-backend native: not yet ported"),
-        (["-snapshot", KIND, "-gang", "127.0.0.1:1"],
-         "-gang: not yet ported"),
+        (["-snapshot", KIND, "-slo-status", "127.0.0.1:1"],
+         "-slo-status: not yet ported"),
         (["-snapshot", KIND, "-replay", "audit-dir"],
          "-replay: not yet ported"),
-        (["-snapshot", KIND, "-plan", "spec.yaml", "-optimize"],
-         "-optimize: not yet ported"),
-        (["-snapshot", KIND, "-gang-spec", "gang.yaml", "-grid", "4"],
-         "-gang-spec: not yet ported"),
+        (["-snapshot", KIND, "-plan", "spec.yaml", "-dump", "127.0.0.1:1"],
+         "-dump: not yet ported"),
+        (["-snapshot", KIND, "-fed-status", "127.0.0.1:1", "-grid", "4"],
+         "-fed-status: not yet ported"),
         (["-snapshot", KIND, "-timeline", "audit-dir"],
          "-timeline: not yet ported"),
     ],
@@ -646,11 +646,11 @@ def test_forecast_audit_dir_reads_port_written_logs(stochastic_files,
     assert json.loads(t_out)["trend"]["source"] == port_dir
 
 
-@pytest.mark.parametrize("flag", ["-car", "-forecast"])
+@pytest.mark.parametrize("flag", ["-car", "-forecast", "-gang"])
 @pytest.mark.parametrize("output", ["table", "json"])
 def test_status_flags_against_servers_match_jax(flag, output, capsys):
-    """-car / -forecast HOST:PORT against the port's server and the JAX
-    server: the same rendered status (no watches: the port has no
+    """-car / -forecast / -gang HOST:PORT against the port's server and the
+    JAX server: the same rendered status (no watches: the port has no
     timeline, the JAX server none without -watch) and exit 1."""
     from kubernetesclustercapacity_tpu.service.server import (
         CapacityServer as JaxServer,
@@ -680,10 +680,10 @@ def test_status_flags_against_servers_match_jax(flag, output, capsys):
     rc, out = outs[0]
     assert rc == 1
     assert ("no quantile watches" in out or "no horizon watches" in out
-            or '"enabled": false' in out)
+            or "no gang watches" in out or '"enabled": false' in out)
 
 
-@pytest.mark.parametrize("flag", ["-car", "-forecast"])
+@pytest.mark.parametrize("flag", ["-car", "-forecast", "-gang"])
 def test_status_flags_bad_address_like_jax(flag, capsys):
     outs = []
     for main in (j_cli.main, t_cli.main):
@@ -693,3 +693,160 @@ def test_status_flags_bad_address_like_jax(flag, capsys):
             outs.append((rc, captured.out, captured.err))
     assert outs[:2] == outs[2:]
     assert all(o[0] == 1 and o[2].startswith("ERROR : ") for o in outs)
+
+
+# Gang capacity and the optimizer: -gang-spec (a zone/rack hierarchy from
+# topology labels), -optimize with -opt-backend lp|ffd, and -gang.  The
+# optimizer's float artifacts may differ from the JAX package's in their
+# last bits (tests/test_torch_optimize.py states the tolerances): its JSON
+# is compared on the canonical digest, equal integers and floats within a
+# relative and absolute 1e-9, its table with the solve time left out.
+
+@pytest.fixture(scope="module")
+def gang_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("gang")
+    fx = synthetic_fixture(120, seed=21, topology=(2, 3), taint_frac=0.2)
+    files = {"fleet": str(d / "fleet.json")}
+    with open(files["fleet"], "w") as f:
+        json.dump(fx, f)
+    files["npz"] = str(d / "fleet.npz")
+    j_snapshot.synthetic_snapshot(512, seed=6, shapes=4).save(files["npz"])
+    docs = {
+        "rack": {"pod": {"cpuRequests": "500m", "memRequests": "1gb"},
+                 "gang": {"ranks": 8, "count": 2, "colocate": "rack"}},
+        "spread": {"pod": {"cpuRequests": "250m", "memRequests": "512mb"},
+                   "gang": {"ranks": 16, "colocate": "zone",
+                            "spread_level": "rack",
+                            "max_ranks_per_domain": 6}},
+        # Three racks a zone hold at most 12 of 16 ranks: the rack binds.
+        "spread-tight": {"pod": {"cpuRequests": "250m",
+                                 "memRequests": "512mb"},
+                         "gang": {"ranks": 16, "colocate": "zone",
+                                  "spread_level": "rack",
+                                  "max_ranks_per_domain": 4}},
+        "anti": {"pod": {"cpuRequests": "1", "memRequests": "2gb"},
+                 "gang": {"ranks": 12, "anti_affinity_host": True,
+                          "count": 500}},
+        "bad": {"pod": {"cpuRequests": "1"},
+                "gang": {"ranks": 8, "max_ranks_per_domain": 2}},
+        "no-gang": {"pod": {"cpuRequests": "1"}},
+    }
+    for name, doc in docs.items():
+        files[name] = str(d / f"{name}.json")
+        with open(files[name], "w") as f:
+            json.dump(doc, f)
+    files["missing"] = str(d / "missing.json")
+    return files
+
+
+GANG_ARGV = {
+    "rack": ["-snapshot", "{fleet}", "-gang-spec", "{rack}"],
+    "rack-json": ["-snapshot", "{fleet}", "-gang-spec", "{rack}", "-output",
+                  "json"],
+    "spread-strict": ["-snapshot", "{fleet}", "-gang-spec", "{spread}",
+                      "-semantics", "strict"],
+    "spread-json": ["-snapshot", "{fleet}", "-gang-spec", "{spread}",
+                    "-output", "json", "-semantics", "strict"],
+    "spread-tight": ["-snapshot", "{fleet}", "-gang-spec", "{spread-tight}",
+                     "-semantics", "strict"],
+    "anti-unschedulable": ["-snapshot", "{fleet}", "-gang-spec", "{anti}"],
+    "npz-no-labels": ["-snapshot", "{npz}", "-gang-spec", "{spread}",
+                      "-output", "json"],
+    "bad-spec": ["-snapshot", "{fleet}", "-gang-spec", "{bad}"],
+    "no-gang-block": ["-snapshot", "{fleet}", "-gang-spec", "{no-gang}"],
+    "missing-spec": ["-snapshot", "{fleet}", "-gang-spec", "{missing}"],
+    "gang-backend-cpu": ["-snapshot", "{fleet}", "-gang-spec", "{rack}",
+                         "-backend", "cpu"],
+    "optimize": ["-snapshot", "{npz}", "-optimize", "-cpuRequests=250m",
+                 "-memRequests=128mb", "-replicas=5"],
+    "optimize-json": ["-snapshot", "{npz}", "-optimize", "-output", "json",
+                      "-cpuRequests=250m", "-memRequests=128mb",
+                      "-replicas=5"],
+    "optimize-unschedulable": ["-snapshot", "{npz}", "-optimize",
+                               "-cpuRequests=250m", "-memRequests=128mb",
+                               "-replicas=1000000000"],
+    "optimize-grid": ["-snapshot", "{npz}", "-optimize", "-grid", "4",
+                      "-seed", "3"],
+    "optimize-grid-json": ["-snapshot", "{fleet}", "-optimize", "-grid", "6",
+                           "-output", "json", "-semantics", "strict"],
+    "optimize-fleet": ["-snapshot", "{fleet}", "-optimize",
+                       "-cpuRequests=500m", "-memRequests=1gb",
+                       "-replicas=40"],
+    "ffd": ["-snapshot", "{npz}", "-optimize", "-opt-backend", "ffd",
+            "-cpuRequests=250m", "-memRequests=128mb", "-replicas=5"],
+    "ffd-json-grid": ["-snapshot", "{fleet}", "-optimize", "-opt-backend",
+                      "ffd", "-grid", "5", "-output", "json"],
+    "ffd-unschedulable": ["-snapshot", "{fleet}", "-optimize",
+                          "-opt-backend", "ffd", "-replicas=100000"],
+    "opt-backend-alone": ["-snapshot", "{fleet}", "-opt-backend", "ffd",
+                          "-replicas=5", "-output", "json"],
+    "optimize-backend-cpu": ["-snapshot", "{npz}", "-optimize", "-backend",
+                             "cpu"],
+    # The three command lines that answered "not yet ported" before.
+    "gang-status-no-server": ["-snapshot", KIND, "-gang", "127.0.0.1:1"],
+    "plan-then-optimize": ["-snapshot", KIND, "-plan", "spec.yaml",
+                           "-optimize"],
+    "gang-spec-grid": ["-snapshot", KIND, "-gang-spec", "gang.yaml",
+                       "-grid", "4"],
+}
+# Without labels every node is its own zone and rack ("own" policy), so
+# the spread gang cannot fit on the .npz fleet.
+GANG_OK = {"rack", "rack-json", "spread-strict", "spread-json", "optimize", "optimize-json", "optimize-grid",
+           "optimize-grid-json", "optimize-fleet", "ffd", "ffd-json-grid",
+           "opt-backend-alone"}
+
+
+def _close(a, b, path=""):
+    """Equal, with floats within a relative and absolute 1e-9."""
+    if isinstance(a, float) or isinstance(b, float):
+        assert abs(a - b) <= 1e-9 + 1e-9 * abs(b), path
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _close(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
+def _same_optimize_output(t_out, j_out):
+    import re
+
+    from kubernetesclustercapacity_tpu.audit.log import (
+        canonical_result_digest as j_digest,
+    )
+    from kubernetesclustercapacity_tpu_torch.audit.log import (
+        canonical_result_digest as t_digest,
+    )
+
+    try:
+        t_wire, j_wire = json.loads(t_out), json.loads(j_out)
+    except ValueError:
+        seconds = re.compile(r", [0-9.e-]+s$", re.M)
+        assert seconds.sub(", Ns", t_out) == seconds.sub(", Ns", j_out)
+        return
+    assert t_digest("optimize", t_wire) == j_digest("optimize", j_wire)
+    for wire in (t_wire, j_wire):
+        wire.pop("solve_seconds", None)
+    _close(t_wire, j_wire)
+
+
+@pytest.mark.parametrize("name", list(GANG_ARGV))
+def test_gang_and_optimize_surfaces_match_jax(name, gang_files, capsys):
+    argv = [a.format(**gang_files) for a in GANG_ARGV[name]]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
+    if name.endswith("backend-cpu"):
+        assert "-backend tpu" in j_out and "-backend torch" in t_out
+        j_out = (j_out.replace("the JAX kernels", "the device programs")
+                 .replace("-backend tpu", "-backend torch"))
+    assert t_rc == j_rc == (0 if name in GANG_OK else 1), t_out
+    if name.startswith("optimize") and name in GANG_OK | {
+            "optimize-unschedulable"}:
+        _same_optimize_output(t_out, j_out)
+    else:
+        assert t_out == j_out
+    assert "not yet ported" not in t_out

@@ -1,9 +1,12 @@
 """The CUDA sweep kernels (B1 ``sweep_fit``, B2 ``sweep_multi``) against
 their plain PyTorch versions, on the card, and the entry points above them
 (``CapacityModel``'s sweeps launch each kernel once; the explain and
-quantile programs equal their host runs), and the stochastic family on the
+quantile programs equal their host runs), the stochastic family on the
 card (the seeded draws equal the host's; capacity-at-risk, the horizon and
-the catalog plan equal their oracles and host runs).
+the catalog plan equal their oracles and host runs), and gang capacity and
+the LP optimizer on the card (the int64 gang programs, grouped and per
+node, equal ``gang_oracle`` and the host; the PDHG's integer answers equal
+the host's).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -31,7 +34,9 @@ from kubernetesclustercapacity_tpu_torch import (
     synthetic_snapshot,
 )
 from kubernetesclustercapacity_tpu_torch import forecast as _forecast
+from kubernetesclustercapacity_tpu_torch import optimize as _optimize
 from kubernetesclustercapacity_tpu_torch import stochastic as _stochastic
+from kubernetesclustercapacity_tpu_torch import topology as _topology
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as ff
 from kubernetesclustercapacity_tpu_torch.ops import fused_multi as fm
 
@@ -739,3 +744,109 @@ def test_horizon_and_plan_on_the_card_equal_the_host(cuda):
     host = _forecast.plan_capacity(snap, spec, catalog, target=target,
                                    drain=True, device="cpu").to_wire()
     assert got == host and got["status"] == "certified"
+
+
+_GANG_SPECS = [
+    dict(ranks=64, colocate="rack"),
+    dict(ranks=12, colocate="host"),
+    dict(ranks=64, colocate="zone", spread_level="rack",
+         max_ranks_per_domain=16),
+    dict(ranks=16, colocate="rack", anti_affinity_host=True),
+    dict(ranks=25, anti_affinity_host=True),
+    dict(ranks=9),
+]
+
+
+def _gang_fields(res):
+    return (res.to_wire(), res.largest_cap.tolist(), res.largest_domain,
+            None if res.co_caps is None else res.co_caps.tolist(),
+            res.co_domains)
+
+
+@pytest.mark.parametrize("gang_grouped", ["1", "0"])
+@pytest.mark.parametrize("mode", ["reference", "strict"])
+def test_gang_capacity_on_the_card_equals_the_oracle(cuda, mode,
+                                                     gang_grouped,
+                                                     monkeypatch):
+    """The grouped engine (int64 products over groups, no matmul) and the
+    per-node engine with the spread searches, on the card."""
+    monkeypatch.setenv("KCCAP_GANG_GROUPED", gang_grouped)
+    snap = synthetic_snapshot(4096, seed=21, shapes=64, topology=(4, 8))
+    grid = random_scenario_grid(24, seed=777)
+    mask = np.random.default_rng(3).random(snap.n_nodes) > 0.1
+    from kubernetesclustercapacity_tpu_torch.ops.fit import sweep_grid
+
+    cols = [torch.from_numpy(np.ascontiguousarray(getattr(snap, c))) for c in (
+        "alloc_cpu_milli", "alloc_mem_bytes", "alloc_pods",
+        "used_cpu_req_milli", "used_mem_req_bytes", "pods_count",
+        "healthy")]
+    per_node = sweep_grid(
+        *cols, *(torch.from_numpy(np.asarray(a)) for a in (
+            grid.cpu_request_milli, grid.mem_request_bytes, grid.replicas)),
+        mode=mode, node_mask=torch.from_numpy(mask),
+        return_per_node=True)[2].numpy()
+    topo = _topology.topology_from_snapshot(snap)
+    for kw in _GANG_SPECS:
+        spec = _topology.GangSpec(**kw)
+        card = _topology.gang_capacity(snap, grid, spec, mode=mode,
+                                       node_mask=mask, device=cuda)
+        host = _topology.gang_capacity(snap, grid, spec, mode=mode,
+                                       node_mask=mask, device="cpu")
+        assert card.engine == ("grouped" if gang_grouped == "1"
+                               else "per-node")
+        assert _gang_fields(card) == _gang_fields(host), kw
+        assert card.gangs.tolist() == _topology.gang_oracle(
+            per_node, topo, spec, node_mask=mask), kw
+
+
+def test_gang_explain_on_the_card_equals_the_host(cuda):
+    fx = synthetic_fixture(600, seed=9, topology=(3, 4), taint_frac=0.1)
+    snap = snapshot_from_fixture(fx, semantics="strict")
+    grid = random_scenario_grid(2, seed=5)
+    for kw in _GANG_SPECS:
+        spec = _topology.GangSpec(**kw)
+        assert _topology.gang_explain(snap, grid, spec, device=cuda) == \
+            _topology.gang_explain(snap, grid, spec, device="cpu"), kw
+
+
+def test_gang_device_programs_on_the_card_equal_the_host(cuda):
+    from kubernetesclustercapacity_tpu_torch.topology import gang
+
+    rng = np.random.default_rng(4)
+    fits = rng.integers(-50, 4000, size=(40, 300))
+    fits[rng.random(fits.shape) < 0.02] = 1 << 50
+    cnt = rng.integers(0, 500, size=(300, 33))
+    codes = rng.integers(-1, 20, size=300)
+    parent = rng.integers(-1, 4, size=33)
+    host = [torch.from_numpy(a.astype(np.int64))
+            for a in (fits, cnt, codes, parent)]
+    card = [t.to(cuda) for t in host]
+    for fn in (
+        lambda f, c, k, p: gang._domain_caps(f, k, n_domains=20),
+        lambda f, c, k, p: gang._grouped_caps(f, c),
+        lambda f, c, k, p: gang._gangs_spread(
+            gang._grouped_caps(f, c), p, 64, 16, n_co=4),
+        lambda f, c, k, p: gang._gangs_spread_per_group(f, c, 16, 1),
+        lambda f, c, k, p: gang._gangs_colocated_per_group(
+            f, c[:, 0].contiguous(), 8),
+    ):
+        assert torch.equal(fn(*card).cpu(), fn(*host))
+
+
+@pytest.mark.parametrize("shapes", [48, None])
+def test_pdhg_integer_answers_on_the_card_equal_the_host(cuda, shapes):
+    snap = synthetic_snapshot(3000, seed=23, **({"shapes": shapes}
+                                                 if shapes else {}))
+    grid = random_scenario_grid(16, seed=23)
+    card = _optimize.optimize_snapshot(snap, grid, mode="strict",
+                                       device=cuda)
+    host = _optimize.optimize_snapshot(snap, grid, mode="strict",
+                                       device="cpu")
+    for name in ("demand", "rounded", "ffd", "ffd_totals", "schedulable"):
+        assert np.array_equal(getattr(card, name), getattr(host, name))
+    assert card.all_certified and card.verified.all()
+    assert np.array_equal(card.rounded, card.ffd)
+    np.testing.assert_allclose(card.lp_bound, host.lp_bound, rtol=1e-9)
+    want = _optimize.lp_bound_oracle(snap, grid, mode="strict")
+    assert (np.abs(card.lp_bound - want)
+            <= 4 * card.tol * np.maximum(np.abs(want), 1.0)).all()

@@ -68,7 +68,9 @@ def test_the_scan_is_not_vacuous():
                    "stochastic/distributions.py", "stochastic/car.py",
                    "stochastic/history.py", "forecast/trend.py",
                    "forecast/horizon.py", "forecast/planner.py",
-                   "audit/log.py", "timeline/diff.py"):
+                   "audit/log.py", "timeline/diff.py",
+                   "topology/gang.py", "topology/__init__.py",
+                   "optimize/lp.py", "optimize/__init__.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -220,6 +222,28 @@ _BLOCKED_RUN = textwrap.dedent(
         audit.AuditReader.load(audit_dir).verify_chain(),
         json.loads(car_cli.getvalue())["samples"],
     ]
+    from kubernetesclustercapacity_tpu_torch import optimize, topology
+
+    topo_snap = kt.synthetic_snapshot(300, seed=6, topology=(2, 3))
+    gang = topology.gang_capacity(
+        topo_snap, kt.random_scenario_grid(4, seed=6),
+        topology.GangSpec(ranks=8, colocate="zone", spread_level="rack",
+                          max_ranks_per_domain=3), device="cpu")
+    opt = optimize.optimize_snapshot(
+        topo_snap, kt.random_scenario_grid(3, seed=7), device="cpu")
+    gang_path = fx_path + ".gang.json"
+    with open(gang_path, "w") as f:
+        json.dump({"pod": {"cpuRequests": "100m"},
+                   "gang": {"ranks": 2, "colocate": "zone"}}, f)
+    gang_cli, opt_cli = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(gang_cli):
+        rc += cli.main(["-snapshot", fx_path, "-gang-spec", gang_path,
+                        "-device", "cpu", "-output", "json"])
+    with contextlib.redirect_stdout(opt_cli):
+        opt_rc = cli.main(["-snapshot", fx_path, "-optimize", "-output",
+                           "json", "-device", "cpu", "-replicas", "3"])
+    gang_opt = [gang.engine, int(gang.gangs.sum()) > 0, opt.all_certified,
+                json.loads(gang_cli.getvalue())["engine"], opt_rc]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -237,6 +261,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "live": live,
                       "scheduling": scheduling,
                       "stochastic": stochastic_results,
+                      "gang_opt": gang_opt,
                       "loaded": loaded}))
     """
 )
@@ -266,6 +291,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "scheduling": [doc["scheduling"][0], "scan", True, True,
                        doc["scheduling"][4], True, True, "first-fit"],
         "stochastic": [True, [3, 32], True, [1, 2, 3], 8],
+        "gang_opt": ["per-node", True, True, "per-node", 0],
         "loaded": [],
     }
     assert doc["scheduling"][0] > 0

@@ -487,3 +487,82 @@ def test_stochastic_renderers_match_jax(kind, wire, form):
     name = f"{kind}_{form}_report"
     assert getattr(t_report, name)(wire) == getattr(j_report, name)(wire)
     assert name in t_report.__all__
+
+
+# The gang and optimize renderers: the wire shapes of real JAX results (gang
+# with and without its explanation, every constraint spelling; the LP solve
+# certified, uncertified and over-bound, and the first-fit form) and
+# hand-made status forms, each through both packages' renderers.
+
+def _gang_optimize_wires():
+    from kubernetesclustercapacity_tpu import optimize as jo
+    from kubernetesclustercapacity_tpu import topology as jt
+    from kubernetesclustercapacity_tpu.fixtures import synthetic_fixture
+    from kubernetesclustercapacity_tpu.scenario import (
+        ScenarioGrid,
+        random_scenario_grid,
+    )
+
+    fx = synthetic_fixture(40, seed=8, topology=(2, 2))
+    for node in fx["nodes"][:4]:
+        del node["labels"]["topology.kubernetes.io/rack"]
+    snap = j_snapshot.snapshot_from_fixture(fx, semantics="strict")
+    one = ScenarioGrid(cpu_request_milli=np.array([500]),
+                       mem_request_bytes=np.array([1 << 30]),
+                       replicas=np.array([1]))
+    grid = random_scenario_grid(3, seed=2)
+    wires = []
+    for kw in (dict(ranks=8, colocate="rack", count=2),
+               dict(ranks=12, colocate="zone", spread_level="rack",
+                    max_ranks_per_domain=4),
+               dict(ranks=6, anti_affinity_host=True, count=100),
+               dict(ranks=3)):
+        spec = jt.GangSpec(**kw)
+        wire = jt.gang_capacity(snap, one, spec, missing="exclude").to_wire()
+        wire["explain"] = jt.gang_explain(snap, one, spec, missing="exclude")
+        wires.append(("gang", wire))
+    wires.append(("gang", jt.gang_capacity(
+        snap, grid, jt.GangSpec(ranks=5, colocate="rack")).to_wire()))
+    opt_snap = j_snapshot.synthetic_snapshot(64, seed=6, shapes=4)
+    wires.append(("optimize", jo.optimize_snapshot(
+        opt_snap, random_scenario_grid(4, seed=3)).to_wire()))
+    uncertified = jo.optimize_snapshot(
+        opt_snap, ScenarioGrid(cpu_request_milli=np.array([1500]),
+                               mem_request_bytes=np.array([1 << 30]),
+                               replicas=np.array([10**8])),
+        mode="strict", max_iters=1).to_wire()
+    wires.append(("optimize", uncertified))
+    wires.append(("optimize", dict(uncertified, verified=[False],
+                                   ffd_exceeds_bound=[True])))
+    wires.append(("optimize", {
+        "backend": "ffd", "mode": "reference", "scenarios": 2,
+        "demand": [5, 900], "ffd": [5, 640], "totals": [1200, 640],
+        "schedulable": [True, False]}))
+    status = {
+        "enabled": True, "generation": 4, "breached": ["train-64"],
+        "watches": {
+            "train-64": {"ranks": 64, "count": 4, "last_gangs": 2,
+                         "min_replicas": 4, "binding": "rack",
+                         "alert": {"state": "breached"}},
+            "infer-8": {"ranks": 8, "count": 1, "last_gangs": None,
+                        "min_replicas": None, "binding": None,
+                        "alert": {"state": "ok"}},
+        },
+    }
+    off = {"enabled": False, "watches": {}, "breached": []}
+    wires += [("gang_status", status), ("gang_status", off),
+              ("gang_status", dict(status, breached=[]))]
+    return wires
+
+
+GANG_OPTIMIZE_WIRES = _gang_optimize_wires()
+
+
+@pytest.mark.parametrize("kind,wire", GANG_OPTIMIZE_WIRES,
+                         ids=[f"{k}{i}" for i, (k, _) in
+                              enumerate(GANG_OPTIMIZE_WIRES)])
+@pytest.mark.parametrize("form", ["table", "json"])
+def test_gang_and_optimize_renderers_match_jax(kind, wire, form):
+    name = f"{kind}_{form}_report"
+    assert getattr(t_report, name)(wire) == getattr(j_report, name)(wire)
+    assert name in t_report.__all__

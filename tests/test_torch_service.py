@@ -8,13 +8,17 @@ fields), ``sweep`` (explicit grid, ``random``, ``kernel=exact``),
 ``sweep_multi``, ``explain`` (JSON and table), the scheduler-fidelity
 ops (``place``, ``drain``, ``topology_spread``, ``plan`` with a
 ``node_template``, ``fit`` with ``priority``, ``sweep`` with
-``priorities``) on a fixture with priorities and disruption budgets, on a
+``priorities``) on a fixture with priorities and disruption budgets,
+``gang`` and ``optimize`` (on a fleet with zone/rack labels too), on a
 file-backed server and on an ``update``-fed one, ``reload`` from
 ``.json`` and ``.npz``, a refused token and an expired deadline.  Replies must be
 equal, integers and bytes exactly, apart from the kernel labels
 (``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and the
 volatile fields (the JAX breaker's success counter, the seconds in a shed
-message).  Both client/server cross pairs are run as well.  Every op the
+message); an ``optimize`` reply's float solver artifacts may differ in
+their last bits, so it is compared on the canonical digest, equal integers
+and floats within a relative and absolute 1e-9
+(``tests/test_torch_optimize.py`` states why).  Both client/server cross pairs are run as well.  Every op the
 port does not serve yet must say so.
 
 Servers bind 127.0.0.1 on port 0, every socket and client has a timeout,
@@ -835,3 +839,178 @@ def test_server_main_serves_until_drained(tmp_path):
     thread.join(timeout=TIMEOUT_S)
     assert not thread.is_alive()
     assert result == {"rc": 0}
+
+
+# Gang capacity and the optimizer.  A strict and a reference server on a
+# fleet labelled with a zone/rack hierarchy, beside the kind fixture and
+# the .npz checkpoint (no topology labels: every node its own domain).
+
+@pytest.fixture(scope="module")
+def gang_pairs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("gang")
+    fleet = str(d / "fleet.json")
+    with open(fleet, "w") as f:
+        json.dump(synthetic_fixture(150, seed=23, topology=(3, 2),
+                                    taint_frac=0.2), f)
+    out = {}
+    try:
+        for semantics in ("strict", "reference"):
+            out[f"fleet-{semantics}"] = _pair(fleet, semantics, (),
+                                              batch_window_ms=0)
+        yield out
+    finally:
+        _stop(*(s for pair in out.values() for s in pair))
+
+
+GANG = {"op": "gang", "ranks": 8, "cpuRequests": "500m",
+        "memRequests": "1gb"}
+OPTIMIZE = {"op": "optimize", "cpu_request_milli": [500, 100, 2000],
+            "mem_request_bytes": [512 << 20, 64 << 20, 4 << 30],
+            "replicas": [10**6, 10, 40]}
+GANG_OPT_REQUESTS = {
+    "gang-rack": dict(GANG, colocate="rack", count=2),
+    "gang-spread": dict(GANG, ranks="16", colocate="zone",
+                        spread_level="rack", max_ranks_per_domain=6),
+    "gang-anti": dict(GANG, anti_affinity_host=True),
+    "gang-host": dict(GANG, ranks=2, colocate="host"),
+    "gang-cluster": dict(GANG, ranks=1),
+    "gang-grid": {"op": "gang", "ranks": 4, "colocate": "zone",
+                  "cpu_request_milli": [100, 250, 1500],
+                  "mem_request_bytes": [64 << 20, 512 << 20, 3 << 30],
+                  "replicas": [1, 2, 3]},
+    "gang-grid-explain": {"op": "gang", "ranks": 4, "colocate": "rack",
+                          "explain": True, "cpu_request_milli": [100, 900],
+                          "mem_request_bytes": [64 << 20, 1 << 30],
+                          "replicas": [1, 2]},
+    "gang-status": {"op": "gang"},
+    "gang-bad-spec": dict(GANG, max_ranks_per_domain=2),
+    "gang-bad-level": dict(GANG, colocate="pod"),
+    "gang-bad-ranks": dict(GANG, ranks="eight"),
+    "gang-bad-grid": {"op": "gang", "ranks": 2, "cpu_request_milli": [1]},
+    "gang-bad-memory": dict(GANG, memRequests="lots"),
+    "optimize": OPTIMIZE,
+    "optimize-flags": {"op": "optimize", "cpuRequests": "500m",
+                       "memRequests": "512mb", "replicas": "100000"},
+    "optimize-table": {"op": "optimize", "cpuRequests": "500m",
+                       "memRequests": "512mb", "replicas": "100000",
+                       "output": "table"},
+    "optimize-json": dict(OPTIMIZE, output="json"),
+    "optimize-iters": dict(OPTIMIZE, iters=1, verify=False),
+    "optimize-tol": dict(OPTIMIZE, tol=1e-4),
+    "optimize-ffd": dict(OPTIMIZE, backend="ffd"),
+    "optimize-ffd-table": {"op": "optimize", "backend": "ffd",
+                           "cpuRequests": "100m", "memRequests": "100mb",
+                           "replicas": "5", "output": "table"},
+    "optimize-bad-backend": {"op": "optimize", "backend": "simplex",
+                             "cpuRequests": "1"},
+    "optimize-bad-iters": {"op": "optimize", "iters": "many",
+                           "cpuRequests": "1"},
+    "optimize-bad-verify": {"op": "optimize", "verify": "yes",
+                            "cpuRequests": "1"},
+    "optimize-bad-tol": {"op": "optimize", "tol": 0.9, "cpuRequests": "1"},
+    "optimize-bad-grid": {"op": "optimize", "cpu_request_milli": [0],
+                          "mem_request_bytes": [1]},
+}
+GANG_OPT_SOURCES = ("fleet-strict", "fleet-reference", "kind-reference",
+                    "synthetic-npz")
+
+
+def _gang_opt_pair(source, pairs, gang_pairs):
+    return (gang_pairs if source.startswith("fleet") else pairs)[source]
+
+
+def _close(a, b, path=""):
+    if isinstance(a, float) or isinstance(b, float):
+        assert abs(a - b) <= 1e-9 + 1e-9 * abs(b), path
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _close(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
+def _same_optimize_reply(t_reply, j_reply):
+    from kubernetesclustercapacity_tpu.audit.log import (
+        canonical_result_digest as j_digest,
+    )
+    from kubernetesclustercapacity_tpu_torch.audit.log import (
+        canonical_result_digest as t_digest,
+    )
+
+    t_reply, j_reply = copy.deepcopy(t_reply), copy.deepcopy(j_reply)
+    if not j_reply["ok"]:
+        assert t_reply == j_reply
+        return
+    t_res, j_res = t_reply["result"], j_reply["result"]
+    assert t_digest("optimize", t_res) == j_digest("optimize", j_res)
+    for res in (t_res, j_res):
+        res.pop("solve_seconds", None)
+        report = res.pop("report", None)
+        if report is not None:
+            try:
+                res["report"] = json.loads(report)
+                res["report"].pop("solve_seconds", None)
+            except ValueError:
+                res["report"] = re.sub(r", [0-9.e-]+s$", ", Ns", report,
+                                       flags=re.M)
+    _close(t_reply, j_reply)
+
+
+@pytest.mark.parametrize("name", list(GANG_OPT_REQUESTS))
+@pytest.mark.parametrize("source", GANG_OPT_SOURCES)
+def test_gang_and_optimize_replies_match_the_jax_server(source, name, pairs,
+                                                        gang_pairs):
+    msg = GANG_OPT_REQUESTS[name]
+    j_reply, t_reply = _both(_gang_opt_pair(source, pairs, gang_pairs), msg)
+    if name.startswith("optimize"):
+        _same_optimize_reply(t_reply, j_reply)
+    else:
+        assert t_reply == j_reply
+    assert t_reply["ok"] is ("-bad-" not in name), t_reply
+    res = t_reply.get("result")
+    if name == "gang-status":
+        assert res == {"enabled": False, "watches": {}, "breached": []}
+    elif name.startswith("gang") and t_reply["ok"]:
+        assert all(type(g) is int for g in res["gangs"])
+        assert ("explain" in res) is (name != "gang-grid")
+
+
+def test_gang_and_optimize_comparison_is_not_vacuous(gang_pairs):
+    """The labelled fleet really has a hierarchy (racks bind the gang, some
+    gangs fit), the LP certifies and the first-fit form is the sweep's."""
+    _, t = _both(gang_pairs["fleet-strict"], GANG_OPT_REQUESTS["gang-rack"])
+    res = t["result"]
+    assert res["gangs"][0] > 0 and res["explain"]["largest_domain"][
+        "name"].startswith("tz-")
+    _, t = _both(gang_pairs["fleet-strict"], GANG_OPT_REQUESTS["optimize"])
+    assert t["result"]["status"] == ["certified"] * 3
+    assert t["result"]["rounded"] == t["result"]["ffd"]
+    _, t = _both(gang_pairs["fleet-strict"],
+                 GANG_OPT_REQUESTS["optimize-iters"])
+    assert "uncertified" in t["result"]["status"]
+    _, t = _both(gang_pairs["fleet-strict"],
+                 GANG_OPT_REQUESTS["optimize-table"])
+    assert t["result"]["report"].startswith("optimized packing")
+
+
+def test_gang_and_optimize_ops_are_ported():
+    assert {"gang", "optimize"}.isdisjoint(UNPORTED_OPS)
+
+
+@pytest.mark.parametrize("name", ["gang-spread", "gang-grid", "gang-status",
+                                  "optimize", "optimize-ffd"])
+def test_gang_and_optimize_cross_clients_and_servers(name, gang_pairs):
+    j, t = gang_pairs["fleet-strict"]
+    msg = GANG_OPT_REQUESTS[name]
+    replies = [_call(JaxClient, t, msg), _call(TorchClient, t, msg),
+               _call(TorchClient, j, msg), _call(JaxClient, j, msg)]
+    for reply in replies[1:]:
+        if name.startswith("optimize"):
+            _same_optimize_reply(reply, replies[0])
+        else:
+            assert reply == replies[0]
