@@ -46,9 +46,17 @@ engine, the spread searches) against ``gang_oracle`` and the host, the
 PDHG at the JAX bench's config (certified, verified, ``rounded == ffd``,
 integers equal to the host run) and ungrouped, ``-gang-spec`` and
 ``-optimize`` against their ``-device cpu`` runs, and the service's
-``gang`` and ``optimize``; B1 and B2 launch 0 times there too.  Any
-failure raises, so the script exits nonzero without
-its final line.  It needs a CUDA device and the package beside it;
+``gang`` and ``optimize``; B1 and B2 launch 0 times there too.  Path (q)
+drives the operator's view of a running server: (m)'s cluster with
+zone/rack labels behind the mock apiserver, one strict ``-follow`` server
+with a watchlist of eight watches (plain, capacity at risk, forecast,
+gang), its capacity timeline, an SLO monitor and a metrics endpoint;
+one timeline record per published generation, each plain watch equal to
+B1's sweep, the exact program and the host oracle, every record equal to
+a CPU timeline fed the same snapshots, the scrape equal to the last
+record, ``/healthz`` flipping with the breached watches, and the
+``timeline``/``dump``/``slo`` ops and their CLI flags.  Any failure
+raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
 Output: phase lines, one JSON line per timed kernel variant, a
@@ -1641,10 +1649,12 @@ class MockApiserver:
     path, later ones get an empty window), and refuses a request without
     the bearer token.  Items and streams are serialized once up front.
     ``stream_written[path]`` is the host clock when a stream's last byte
-    was written.
+    was written.  ``gates`` maps a path to ``{window index: Event}``: the
+    watch request that takes that window waits for the event first.
     """
 
-    def __init__(self, fixture: dict, streams: dict | None = None):
+    def __init__(self, fixture: dict, streams: dict | None = None,
+                 gates: dict | None = None):
         import http.server
 
         self.items = {
@@ -1659,6 +1669,8 @@ class MockApiserver:
             for path, queued in (streams or {}).items()
         }
         self.stream_written: dict[str, float] = {}
+        self.gates = gates or {}
+        self._windows: dict[str, int] = {}
         self.requests = 0
         self._rv = 1
         self._lock = threading.Lock()
@@ -1695,6 +1707,11 @@ class MockApiserver:
                     with outer._lock:
                         queued = outer.streams.get(url.path) or []
                         body = queued.pop(0) if queued else b""
+                        window = outer._windows.get(url.path, 0)
+                        outer._windows[url.path] = window + 1
+                    gate = outer.gates.get(url.path, {}).get(window)
+                    if gate is not None:
+                        gate.wait()
                     self.reply(200, body)
                     if body:
                         outer.stream_written[url.path] = time.perf_counter()
@@ -1720,6 +1737,9 @@ class MockApiserver:
         self.thread.start()
 
     def close(self) -> None:
+        for gates in self.gates.values():
+            for gate in gates.values():
+                gate.set()
         self.server.shutdown()
         self.server.server_close()
         self.thread.join(timeout=30)
@@ -3357,6 +3377,740 @@ def phase_gang_opt(pkg, cli, ff, fm, tmp: str, identity: str,
     return out
 
 
+# --- Path (q): the operator's view of a running server -------------------
+# (m)'s cluster (5,000 nodes, 148,991 pods, the 600-event churn stream of
+# seed 9) as a seeded copy whose nodes carry a zone and a rack label, 4
+# zones x 8 racks as in (p2), served by one strict -follow server with a
+# watchlist, a capacity timeline, an SLO monitor and a metrics endpoint.
+OPS_TOPOLOGY = (4, 8)
+OPS_SPEC = {"cpuRequests": "200m", "cpuLimits": "400m",
+            "memRequests": "250mb", "memLimits": "500mb", "replicas": "5000"}
+OPS_POD = {"cpuRequests": "500m", "memRequests": "1gb", "replicas": "200"}
+OPS_CPU_USAGE = {"dist": "normal", "mean": "500m", "std": "200m"}
+OPS_MEM_USAGE = {"dist": "lognormal", "mean": "4gb", "sigma": 1.0}
+OPS_SLOS = {"slos": [
+    {"name": "sweep-latency", "op": "sweep", "latency": "p99 < 1000ms"},
+    {"name": "sweep-availability", "op": "sweep", "availability": "99.9%"},
+]}
+OPS_WARM_REQUESTS = 20
+STATE_CODES = {"ok": 0, "recovered": 1, "breached": 2}
+
+
+def operator_fixture(pkg) -> dict:
+    """(m)'s source cluster, built anew, with each node labelled with a
+    zone and a rack (``topology.kubernetes.io/zone`` and ``/rack``, drawn
+    from seed 13 over 4 zones x 8 racks)."""
+    fixture = live_fixture_source(pkg)
+    rng = np.random.default_rng(13)
+    zones = rng.integers(0, OPS_TOPOLOGY[0], len(fixture["nodes"]))
+    racks = rng.integers(0, OPS_TOPOLOGY[1], len(fixture["nodes"]))
+    for node, z, r in zip(fixture["nodes"], zones, racks):
+        node["labels"] = dict(node.get("labels") or {}, **{
+            "topology.kubernetes.io/zone": f"zone-{int(z)}",
+            "topology.kubernetes.io/rack": f"rack-{int(r)}"})
+    return fixture
+
+
+def operator_segments(events: list[dict]) -> tuple[list, list]:
+    """The churn stream in two segments: first the 192 pods it adds (every
+    capacity can only fall), then the rest in the stream's order (pods
+    deleted and finished, nodes modified, removed and added).  The object
+    sets are disjoint, so the final state is the stream's."""
+    added = [e for e in events if e["kind"] == "Pod" and e["type"] == "ADDED"]
+    rest = [e for e in events
+            if not (e["kind"] == "Pod" and e["type"] == "ADDED")]
+    return added, rest
+
+
+def gated_watch_streams(first: list[dict], second: list[dict]):
+    """``(streams, gates)`` for :class:`MockApiserver`: each path's watch
+    windows in the REST schema (resourceVersions rising across both
+    segments), the first window of ``second`` on each path gated by one
+    shared event, so the script decides when the second segment is
+    sent."""
+    release = threading.Event()
+    windows = {NODES_PATH: [], PODS_PATH: []}
+    gates: dict = {NODES_PATH: {}, PODS_PATH: {}}
+    rv = 10_000
+    for k, segment in enumerate((first, second)):
+        by_path = {NODES_PATH: [], PODS_PATH: []}
+        for e in segment:
+            obj = k8s_node(e["object"]) if e["kind"] == "Node" else \
+                k8s_pod(e["object"])
+            obj["metadata"]["resourceVersion"] = str(rv)
+            rv += 1
+            by_path[NODES_PATH if e["kind"] == "Node" else PODS_PATH].append(
+                {"type": e["type"], "object": obj})
+        for path, evs in by_path.items():
+            if evs:
+                if k == 1:
+                    gates[path][len(windows[path])] = release
+                windows[path].append(evs)
+    return windows, gates, release
+
+
+def operator_watchlist(plain: dict, totals: dict | None = None) -> list:
+    """The eight watches.  ``plain`` holds the pods and thresholds of the
+    two thresholded plain watches (``recover``: breached by the stream's
+    first segment and recovered by its second; ``advisory``: breached
+    throughout).  ``totals`` maps the capacity-at-risk and gang watches to
+    their totals before the stream; each threshold sits there, so the
+    first segment breaches them."""
+    def at(name):
+        return {"min_replicas": totals[name]} if totals else {}
+
+    return [
+        {"name": "spec-reference", "pod": dict(OPS_SPEC),
+         "semantics": "reference"},
+        {"name": "spec-strict", "pod": dict(OPS_SPEC),
+         "semantics": "strict"},
+        {"name": "recover", **plain["recover"]},
+        {"name": "advisory", **plain["advisory"]},
+        {"name": "car-p95", "pod": dict(OPS_POD), "quantile": 0.95,
+         "usage": {"cpu": dict(OPS_CPU_USAGE)}, "samples": 1024, "seed": 11,
+         **at("car-p95")},
+        {"name": "car-memory", "pod": dict(OPS_POD), "quantile": 0.95,
+         "usage": {"memory": dict(OPS_MEM_USAGE)}, "samples": 1024,
+         "seed": 12},
+        {"name": "forecast", "pod": dict(OPS_POD), "quantile": 0.95,
+         "usage": {"cpu": dict(OPS_CPU_USAGE)}, "samples": 256, "seed": 13,
+         "horizon": {"steps": 8, "step_s": 3600}, "min_replicas": 1},
+        {"name": "gang-rack-64", "pod": {"cpuRequests": "2",
+                                         "memRequests": "8gb"},
+         "gang": {"ranks": 64, "colocate": "rack"}, **at("gang-rack-64")},
+    ]
+
+
+_SCRAPE_SAMPLE = re.compile(r'^(kccap_[a-z_]+)(?:\{watch="([^"]*)"\})? (\S+)')
+
+
+def scrape_values(text: str) -> dict:
+    """``{(family, watch): value}`` of the scrape's unlabeled and
+    watch-labelled samples."""
+    out = {}
+    for line in text.splitlines():
+        m = _SCRAPE_SAMPLE.match(line)
+        if m:
+            out[(m.group(1), m.group(2))] = float(m.group(3))
+    return out
+
+
+def expected_gauges(timeline, specs) -> dict:
+    """The gauges the timeline's last record and alerts must have set."""
+    last = timeline.records()[-1]
+    alerts = timeline.alerts()
+    out = {("kccap_generation", None): float(last.generation)}
+    for spec in specs:
+        r = last.watches[spec.name]
+        code = float(STATE_CODES[alerts[spec.name]["state"]])
+        out[("kccap_watch_replicas", spec.name)] = float(r.total)
+        out[("kccap_watch_alert_state", spec.name)] = code
+        threshold = spec.min_replicas or spec.scenario.replicas
+        out[("kccap_watch_headroom_pct", spec.name)] = round(
+            100.0 * (r.total - threshold) / threshold, 4)
+        if spec.gang is not None:
+            out[("kccap_gang_capacity", spec.name)] = float(r.total)
+            out[("kccap_gang_alert_state", spec.name)] = code
+        elif spec.horizon_steps is not None:
+            out[("kccap_forecast_capacity", spec.name)] = float(
+                r.horizon_min_capacity if r.horizon_min_capacity is not None
+                else r.total)
+            out[("kccap_forecast_time_to_breach_seconds", spec.name)] = (
+                round(r.time_to_breach_s, 3)
+                if r.time_to_breach_s is not None else -1.0)
+            out[("kccap_forecast_alert_state", spec.name)] = code
+        elif spec.quantile is not None:
+            out[("kccap_car_replicas", spec.name)] = float(r.total)
+            out[("kccap_car_prob_fit", spec.name)] = round(r.prob_fit, 6)
+            out[("kccap_car_alert_state", spec.name)] = code
+    return out
+
+
+def healthz_probe(url: str, stage: str) -> dict:
+    """One /healthz read: its code must be 503 exactly while the body
+    names a breached capacity-at-risk, forecast, gang watch or SLO, and
+    the device ledger's leak alert must not have tripped."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    tl = body.get("timeline", {})
+    breached = (tl.get("car_breached", []) + tl.get("gang_breached", [])
+                + tl.get("forecast_breached", [])
+                + body.get("slo", {}).get("breached", []))
+    leak = body.get("device_memory", {}).get("leak_alert", {})
+    if leak.get("state") == "breached":
+        raise AssertionError(f"(q) /healthz {stage}: the device ledger's "
+                             f"leak alert tripped: {body['device_memory']}")
+    if code != (503 if breached else 200):
+        raise AssertionError(f"(q) /healthz {stage} answered {code} with "
+                             f"breached {breached}: {body}")
+    return {"stage": stage, "code": code, "breached": breached,
+            "plain_breached": sorted(set(tl.get("breached", []))
+                                     - set(breached))}
+
+
+def ms_stats(values) -> dict:
+    """Median, max and n; the p90 too from 10 values on."""
+    values = sorted(values)
+    out = {"median": statistics.median(values), "max": values[-1],
+           "n": len(values)}
+    if len(values) >= 10:
+        out["p90"] = values[int(math.ceil(0.9 * len(values))) - 1]
+    return out
+
+
+def fmt_stats(st: dict) -> str:
+    tail = f"p90 {st['p90']:.3f}" if "p90" in st else f"max {st['max']:.3f}"
+    return f"median {st['median']:.3f} {tail} (n={st['n']})"
+
+
+def poll_until(client, grid_msg: dict, want: list, timeout_s: float = 300):
+    """Sweep until a reply's totals equal ``want``; returns the host clock
+    of that reply and the number of sweeps."""
+    polls = 0
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        doc = client.sweep(**grid_msg)
+        answered = time.perf_counter()
+        polls += 1
+        if doc["totals"] == want:
+            return answered, polls, doc
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"(q): no sweep answered the expected "
+                                 f"state within {timeout_s} s")
+        time.sleep(0.001)
+
+
+def control_staleness(ff, fixture, first, second, grid_msg, ends,
+                      slo_path: str) -> dict:
+    """The staleness of (q)'s two gated segments against the same server
+    without a timeline: (q)'s cluster, stream, gates, polling sweeps and
+    SLO monitor, with ``timeline=None``.  Returns the staleness in ms, the
+    sweeps polled in the second segment and B1's launches (once a
+    poll)."""
+    from kubernetesclustercapacity_tpu_torch import kubeapi
+    from kubernetesclustercapacity_tpu_torch.follower import ClusterFollower
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        follow_publisher,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry import slo as slo_mod
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.process import (
+        register_process_metrics,
+    )
+
+    reg = MetricsRegistry()
+    register_process_metrics(reg)
+    monitor = slo_mod.SLOMonitor(slo_mod.load_slos(slo_path), registry=reg)
+    streams, gates, release = gated_watch_streams(first, second)
+    mock = MockApiserver(fixture, streams, gates)
+    cfg = kubeapi.KubeConfig(mock.url, token=LIVE_TOKEN)
+    follower = server = coalescer = None
+    try:
+        ff.LAUNCHES = 0
+        follower = ClusterFollower(
+            client_factory=lambda: kubeapi.KubeClient(cfg),
+            stop_on_idle_window=True, semantics="strict",
+            extended_resources=EXTENDED, registry=reg).start(watch=False)
+        monitor.start(5.0)
+        server = CapacityServer(follower.snapshot(),
+                                fixture=follower.fixture_view(),
+                                device="cuda", batch_window_ms=0,
+                                registry=reg, stats_source=follower.stats,
+                                slo=monitor)
+        server.start()
+        with CapacityClient(*server.address, connect_timeout_s=60,
+                            timeout_s=600, retry=None) as c:
+            c.sweep(**grid_msg)
+            coalescer, publish_fatal = follow_publisher(server, follower,
+                                                        coalesce_ms=100)
+            _, polls_a, _ = poll_until(c, grid_msg, ends[1].tolist())
+            first_written = mock.stream_written[PODS_PATH]
+            release.set()
+            answered, polls_b, _ = poll_until(c, grid_msg, ends[2].tolist())
+            while NODES_PATH not in mock.stream_written or \
+                    mock.stream_written[PODS_PATH] == first_written:
+                time.sleep(0.001)
+            written = max(mock.stream_written.values())
+            follower.join(300)
+            if not coalescer.stop(timeout=300):
+                raise AssertionError("(q) control: the coalescer did not "
+                                     "drain")
+            if coalescer.last_error is not None or follower.fatal \
+                    is not None or publish_fatal:
+                raise AssertionError(f"(q) control: publish error "
+                                     f"{coalescer.last_error}, follower "
+                                     f"fatal {follower.fatal}, "
+                                     f"{publish_fatal}")
+        polls = polls_a + polls_b + 1
+        if ff.LAUNCHES != polls:
+            raise AssertionError(f"(q) control: {polls} sweeps launched B1 "
+                                 f"{ff.LAUNCHES} times")
+        return {"staleness_ms": (answered - written) * 1e3,
+                "polls_second": polls_b, "launches": ff.LAUNCHES,
+                "generations": server.generation}
+    finally:
+        release.set()
+        if follower is not None:
+            follower.stop()
+        if coalescer is not None:
+            coalescer.stop(timeout=60)
+        if server is not None:
+            server.shutdown()
+        monitor.close()
+        mock.close()
+
+
+def phase_operator(pkg, cli, fit, ff, fm, tmp: str, identity: str,
+                   m3_staleness_ms) -> dict:
+    """Path (q): the operator's view of a running server.
+
+    One strict ``-follow`` server on the card over the (q) cluster
+    behind the mock apiserver, with a watchlist of eight watches (two
+    plain watches of (g)'s spec, reference and strict; two thresholded
+    plain watches; capacity at risk at P95 of 1,024 samples on cpu and on
+    memory usage; a forecast of 8 steps x 256 samples; a 64-rank rack
+    gang), a 64-deep timeline writing its JSONL log, an SLO monitor (a
+    latency and an availability objective on ``sweep``) and a metrics
+    endpoint on an ephemeral port with ``healthz_probes``.  It takes the
+    churn stream on its watch in two segments (the pods it adds, then the
+    rest) while sweeps poll (B1 once each), then answers ``sweep_multi``
+    (B2 once), the ``timeline``, ``dump`` and ``slo`` ops and the CLI's
+    ``-timeline``, ``-dump`` and ``-slo-status``.  Checks: one timeline
+    record per published generation (the log too); each plain watch's
+    total equals B1's sweep, the exact program and the host oracle of that
+    generation's snapshot; every record equals a
+    ``CapacityTimeline(device="cpu")`` fed the same snapshots and
+    timestamps; the scrape's watch gauges equal the last record; /healthz
+    answers 503 exactly while a capacity-at-risk, forecast or gang watch
+    is breached, and flips; the first segment breaches the ``recover``
+    watch and the second recovers it; the ops and the CLI answer as the
+    JAX package's rules say."""
+    from kubernetesclustercapacity_tpu_torch import kubeapi
+    from kubernetesclustercapacity_tpu_torch.follower import ClusterFollower
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.oracle import fit_arrays_python
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        follow_publisher,
+        healthz_probes,
+    )
+    from kubernetesclustercapacity_tpu_torch.store import ClusterStore
+    from kubernetesclustercapacity_tpu_torch.telemetry import slo as slo_mod
+    from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+        start_metrics_server,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.process import (
+        register_process_metrics,
+    )
+    from kubernetesclustercapacity_tpu_torch.timeline import (
+        CapacityTimeline,
+        load_watchlist,
+        parse_watchlist,
+    )
+    from kubernetesclustercapacity_tpu_torch.utils.quantity import int64_bits
+
+    device = "cuda"
+    b1_label = "cuda_i32_rcp_fused"
+    out: dict = {"launches": {"sweep_fit": {}, "sweep_multi": {}}}
+    t_phase = time.perf_counter()
+    fixture = operator_fixture(pkg)
+    events = churn_events(fixture)
+    first, second = operator_segments(events)
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    grid_msg = {"random": {"n": 1000, "seed": 7}}
+    mirror = ClusterStore(fixture, semantics="strict",
+                          extended_resources=EXTENDED)
+    states = [mirror.snapshot()]
+    for segment in (first, second):
+        mirror.apply(segment)
+        states.append(mirror.snapshot())
+    ends = [ff.sweep_snapshot_auto(s, grid, mode="strict", kernel="exact",
+                                   node_mask=implicit_taint_mask(s),
+                                   device=device)[0].astype(np.int64)
+            for s in states]
+    log(f"(q) source: {len(fixture['nodes'])} nodes ({OPS_TOPOLOGY[0]} "
+        f"zones x {OPS_TOPOLOGY[1]} racks), {len(fixture['pods'])} pods, "
+        f"{len(events)} churn events in two segments ({len(first)} pods "
+        f"added, then {len(second)}), built in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    # The thresholds.  ``recover`` takes the grid's spec that the first
+    # segment lowers most below both ends, its threshold at the lower
+    # end; ``advisory`` a spec above all three totals.  The capacity-at-
+    # risk and gang watches sit at their totals before the stream.
+    dip = np.minimum(ends[0], ends[2]) - ends[1]
+    i_dip = int(np.argmax(dip))
+    if dip[i_dip] <= 0:
+        raise AssertionError("(q): the first segment lowers no spec of the "
+                             "grid below both ends of the stream")
+    i_adv = int(np.argmin(ends[0]))
+
+    def pod(i):
+        return {"cpuRequests": f"{int(grid.cpu_request_milli[i])}m",
+                "memRequests": f"{int(grid.mem_request_bytes[i]) // MIB}mb"}
+
+    plain = {
+        "recover": {"pod": pod(i_dip),
+                    "min_replicas": int(min(ends[0][i_dip], ends[2][i_dip]))},
+        "advisory": {"pod": pod(i_adv),
+                     "min_replicas": int(max(e[i_adv] for e in ends)) + 1},
+    }
+    probe = CapacityTimeline(parse_watchlist(operator_watchlist(plain)),
+                             device=device)
+    recs = [probe.observe(s, g, ts=float(g))
+            for g, s in enumerate(states[:2], start=1)]
+    totals = {name: recs[0].watches[name].total
+              for name in ("car-p95", "gang-rack-64")}
+    if all(recs[1].watches[n].total >= t for n, t in totals.items()):
+        raise AssertionError(f"(q): the first segment lowers neither the "
+                             f"capacity-at-risk nor the gang watch "
+                             f"({totals}); /healthz could not flip")
+    watch_path = os.path.join(tmp, "q_watch.json")
+    with open(watch_path, "w") as f:
+        json.dump({"watches": operator_watchlist(plain, totals)}, f)
+    slo_path = os.path.join(tmp, "q_slo.json")
+    with open(slo_path, "w") as f:
+        json.dump(OPS_SLOS, f)
+    timeline_log = os.path.join(tmp, "q_timeline.jsonl")
+    slo_log = os.path.join(tmp, "q_slo.jsonl")
+    log(f"(q) thresholds: 'recover' {plain['recover']} (totals before, "
+        f"between and after the segments {[int(e[i_dip]) for e in ends]}), "
+        f"'advisory' {plain['advisory']}, at their totals before the "
+        f"stream {totals}")
+
+    # The control: the same segments against the server without the
+    # timeline, so the two staleness figures differ in the watchlist alone.
+    control = control_staleness(ff, fixture, first, second, grid_msg, ends,
+                                slo_path)
+    out["launches"]["sweep_fit"]["(q) control: sweeps polled without the "
+                                 "timeline, and the first"] = \
+        control["launches"]
+    log(f"(q) control without the timeline: {control['generations']} "
+        f"generations published; staleness {control['staleness_ms']:.3f} "
+        f"ms ({control['polls_second']} sweeps polled in the second "
+        f"segment) ({identity})")
+
+    reg = MetricsRegistry()
+    register_process_metrics(reg)
+    specs = load_watchlist(watch_path)
+    timeline = CapacityTimeline(specs, depth=64, registry=reg,
+                                log=timeline_log, device=device)
+    captured: list[tuple] = []  # (generation, snapshot, ts, host clock)
+    observe = timeline.observe
+
+    def observe_spy(snapshot, generation, **kw):
+        record = observe(snapshot, generation, **kw)
+        captured.append((generation, snapshot, record.ts,
+                         time.perf_counter()))
+        return record
+
+    def settled(server):
+        """Wait until the timeline has observed the served snapshot."""
+        deadline = time.perf_counter() + 300
+        while not captured or captured[-1][1] is not server.snapshot:
+            if time.perf_counter() > deadline:
+                raise AssertionError("(q): the timeline did not observe "
+                                     "the served snapshot within 300 s")
+            time.sleep(0.005)
+
+    timeline.observe = observe_spy
+    monitor = slo_mod.SLOMonitor(slo_mod.load_slos(slo_path), registry=reg,
+                                 log=slo_log)
+    streams, gates, release = gated_watch_streams(first, second)
+    mock = MockApiserver(fixture, streams, gates)
+    cfg = kubeapi.KubeConfig(mock.url, token=LIVE_TOKEN)
+    follower = server = metrics = coalescer = None
+    probes = []
+    try:
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        follower = ClusterFollower(
+            client_factory=lambda: kubeapi.KubeClient(cfg),
+            stop_on_idle_window=True, semantics="strict",
+            extended_resources=EXTENDED, registry=reg).start(watch=False)
+        monitor.start(5.0)
+        server = CapacityServer(follower.snapshot(),
+                                fixture=follower.fixture_view(),
+                                device=device, batch_window_ms=0,
+                                registry=reg, stats_source=follower.stats,
+                                timeline=timeline, slo=monitor)
+        server.start()
+        coalescers: list = []
+        healthy, status = healthz_probes(server, follower=follower,
+                                         coalescers=coalescers,
+                                         timeline=timeline, slo=monitor)
+        metrics = start_metrics_server(reg, healthy=healthy, status=status)
+        healthz_url = metrics.url + "/healthz"
+        probes.append(healthz_probe(healthz_url, "before the stream"))
+        addr = f"{server.address[0]}:{server.address[1]}"
+        with CapacityClient(*server.address, connect_timeout_s=60,
+                            timeout_s=600, retry=None) as c:
+            c.sweep(**grid_msg)  # stage generation 1
+            coalescer, publish_fatal = follow_publisher(server, follower,
+                                                        coalesce_ms=100)
+            coalescers.append(coalescer)
+            _, polls_a, _ = poll_until(c, grid_msg, ends[1].tolist())
+            settled(server)
+            probes.append(healthz_probe(healthz_url, "after the pods added"))
+            first_written = mock.stream_written[PODS_PATH]
+            release.set()
+            answered, polls_b, doc = poll_until(c, grid_msg,
+                                                ends[2].tolist())
+            probes.append(healthz_probe(healthz_url, "under the publishes"))
+            while NODES_PATH not in mock.stream_written or \
+                    mock.stream_written[PODS_PATH] == first_written:
+                time.sleep(0.001)  # the mock's clock of its last write
+            written = max(mock.stream_written.values())
+            staleness_ms = (answered - written) * 1e3
+            follower.join(300)
+            if not coalescer.stop(timeout=300):
+                raise AssertionError("(q): the coalescer did not drain")
+            if coalescer.last_error is not None or follower.fatal \
+                    is not None or publish_fatal:
+                raise AssertionError(f"(q): publish error "
+                                     f"{coalescer.last_error}, follower "
+                                     f"fatal {follower.fatal}, "
+                                     f"{publish_fatal}")
+            settled(server)
+            timeline_staleness_ms = (captured[-1][3] - written) * 1e3
+            rng = np.random.default_rng(4)
+            resources = ("cpu", "memory", *EXTENDED)
+            reqs = np.stack([grid.cpu_request_milli, grid.mem_request_bytes,
+                             rng.integers(0, 3, grid.size),
+                             rng.integers(1, 20, grid.size) * GIB], axis=1)
+            mdoc = c.sweep_multi(list(resources), reqs.tolist(),
+                                 replicas=grid.replicas.tolist())
+            probes.append(healthz_probe(healthz_url, "after the stream"))
+            # The ops, 20 warm requests each, then the dump's filters.
+            ops = {}
+            for name, call in (("timeline", c.timeline),
+                               ("slo", c.slo_status),
+                               ("dump", lambda: c.dump(limit=20))):
+                ops[name] = timed_requests(call, runs=OPS_WARM_REQUESTS)
+            try:
+                c.timeline(watch="no-such-watch")
+            except RuntimeError as e:
+                if "unknown watch" not in str(e):
+                    raise
+            else:
+                raise AssertionError("(q): timeline of an unknown watch "
+                                     "answered")
+            dumps = {
+                "last": c.dump(limit=3),
+                "sweep_multi": c.dump(op="sweep_multi"),
+                "errors": c.dump(status="error"),
+                "tenant": c.dump(tenant="default"),
+                "sampled": c.dump(sampled=True),
+            }
+            slo_reply = c.slo_status()
+            timeline_reply = c.timeline()
+            status_forms = {op: getattr(c, op)() for op in
+                            ("car", "forecast", "gang")}
+            import urllib.request
+
+            scrape_ms, scrape_text = [], ""
+            for _ in range(OPS_WARM_REQUESTS):
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(metrics.url + "/metrics",
+                                            timeout=60) as r:
+                    scrape_text = r.read().decode()
+                scrape_ms.append((time.perf_counter() - t0) * 1e3)
+            probes.append(healthz_probe(healthz_url, "after the ops"))
+            cli_rcs = {flag: run_cli_rc(cli, [flag, addr])
+                       for flag in ("-timeline", "-dump", "-slo-status")}
+        launches = (ff.LAUNCHES, fm.LAUNCHES)
+        polls = polls_a + polls_b + 1
+        out["launches"]["sweep_fit"]["(q) sweeps polled during the "
+                                     "stream, and the first"] = launches[0]
+        out["launches"]["sweep_multi"]["(q) strict sweep_multi"] = \
+            launches[1]
+        if launches != (polls, 1) or doc["kernel"] != b1_label or \
+                mdoc["kernel"] != b1_label.replace("i32", "multi_i32"):
+            raise AssertionError(f"(q): {polls} sweeps and one sweep_multi "
+                                 f"launched {launches} ({doc['kernel']}, "
+                                 f"{mdoc['kernel']})")
+        generation = server.generation
+    finally:
+        release.set()
+        if follower is not None:
+            follower.stop()
+        if coalescer is not None:
+            coalescer.stop(timeout=60)
+        if metrics is not None:
+            metrics.shutdown()
+        if server is not None:
+            server.shutdown()
+        monitor.close()
+        timeline.close()
+        mock.close()
+
+    # -- one record per published generation -----------------------------
+    gens = [g for g, *_ in captured]
+    with open(timeline_log) as f:
+        logged = [json.loads(x) for x in f]
+    logged_gens = [x["generation"] for x in logged
+                   if x["kind"] == "generation"]
+    if gens != list(range(1, generation + 1)) or logged_gens != gens or \
+            [r.generation for r in timeline.records()] != gens[-64:]:
+        raise AssertionError(f"(q): published generations 1..{generation},"
+                             f" observed {gens}, logged {logged_gens}")
+    # -- each plain watch = B1 = the exact program = the host oracle -------
+    plain_specs = [s for s in specs if s.quantile is None and s.gang is None]
+    by_gen = {r.generation: r for r in timeline.records()}
+    checked = 0
+    for g, snap, *_ in captured:
+        for spec in plain_specs:
+            mode = spec.mode or snap.semantics
+            mask = implicit_taint_mask(snap) if mode == "strict" else None
+            one = pkg.ScenarioGrid.from_scenarios([spec.scenario])
+            b1 = ff.sweep_snapshot_auto(snap, one, mode=mode,
+                                        node_mask=mask, device=device)
+            exact = fit.sweep_snapshot(snap, one, mode=mode,
+                                       node_mask=mask, device=device)
+            host = np.asarray(fit_arrays_python(
+                snap.alloc_cpu_milli, snap.alloc_mem_bytes,
+                snap.alloc_pods, snap.used_cpu_req_milli,
+                snap.used_mem_req_bytes, snap.pods_count,
+                int64_bits(spec.scenario.cpu_request_milli),
+                spec.scenario.mem_request_bytes, mode=mode,
+                healthy=snap.healthy), dtype=np.int64)
+            if mask is not None:
+                host = host * mask
+            got = by_gen[g].watches[spec.name].total
+            if b1[2] != b1_label or not (
+                    got == int(b1[0][0]) == int(exact[0][0])
+                    == int(host.sum())):
+                raise AssertionError(
+                    f"(q) generation {g} watch {spec.name}: timeline {got},"
+                    f" B1 {int(b1[0][0])} ({b1[2]}), exact "
+                    f"{int(exact[0][0])}, host {int(host.sum())}")
+            checked += 1
+    # -- the card's records = a CPU timeline fed the same snapshots --------
+    host_tl = CapacityTimeline(specs, depth=64, device="cpu")
+    host_eval = [host_tl.observe(snap, g, ts=ts).eval_ms
+                 for g, snap, ts, _ in captured]
+    card_wire, host_wire = timeline.wire(), host_tl.wire()
+    card_eval = [rec.pop("eval_ms") for rec in card_wire["records"]]
+    for rec in host_wire["records"]:
+        rec.pop("eval_ms")
+    if card_wire != host_wire:
+        raise AssertionError("(q): the card's timeline differs from the "
+                             "CPU timeline fed the same snapshots")
+    # -- the scrape = the timeline's last record ---------------------------
+    want = expected_gauges(timeline, specs)
+    got = scrape_values(scrape_text)
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"(q) scrape vs the last record: {bad}")
+    # -- /healthz flipped with the breached watches ------------------------
+    codes = [p["code"] for p in probes]
+    if codes[:2] != [200, 503]:
+        raise AssertionError(f"(q) /healthz did not flip: {probes}")
+    if not probes[0]["plain_breached"]:
+        raise AssertionError(f"(q) /healthz: no plain watch breached "
+                             f"before the stream: {probes[0]}")
+    alerts = timeline.alerts()
+    if alerts["recover"]["breaches"] < 1 or \
+            alerts["recover"]["recoveries"] < 1 or \
+            alerts["recover"]["state"] != "recovered" or \
+            alerts["advisory"]["state"] != "breached":
+        raise AssertionError(f"(q): the stream did not breach and recover "
+                             f"'recover': {alerts}")
+    # -- the ops and the CLI -----------------------------------------------
+    last3 = [(r["op"], r["status"]) for r in dumps["last"]["records"]]
+    if last3 != [("dump", "ok"), ("dump", "ok"), ("timeline", "error")] \
+            or dumps["sweep_multi"]["count"] != 1 or \
+            dumps["errors"]["count"] != 1 or \
+            dumps["errors"]["records"][0]["op"] != "timeline" or \
+            dumps["tenant"]["count"] != 0 or dumps["sampled"]["count"] != 0:
+        raise AssertionError(f"(q) dump filters: {dumps}")
+    if [s["name"] for s in slo_reply["specs"]] != [
+            "sweep-latency", "sweep-availability"] or \
+            set(slo_reply["status"]) != {"sweep-latency",
+                                         "sweep-availability"}:
+        raise AssertionError(f"(q) slo: {slo_reply}")
+    breached_watches = [n for n, a in timeline_reply["alerts"].items()
+                        if a["state"] == "breached"]
+    breached_slos = [n for n, s in slo_reply["status"].items()
+                     if s["state"] == "breached"]
+    want_rcs = {"-timeline": 1 if breached_watches else 0, "-dump": 0,
+                "-slo-status": 1 if breached_slos else 0}
+    got_rcs = {flag: rc for flag, (rc, _) in cli_rcs.items()}
+    if got_rcs != want_rcs:
+        raise AssertionError(f"(q) CLI exit codes {got_rcs}, the JAX "
+                             f"rules say {want_rcs}")
+    for op in ("car", "forecast", "gang"):
+        if not status_forms[op]["enabled"]:
+            raise AssertionError(f"(q) {op} status: {status_forms[op]}")
+    # Generation 1 is observed as the server is built, cold: on its own.
+    out["ms"] = {
+        "eval_card": ms_stats(card_eval[1:]),
+        "eval_card_first": card_eval[0],
+        "eval_cpu": ms_stats(host_eval[1:]),
+        "eval_cpu_first": host_eval[0],
+        "staleness_ms": staleness_ms,
+        "timeline_staleness_ms": timeline_staleness_ms,
+        "control_staleness_ms": control["staleness_ms"],
+        "m3_staleness_ms": m3_staleness_ms,
+        "scrape": {**ms_stats(scrape_ms), "bytes": len(scrape_text)},
+        "ops": {k: {"median_ms": v["median_ms"], "p90_ms": v["p90_ms"]}
+                for k, v in ops.items()},
+    }
+    out["generations"] = generation
+    out["healthz"] = probes
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(q) follow server with {len(specs)} watches: {generation} "
+        f"generations published, each with one timeline record (ring and "
+        f"log); {checked} plain-watch totals equal to B1's sweep, the exact "
+        f"program and the host oracle; every record equal to a CPU "
+        f"timeline fed the same snapshots; {len(want)} gauges equal to the "
+        f"last record; 'recover' breached {alerts['recover']['breaches']} "
+        f"and recovered {alerts['recover']['recoveries']} time(s); "
+        f"/healthz " + ", ".join(f"{p['stage']} {p['code']}"
+                                 for p in probes)
+        + f"; CLI exits {got_rcs} ({identity})")
+    sampled_ms = {name: round(r.car_eval_ms, 3) for name, r in
+                  timeline.records()[-1].watches.items() if r.samples}
+    out["ms"]["last_sampled_watches_ms"] = sampled_ms
+    log(f"(q) timeline eval_ms per generation after the first: card "
+        f"{fmt_stats(out['ms']['eval_card'])}, CPU "
+        f"{fmt_stats(out['ms']['eval_cpu'])}; generation 1, observed as the "
+        f"server is built: card {card_eval[0]:.3f}, CPU {host_eval[0]:.3f};"
+        f" of the last generation's "
+        f"{card_eval[-1]:.3f} ms on the card, the sampled watches' own "
+        f"evaluations (draws, sweep, reduction) took {sampled_ms} "
+        f"({identity})")
+    log(f"(q) staleness with the watchlist: {staleness_ms:.3f} ms from the "
+        f"second segment's last event to the first sweep answering the "
+        f"final state ({polls_b} sweeps polled), {timeline_staleness_ms:.3f}"
+        f" ms to the last timeline record; the same segments without the "
+        f"timeline: {control['staleness_ms']:.3f} ms; (m3)'s whole stream "
+        f"on (m)'s cluster: {m3_staleness_ms:.3f} ms ({identity})")
+    log(f"(q) /metrics scrape: {fmt_stats(out['ms']['scrape'])} ms, "
+        f"{len(scrape_text)} bytes; ops median / p90 ms: " + ", ".join(
+            f"{k} {v['median_ms']:.3f} / {v['p90_ms']:.3f}"
+            for k, v in out["ms"]["ops"].items())
+        + f"; B1 launches {launches[0]}, B2 {launches[1]} ({identity})")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -3584,6 +4338,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         gopt = phase_gang_opt(pkg, cli, ff, fm, tmp, identity)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (p)")
+    with tempfile.TemporaryDirectory() as tmp:
+        oper = phase_operator(pkg, cli, fit, ff, fm, tmp, identity,
+                              live["times"]["staleness_ms"])
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (q)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -3621,6 +4379,12 @@ def main() -> int:
         "gang_opt_s": gopt["seconds"],
         "gang_opt_trace": {k: gopt.get(k) for k in ("trace_gang",
                                                     "trace_opt")},
+        "operator_ms": oper["ms"],
+        "operator_launches": oper["launches"],
+        "operator_generations": oper["generations"],
+        "operator_healthz": [(p["stage"], p["code"])
+                             for p in oper["healthz"]],
+        "operator_s": oper["seconds"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -3635,7 +4399,8 @@ def main() -> int:
         + sum(live["launches"]["sweep_fit"].values())
         + sum(sched["launches"]["sweep_fit"].values())
         + sum(stoch["launches"]["sweep_fit"].values())
-        + sum(gopt["launches"]["sweep_fit"].values()),
+        + sum(gopt["launches"]["sweep_fit"].values())
+        + sum(oper["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -3661,7 +4426,8 @@ def main() -> int:
         + sum(live["launches"]["sweep_multi"].values())
         + sum(sched["launches"]["sweep_multi"].values())
         + sum(stoch["launches"]["sweep_multi"].values())
-        + sum(gopt["launches"]["sweep_multi"].values()),
+        + sum(gopt["launches"]["sweep_multi"].values())
+        + sum(oper["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

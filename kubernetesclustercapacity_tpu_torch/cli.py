@@ -9,7 +9,9 @@ and dispatch, ``:544-609``, ``_run_explain``, ``:1575-1604``,
 and the stochastic family, ``_run_car_status``, ``_run_car_spec``,
 ``_run_forecast_status``, ``_load_operator_doc``, ``_run_forecast_spec``
 and ``_run_plan``, ``:675-1010``, and ``_run_gang_status``,
-``_run_gang_spec`` and ``_run_optimize``, ``:1012-1148``).
+``_run_gang_spec`` and ``_run_optimize``, ``:1012-1148``, the operator's
+``_run_timeline``, ``:612-647``, ``_run_slo_status`` and ``_run_dump``,
+``:1158-1214``, and the telemetry wrapper of ``main``, ``:466-541``).
 The reference's six flags parse exactly as there
 (``ClusterCapacity.go:50-83``), so an invalid memory or replicas value
 prints the reference's fatal line.  Then, for one spec, it prints the
@@ -28,7 +30,11 @@ growth or a trend fitted from an audit log) and ``-plan -catalog`` answer
 the stochastic questions offline; ``-gang-spec`` counts whole gangs over
 the zone/rack/host hierarchy and ``-optimize`` (``-opt-backend lp|ffd``)
 answers with the certified LP packing; ``-car``/``-forecast``/``-gang
-HOST:PORT`` render a server's watch status.
+HOST:PORT`` render a server's watch status, and ``-timeline``,
+``-slo-status`` and ``-dump HOST:PORT`` its capacity timeline, SLO burn
+rates and flight recorder.  ``-metrics-port`` serves the process
+registry for the run's duration and ``-trace-log`` records one span for
+it.
 
 The source is ``-snapshot`` (a fixture ``.json`` or a checkpoint
 ``.npz``) or, without it, the live cluster of ``-kubeconfig`` (default
@@ -39,7 +45,7 @@ is the pure-Python oracle, the reference's sequential walk, as a
 cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
 ``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
 other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
-native``) and the timeline, replay, doctor, profiling and federation
+native``) and the replay, doctor, profiling, plane and federation
 surfaces are not ported yet and say so with exit 1.
 
 Examples::
@@ -76,21 +82,11 @@ _UNPORTED_FLAGS = (
     ("-doctor", "switch"),
     ("-doctor-timeout", "value"),
     ("-doctor-service", "value"),
-    ("-metrics-port", "value"),
-    ("-trace-log", "value"),
-    ("-trace-log-max-bytes", "value"),
     ("-jax-profile", "value"),
-    ("-timeline", "value"),
-    ("-timeline-since", "value"),
-    ("-timeline-watch", "value"),
     ("-replay", "value"),
     ("-replay-ref", "value"),
     ("-replay-generation", "value"),
     ("-replay-tenant", "value"),
-    ("-slo-status", "value"),
-    ("-dump", "value"),
-    ("-dump-limit", "value"),
-    ("-dump-tenant", "value"),
     ("-plane-status", "value"),
     ("-fed-status", "value"),
     ("-fed-sweep", "value"),
@@ -186,6 +182,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-replica request for an extended resource "
                         "(repeatable; strict quantity grammar, e.g. "
                         "nvidia.com/gpu=2, ephemeral-storage=10Gi)")
+    p.add_argument("-metrics-port", type=int, default=0, dest="metrics_port",
+                   metavar="PORT",
+                   help="serve Prometheus /metrics (the process telemetry "
+                        "registry: kernel dispatches, process gauges) on "
+                        "localhost:PORT for the run's duration")
+    p.add_argument("-trace-log", default=None, dest="trace_log",
+                   metavar="PATH",
+                   help="append a JSONL span for this invocation (op, "
+                        "duration, status) to PATH")
+    p.add_argument("-trace-log-max-bytes", type=int, default=0,
+                   dest="trace_log_max_bytes", metavar="N",
+                   help="rotate the -trace-log file to PATH.1 once it "
+                        "exceeds N bytes (0 = unbounded)")
     p.add_argument("-explain", action="store_true",
                    help="print per-node bottleneck attribution (binding "
                         "constraint, per-resource fits, marginal '+1 "
@@ -203,6 +212,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mean nodes per distinct node shape required before "
                         "sweeps run over node-shape groups (default 2, or "
                         "KCCAP_GROUP_MIN_COUNT)")
+    p.add_argument("-timeline", default=None, metavar="HOST:PORT",
+                   help="render a running capacity service's timeline "
+                        "(per-generation watchlist capacities, attributed "
+                        "deltas, alert states) and exit; -output json "
+                        "selects the structured form")
+    p.add_argument("-timeline-since", type=int, default=None,
+                   dest="timeline_since", metavar="GEN",
+                   help="with -timeline: only records/deltas strictly "
+                        "after generation GEN")
+    p.add_argument("-timeline-watch", default=None, dest="timeline_watch",
+                   metavar="NAME",
+                   help="with -timeline: narrow records/deltas/alerts to "
+                        "one watch")
+    p.add_argument("-slo-status", default=None, dest="slo_status",
+                   metavar="HOST:PORT",
+                   help="render a running capacity service's SLO "
+                        "burn-rate status (objectives, short/long-"
+                        "window burn rates, alert states) and exit; "
+                        "-output json selects the structured form; "
+                        "exit 1 while any SLO is breached (or the "
+                        "server runs without -slo)")
+    p.add_argument("-dump", default=None, metavar="HOST:PORT",
+                   help="render a running capacity service's flight "
+                        "recorder (its last K dispatched requests, "
+                        "each with the per-phase latency breakdown) "
+                        "and exit; -output json selects the "
+                        "structured form")
+    p.add_argument("-dump-limit", type=int, default=None,
+                   dest="dump_limit", metavar="N",
+                   help="with -dump: only the N most recent records")
+    p.add_argument("-dump-tenant", default=None, dest="dump_tenant",
+                   metavar="TENANT",
+                   help="with -dump: only records the server attributed "
+                        "to TENANT (matches nothing: the PyTorch "
+                        "package's server has no tenancy yet)")
     p.add_argument("-drain", default="", metavar="NODE",
                    help="simulate kubectl drain: rehome NODE's pods (each "
                         "with its own requests) onto the remaining nodes "
@@ -329,24 +373,95 @@ def _split_single_dash_eq(argv: list[str]) -> list[str]:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from kubernetesclustercapacity_tpu_torch.scenario import (
-        ScenarioError,
-        scenario_from_flags,
-    )
-
     args = build_parser().parse_args(
         _split_single_dash_eq(sys.argv[1:] if argv is None else list(argv))
     )
     unported = unported_flags_used(args, _UNPORTED_FLAGS)
     # The one-shot diagnostics, as in the JAX CLI: no spec, no source.
+    if args.timeline and not unported:
+        return _run_timeline(args)
     if args.car and not unported:
         return _run_car_status(args)
     if args.forecast and not unported:
         return _run_forecast_status(args)
     if args.gang and not unported:
         return _run_gang_status(args)
+    if args.slo_status and not unported:
+        return _run_slo_status(args)
+    if args.dump and not unported:
+        return _run_dump(args)
     if args.drain_server and not unported:
         return _run_drain_server(args)
+    # Telemetry surfaces (both opt-in, zero cost otherwise): a scrape
+    # endpoint over the process registry and a JSONL span for the whole
+    # invocation, as in the JAX CLI.
+    metrics_server = None
+    trace_log = None
+    if args.metrics_port:
+        from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+            start_metrics_server,
+        )
+        from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+            REGISTRY,
+        )
+        from kubernetesclustercapacity_tpu_torch.telemetry.process import (
+            register_process_metrics,
+        )
+
+        register_process_metrics(REGISTRY)
+        try:
+            metrics_server = start_metrics_server(
+                REGISTRY, port=args.metrics_port
+            )
+        except OSError as e:
+            print(f"ERROR : cannot bind metrics port: {e}", file=sys.stderr)
+            return 1
+        print(
+            f"metrics on http://{metrics_server.address[0]}:"
+            f"{metrics_server.address[1]}/metrics",
+            file=sys.stderr,
+        )
+    if args.trace_log:
+        from kubernetesclustercapacity_tpu_torch.telemetry.tracing import (
+            Span,
+            TraceLog,
+        )
+
+        trace_log = TraceLog(
+            args.trace_log, max_bytes=max(args.trace_log_max_bytes, 0)
+        )
+    try:
+        if trace_log is not None:
+            mode = (
+                "drain" if args.drain else
+                "car" if args.car_spec else
+                "forecast" if args.forecast_spec else
+                "plan" if args.plan_spec else
+                "gang" if args.gang_spec else
+                "optimize" if args.optimize else
+                "explain" if args.explain else
+                "grid" if args.grid > 0 else "fit"
+            )
+            with Span(f"kccap:{mode}", trace_log=trace_log) as span:
+                rc = _run_command(args, unported)
+                span._extra["exit_code"] = rc
+                return rc
+        return _run_command(args, unported)
+    finally:
+        if trace_log is not None:
+            trace_log.close()
+        if metrics_server is not None:
+            metrics_server.shutdown()
+
+
+def _run_command(args, unported: list[str]) -> int:
+    """Everything after flag parsing and the telemetry set-up: the spec,
+    the flags that are not ported, the source, then :func:`run`."""
+    from kubernetesclustercapacity_tpu_torch.scenario import (
+        ScenarioError,
+        scenario_from_flags,
+    )
+
     try:
         scenario = scenario_from_flags(
             cpuRequests=args.cpuRequests,
@@ -642,11 +757,108 @@ def _run_drain_server(args) -> int:
     return 0 if record.get("drained") else 1
 
 
+def _run_timeline(args) -> int:
+    """-timeline HOST:PORT: fetch and render a service's capacity
+    timeline (the drift view no offline snapshot can answer — it lives
+    with the server that watched the generations go by)."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        timeline_json_report,
+        timeline_table_report,
+    )
+
+    addr = _parse_addr("-timeline", args.timeline)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.timeline(
+                since_generation=args.timeline_since,
+                watch=args.timeline_watch,
+            )
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch timeline from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(timeline_json_report(result))
+    else:
+        print(timeline_table_report(result))
+    if not result.get("enabled", False):
+        return 1
+    breached = [
+        name
+        for name, a in result.get("alerts", {}).items()
+        if a.get("state") == "breached"
+    ]
+    # Exit by the verdict, like -drain does: a breached watchlist is a
+    # scriptable signal, not just prose.
+    return 1 if breached else 0
+
+
+def _run_slo_status(args) -> int:
+    """-slo-status HOST:PORT: fetch and render a service's SLO burn-rate
+    status.  Exits by the verdict, like -timeline: a breached objective
+    (or a server with no -slo at all) is a scriptable failure."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        slo_json_report,
+        slo_table_report,
+    )
+
+    addr = _parse_addr("-slo-status", args.slo_status)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.slo_status()
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch SLO status from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(slo_json_report(result))
+    else:
+        print(slo_table_report(result))
+    if not result.get("enabled", False):
+        return 1
+    breached = [
+        name
+        for name, s in result.get("status", {}).items()
+        if s.get("state") == "breached"
+    ]
+    return 1 if breached else 0
+
+
+def _run_dump(args) -> int:
+    """-dump HOST:PORT: fetch and render a service's flight recorder —
+    the last K dispatched requests, each carrying its per-phase latency
+    breakdown, so a slow request is self-explaining from the paste."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        dump_json_report,
+        dump_table_report,
+    )
+
+    addr = _parse_addr("-dump", args.dump)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.dump(limit=args.dump_limit, tenant=args.dump_tenant)
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch flight records from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(dump_json_report(result))
+    else:
+        print(dump_table_report(result))
+    return 0
+
+
 def _run_car_status(args) -> int:
     """-car HOST:PORT: fetch and render a service's capacity-at-risk
-    watch status.  Exits by the verdict: a breached quantile watch is a
-    scriptable failure, and so is a server with no quantile watches at
-    all (the port's server has none: it has no timeline)."""
+    watch status (the quantile-watch slice of the timeline).  Exits by
+    the verdict: a breached quantile watch is a scriptable failure, and so
+    is a server with no quantile watches at all."""
     from kubernetesclustercapacity_tpu_torch.report import (
         car_status_json_report,
         car_status_table_report,
@@ -979,8 +1191,7 @@ def _run_gang_status(args) -> int:
     """-gang HOST:PORT: fetch and render a service's gang-watch status
     (the gang slice of the timeline).  Exits by the verdict, like -car:
     a breached gang watch — fewer than N whole gangs fit — is a
-    scriptable failure, and so is a server with no gang watches (the
-    port's server has none: it has no timeline)."""
+    scriptable failure, and so is a server with no gang watches."""
     from kubernetesclustercapacity_tpu_torch.report import (
         gang_status_json_report,
         gang_status_table_report,

@@ -365,7 +365,14 @@ class DeviceCache:
             staged = tuple(staged)
             _memledger.register(staged, form)
             with self._lock:
-                self._per(new)[(form, device)] = staged
+                per = self._per(new)
+                overwritten = per.get((form, device))
+                per[(form, device)] = staged
+            # A request between the server's swap and this re-stage may
+            # have staged ``new`` already: its tuple leaves the cache
+            # here, so it leaves the book too.
+            if overwritten is not None and overwritten is not staged:
+                _memledger.retire(overwritten)
         with self._lock:
             for disposition, n in counts.items():
                 self._replaced[disposition] += n

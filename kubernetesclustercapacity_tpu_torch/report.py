@@ -2,7 +2,9 @@
 structured views.
 
 Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec,
-explain, capacity-at-risk, forecast, plan, gang and optimize renderers).  The reference's whole observability story is
+explain, capacity-at-risk, forecast, plan, gang and optimize renderers,
+and the operator's timeline, SLO and flight-recorder views).  The
+reference's whole observability story is
 ``fmt.Printf`` to stdout (SURVEY.md §5); :func:`reference_report`
 reproduces that text exactly, the typos ("allocatbale", "scehdule") and Go's
 NaN/±Inf float rendering included, and :func:`json_report`,
@@ -27,6 +29,12 @@ __all__ = [
     "table_report",
     "explain_table_report",
     "explain_json_report",
+    "timeline_table_report",
+    "timeline_json_report",
+    "slo_table_report",
+    "slo_json_report",
+    "dump_table_report",
+    "dump_json_report",
     "car_table_report",
     "car_json_report",
     "car_status_table_report",
@@ -368,6 +376,185 @@ def table_report(
 # The stochastic family's renderers (the JAX module's, verbatim): each takes
 # the op's wire shape, so the library result, the service reply and the
 # CLI print the same text.
+
+
+def timeline_table_report(timeline: dict) -> str:
+    """The ``timeline`` op's response as operator-readable text.
+
+    Three blocks: per-generation watch capacities (one row per
+    generation, one column per watch — the drift at a glance), the
+    attributed deltas (the "what changed and why" one-liners the diff
+    engine + binding-shift analysis produce), and current alert states.
+    """
+    if not timeline.get("enabled", False):
+        return "timeline: not enabled on this server (-watch/-timeline-depth)"
+    watches = [w["name"] for w in timeline.get("watchlist", [])]
+    lines = [
+        f"capacity timeline: {timeline['count']} generation(s) held "
+        f"(depth {timeline['depth']}), serving generation "
+        f"{timeline['generation']}"
+    ]
+    records = timeline.get("records", [])
+    if records:
+        header = f"{'GEN':>5} {'NODES':>7} {'HEALTHY':>8} {'DIGEST':<18}"
+        for w in watches:
+            header += f" {w[:14]:>14}"
+        lines += ["", header, "-" * len(header)]
+        for rec in records:
+            row = (
+                f"{rec['generation']:>5} {rec['nodes']:>7} "
+                f"{rec['healthy_nodes']:>8} {rec['digest']:<18}"
+            )
+            for w in watches:
+                wr = rec["watches"].get(w)
+                cell = "-" if wr is None else (
+                    f"{wr['total']}{'!' if wr['breached'] else ''}"
+                )
+                row += f" {cell:>14}"
+            lines.append(row)
+        lines.append("-" * len(header))
+        if any(
+            r["watches"].get(w, {}).get("breached")
+            for r in records
+            for w in watches
+        ):
+            lines.append("('!' = below the watch's min_replicas)")
+    deltas = timeline.get("deltas", [])
+    if deltas:
+        lines += ["", "deltas:"]
+        for d in deltas:
+            lines.append(
+                f"  gen {d['from_generation']}→{d['to_generation']}: "
+                f"+{len(d['nodes_added'])} node(s), "
+                f"-{len(d['nodes_removed'])}, "
+                f"{d['nodes_changed']} changed"
+            )
+            for w in sorted(d.get("watches", {})):
+                lines.append(f"    {d['watches'][w]['summary']}")
+    alerts = timeline.get("alerts", {})
+    if alerts:
+        lines += ["", "alerts:"]
+        for name in sorted(alerts):
+            a = alerts[name]
+            line = f"  {name:<24} {a['state']}"
+            if a["min_replicas"] is not None:
+                line += (
+                    f"  (min_replicas={a['min_replicas']}, "
+                    f"last={a['last_total']}, breaches={a['breaches']})"
+                )
+            lines.append(line)
+    if records:
+        fc_rows = [
+            (w, wr)
+            for w, wr in sorted(records[-1].get("watches", {}).items())
+            if wr is not None and wr.get("horizon_s") is not None
+        ]
+        if fc_rows:
+            lines += ["", "forecast (latest generation):"]
+            for w, wr in fc_rows:
+                hmin = wr.get("horizon_min_capacity")
+                line = (
+                    f"  {w:<24} horizon {wr['horizon_s']:g}s  "
+                    f"min {'-' if hmin is None else hmin}  "
+                    f"ttb {_ttb_cell(wr.get('time_to_breach_s'))}"
+                )
+                if wr.get("degraded_time_axis"):
+                    line += "  [degraded time axis]"
+                lines.append(line)
+    return "\n".join(lines)
+
+
+def timeline_json_report(timeline: dict) -> str:
+    """The ``timeline`` op's response, pretty-printed (machine surface —
+    the wire shape verbatim, so scripts parse one schema)."""
+    return json.dumps(timeline, indent=2)
+
+
+def _burn_cell(v) -> str:
+    """One burn-rate cell: '-' before two samples exist, else 'N.NNx'."""
+    return "-" if v is None else f"{v:.2f}x"
+
+
+def slo_table_report(status: dict) -> str:
+    """The ``slo`` op's response as operator-readable text: one row per
+    objective (state, short/long-window burn vs the fast-burn
+    threshold), then the one-line verdict a pager would carry."""
+    if not status.get("enabled", False):
+        return "slo: not enabled on this server (-slo FILE)"
+    header = (
+        f"{'SLO':<20} {'OBJECTIVE':<26} {'OP':<8} {'STATE':<10} "
+        f"{'BURN(short)':>12} {'BURN(long)':>11} {'THRESH':>7}"
+    )
+    lines = [header, "-" * len(header)]
+    for name in sorted(status.get("status", {})):
+        s = status["status"][name]
+        lines.append(
+            f"{name:<20} {s['objective']:<26} {s['op'] or '*':<8} "
+            f"{s['state']:<10} "
+            f"{_burn_cell(s['short_burn']):>12} "
+            f"{_burn_cell(s['long_burn']):>11} "
+            f"{s['fast_burn']:>6.1f}x"
+        )
+    lines.append("-" * len(header))
+    breached = [
+        n for n, s in status.get("status", {}).items()
+        if s.get("state") == "breached"
+    ]
+    if breached:
+        lines.append(
+            "verdict: FAST BURN — error budget burning on "
+            + ", ".join(sorted(breached))
+        )
+    else:
+        lines.append(
+            "verdict: ok — every objective within its error budget "
+            f"({status.get('evaluations', 0)} evaluation(s))"
+        )
+    return "\n".join(lines)
+
+
+def slo_json_report(status: dict) -> str:
+    """``kccap -slo-status -output json``: the wire shape verbatim."""
+    return json.dumps(status, indent=2, sort_keys=True)
+
+
+def _phases_cell(phases: dict | None) -> str:
+    """A record's per-phase breakdown as ``phase=ms`` pairs, largest
+    first — the part that makes a pasted slow request self-explaining."""
+    if not phases:
+        return ""
+    parts = sorted(phases.items(), key=lambda kv: (-kv[1], kv[0]))
+    return " ".join(f"{k}={v:g}ms" for k, v in parts)
+
+
+def dump_table_report(dump: dict) -> str:
+    """The ``dump`` op's response as operator-readable text: one line
+    per flight record (latency + status), each followed by its phase
+    decomposition when the record carries one."""
+    records = dump.get("records", [])
+    lines = [
+        f"flight recorder: {dump.get('count', len(records))} record(s) "
+        f"(capacity {dump.get('capacity')}, dropped {dump.get('dropped')}), "
+        f"serving generation {dump.get('generation')}"
+    ]
+    for r in records:
+        line = (
+            f"  #{r.get('seq'):<6} {r.get('op'):<16} "
+            f"gen={r.get('generation'):<5} "
+            f"{r.get('latency_ms'):>9}ms  {r.get('status')}"
+        )
+        if r.get("error"):
+            line += f"  [{r['error']}]"
+        lines.append(line)
+        phases = _phases_cell(r.get("phases"))
+        if phases:
+            lines.append(f"          phases: {phases}")
+    return "\n".join(lines)
+
+
+def dump_json_report(dump: dict) -> str:
+    """``kccap -dump -output json``: the wire shape verbatim."""
+    return json.dumps(dump, indent=2, sort_keys=True)
 
 
 def car_table_report(car: dict) -> str:

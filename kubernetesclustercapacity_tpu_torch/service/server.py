@@ -19,18 +19,20 @@ and ``forecast`` (the horizon projection), ``gang`` (whole gangs over
 the zone/rack/host hierarchy) and ``optimize`` (the certified LP packing,
 or the first-fit baseline), ``reload``, ``update``
 (watch-style events applied through :class:`..store.ClusterStore`) and
-``drain_server``, behind the auth token, the compute-slot bound and
-deadline shedding.  The port has no timeline, so ``car`` and ``forecast``
-without a ``usage`` block, and ``gang`` without ``ranks`` (their
-watch-status forms), answer as the JAX server does without ``-watch``: no
-watches.
+``drain_server``, and the operator's ops ``dump`` (the flight
+recorder), ``timeline`` (the capacity timeline of ``-watch``) and ``slo``
+(burn rates of ``-slo``), behind the auth token, the compute-slot bound
+and deadline shedding.  ``car`` and ``forecast`` without a ``usage``
+block, and ``gang`` without ``ranks`` (their watch-status forms), answer
+from the timeline's quantile, forecast and gang watches.
 ``-follow`` keeps the served snapshot synced to a live cluster
 (:class:`..follower.ClusterFollower` → :class:`.coalesce.
 SnapshotCoalescer` → a publish that pre-stages the new generation on the
 card).  Replies equal the JAX server's apart from kernel labels
 (``cuda_``/``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and
-volatile fields (latencies, ids, ``eval_ms``).  Every other op of the
-protocol is answered with an error reply saying it is not yet ported.  The port has no fast-path breaker (a kernel that
+volatile fields (latencies, ids, ``eval_ms``).  ``-metrics-port`` serves
+the registry as Prometheus text with ``/healthz``
+(:func:`healthz_probes`).  The port has no fast-path breaker (a kernel that
 fails to build or launch raises); ``info`` reports one that never opens,
 in the JAX snapshot's shape, for clients that read it.
 
@@ -73,6 +75,9 @@ from kubernetesclustercapacity_tpu_torch.scenario import (
 )
 from kubernetesclustercapacity_tpu_torch.service import protocol
 from kubernetesclustercapacity_tpu_torch.snapshot import ClusterSnapshot
+from kubernetesclustercapacity_tpu_torch.snapshot import (
+    publish_group_metrics as _snapshot_publish_group_metrics,
+)
 from kubernetesclustercapacity_tpu_torch.sources import resolve_source
 from kubernetesclustercapacity_tpu_torch.telemetry import (
     memledger as _memledger,
@@ -82,11 +87,17 @@ from kubernetesclustercapacity_tpu_torch.telemetry import (
     tracectx as _tracectx,
 )
 
-__all__ = ["CapacityServer", "UNPORTED_OPS", "follow_publisher", "main"]
+__all__ = [
+    "CapacityServer",
+    "UNPORTED_OPS",
+    "follow_publisher",
+    "healthz_probes",
+    "main",
+]
 
-#: Ops of the protocol this server does not answer yet: each gets an
-#: error reply saying so.
-UNPORTED_OPS = frozenset({"dump", "timeline", "slo"})
+#: Ops of the protocol this server does not answer yet (each would get an
+#: error reply saying so): none is left.
+UNPORTED_OPS: frozenset = frozenset()
 
 #: ``info``'s ``fast_path_breaker``: the port has no breaker (a failed
 #: build or launch raises), so it reports one that is never used and so
@@ -259,6 +270,16 @@ class CapacityServer:
     ``"cuda"`` (the default) raises at construction where there is no
     card; ``"cpu"`` runs the kernels' plain versions on the host.
 
+    ``timeline`` (a :class:`~..timeline.history.CapacityTimeline`) is
+    fed every generation this server publishes — construction,
+    ``replace_snapshot`` (the coalescer's thread under ``-follow``, after
+    the warm pre-stage), ``reload`` and ``update`` — and served by the
+    ``timeline`` op and the watch-status forms of ``car``, ``forecast``
+    and ``gang``.  ``request_log`` (a path or
+    :class:`~..telemetry.tracing.TraceLog`) takes one JSON line per
+    dispatched request.  ``slo`` (a :class:`~..telemetry.slo.SLOMonitor`)
+    is served by the ``slo`` op.
+
     ``stats_source`` is an optional zero-arg callable returning a
     JSON-able dict (the ``-follow`` wiring passes the follower's
     :meth:`~..follower.ClusterFollower.stats`); it is surfaced under
@@ -286,6 +307,9 @@ class CapacityServer:
         drain_timeout_s: float = 10.0,
         device="cuda",
         stats_source=None,
+        timeline=None,
+        request_log=None,
+        slo=None,
     ) -> None:
         from kubernetesclustercapacity_tpu_torch.telemetry.flightrec import (
             FlightRecorder,
@@ -306,6 +330,13 @@ class CapacityServer:
         self._trace_log = (
             TraceLog(trace_log) if isinstance(trace_log, str) else trace_log
         )
+        self._request_log = (
+            TraceLog(request_log)
+            if isinstance(request_log, str)
+            else request_log
+        )
+        self._timeline = timeline
+        self._slo = slo
         # Graceful-drain state: _draining flips once and never back;
         # _active_gated counts in-flight drain-gated ops (compute +
         # reload) so begin_drain can wait for quiesce.
@@ -406,6 +437,9 @@ class CapacityServer:
         self._tcp.capacity_server = self  # type: ignore[attr-defined]
         self._thread: threading.Thread | None = None
         self._serving = False
+        # Generation 1 is a generation too: the timeline's baseline
+        # record, so the first publish already has something to diff.
+        self._observe_timeline(snapshot, self._generation)
 
     @property
     def address(self) -> tuple[str, int]:
@@ -438,11 +472,17 @@ class CapacityServer:
         and the kept/dropped ledger."""
         out: dict = {
             "armed": self._trace_sink is not None,
-            "request_log": False,
+            "request_log": self._request_log is not None,
         }
         if self._trace_sink is not None:
             out.update(self._trace_sink.stats())
         return out
+
+    @property
+    def timeline(self):
+        """The capacity timeline this server feeds (``None`` unless
+        configured)."""
+        return self._timeline
 
     @property
     def draining(self) -> bool:
@@ -521,6 +561,22 @@ class CapacityServer:
             timeout_s=timeout, reason=reason or "drain_server op"
         )
 
+    def _observe_timeline(self, snapshot, generation: int) -> None:
+        """Record one published generation in the timeline.  Best-effort
+        by the JAX server's rule: a failed watchlist evaluation must never
+        fail the publish it observes (the coalescer would treat that as a
+        fatal publish error).  A missing generation in the timeline is
+        how such a failure shows."""
+        # Every publish path funnels here, so the node-shape-compression
+        # gauges update on the same publisher thread.
+        _snapshot_publish_group_metrics(snapshot)
+        if self._timeline is None:
+            return
+        try:
+            self._timeline.observe(snapshot, generation)
+        except Exception:  # noqa: BLE001 - observability never fails a swap
+            pass
+
     def start(self) -> None:
         self._serving = True
         self._thread = threading.Thread(
@@ -585,8 +641,9 @@ class CapacityServer:
     })
 
     # The ops a graceful drain refuses and waits out: compute work plus
-    # mutations.  ping/info stay answerable so load balancers and
-    # operators can watch the drain; drain_server itself must pass.
+    # mutations.  ping/info/dump/timeline/slo stay answerable so load
+    # balancers and operators can watch the drain; drain_server itself
+    # must pass.
     _DRAIN_GATED_OPS = frozenset(
         {
             "fit", "sweep", "sweep_multi", "place", "drain",
@@ -603,7 +660,10 @@ class CapacityServer:
         attribute their sub-intervals to THIS request); the
         decomposition lands in ``kccap_phase_seconds{op,phase}``, as
         child spans of the request's trace span, and as the flight
-        record's ``phases`` field."""
+        record's ``phases`` field.  With a ``request_log`` each request
+        also writes one JSON line (op, trace_id, span_id, generation,
+        latency, status); its ``span_id`` joins the line to the trace
+        log's span."""
         op = msg.get("op")
         op_label = op if op in self._KNOWN_OPS else "unknown"
         trace_id = msg.get("trace_id")
@@ -611,13 +671,16 @@ class CapacityServer:
             raise ValueError(
                 f"trace_id must be a string, got {trace_id!r}"
             )
-        span_ctx = (
-            _tracectx.from_wire(msg) if self._trace_sink is not None else None
+        trace_armed = (
+            self._trace_sink is not None or self._request_log is not None
         )
+        span_ctx = _tracectx.from_wire(msg) if trace_armed else None
         parent_span_id = msg.get("parent_span_id")
         if not isinstance(parent_span_id, str) or not parent_span_id:
             parent_span_id = None
-        self._dispatch_tls.trace_ctx = span_ctx
+        self._dispatch_tls.trace_ctx = (
+            span_ctx if self._trace_sink is not None else None
+        )
         wall0 = time.time()
         self._m_requests.labels(op=op_label).inc()
         self._m_inflight.inc()
@@ -673,30 +736,49 @@ class CapacityServer:
             # it right after dispatch returns.
             self._dispatch_tls.last_generation = gen
             sampled = None
-            if span_ctx is not None:
+            if span_ctx is not None and self._trace_sink is not None:
                 sampled = self._trace_sink.decide(
                     op_label, dur, error, forced=span_ctx.sampled
                 )
             self._dispatch_tls.trace_ctx = None
+            # One span id joins the trace-log span with the request-log
+            # line; minted only when something records it.
+            span_id = None
+            if trace_armed:
+                span_id = (
+                    span_ctx.span_id
+                    if span_ctx is not None
+                    else _tracectx.new_span_id()
+                )
             if self._trace_sink is not None:
                 self._emit_spans(
-                    span_ctx, parent_span_id, op_label, wall0, dur, error,
-                    phase_items, sampled,
+                    span_ctx, span_id, parent_span_id, op_label, wall0,
+                    dur, error, phase_items, sampled,
                 )
+            if self._request_log is not None:
+                try:
+                    self._request_log.record(
+                        ts=time.time(),
+                        op=op_label,
+                        trace_id=trace_id or "",
+                        span_id=span_id,
+                        generation=gen,
+                        latency_ms=round(dur * 1e3, 3),
+                        status="error" if error else "ok",
+                        **({"error": error} if error else {}),
+                    )
+                except Exception:  # noqa: BLE001 - logging must not fail ops
+                    pass
             self._flight_record(
                 msg, op_label, trace_id, dur, error, result, gen,
                 phases=(clk.to_ms() if clk else None),
                 trace_sampled=sampled,
             )
 
-    def _emit_spans(self, span_ctx, parent_span_id, op_label, wall0, dur,
-                    error, phase_items, sampled) -> None:
+    def _emit_spans(self, span_ctx, span_id, parent_span_id, op_label,
+                    wall0, dur, error, phase_items, sampled) -> None:
         """The request span and one child span per recorded phase, then
         the tail sampler's keep/drop of the request's tree."""
-        span_id = (
-            span_ctx.span_id if span_ctx is not None
-            else _tracectx.new_span_id()
-        )
         trace = span_ctx.trace_id if span_ctx is not None else ""
         _tracectx.span(
             self._trace_sink,
@@ -901,6 +983,12 @@ class CapacityServer:
             return self._op_gang(msg, snap, implicit_mask)
         if op == "optimize":
             return self._op_optimize(msg, snap, implicit_mask)
+        if op == "dump":
+            return self._op_dump(msg)
+        if op == "timeline":
+            return self._op_timeline(msg)
+        if op == "slo":
+            return self._op_slo(msg)
         if op == "reload":
             return self._op_reload(msg, snap)
         if op == "update":
@@ -1507,9 +1595,10 @@ class CapacityServer:
           and implicit taint mask as fit/sweep), and return capacity
           quantiles + mean + probability-of-fit + per-quantile binding
           attribution;
-        * **watch status** (no ``usage``): the quantile watches of the
-          timeline, which the port does not have: no watches (what
-          ``kccap-torch -car HOST:PORT`` renders and exits 1 by).
+        * **watch status** (no ``usage``): the capacity-at-risk slice
+          of the timeline — per quantile watch the last quantile
+          capacity, probability-of-fit, and alert state (what
+          ``kccap-torch -car HOST:PORT`` renders and exits by).
         """
         from kubernetesclustercapacity_tpu_torch.stochastic.car import (
             DEFAULT_QUANTILES,
@@ -1517,7 +1606,16 @@ class CapacityServer:
         )
 
         if "usage" not in msg:
-            return {"enabled": False, "watches": {}, "breached": []}
+            tl = self._timeline
+            watches = tl.car_status() if tl is not None else {}
+            if not watches:
+                return {"enabled": False, "watches": {}, "breached": []}
+            return {
+                "enabled": True,
+                "generation": self.generation,
+                "watches": watches,
+                "breached": tl.car_breached(),
+            }
         spec = self._stochastic_spec(msg)
         quantiles = self._quantiles_from_msg(msg)
         result = capacity_at_risk(
@@ -1558,8 +1656,10 @@ class CapacityServer:
           function of the served snapshot (trend fitting from history
           lives client-side in :func:`~..forecast.trend.
           trend_from_audit`);
-        * **watch status** (no ``usage``): the horizon watches of the
-          timeline, which the port does not have: no watches.
+        * **watch status** (no ``usage``): the forecast slice of the
+          timeline — per horizon watch the projected minimum, time to
+          breach, and alert state (what ``kccap-torch -forecast
+          HOST:PORT`` renders and exits by).
         """
         from kubernetesclustercapacity_tpu_torch.forecast.horizon import (
             DEFAULT_STEP_S,
@@ -1568,7 +1668,16 @@ class CapacityServer:
         )
 
         if "usage" not in msg:
-            return {"enabled": False, "watches": {}, "breached": []}
+            tl = self._timeline
+            watches = tl.forecast_status() if tl is not None else {}
+            if not watches:
+                return {"enabled": False, "watches": {}, "breached": []}
+            return {
+                "enabled": True,
+                "generation": self.generation,
+                "watches": watches,
+                "breached": tl.forecast_breached(),
+            }
         spec = self._stochastic_spec(msg)
         steps = msg.get("steps", DEFAULT_STEPS)
         if isinstance(steps, bool) or not isinstance(steps, int):
@@ -1630,6 +1739,108 @@ class CapacityServer:
             )
         return out
 
+    def _op_dump(self, msg: dict) -> dict:
+        """The flight recorder over the wire: the last K dispatched
+        requests (this ``dump`` itself lands in the ring only after its
+        own dispatch finishes, so the returned records end at the
+        request before it).
+
+        Server-side filters — ``op`` (exact op name), ``status``
+        (``"ok"``/``"error"``), ``filter_tenant`` (exact derived tenant;
+        the port has no tenancy yet, so it matches nothing, as on a JAX
+        server without ``-tenants``), ``limit`` (the N MOST
+        RECENT matches) — so a triage client chasing "the last 5 errors" pulls
+        5 records, not the whole ring.  ``count`` is the post-filter
+        record count; ``matched`` the pre-``limit`` match count, so a
+        reader knows how much history the filter found beyond what it
+        was handed.
+        """
+        # ``op`` names THIS request's op on the envelope, so the filter
+        # rides as ``filter_op`` (the client's ``dump(op=...)`` maps it).
+        op_f = msg.get("filter_op")
+        if op_f is not None and not isinstance(op_f, str):
+            raise ValueError(f"filter_op must be a string, got {op_f!r}")
+        status = msg.get("status")
+        if status is not None and status not in ("ok", "error"):
+            raise ValueError(
+                f"status filter must be 'ok' or 'error', got {status!r}"
+            )
+        # ``tenant`` on the envelope is this request's own attribution
+        # (tenant-configured clients stamp it on every call), so the
+        # filter rides as ``filter_tenant`` — the ``filter_op`` move.
+        tenant_f = msg.get("filter_tenant")
+        if tenant_f is not None and not isinstance(tenant_f, str):
+            raise ValueError(
+                f"filter_tenant must be a string, got {tenant_f!r}"
+            )
+        # ``sampled`` filters on the tail sampler's recorded verdict:
+        # True = records whose trace tree was retained (a ``-trace-tree``
+        # will find them), False = records whose tree was dropped.
+        # Records with no verdict (no sampler armed) match neither.
+        sampled_f = msg.get("sampled")
+        if sampled_f is not None and not isinstance(sampled_f, bool):
+            raise ValueError(
+                f"sampled filter must be a boolean, got {sampled_f!r}"
+            )
+        limit = msg.get("limit")
+        if limit is not None:
+            if isinstance(limit, bool) or not isinstance(limit, int):
+                raise ValueError(f"limit must be an integer, got {limit!r}")
+            if limit < 1:
+                raise ValueError(f"limit must be >= 1, got {limit}")
+        records = self._flight.records()
+        if op_f is not None:
+            records = [r for r in records if r.get("op") == op_f]
+        if status is not None:
+            records = [r for r in records if r.get("status") == status]
+        if tenant_f is not None:
+            records = [r for r in records if r.get("tenant") == tenant_f]
+        if sampled_f is not None:
+            records = [
+                r for r in records if r.get("trace_sampled") is sampled_f
+            ]
+        matched = len(records)
+        if limit is not None:
+            records = records[-limit:]
+        return {
+            "records": records,
+            "count": len(records),
+            "matched": matched,
+            "capacity": self._flight.capacity,
+            "dropped": self._flight.dropped,
+            "generation": self.generation,
+        }
+
+    def _op_slo(self, msg: dict) -> dict:
+        """SLO burn-rate status over the wire: every objective's current
+        short/long-window burn, alert state, and the fast-burning
+        verdict.  Evaluated ON READ (one fresh counter sample per
+        query), so a poller always sees current burn — the background
+        evaluator only exists for scrape-only deployments."""
+        if self._slo is None:
+            return {"enabled": False}
+        self._slo.evaluate()
+        return self._slo.wire()
+
+    def _op_timeline(self, msg: dict) -> dict:
+        """The capacity timeline over the wire: per-generation records,
+        attributed deltas, and alert states — filtered server-side by
+        ``since_generation`` (strictly-after) and ``watch`` (one name),
+        so a follower polling for news pulls only the transitions it has
+        not seen."""
+        if self._timeline is None:
+            return {"enabled": False}
+        since = msg.get("since_generation")
+        if since is not None:
+            if isinstance(since, bool) or not isinstance(since, int):
+                raise ValueError(
+                    f"since_generation must be an integer, got {since!r}"
+                )
+        watch = msg.get("watch")
+        if watch is not None and not isinstance(watch, str):
+            raise ValueError(f"watch must be a string, got {watch!r}")
+        return self._timeline.wire(since_generation=since, watch=watch)
+
     def _batch_key(self, snap, kernel_req: str):
         """The micro-batch key: the generation ``_dispatch_inner``
         captured WITH this snapshot (a direct caller that bypassed
@@ -1654,9 +1865,10 @@ class CapacityServer:
           scenario on the card — same semantics and implicit taint mask
           as fit/sweep.  Single-scenario requests (and any request with
           ``explain: true``) also carry the binding-level explanation.
-        * **watch status** (no ``ranks``): the gang watches of the
-          timeline, which the port does not have: no watches (what
-          ``kccap-torch -gang HOST:PORT`` renders and exits 1 by).
+        * **watch status** (no ``ranks``): the gang slice of the
+          timeline — per gang watch the last whole-gang count, binding
+          level, and alert state (what ``kccap-torch -gang HOST:PORT``
+          renders and exits by).
         """
         from kubernetesclustercapacity_tpu_torch.topology.gang import (
             GangSpecError,
@@ -1666,7 +1878,16 @@ class CapacityServer:
         )
 
         if "ranks" not in msg:
-            return {"enabled": False, "watches": {}, "breached": []}
+            tl = self._timeline
+            watches = tl.gang_status() if tl is not None else {}
+            if not watches:
+                return {"enabled": False, "watches": {}, "breached": []}
+            return {
+                "enabled": True,
+                "generation": self.generation,
+                "watches": watches,
+                "breached": tl.gang_breached(),
+            }
         grid = self._grid_from_msg(msg, "gang")
         try:
             spec = gang_spec_from_msg(msg)
@@ -2117,7 +2338,8 @@ class CapacityServer:
         are copied in place into its tensors where that is safe, and a
         request arriving next finds them staged.  The retired snapshot's
         cache entries are dropped either way, so its device memory frees
-        promptly.
+        promptly.  The timeline then observes the new generation on the
+        same thread, after the warm pre-stage.
         """
         mask = _implicit_taint_mask(snapshot)
         with self._lock:
@@ -2129,15 +2351,19 @@ class CapacityServer:
             self._fixture_dirty = False
             self._implicit_mask = mask
             self._generation += 1
-        if old is snapshot:
-            return
-        if warm and _devcache.donate_enabled():
-            _devcache.CACHE.stage_replace(old, snapshot, self._device)
-            _devcache.CACHE.warm(snapshot, self._device)
-        else:
-            _devcache.CACHE.invalidate(old)
-            if warm:
+            generation = self._generation
+        if old is not snapshot:
+            if warm and _devcache.donate_enabled():
+                _devcache.CACHE.stage_replace(old, snapshot, self._device)
                 _devcache.CACHE.warm(snapshot, self._device)
+            else:
+                _devcache.CACHE.invalidate(old)
+                if warm:
+                    _devcache.CACHE.warm(snapshot, self._device)
+        # Timeline observation rides the publisher's thread (the
+        # coalescer's worker under -follow) AFTER warming: a query
+        # dispatcher never pays for it.
+        self._observe_timeline(snapshot, generation)
 
     def _op_reload(self, msg: dict, snap: ClusterSnapshot) -> dict:
         """``snap`` is the dispatch's lock-captured snapshot — reading
@@ -2230,8 +2456,13 @@ class CapacityServer:
                 self._fixture_dirty = True  # rebuilt on demand (cpu fit)
                 self._implicit_mask = _implicit_taint_mask(snap)
                 self._generation += 1
+                generation = self._generation
         if old is not snap:
             _devcache.CACHE.invalidate(old)
+        # update is a mutation op (never the query hot path): observing
+        # on its dispatch thread keeps the record synchronous with the
+        # event batch that produced the generation.
+        self._observe_timeline(snap, generation)
         return {
             "nodes": snap.n_nodes,
             "healthy_nodes": int(np.sum(snap.healthy)),
@@ -2279,27 +2510,81 @@ def follow_publisher(server: CapacityServer, follower, *,
     return coalescer, publish_fatal
 
 
+def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
+                   timeline=None, slo=None):
+    """``(healthy, status)``: the two callables a
+    :class:`~..telemetry.exposition.MetricsServer` takes for ``/healthz``,
+    as the JAX server's ``main`` wires them.
+
+    ``status`` is the freshness evidence merged into the body: the served
+    generation; the follower's last-relist age and fatal error; the
+    coalescer's counters (``coalescers`` is read at probe time, so a
+    caller may fill it after the endpoint starts); the timeline's stats;
+    the SLO monitor's (evaluated on read); ``draining``; and the device
+    ledger, reconciled on every probe.  ``healthy`` is False — a 503 —
+    while the follower is dead, an SLO fast-burns, a capacity-at-risk,
+    gang or forecast watch is breached, a drain has begun, or the device
+    ledger sees a sustained leak or a breached budget.  Plain watch
+    breaches stay advisory: they describe the cluster, not the promise
+    this server makes.
+    """
+
+    def status() -> dict:
+        out = {"snapshot_generation": server.generation}
+        if follower is not None:
+            out["follower"] = {
+                "last_relist_age_s": follower.last_relist_age_s(),
+                "fatal": follower.fatal,
+            }
+        if coalescers:
+            out["coalescer"] = coalescers[0].stats()
+        if timeline is not None:
+            out["timeline"] = timeline.stats()
+        if slo is not None:
+            slo.evaluate()
+            out["slo"] = slo.stats()
+        if server.draining:
+            out["draining"] = True
+        if _memledger.enabled():
+            try:
+                _memledger.LEDGER.reconcile()
+            except Exception:  # noqa: BLE001 - audit != liveness
+                pass
+            out["device_memory"] = _memledger.LEDGER.stats()
+        return out
+
+    def healthy() -> bool:
+        if follower is not None and follower.fatal is not None:
+            return False
+        if slo is not None and slo.fast_burning:
+            return False
+        if timeline is not None and (
+            timeline.car_breached()
+            or timeline.gang_breached()
+            or timeline.forecast_breached()
+        ):
+            return False
+        if server.draining:
+            return False
+        if _memledger.enabled() and (
+            _memledger.LEDGER.leaking()
+            or _memledger.LEDGER.budget_breached()
+        ):
+            return False
+        return True
+
+    return healthy, status
+
+
 # The JAX server's flags for subsystems not ported yet (see the CLI's
 # table): each is declared, so using it exits 1 with "not yet ported".
 _UNPORTED_SERVER_FLAGS = (
-    ("-metrics-port", "value"),
     ("-profile-hz", "value"),
-    ("-device-budget-bytes", "value"),
-    ("-trace-log-max-bytes", "value"),
-    ("-trace-sample", "value"),
-    ("-watch", "value"),
-    ("-timeline-depth", "value"),
-    ("-timeline-log", "value"),
-    ("-log-json", "value"),
-    ("-log-json-max-bytes", "value"),
     ("-audit-dir", "value"),
     ("-audit-max-bytes", "value"),
     ("-audit-checkpoint-every", "value"),
     ("-shadow-sample-rate", "value"),
     ("-shadow-bundle", "value"),
-    ("-slo", "value"),
-    ("-slo-log", "value"),
-    ("-slo-eval-s", "value"),
     ("-plane-port", "value"),
     ("-plane-leader", "value"),
     ("-plane-stale-after-s", "value"),
@@ -2308,7 +2593,6 @@ _UNPORTED_SERVER_FLAGS = (
     ("-admission-burst", "value"),
     ("-admission-price-budget", "value"),
     ("-tenants", "value"),
-    ("-drain-timeout-s", "value"),
 )
 
 
@@ -2347,14 +2631,35 @@ def build_parser():
                    dest="reload_roots", metavar="DIR",
                    help="restrict reload paths to this directory "
                         "(repeatable; default: unrestricted)")
+    p.add_argument("-metrics-port", type=int, default=0, dest="metrics_port",
+                   metavar="PORT",
+                   help="serve Prometheus /metrics and /healthz on this "
+                        "port (0 = disabled); binds the -host address")
+    p.add_argument("-device-budget-bytes", type=int, default=0,
+                   dest="device_budget_bytes", metavar="BYTES",
+                   help="device-memory budget: when the ledger's live "
+                        "staged bytes exceed this, /healthz carries a "
+                        "budget_breached signal and answers 503 "
+                        "(0 = no budget)")
     p.add_argument("-trace-log", default=None, dest="trace_log",
                    metavar="PATH",
                    help="append one JSONL span per dispatched request "
                         "(trace_id, op, duration, status) to PATH")
+    p.add_argument("-trace-log-max-bytes", type=int, default=0,
+                   dest="trace_log_max_bytes", metavar="N",
+                   help="rotate the -trace-log file to PATH.1 once it "
+                        "exceeds N bytes (0 = unbounded)")
+    p.add_argument("-trace-sample", default="always", dest="trace_sample",
+                   metavar="SPEC",
+                   help="tail-based sampling policy for -trace-log span "
+                        "bodies: always | p99-breach | errors | rate:N "
+                        "(ids still propagate for every request; the "
+                        "keep/drop decision happens at request END so "
+                        "breaching requests keep their whole span tree)")
     p.add_argument("-flight-records", type=int, default=256,
                    dest="flight_records", metavar="K",
                    help="flight-recorder depth: remember the last K "
-                        "dispatched requests")
+                        "dispatched requests (served by the dump op)")
     p.add_argument("-flight-dump", default=None, dest="flight_dump",
                    metavar="PATH",
                    help="append the flight recorder as JSONL to PATH "
@@ -2377,6 +2682,55 @@ def build_parser():
                    help="minimum mean nodes per node shape for sweeps to "
                         "run over node-shape groups (0 = keep the "
                         "default/KCCAP_GROUP_MIN_COUNT setting)")
+    p.add_argument("-watch", default=None, metavar="FILE",
+                   help="watchlist (YAML/JSON) of named scenarios the "
+                        "capacity timeline re-evaluates on every snapshot "
+                        "publish; entries with min_replicas arm the "
+                        "ok/breached/recovered alert machine (enables the "
+                        "timeline op and kccap_watch_* gauges)")
+    p.add_argument("-timeline-depth", type=int, default=0,
+                   dest="timeline_depth", metavar="K",
+                   help="keep a capacity timeline of the last K snapshot "
+                        "generations (served by the timeline op; 0 = "
+                        "disabled unless -watch is given, which implies 64)")
+    p.add_argument("-timeline-log", default=None, dest="timeline_log",
+                   metavar="PATH",
+                   help="append one JSONL line per observed generation "
+                        "and per watch alert transition to PATH")
+    p.add_argument("-log-json", default=None, dest="log_json",
+                   metavar="PATH",
+                   help="structured request logging: append one JSON "
+                        "line per dispatched request (op, trace_id, "
+                        "span_id, generation, latency_ms, status) to "
+                        "PATH; span_id joins these lines to -trace-log "
+                        "spans")
+    p.add_argument("-log-json-max-bytes", type=int, default=0,
+                   dest="log_json_max_bytes", metavar="N",
+                   help="rotate the -log-json file to PATH.1 once it "
+                        "exceeds N bytes (0 = unbounded)")
+    p.add_argument("-slo", default=None, metavar="FILE",
+                   help="SLO file (YAML/JSON): latency objectives "
+                        "('p99 < 80ms', per op or all ops) and "
+                        "availability objectives ('99.9%%') evaluated "
+                        "as multi-window error-budget burn rates over "
+                        "the server's own request metrics; a fast burn "
+                        "flips /healthz to 503 and the kccap_slo_* "
+                        "gauges (enables the slo op / -slo-status)")
+    p.add_argument("-slo-log", default=None, dest="slo_log",
+                   metavar="PATH",
+                   help="append one JSONL line per SLO alert "
+                        "transition (ok→breached→recovered) to PATH")
+    p.add_argument("-slo-eval-s", type=float, default=5.0,
+                   dest="slo_eval_s", metavar="SECONDS",
+                   help="background SLO evaluation cadence (the slo op "
+                        "and /healthz also evaluate on read)")
+    p.add_argument("-drain-timeout-s", type=float, default=10.0,
+                   dest="drain_timeout_s", metavar="SECONDS",
+                   help="graceful drain bound (SIGTERM/SIGINT or the "
+                        "drain_server op): stop accepting compute/"
+                        "mutation ops, wait up to this long for "
+                        "in-flight work, emit the final drain record, "
+                        "then exit")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="keep the snapshot on the GPU (default) or the host")
     add_unported_flags(p, _UNPORTED_SERVER_FLAGS)
@@ -2461,6 +2815,77 @@ def main(argv=None) -> int:
         print(f"ERROR : {e}", file=sys.stderr)
         return 1
 
+    def _fail(line: str) -> int:
+        print(line, file=sys.stderr)
+        if follower is not None:
+            follower.stop()
+        return 1
+
+    from kubernetesclustercapacity_tpu_torch.telemetry.tracing import TraceLog
+
+    trace_log = None
+    if args.trace_log:
+        trace_log = TraceLog(
+            args.trace_log, max_bytes=max(args.trace_log_max_bytes, 0)
+        )
+    try:
+        _tracectx.parse_sample_spec(args.trace_sample)
+    except ValueError as e:
+        return _fail(f"ERROR : {e}")
+    # Process self-telemetry (RSS/fds/threads/GC + build info) on the
+    # registry the scrape serves — a no-op under KCCAP_TELEMETRY=0.
+    from kubernetesclustercapacity_tpu_torch.telemetry.process import (
+        register_process_metrics,
+    )
+
+    register_process_metrics(REGISTRY)
+    if args.device_budget_bytes > 0:
+        _memledger.LEDGER.set_budget(args.device_budget_bytes)
+    timeline = None
+    if args.watch or args.timeline_depth > 0 or args.timeline_log:
+        from kubernetesclustercapacity_tpu_torch.timeline.history import (
+            CapacityTimeline,
+        )
+        from kubernetesclustercapacity_tpu_torch.timeline.watchlist import (
+            WatchError,
+            load_watchlist,
+        )
+
+        watches = ()
+        if args.watch:
+            try:
+                watches = load_watchlist(args.watch)
+            except (OSError, WatchError) as e:
+                return _fail(f"ERROR : bad watchlist: {e}")
+        timeline = CapacityTimeline(
+            watches,
+            depth=args.timeline_depth if args.timeline_depth > 0 else 64,
+            registry=REGISTRY,
+            log=args.timeline_log,
+            device=args.device,
+        )
+    request_log = None
+    if args.log_json:
+        request_log = TraceLog(
+            args.log_json, max_bytes=max(args.log_json_max_bytes, 0)
+        )
+    slo_monitor = None
+    if args.slo:
+        from kubernetesclustercapacity_tpu_torch.telemetry.slo import (
+            SLOError,
+            SLOMonitor,
+            load_slos,
+        )
+
+        try:
+            slo_monitor = SLOMonitor(
+                load_slos(args.slo),
+                registry=REGISTRY,
+                log=args.slo_log,
+            ).start(max(args.slo_eval_s, 0.5))
+        except (OSError, SLOError) as e:
+            return _fail(f"ERROR : bad SLO file: {e}")
+
     server = CapacityServer(
         snap,
         host=args.host,
@@ -2470,22 +2895,55 @@ def main(argv=None) -> int:
         max_inflight=args.max_inflight,
         reload_roots=tuple(args.reload_roots),
         registry=REGISTRY,
-        trace_log=args.trace_log,
-        flight_records=args.flight_records,
+        trace_log=trace_log,
+        trace_sample=args.trace_sample,
+        flight_records=max(args.flight_records, 1),
         flight_dump_path=args.flight_dump,
-        batch_window_ms=args.batch_window_ms,
-        batch_max=args.batch_max,
+        batch_window_ms=max(args.batch_window_ms, 0.0),
+        batch_max=max(args.batch_max, 1),
+        drain_timeout_s=max(args.drain_timeout_s, 0.0),
         device=args.device,
         # -follow: the follower's retry/backoff/degradation counters ride
         # info's resilience section.
         stats_source=follower.stats if follower is not None else None,
+        timeline=timeline,
+        request_log=request_log,
+        slo=slo_monitor,
     )
+    metrics_server = None
+    coalescers: list = []  # filled below; /healthz reads it per probe
+    if args.metrics_port:
+        from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+            start_metrics_server,
+        )
+
+        healthy, status = healthz_probes(
+            server, follower=follower, coalescers=coalescers,
+            timeline=timeline, slo=slo_monitor,
+        )
+        try:
+            metrics_server = start_metrics_server(
+                REGISTRY,
+                host=args.host,
+                port=args.metrics_port,
+                healthy=healthy,
+                status=status,
+            )
+        except OSError as e:
+            server.shutdown()
+            return _fail(f"ERROR : cannot bind metrics port: {e}")
+        print(
+            f"metrics on http://{metrics_server.address[0]}:"
+            f"{metrics_server.address[1]}/metrics",
+            file=sys.stderr,
+        )
     coalescer = None
     publish_fatal: list[str] = []
     if follower is not None:
         coalescer, publish_fatal = follow_publisher(
             server, follower, coalesce_ms=args.coalesce_ms
         )
+        coalescers.append(coalescer)
 
     # Graceful shutdown: SIGTERM/SIGINT and the drain_server op all route
     # through begin_drain, then stop the serve loop on its own thread
@@ -2553,6 +3011,12 @@ def main(argv=None) -> int:
             follower.stop()
         if coalescer is not None:
             coalescer.stop()
+        if metrics_server is not None:
+            metrics_server.shutdown()
+        if timeline is not None:
+            timeline.close()  # flush the -timeline-log JSONL
+        if slo_monitor is not None:
+            slo_monitor.close()  # stop the evaluator, flush -slo-log
         server.shutdown()
     return 0
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import threading
 from dataclasses import dataclass, field, fields
 
 import numpy as np
@@ -49,6 +50,7 @@ __all__ = [
     "group_min_count",
     "set_group_min_count",
     "grouped_for_dispatch",
+    "publish_group_metrics",
     "GROUPING_NODE_FLOOR",
 ]
 
@@ -310,6 +312,12 @@ class GroupedSnapshot:
     def semantics(self) -> str:
         return self.snapshot.semantics
 
+    @property
+    def compression_ratio(self) -> float:
+        """Nodes per group (1.0 = nothing merged)."""
+        g = self.n_groups
+        return (self.n_nodes / g) if g else 1.0
+
     def representative_names(self) -> list[str]:
         """One real node name per group (the first row with the shape)."""
         names = self.snapshot.names
@@ -415,6 +423,66 @@ def grouped_for_dispatch(snapshot: ClusterSnapshot) -> GroupedSnapshot | None:
     result = grouped if n >= mc * grouped.n_groups else None
     snapshot.__dict__["_grouping_decision"] = (mc, result)
     return result
+
+
+# Lazily-built gauges on the process registry (importing this module
+# must register nothing; KCCAP_TELEMETRY=0 means zero registry calls —
+# same policy as devcache).
+_GROUP_MET: dict | None = None
+_group_met_lock = threading.Lock()
+
+
+def _group_metrics() -> dict:
+    global _GROUP_MET
+    if _GROUP_MET is None:
+        with _group_met_lock:
+            if _GROUP_MET is None:
+                from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+                    REGISTRY,
+                )
+
+                _GROUP_MET = {
+                    "groups": REGISTRY.gauge(
+                        "kccap_group_count",
+                        "Distinct (shape, count) node groups in the "
+                        "published snapshot.",
+                    ),
+                    "ratio": REGISTRY.gauge(
+                        "kccap_compression_ratio",
+                        "Nodes per group of the published snapshot "
+                        "(1.0 = nothing merged).",
+                    ),
+                }
+    return _GROUP_MET
+
+
+def publish_group_metrics(snapshot: ClusterSnapshot) -> None:
+    """Update the grouping gauges for a freshly published snapshot.
+
+    Called on the publish path (server construction / snapshot swap),
+    never per request.  No-op when telemetry or grouping is off; best
+    effort — gauge publication must never fail a publish.
+    """
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        enabled as _telemetry_enabled,
+    )
+
+    if not _telemetry_enabled() or not grouping_enabled():
+        return
+    try:
+        grouped = grouped_for_dispatch(snapshot)
+        met = _group_metrics()
+        if grouped is None:
+            # Not engaged (small cluster / heterogeneous fleet): report
+            # the sentinel rather than paying the full group sort just
+            # for a gauge — 0 groups means "ungrouped dispatch".
+            met["groups"].set(0)
+            met["ratio"].set(1.0)
+        else:
+            met["groups"].set(grouped.n_groups)
+            met["ratio"].set(round(grouped.compression_ratio, 4))
+    except Exception:  # noqa: BLE001 - observability never fails publish
+        pass
 
 
 def load_snapshot(path: str) -> ClusterSnapshot:

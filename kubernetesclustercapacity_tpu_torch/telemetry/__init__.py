@@ -1,5 +1,5 @@
-"""Telemetry: metrics registry, request tracing, the flight recorder, the
-phase clock and the device-memory ledger.
+"""Telemetry: metrics registry, Prometheus exposition, request tracing, the
+flight recorder, the phase clock, the device-memory ledger and SLOs.
 
 Counterpart of ``kubernetesclustercapacity_tpu/telemetry/``, for the
 capacity service.  Every layer of the service records counters, gauges
@@ -10,8 +10,11 @@ protocol envelope; :mod:`.flightrec` keeps the last requests for
 post-incident dumps; :mod:`.phases` splits each request's latency into
 named phases; :mod:`.memledger` books the device tensors the service
 keeps resident; :mod:`.compilewatch` splits each kernel label's first
-dispatch (its build or load) from the steady state.  The Prometheus
-endpoint, the SLO monitor and the sampling profiler are not ported yet.
+dispatch (its build or load) from the steady state; :mod:`.exposition`
+serves the registry as Prometheus text with ``/healthz``;
+:mod:`.process` adds the process gauges; :mod:`.slo` turns the request
+metrics into error-budget burn rates.  The sampling profiler is not
+ported yet.
 
 Hot-path rule: all instrumentation lives on the host around kernel
 dispatch, and the dispatch-side hooks honor :func:`~.metrics.enabled` so
@@ -27,6 +30,11 @@ from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (  # noqa: F40
     Histogram,
     MetricsRegistry,
     enabled,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (  # noqa: F401
+    MetricsServer,
+    render_text,
+    start_metrics_server,
 )
 from kubernetesclustercapacity_tpu_torch.telemetry.tracing import (  # noqa: F401
     Span,
@@ -45,3 +53,7 @@ from kubernetesclustercapacity_tpu_torch.telemetry.phases import (  # noqa: F401
     PhaseClock,
     new_clock,
 )
+
+# NOTE: .slo is a deliberate non-export, as in the JAX package — it rides
+# the timeline's alert machine; consumers import
+# kubernetesclustercapacity_tpu_torch.telemetry.slo directly.

@@ -218,31 +218,6 @@ def parse_sample_spec(spec: str):
 _P99_MIN_SAMPLES = 30
 
 
-def _estimate_quantile(buckets: dict, count: int, q: float):
-    """Quantile estimate from a cumulative bucket dict (the histogram
-    snapshot's ``{le_str: cumulative}`` form), linearly interpolated
-    inside the winning bucket; ``None`` when the histogram is empty.
-    (The JAX package keeps this in ``telemetry/slo.py``, which the port
-    has not taken yet.)"""
-    if count <= 0:
-        return None
-    rank = q * count
-    lo = 0.0
-    prev_cum = 0
-    last_finite = 0.0
-    for le_str, cum in buckets.items():
-        if le_str == "+Inf":
-            break
-        le = float(le_str)
-        if cum >= rank and cum > prev_cum:
-            frac = (rank - prev_cum) / (cum - prev_cum)
-            return lo + (le - lo) * max(0.0, min(1.0, frac))
-        lo = le
-        prev_cum = cum
-        last_finite = le
-    return last_finite  # the quantile lives in the +Inf bucket
-
-
 class TailSampler:
     """Buffer span bodies per trace; flush or drop at request end.
 
@@ -250,7 +225,7 @@ class TailSampler:
     in.  ``spec`` follows the ``-trace-sample`` grammar.  ``latency``
     (optional) is the request-latency histogram family the
     ``p99-breach`` predicate reads (``latency.labels(op=...)``
-    snapshots feed :func:`_estimate_quantile`).
+    snapshots feed :func:`~.slo.estimate_quantile`).
 
     The ring is bounded two ways: at most ``max_traces`` in-flight
     traces (oldest evicted — their spans drop and count), at most
@@ -364,7 +339,11 @@ class TailSampler:
             snap = child.snapshot()
             if snap["count"] < _P99_MIN_SAMPLES:
                 return False
-            p99 = _estimate_quantile(snap["buckets"], snap["count"], 0.99)
+            from kubernetesclustercapacity_tpu_torch.telemetry.slo import (
+                estimate_quantile,
+            )
+
+            p99 = estimate_quantile(snap["buckets"], snap["count"], 0.99)
         except Exception:  # noqa: BLE001 - sampling must not fail ops
             return False
         return p99 is not None and duration_s > p99

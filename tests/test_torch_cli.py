@@ -5,6 +5,7 @@ output, byte for byte apart from the kernel label, on a fixture and on
 
 import dataclasses
 import json
+import re
 
 import numpy as np
 import pytest
@@ -164,16 +165,10 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
     [
         (["-snapshot", KIND, "-backend", "native"],
          "-backend native: not yet ported"),
-        (["-snapshot", KIND, "-slo-status", "127.0.0.1:1"],
-         "-slo-status: not yet ported"),
         (["-snapshot", KIND, "-replay", "audit-dir"],
          "-replay: not yet ported"),
-        (["-snapshot", KIND, "-plan", "spec.yaml", "-dump", "127.0.0.1:1"],
-         "-dump: not yet ported"),
         (["-snapshot", KIND, "-fed-status", "127.0.0.1:1", "-grid", "4"],
          "-fed-status: not yet ported"),
-        (["-snapshot", KIND, "-timeline", "audit-dir"],
-         "-timeline: not yet ported"),
     ],
 )
 def test_unported_surfaces_say_so(argv, needle, capsys):
@@ -181,6 +176,51 @@ def test_unported_surfaces_say_so(argv, needle, capsys):
     assert rc == 1
     assert needle in out and out.startswith("ERROR : ")
     assert out.rstrip().endswith("...exiting")
+
+
+@pytest.mark.parametrize("flag", ["-slo-status", "-dump", "-timeline"])
+@pytest.mark.parametrize("output", ["table", "json"])
+def test_operator_surfaces_match_jax(flag, output, capsys):
+    """-slo-status, -dump and -timeline (which answered "not yet ported"
+    until they were) against a JAX and a port server without -slo or
+    -watch: both CLIs render the same text and exit alike (1 for the
+    disabled SLO and timeline views, 0 for the flight recorder)."""
+    from kubernetesclustercapacity_tpu.service.server import (
+        CapacityServer as JaxServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        CapacityServer as TorchServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        synthetic_snapshot as t_synthetic,
+    )
+
+    servers = [JaxServer(j_snapshot.synthetic_snapshot(16, seed=1)),
+               TorchServer(t_synthetic(16, seed=1), device="cpu")]
+    for s in servers:
+        s.start()
+    try:
+        outs = []
+        for main in (j_cli.main, t_cli.main):
+            for server in servers:
+                addr = f"{server.address[0]}:{server.address[1]}"
+                outs.append(_run(main, [flag, addr, "-output", output],
+                                 capsys))
+    finally:
+        for s in servers:
+            s.shutdown()
+    if flag == "-dump":
+        # Each dump is the one before it in the next dump's ring; its
+        # latency, timestamp, phases and result digest are volatile.
+        outs = [(rc, re.sub(
+            r'("(ts|latency_ms|result_digest)": )[^,\n]+|\s+[0-9.]+ms|'
+            r'"phases": \{[^}]*\}', "", out)) for rc, out in outs]
+        assert outs[0] == outs[1] and outs[2] == outs[3]
+        assert outs[0][0] == 0
+    else:
+        assert all(o == outs[0] for o in outs)
+        assert outs[0][0] == 1
+    assert "not yet ported" not in outs[0][1]
 
 
 @pytest.mark.parametrize("extra", [["-semantics", "strict"], []],
@@ -365,6 +405,8 @@ def _flag_argv(flag, tmp_path):
         return [flag, "2"]
     if flag == "-save-snapshot":
         return [flag, str(tmp_path / "saved.npz")]
+    if flag == "-trace-log":
+        return [flag, str(tmp_path / "trace.jsonl")]
     if flag == "-extended-request":
         return [flag, "nvidia.com/gpu=0"]
     return [flag, "x"]

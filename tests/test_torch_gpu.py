@@ -850,3 +850,94 @@ def test_pdhg_integer_answers_on_the_card_equal_the_host(cuda, shapes):
     want = _optimize.lp_bound_oracle(snap, grid, mode="strict")
     assert (np.abs(card.lp_bound - want)
             <= 4 * card.tol * np.maximum(np.abs(want), 1.0)).all()
+
+
+# The operator's view on the card: the capacity timeline evaluates its
+# watches there, and /healthz and /metrics answer with a card present.
+_TIMELINE_WATCHES = [
+    {"name": "plain", "pod": {"cpuRequests": "500m", "memRequests": "1gb"},
+     "min_replicas": 1},
+    {"name": "strict", "pod": {"cpuRequests": "1", "memRequests": "2gb"},
+     "semantics": "strict"},
+    {"name": "p95", "pod": {"cpuRequests": "500m", "memRequests": "1gb",
+                            "replicas": "40"}, "quantile": 0.95,
+     "usage": {"cpu": {"dist": "normal", "mean": "500m", "std": "200m"},
+               "memory": {"dist": "lognormal", "mean": "1gb",
+                          "sigma": 0.5}},
+     "samples": 256, "seed": 3},
+    {"name": "fc", "pod": {"cpuRequests": "500m", "memRequests": "1gb",
+                           "replicas": "40"}, "quantile": 0.9,
+     "usage": {"cpu": {"dist": "normal", "mean": "500m", "std": "200m"}},
+     "samples": 64, "seed": 4, "horizon": {"steps": 4, "step_s": 3600}},
+    {"name": "train", "pod": {"cpuRequests": "2", "memRequests": "4gb"},
+     "gang": {"ranks": 16, "colocate": "rack"}, "min_replicas": 1},
+]
+
+
+def test_timeline_observe_on_the_card_equals_the_cpu(cuda):
+    import dataclasses
+
+    from kubernetesclustercapacity_tpu_torch.timeline import (
+        CapacityTimeline,
+        parse_watchlist,
+    )
+
+    specs = parse_watchlist(_TIMELINE_WATCHES)
+    card = CapacityTimeline(specs, device="cuda")
+    host = CapacityTimeline(specs, device="cpu")
+    snap = synthetic_snapshot(3000, seed=5, topology=(2, 4))
+    for g in range(1, 6):
+        for tl in (card, host):
+            tl.observe(snap, g, ts=1000.0 + 600.0 * g)
+        used = np.asarray(snap.used_cpu_req_milli) + 150 * g
+        snap = dataclasses.replace(snap, used_cpu_req_milli=used)
+    want, got = host.wire(), card.wire()
+    for doc in (want, got):
+        for rec in doc["records"]:
+            rec.pop("eval_ms")
+    assert got == want
+    last = got["records"][-1]["watches"]
+    assert last["fc"]["horizon_min_capacity"] is not None
+    assert last["train"]["gang"]["ranks"] == 16
+
+
+def test_healthz_and_metrics_answer_with_a_card(cuda):
+    import json
+    import urllib.request
+
+    from kubernetesclustercapacity_tpu_torch.service import CapacityServer
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        healthz_probes,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+        start_metrics_server,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+    from kubernetesclustercapacity_tpu_torch.timeline import (
+        CapacityTimeline,
+        parse_watchlist,
+    )
+
+    reg = MetricsRegistry()
+    timeline = CapacityTimeline(parse_watchlist(_TIMELINE_WATCHES[:3]),
+                                registry=reg, device="cuda")
+    server = CapacityServer(synthetic_snapshot(2000, seed=6),
+                            device="cuda", registry=reg, timeline=timeline)
+    healthy, status = healthz_probes(server, timeline=timeline)
+    metrics = start_metrics_server(reg, healthy=healthy, status=status)
+    try:
+        server.dispatch({"op": "sweep", "random": {"n": 64, "seed": 1}})
+        with urllib.request.urlopen(metrics.url + "/healthz") as r:
+            code, body = r.status, json.loads(r.read())
+        with urllib.request.urlopen(metrics.url + "/metrics") as r:
+            text = r.read().decode()
+    finally:
+        metrics.shutdown()
+        server.shutdown()
+    assert code == 200 and body["ok"] is True
+    assert body["timeline"]["records"] == 1
+    assert body["device_memory"]["leak_alert"]["state"] != "breached"
+    assert 'kccap_watch_replicas{watch="plain"}' in text
+    assert 'kccap_car_replicas{watch="p95"}' in text

@@ -70,7 +70,10 @@ def test_the_scan_is_not_vacuous():
                    "forecast/horizon.py", "forecast/planner.py",
                    "audit/log.py", "timeline/diff.py",
                    "topology/gang.py", "topology/__init__.py",
-                   "optimize/lp.py", "optimize/__init__.py"):
+                   "optimize/lp.py", "optimize/__init__.py",
+                   "telemetry/exposition.py", "telemetry/process.py",
+                   "telemetry/slo.py", "timeline/watchlist.py",
+                   "timeline/history.py", "timeline/__init__.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -244,6 +247,55 @@ _BLOCKED_RUN = textwrap.dedent(
                            "json", "-device", "cpu", "-replicas", "3"])
     gang_opt = [gang.engine, int(gang.gangs.sum()) > 0, opt.all_certified,
                 json.loads(gang_cli.getvalue())["engine"], opt_rc]
+    import urllib.request
+
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        healthz_probes,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry import slo
+    from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+        start_metrics_server,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+    from kubernetesclustercapacity_tpu_torch.timeline import (
+        CapacityTimeline,
+        parse_watchlist,
+    )
+
+    reg = MetricsRegistry()
+    timeline = CapacityTimeline(parse_watchlist([
+        {"name": "web", "pod": {"cpuRequests": "100m"}},
+        {"name": "p95", "pod": {"cpuRequests": "100m"}, "quantile": 0.95,
+         "samples": 16, "usage": {"cpu": {"dist": "normal", "mean": "100m",
+                                          "std": "20m"}}},
+        {"name": "train", "pod": {"cpuRequests": "100m"},
+         "gang": {"ranks": 2, "colocate": "zone"}}]),
+        registry=reg, device="cpu")
+    monitor = slo.SLOMonitor(slo.parse_slos([
+        {"name": "a", "availability": "99%"}]), registry=reg)
+    server = CapacityServer(topo_snap, device="cpu", registry=reg,
+                            timeline=timeline, slo=monitor)
+    healthy, status = healthz_probes(server, timeline=timeline, slo=monitor)
+    metrics = start_metrics_server(reg, healthy=healthy, status=status)
+    server.start()
+    try:
+        with CapacityClient(*server.address, timeout_s=60) as client:
+            operator = [
+                len(client.timeline()["records"]),
+                client.slo_status()["enabled"],
+                client.dump()["count"],
+                client.gang()["enabled"],
+            ]
+        with urllib.request.urlopen(metrics.url + "/healthz") as r:
+            operator.append(r.status)
+        with urllib.request.urlopen(metrics.url + "/metrics") as r:
+            operator.append(b"kccap_watch_replicas" in r.read())
+    finally:
+        metrics.shutdown()
+        server.shutdown()
+        monitor.close()
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -262,6 +314,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "scheduling": scheduling,
                       "stochastic": stochastic_results,
                       "gang_opt": gang_opt,
+                      "operator": operator,
                       "loaded": loaded}))
     """
 )
@@ -292,6 +345,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
                        doc["scheduling"][4], True, True, "first-fit"],
         "stochastic": [True, [3, 32], True, [1, 2, 3], 8],
         "gang_opt": ["per-node", True, True, "per-node", 0],
+        "operator": [1, True, 2, True, 200, True],
         "loaded": [],
     }
     assert doc["scheduling"][0] > 0

@@ -566,3 +566,87 @@ def test_gang_and_optimize_renderers_match_jax(kind, wire, form):
     name = f"{kind}_{form}_report"
     assert getattr(t_report, name)(wire) == getattr(j_report, name)(wire)
     assert name in t_report.__all__
+
+
+# The operator's renderers: the timeline, SLO and flight-recorder views
+# over wire shapes of every form their servers answer.
+_WATCH = {"total": 12, "schedulable": True, "breached": False,
+          "mode": "reference", "min_replicas": None,
+          "binding_counts": {"cpu": 2, "memory": 1}}
+TIMELINE_WIRES = {
+    "disabled": {"enabled": False},
+    "empty": {"enabled": True, "depth": 64, "count": 0, "generation": 0,
+              "watchlist": [], "records": [], "deltas": [], "alerts": {}},
+    "watches": {
+        "enabled": True, "depth": 8, "count": 2, "generation": 2,
+        "watchlist": [{"name": "web-tier-with-a-long-name"}, {"name": "fc"},
+                      {"name": "absent"}],
+        "records": [
+            {"generation": 1, "nodes": 3, "healthy_nodes": 3,
+             "digest": "ab" * 8, "watches": {
+                 "web-tier-with-a-long-name": dict(_WATCH),
+                 "fc": dict(_WATCH, horizon_s=7200.0, time_to_breach_s=None,
+                            horizon_min_capacity=None,
+                            degraded_time_axis=True)}},
+            {"generation": 2, "nodes": 2, "healthy_nodes": 1,
+             "digest": "cd" * 8, "watches": {
+                 "web-tier-with-a-long-name": dict(_WATCH, total=3,
+                                                   breached=True),
+                 "fc": dict(_WATCH, horizon_s=7200.0,
+                            time_to_breach_s=5400.5,
+                            horizon_min_capacity=4)}},
+        ],
+        "deltas": [{"from_generation": 1, "to_generation": 2,
+                    "nodes_added": [], "nodes_removed": ["n1"],
+                    "nodes_changed": 1, "watches": {
+                        "fc": {"summary": "fc: capacity 12→12 (no change)"},
+                        "web-tier-with-a-long-name": {
+                            "summary": "capacity 12→3: node n1 removed"}}}],
+        "alerts": {"web-tier-with-a-long-name": {
+            "state": "breached", "min_replicas": 5, "last_total": 3,
+            "breaches": 1},
+            "fc": {"state": "ok", "min_replicas": None, "last_total": 12,
+                   "breaches": 0}},
+    },
+}
+_SLO_STATUS = {"objective": "p99 < 80ms", "op": "sweep", "state": "ok",
+               "short_burn": None, "long_burn": 0.25, "fast_burn": 14.0}
+SLO_WIRES = {
+    "disabled": {"enabled": False},
+    "ok": {"enabled": True, "evaluations": 3, "status": {
+        "lat": dict(_SLO_STATUS),
+        "availability": dict(_SLO_STATUS, objective="availability >= 99%",
+                             op=None, short_burn=0.0)}},
+    "breached": {"enabled": True, "evaluations": 9, "status": {
+        "lat": dict(_SLO_STATUS, state="breached", short_burn=31.5,
+                    long_burn=15.25),
+        "z": dict(_SLO_STATUS, state="recovered", short_burn=1.0)}},
+}
+DUMP_WIRES = {
+    "empty": {"records": [], "count": 0, "matched": 0, "capacity": 256,
+              "dropped": 0, "generation": 1},
+    "records": {"count": 2, "capacity": 4, "dropped": 3, "generation": 7,
+                "records": [
+                    {"seq": 4, "op": "sweep", "generation": 6,
+                     "latency_ms": 1.25, "status": "ok",
+                     "phases": {"device_exec": 0.5, "fetch": 0.5,
+                                "queue_wait": 0.125}},
+                    {"seq": 5, "op": "fit", "generation": 7,
+                     "latency_ms": 0.5, "status": "error",
+                     "error": "ScenarioError: bad"}]},
+}
+
+
+@pytest.mark.parametrize("kind,wire,form", [
+    (kind, name, form)
+    for kind, wires in (("timeline", TIMELINE_WIRES), ("slo", SLO_WIRES),
+                        ("dump", DUMP_WIRES))
+    for name in wires
+    for form in ("table", "json")
+])
+def test_operator_renderers_match_jax(kind, wire, form):
+    wires = {"timeline": TIMELINE_WIRES, "slo": SLO_WIRES,
+             "dump": DUMP_WIRES}[kind]
+    fn = f"{kind}_{form}_report"
+    assert (getattr(t_report, fn)(wires[wire])
+            == getattr(j_report, fn)(wires[wire]))

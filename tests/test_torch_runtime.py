@@ -217,6 +217,27 @@ def test_stage_replace_retires_the_old_entries_and_prepays_the_new():
     assert cache.stats()["misses"] == misses
 
 
+def test_stage_replace_retires_what_a_request_staged_after_the_swap():
+    # A request that reaches the new snapshot between the server's swap
+    # and its re-stage stages that snapshot first.  The re-stage's tuple
+    # takes its place in the cache, and the ledger drops the request's
+    # (the JAX cache's stage_replace retires the entry it overwrites).
+    memledger.LEDGER.reset()
+    cache = t_devcache.DeviceCache()
+    old = synthetic_snapshot(64, seed=59)
+    cache.kernel_tensors(old, CPU)
+    new = _mutate(old)
+    raced = cache.kernel_tensors(new, CPU)
+    cache.stage_replace(old, new, CPU)
+    assert cache.kernel_tensors(new, CPU) is not raced
+    del raced
+    assert memledger.LEDGER.form_bytes("kernel") == 64 * 6 * 4
+    audits = [memledger.LEDGER.reconcile() for _ in range(2)]
+    assert [a["missing_bytes"] for a in audits] == [0, 0]
+    assert not memledger.LEDGER.leaking()
+    cache.invalidate(new)
+
+
 def test_stage_replace_restages_on_a_new_node_count_or_cold_cache():
     cache = t_devcache.DeviceCache()
     old = synthetic_snapshot(200, seed=54)

@@ -19,7 +19,8 @@ message); an ``optimize`` reply's float solver artifacts may differ in
 their last bits, so it is compared on the canonical digest, equal integers
 and floats within a relative and absolute 1e-9
 (``tests/test_torch_optimize.py`` states why).  Both client/server cross pairs are run as well.  Every op the
-port does not serve yet must say so.
+port does not serve yet must say so (none is left: the operator's
+``dump``, ``timeline`` and ``slo`` are answered like the JAX server's).
 
 Servers bind 127.0.0.1 on port 0, every socket and client has a timeout,
 every server is shut down by its fixture, and no latency is asserted.
@@ -326,6 +327,45 @@ def test_unported_ops_say_so(op, pairs):
              "the PyTorch package")
     _, t = _both(pairs["kind-reference"], msg)
     assert t == {"ok": False, "error": error, "generation": 1}
+
+
+# The operator's ops, which replaced the last "not yet ported" cases:
+# ``dump`` (the flight recorder), ``timeline`` and ``slo`` on servers
+# configured with neither, and the watch-status forms.  A server with a
+# timeline and SLOs is compared in tests/test_torch_timeline.py and
+# tests/test_torch_slo.py.
+OPERATOR_REQUESTS = {
+    "dump": {"op": "dump"},
+    "dump-limit-op": {"op": "dump", "filter_op": "sweep", "limit": 1},
+    "dump-bad-limit": {"op": "dump", "limit": 0},
+    "timeline": {"op": "timeline"},
+    "timeline-since": {"op": "timeline", "since_generation": 1},
+    "slo": {"op": "slo"},
+    "car-status": {"op": "car"},
+    "forecast-status": {"op": "forecast"},
+    "gang-status": {"op": "gang"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPERATOR_REQUESTS))
+def test_operator_ops_match_the_jax_server(name):
+    pair = _pair(KIND, "reference", (), batch_window_ms=0)
+    try:
+        for msg in (REQUESTS["sweep-random"], REQUESTS["fit-reference"],
+                    REQUESTS["fit-bad-memory"]):
+            _both(pair, msg)
+        j, t = _both(pair, OPERATOR_REQUESTS[name])
+    finally:
+        _stop(*pair)
+    for reply in (j, t):
+        for rec in (reply.get("result") or {}).get("records", []):
+            for key in ("ts", "latency_ms", "phases", "result_digest"):
+                rec.pop(key)
+    assert t == j
+    assert t["ok"] is (name != "dump-bad-limit")
+    if name == "dump":
+        assert [r["op"] for r in t["result"]["records"]] == [
+            "sweep", "fit", "fit"]
 
 
 # The stochastic ops: ``car``, ``forecast`` and the catalog form of
@@ -722,10 +762,10 @@ def test_server_main_rejects_unported_flags_with_exit_1(capsys):
     from kubernetesclustercapacity_tpu_torch.service import server
 
     rc = server.main(["-snapshot", KIND, "-profile-hz", "5",
-                      "-metrics-port", "9"])
+                      "-tenants", "t.yaml"])
     err = capsys.readouterr().err
     assert rc == 1
-    assert err == ("ERROR : -metrics-port, -profile-hz: not yet ported to "
+    assert err == ("ERROR : -profile-hz, -tenants: not yet ported to "
                    "the PyTorch package ...exiting\n")
 
 
