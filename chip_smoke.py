@@ -55,7 +55,17 @@ one timeline record per published generation, each plain watch equal to
 B1's sweep, the exact program and the host oracle, every record equal to
 a CPU timeline fed the same snapshots, the scrape equal to the last
 record, ``/healthz`` flipping with the breached watches, and the
-``timeline``/``dump``/``slo`` ops and their CLI flags.  Any failure
+``timeline``/``dump``/``slo`` ops and their CLI flags.  Path (r) drives
+the audit trail and the replicated serving plane on (q)'s cluster: a
+file-backed leader with an audit log, a shadow sampler, a plane publisher,
+a 3-tenant map and admission control takes the stream in 6 ``update``
+batches and answers every replayable op from the tenants' clients (B1 for
+its sweeps, B2 for ``sweep_multi``); two replicas on the card follow its
+plane (one through a fault proxy that cuts the stream once), each equal to
+the leader at every generation with one B1 launch a sweep; the capped
+tenant is refused; ``-replay`` of the leader's log verifies every request
+on the card (B1 once a replayed sweep) and equals the host's replay.  Any
+failure
 raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
@@ -76,6 +86,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -4111,6 +4122,566 @@ def phase_operator(pkg, cli, fit, ff, fm, tmp: str, identity: str,
     return out
 
 
+# --- Path (r): the audit trail and the replicated serving plane ----------
+# (q)'s cluster (5,000 nodes, 148,991 pods with GPU and storage columns and
+# zone/rack labels) served by a file-backed strict leader with an audit log
+# (a checkpoint every 16 generations), a shadow sampler at rate 1.0, a plane
+# publisher, a 3-tenant map and admission control over it; (m)'s 600-event
+# churn stream in 6 update batches of 100; two replicas on the card following
+# the plane, one through a fault proxy that cuts the stream once; then the
+# leader's log replayed through the CLI on the card and on the host.
+REPL_BATCHES = 6
+REPL_TENANTS = {"tenants": [
+    {"name": "batch", "token": "tok-batch", "weight": 1},
+    {"name": "web", "token": "tok-web", "weight": 2},
+    {"name": "ml", "token": "tok-ml", "weight": 4, "rps": 5, "burst": 5},
+]}
+# The shadow oracle walks (scenario, node) pairs in Python (about 17 ms a
+# scenario at 5,000 nodes on a host core), so only 64-scenario sweeps are
+# sampled: the sampler runs at rate 1.0 and is set to 0 around the leader's
+# 1,000-scenario sweeps.
+REPL_SHADOW_SCENARIOS = 64
+# ml's burst of sweep_multi after the stream: its bucket holds 5 tokens.
+REPL_BURST = 12
+REPL_NOT_LEADER = (
+    "NotLeaderError: this server is a plane replica (read-only view of the "
+    "leader's snapshot stream); send mutations to the leader")
+# The replay verdict's reason for ops it records but does not re-answer.
+REPL_SKIPPED = {op: f"op {op!r} is recorded but not replayable"
+                for op in ("sweep_multi", "update")}
+
+
+def run_cli_doc(cli, argv: list[str]) -> dict:
+    """The JSON document a CLI run prints (indented over many lines)."""
+    rc, text = run_cli_rc(cli, argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv} exited {rc}: {text[-500:]}")
+    return json.loads(text)
+
+
+def counting(client, counts: dict, key: str):
+    """``client`` with every call counted under ``counts[key]``."""
+    call = client.call
+
+    def counted(op, *args, **kw):
+        counts[key] = counts.get(key, 0) + 1
+        return call(op, *args, **kw)
+
+    client.call = counted
+    return client
+
+
+def phase_replicated(pkg, cli, ff, fm, tmp: str, identity: str) -> dict:
+    """Path (r): the audit trail and the replicated serving plane.
+
+    (r1) A file-backed strict leader on the card with an audit log, a
+    shadow sampler (rate 1.0, its bundle file), a plane publisher on an
+    ephemeral port, a 3-tenant map (weights 1/2/4, ``ml`` capped at 5 rps
+    with a burst of 5) and ``AdmissionController(max_concurrent=2)`` over
+    it.  It takes the churn stream as 6 ``update`` batches of 100; after
+    each the tenants' clients ask a 1,000-scenario ``sweep`` (B1), a
+    64-scenario ``sweep`` (B1, shadow-checked), ``explain`` and ``fit`` of
+    (g)'s spec, a 64-rank rack ``gang``, an LP ``optimize`` of 64
+    scenarios, a ``forecast`` of 8 steps x 256 samples, a catalog ``plan``
+    of 256 samples and a 1,000 x 4 ``sweep_multi`` (B2); then ``ml`` sends
+    12 small ``sweep_multi`` at once.  (r2) Two replicas on the card follow
+    the plane, one through a ``FaultProxy`` that cuts the stream once;
+    after each batch both hold the leader's generation and digest and
+    their sweeps equal the leader's (B1 once each); a replica refuses
+    ``update``; ``-plane-status`` and a ``ReplicaSet``; ``/healthz``.
+    (r3) ``-replay`` of the leader's log on the card and on the host,
+    ``-replay-ref``, ``-replay-generation``, ``-replay-tenant`` and
+    ``replay_shadow_bundle`` of a bundle whose served totals were moved
+    by one."""
+    from kubernetesclustercapacity_tpu_torch import stochastic as st
+    from kubernetesclustercapacity_tpu_torch.audit import (
+        AuditLog,
+        AuditReader,
+        ShadowSampler,
+        replay_shadow_bundle,
+    )
+    from kubernetesclustercapacity_tpu_torch.audit.shadow import (
+        oracle_totals,
+    )
+    from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+        protocol,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.plane import (
+        AdmissionController,
+        PlanePublisher,
+        PlaneSubscriber,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.replicaset import (
+        ReplicaSet,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        healthz_probes,
+    )
+    from kubernetesclustercapacity_tpu_torch.service.tenancy import (
+        parse_tenants,
+    )
+    from kubernetesclustercapacity_tpu_torch.store import ClusterStore
+    from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+        start_metrics_server,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+    from kubernetesclustercapacity_tpu_torch.testing_faults import (
+        FaultPlan,
+        FaultProxy,
+    )
+    from kubernetesclustercapacity_tpu_torch.timeline.diff import (
+        snapshot_digest,
+    )
+
+    device = "cuda"
+    b1_label = "cuda_i32_rcp_fused"
+    b2_label = "cuda_multi_i32_rcp_fused"
+    out: dict = {"launches": {"sweep_fit": {}, "sweep_multi": {}},
+                 "ms": {}}
+    t_phase = time.perf_counter()
+    fixture = operator_fixture(pkg)
+    events = churn_events(fixture)
+    per = len(events) // REPL_BATCHES
+    batches = [events[i * per:(i + 1) * per] for i in range(REPL_BATCHES)]
+    mirror = ClusterStore(fixture, semantics="strict",
+                          extended_resources=EXTENDED)
+    snap0 = mirror.snapshot()
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    rng = np.random.default_rng(4)
+    mreqs = np.stack([grid.cpu_request_milli, grid.mem_request_bytes,
+                      rng.integers(0, 3, grid.size),
+                      rng.integers(1, 20, grid.size) * GIB], axis=1)
+    resources = ["cpu", "memory", *EXTENDED]
+    p95 = st.capacity_at_risk(
+        snap0, st.parse_stochastic_spec({"usage": STOCH_USAGE,
+                                         "samples": 256, "seed": 1}),
+        mode="strict", node_mask=implicit_taint_mask(snap0),
+        bindings=False, device=device).quantiles[0.95]
+    log(f"(r) source: {snap0.n_nodes} nodes, {len(fixture['pods'])} pods, "
+        f"{len(events)} churn events in {REPL_BATCHES} batches; catalog "
+        f"plan target {p95 + 500} (P95 {p95} + 500); built in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    audit_dir = os.path.join(tmp, "r_audit")
+    bundle_path = os.path.join(tmp, "r_shadow.jsonl")
+    reg = MetricsRegistry()
+    audit_log = AuditLog(audit_dir, checkpoint_every=16, registry=reg)
+    shadow = ShadowSampler(1.0, registry=reg, bundle_path=bundle_path,
+                           audit_log=audit_log)
+    tenants = parse_tenants(json.loads(json.dumps(REPL_TENANTS)))
+    admission = AdmissionController(max_concurrent=2, tenants=tenants,
+                                    registry=reg)
+    pub = PlanePublisher(registry=reg)
+    leader = CapacityServer(snap0, fixture=fixture, device=device,
+                            batch_window_ms=0, registry=reg,
+                            audit_log=audit_log, shadow=shadow,
+                            admission=admission, plane=pub, tenants=tenants)
+    replicas, subs, applied, stage_ms = [], [], [{}, {}], []
+
+    def staged(server):
+        real = server.replace_snapshot
+
+        def stage(*args, **kw):
+            t0 = time.perf_counter()
+            real(*args, **kw)
+            stage_ms.append((time.perf_counter() - t0) * 1e3)
+
+        server.replace_snapshot = stage
+        return server
+
+    proxy = metrics = None
+    sent: dict = {}
+    opt_shares = []
+    try:
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        leader.start()
+        healthy, status = healthz_probes(leader, audit_log=audit_log,
+                                         shadow=shadow, plane=pub)
+        metrics = start_metrics_server(reg, healthy=healthy, status=status)
+        # Each replica starts from an 8-node placeholder: everything it
+        # serves comes from the plane.
+        for k in range(2):
+            replica = staged(CapacityServer(
+                pkg.synthetic_snapshot(8, seed=1), device=device,
+                batch_window_ms=0, registry=MetricsRegistry()))
+            replica.start()
+            replicas.append(replica)
+        plan = FaultPlan([None] * 3 + ["drop_post"])
+        proxy = FaultProxy(pub.address, plan, stream=True).start()
+        for k, address in enumerate((pub.address, proxy.address)):
+            subs.append(PlaneSubscriber(
+                address, replicas[k], stale_after_s=60.0, seed=k,
+                reconnect_base_s=0.01, reconnect_max_s=0.05,
+                on_apply=(lambda g, k=k:
+                          applied[k].setdefault(g, time.perf_counter()))))
+
+        def wait_applied(want: int) -> None:
+            deadline = time.perf_counter() + 120
+            while any(s.applied_generation < want for s in subs):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"(r2): replicas did not reach generation {want}: "
+                        f"{[s.stats() for s in subs]}")
+                time.sleep(0.001)
+
+        wait_applied(1)
+        clients = {name: counting(CapacityClient(
+            *leader.address, tenant_token=f"tok-{name}",
+            connect_timeout_s=60, timeout_s=600, retry=None), sent, name)
+            for name in ("batch", "web", "ml")}
+        grid_msg = {"random": {"n": 1000, "seed": 7}}
+        mirror_totals, update_ms, batch_s = [], [], []
+        leader_b1 = replica_b1 = 0
+        probes = []
+        for b, events_b in enumerate(batches):
+            t_batch = time.perf_counter()
+            c_batch, c_web, c_ml = (clients[n] for n in ("batch", "web",
+                                                         "ml"))
+            t_update = time.perf_counter()
+            c_batch.update(events_b)
+            mirror.apply(events_b)
+            want = leader.generation
+            wait_applied(want)
+            update_ms.append([(applied[k][want] - t_update) * 1e3
+                              for k in range(2)])
+            state = mirror.snapshot()
+            digest = snapshot_digest(leader.snapshot)
+            if digest != snapshot_digest(state):
+                raise AssertionError(f"(r1) batch {b}: the leader's "
+                                     "snapshot differs from the store's")
+            exact = ff.sweep_snapshot_auto(
+                state, grid, mode="strict", kernel="exact",
+                node_mask=implicit_taint_mask(state), device=device)[0]
+            mirror_totals.append(exact.astype(np.int64).tolist())
+            # -- the leader, through the tenants' clients ---------------
+            before = ff.LAUNCHES
+            shadow.sample_rate = 0.0
+            doc = c_web.sweep(**grid_msg)
+            shadow.sample_rate = 1.0
+            small = c_web.sweep(random={"n": REPL_SHADOW_SCENARIOS,
+                                        "seed": 100 + b})
+            leader_b1 += ff.LAUNCHES - before
+            if doc["totals"] != mirror_totals[-1] or \
+                    doc["kernel"] != b1_label or \
+                    small["kernel"] != b1_label:
+                raise AssertionError(f"(r1) batch {b}: the leader's sweep "
+                                     f"({doc['kernel']}) differs from the "
+                                     "exact program")
+            c_batch.explain(**OPS_SPEC)
+            c_batch.fit(**OPS_SPEC)
+            c_ml.gang(ranks=64, colocate="rack", **GANG_POD)
+            og = pkg.random_scenario_grid(64, seed=200 + b)
+            opt = c_ml.optimize(
+                cpu_request_milli=og.cpu_request_milli.tolist(),
+                mem_request_bytes=og.mem_request_bytes.tolist(),
+                replicas=og.replicas.tolist())
+            if opt.get("certified"):
+                opt_shares.append(max((s["capacity_share"]
+                                       for s in opt["shadow_prices"]),
+                                      default=0.0))
+            c_batch.forecast(usage=STOCH_USAGE, replicas=200, samples=256,
+                             seed=b, steps=8, step_s=3600,
+                             growth={"cpu_per_s": 2e-6})
+            c_web.plan(catalog=STOCH_CATALOG, usage=STOCH_USAGE,
+                       replicas=200, samples=256, seed=b, target=p95 + 500)
+            before_b2 = fm.LAUNCHES
+            mdoc = c_ml.sweep_multi(resources, mreqs.tolist(),
+                                    replicas=grid.replicas.tolist())
+            if fm.LAUNCHES - before_b2 != 1 or \
+                    mdoc["kernel"] != b2_label:
+                raise AssertionError(f"(r1) batch {b}: sweep_multi "
+                                     f"({mdoc['kernel']}) launched B2 "
+                                     f"{fm.LAUNCHES - before_b2} times")
+            # -- the replicas at this generation ------------------------
+            for k, replica in enumerate(replicas):
+                if replica.generation != want or \
+                        subs[k].stats()["digest"] != digest:
+                    raise AssertionError(f"(r2) batch {b}: replica {k} at "
+                                         f"{replica.generation}, "
+                                         f"{subs[k].stats()}")
+                with CapacityClient(*replica.address, timeout_s=600,
+                                    retry=None) as rc:
+                    before = ff.LAUNCHES
+                    rdoc = rc.sweep(**grid_msg)
+                    launched = ff.LAUNCHES - before
+                    replica_b1 += launched
+                    if rdoc["totals"] != doc["totals"] or \
+                            rc.last_generation != want or \
+                            rdoc["kernel"] != b1_label or \
+                            launched != 1:
+                        raise AssertionError(
+                            f"(r2) batch {b}: replica {k} answered "
+                            f"generation {rc.last_generation} with "
+                            f"{rdoc['kernel']}, {launched} launches")
+            probes.append(repl_healthz(metrics.url + "/healthz",
+                                       f"after batch {b}"))
+            batch_s.append(time.perf_counter() - t_batch)
+        # -- ml's burst: the capped tenant is refused ------------------
+        small_multi = mreqs[:REPL_SHADOW_SCENARIOS].tolist()
+        refused = admitted = 0
+        before_b2 = fm.LAUNCHES
+        for _ in range(REPL_BURST):
+            try:
+                clients["ml"].sweep_multi(resources, small_multi)
+                admitted += 1
+            except Exception as e:  # noqa: BLE001 - the refusal is checked
+                if type(e).__name__ != "TenantQuotaError":
+                    raise
+                refused += 1
+        if not refused or fm.LAUNCHES - before_b2 != admitted:
+            raise AssertionError(f"(r1) ml's burst: {admitted} admitted, "
+                                 f"{refused} refused, B2 launched "
+                                 f"{fm.LAUNCHES - before_b2} times")
+        dump = clients["web"].dump(op="sweep", limit=1)
+        sweep_ref = dump["records"][0]["audit_ref"]
+        # The audited requests of each tenant: per batch, batch's update,
+        # explain, fit and forecast, web's two sweeps and plan, ml's gang,
+        # optimize and sweep_multi; then ml's burst (the dump is not
+        # audited).
+        audited = {"batch": 4 * REPL_BATCHES, "web": 3 * REPL_BATCHES,
+                   "ml": 3 * REPL_BATCHES + REPL_BURST}
+        out["launches"]["sweep_fit"]["(r1) the leader's sweeps"] = \
+            leader_b1
+        out["launches"]["sweep_multi"]["(r1) the leader's sweep_multi"] = \
+            fm.LAUNCHES
+        out["launches"]["sweep_fit"]["(r2) the replicas' sweeps"] = \
+            replica_b1
+        if leader_b1 != 2 * REPL_BATCHES or replica_b1 != 2 * REPL_BATCHES:
+            raise AssertionError(f"(r) B1 launched {leader_b1} times on the "
+                                 f"leader, {replica_b1} on the replicas")
+        # -- (r2) the rest: refusal, -plane-status, a set, health ------
+        with socket.create_connection(replicas[0].address, 60) as sock:
+            protocol.send_msg(sock, {"op": "update", "events": batches[0]})
+            refusal = protocol.recv_msg(sock)
+        if refusal.get("error") != REPL_NOT_LEADER or \
+                refusal.get("code") != "not_leader":
+            raise AssertionError(f"(r2) a replica answered update with "
+                                 f"{refusal}")
+        status_rcs = {}
+        for name, server in (("leader", leader), ("replica", replicas[1])):
+            rc, text = run_cli_rc(cli, ["-plane-status",
+                                        f"{server.address[0]}:"
+                                        f"{server.address[1]}",
+                                        "-output", "json"])
+            role = json.loads(text)["plane"]["role"]
+            status_rcs[name] = rc
+            if rc != 0 or role != name:
+                raise AssertionError(f"(r2) -plane-status {name}: {rc} "
+                                     f"{text}")
+        rs = ReplicaSet([replicas[0].address, replicas[1].address,
+                         leader.address], timeout_s=600)
+        try:
+            small_msg = {"random": {"n": REPL_SHADOW_SCENARIOS, "seed": 9}}
+            want_small = leader.dispatch({"op": "sweep", **small_msg})
+            for _ in range(4):
+                got = rs.sweep(**small_msg)
+                if got["totals"] != want_small["totals"]:
+                    raise AssertionError("(r2) the replica set's sweep "
+                                         "differs from the leader's")
+            rs_stats = rs.stats()
+        finally:
+            rs.close()
+        resyncs = [s.stats()["resyncs"] for s in subs]
+        if plan.injected["drop_post"] != 1 or resyncs[1] < 1:
+            raise AssertionError(f"(r2) the proxied replica saw no cut: "
+                                 f"{plan.injected}, resyncs {resyncs}")
+        replica_health = []
+        for k, replica in enumerate(replicas):
+            r_ok, r_status = healthz_probes(replica, subscriber=subs[k])
+            body = r_status()
+            if not r_ok() or body["plane"]["generation"] != \
+                    leader.generation:
+                raise AssertionError(f"(r2) replica {k} /healthz: {body}")
+            replica_health.append(body["plane"]["stale"])
+        probes.append(repl_healthz(metrics.url + "/healthz", "at the end"))
+        # -- (r1) the checks after the stream ---------------------------
+        if not shadow.drain(600):
+            raise AssertionError("(r1) the shadow sampler did not drain")
+        sh = shadow.stats()
+        if sh["divergences"] or sh["checked"] < REPL_BATCHES or \
+                sh["dropped"] or sh["oracle_errors"]:
+            raise AssertionError(f"(r1) shadow: {sh}")
+        snap_m = reg.snapshot()
+        by_tenant = snap_m["kccap_tenant_requests_total"]["values"]
+        got_sent = {n: int(by_tenant.get(f'tenant="{n}"', 0))
+                    for n in clients}
+        if got_sent != {n: sent[n] for n in clients}:
+            raise AssertionError(f"(r1) tenant requests {got_sent}, the "
+                                 f"clients sent {sent}")
+        sheds = snap_m["kccap_tenant_shed_total"]["values"]
+        shed_by = {k: int(v) for k, v in sheds.items()}
+        if shed_by != {'tenant="ml",reason="tenant_quota"': refused}:
+            raise AssertionError(f"(r1) tenant sheds {shed_by}, ml was "
+                                 f"refused {refused} times")
+        price = admission.shadow_price()
+        want_price = opt_shares[-1] if opt_shares else None
+        if price != want_price:
+            raise AssertionError(f"(r1) admission shadow price {price}, the "
+                                 f"last certified optimize priced "
+                                 f"{want_price}")
+        info = leader.dispatch({"op": "info", "audit": True,
+                                "tenancy": True, "plane": True})
+        last_generation = leader.generation
+        last_digest = snapshot_digest(leader.snapshot)
+    finally:
+        if proxy is not None:
+            proxy.stop()
+        pub.close()
+        for s in subs:
+            s.stop()
+        if metrics is not None:
+            metrics.shutdown()
+        leader.shutdown()
+        for r in replicas:
+            r.shutdown()
+        shadow.close()
+        audit_log.close()
+    log_bytes = sum(os.path.getsize(os.path.join(audit_dir, f))
+                    for f in os.listdir(audit_dir))
+
+    # -- (r3) replay -----------------------------------------------------
+    before = ff.LAUNCHES
+    t0 = time.perf_counter()
+    card = run_cli_doc(cli, ["-replay", audit_dir, "-output", "json",
+                         "-device", device])
+    replay_card_s = time.perf_counter() - t0
+    replay_b1 = ff.LAUNCHES - before
+    t0 = time.perf_counter()
+    host = run_cli_doc(cli, ["-replay", audit_dir, "-output", "json",
+                         "-device", "cpu"])
+    replay_cpu_s = time.perf_counter() - t0
+    if card != host:
+        raise AssertionError("(r3) the replay on the card differs from the "
+                             "replay on the host")
+    bad = [o for o in card["outcomes"] if o["status"] != "ok" and not (
+        o["status"] == "skipped"
+        and o["reason"] == REPL_SKIPPED.get(o["op"]))]
+    sweeps = sum(o["op"] == "sweep" for o in card["outcomes"])
+    if card["chain_error"] is not None or not card["clean"] or bad or \
+            card["counts"]["mismatch"] or card["counts"]["error"] or \
+            card["generations_verified"] != list(
+                range(1, last_generation + 1)) or \
+            replay_b1 != sweeps:
+        raise AssertionError(f"(r3) replay: {card['counts']}, chain "
+                             f"{card['chain_error']}, {bad[:3]}, B1 "
+                             f"{replay_b1} for {sweeps} sweeps")
+    out["launches"]["sweep_fit"]["(r3) the replayed sweeps"] = replay_b1
+    before = ff.LAUNCHES
+    ref = run_cli_doc(cli, ["-replay", audit_dir, "-replay-ref", sweep_ref,
+                        "-output", "json", "-device", device])
+    gen = run_cli_doc(cli, ["-replay", audit_dir, "-replay-generation",
+                        str(last_generation), "-output", "json",
+                        "-device", device])
+    if ref["outcomes"][0]["status"] != "ok" or \
+            gen["digest"] != last_digest:
+        raise AssertionError(f"(r3) -replay-ref {ref['outcomes']}, "
+                             f"-replay-generation {gen}")
+    per_tenant = {}
+    for name in ("batch", "web", "ml"):
+        doc = run_cli_doc(cli, ["-replay", audit_dir, "-replay-tenant", name,
+                            "-output", "json", "-device", device])
+        per_tenant[name] = doc["requests"]
+    if per_tenant != audited:
+        raise AssertionError(f"(r3) -replay-tenant counts {per_tenant}, "
+                             f"the tenants sent {audited}")
+    reader = AuditReader.load(audit_dir)
+    last_small = [r for r in reader.requests() if r["op"] == "sweep" and
+                  r["args"].get("random", {}).get("n")
+                  == REPL_SHADOW_SCENARIOS][-1]
+    sgrid = pkg.random_scenario_grid(REPL_SHADOW_SCENARIOS,
+                                     seed=last_small["args"]["random"]["seed"])
+    state = reader.snapshot_at(last_small["generation"])
+    t0 = time.perf_counter()
+    want = oracle_totals(state, sgrid)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    bundle = {"kind": "shadow_divergence",
+              "generation": last_small["generation"],
+              "digest": snapshot_digest(state),
+              "cpu_request_milli": sgrid.cpu_request_milli.tolist(),
+              "mem_request_bytes": sgrid.mem_request_bytes.tolist(),
+              "replicas": sgrid.replicas.tolist(),
+              "served_totals": [t + (s == 0) for s, t in enumerate(want)]}
+    verdict = replay_shadow_bundle(reader, bundle, device=device)
+    if verdict["diverged"] or verdict["served_matches_bundle"]:
+        raise AssertionError(f"(r3) the fake divergence: {verdict}")
+    out["launches"]["sweep_fit"][
+        "(r3) -replay-ref, -replay-tenant and the bundle's sweep"] = \
+        ff.LAUNCHES - before
+
+    times = sorted(t for pair in update_ms for t in pair)
+    out["ms"] = {
+        "update_to_staged": ms_stats(times),
+        "update_to_staged_by_batch": update_ms,
+        "staging": ms_stats(stage_ms),
+        "replay_card_s": replay_card_s,
+        "replay_cpu_s": replay_cpu_s,
+        "shadow_check_64x5000_ms": oracle_ms,
+        "batch_s": batch_s,
+    }
+    out["log_bytes"] = log_bytes
+    out["replay_counts"] = card["counts"]
+    out["shadow"] = {k: sh[k] for k in ("sampled", "checked",
+                                        "divergences", "dropped")}
+    out["tenants"] = {"sent": got_sent, "refused": refused,
+                      "admitted_in_burst": admitted,
+                      "shadow_price": price,
+                      "certified_optimizes": len(opt_shares)}
+    out["healthz"] = probes
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(r1) leader: {last_generation} generations, {REPL_BATCHES} "
+        f"batches of {per} events; shadow {out['shadow']}; tenants sent "
+        f"{got_sent}, ml refused {refused} of its {REPL_BURST}-request "
+        f"burst (tenant_quota), none else shed; admission shadow price "
+        f"{price} ({len(opt_shares)} of {REPL_BATCHES} optimize solves "
+        f"certified); info sections {sorted(info)}; audit log "
+        f"{log_bytes} bytes in {len(os.listdir(audit_dir))} file(s) "
+        f"({identity})")
+    log(f"(r2) replicas: both at every generation with the leader's digest "
+        f"and sweep (B1 once each), the proxied one resynced {resyncs[1]} "
+        f"time(s) after the cut; update -> staged "
+        f"{fmt_stats(out['ms']['update_to_staged'])} ms, staging "
+        f"{fmt_stats(out['ms']['staging'])} ms; -plane-status exits "
+        f"{status_rcs}; a replica set over both and the leader answered 4 "
+        f"sweeps equal to the leader's (watermark {rs_stats['watermark']}); "
+        f"replicas stale {replica_health}; "
+        f"/healthz " + ", ".join(f"{p['stage']} {p['code']}"
+                                 for p in probes) + f" ({identity})")
+    log(f"(r3) replay of {card['requests']} requests: {card['counts']}, "
+        f"chain of {len(card['generations_verified'])} generations "
+        f"verified; on the card {replay_card_s:.2f} s (B1 {replay_b1} for "
+        f"{sweeps} sweeps), on the host {replay_cpu_s:.2f} s, equal; "
+        f"-replay-ref ok, -replay-generation digest equal, -replay-tenant "
+        f"{per_tenant}; the fake divergence refuted; one shadow check at "
+        f"{REPL_SHADOW_SCENARIOS} x {state.n_nodes} {oracle_ms:.1f} ms "
+        f"({identity})")
+    return out
+
+
+def repl_healthz(url: str, stage: str) -> dict:
+    """One leader /healthz read in (r): it must answer 200 with the audit,
+    shadow and plane entries, and the device ledger's leak alert must not
+    have tripped."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    leak = body.get("device_memory", {}).get("leak_alert", {})
+    missing = [k for k in ("audit", "shadow", "plane") if k not in body]
+    if code != 200 or missing or leak.get("state") == "breached":
+        raise AssertionError(f"(r) /healthz {stage}: {code}, missing "
+                             f"{missing}: {body}")
+    return {"stage": stage, "code": code}
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -4342,6 +4913,9 @@ def main() -> int:
         oper = phase_operator(pkg, cli, fit, ff, fm, tmp, identity,
                               live["times"]["staleness_ms"])
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (q)")
+    with tempfile.TemporaryDirectory() as tmp:
+        repl = phase_replicated(pkg, cli, ff, fm, tmp, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (r)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -4385,6 +4959,13 @@ def main() -> int:
         "operator_healthz": [(p["stage"], p["code"])
                              for p in oper["healthz"]],
         "operator_s": oper["seconds"],
+        "replicated_ms": repl["ms"],
+        "replicated_launches": repl["launches"],
+        "replicated_replay_counts": repl["replay_counts"],
+        "replicated_shadow": repl["shadow"],
+        "replicated_tenants": repl["tenants"],
+        "replicated_log_bytes": repl["log_bytes"],
+        "replicated_s": repl["seconds"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -4400,7 +4981,8 @@ def main() -> int:
         + sum(sched["launches"]["sweep_fit"].values())
         + sum(stoch["launches"]["sweep_fit"].values())
         + sum(gopt["launches"]["sweep_fit"].values())
-        + sum(oper["launches"]["sweep_fit"].values()),
+        + sum(oper["launches"]["sweep_fit"].values())
+        + sum(repl["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4427,7 +5009,8 @@ def main() -> int:
         + sum(sched["launches"]["sweep_multi"].values())
         + sum(stoch["launches"]["sweep_multi"].values())
         + sum(gopt["launches"]["sweep_multi"].values())
-        + sum(oper["launches"]["sweep_multi"].values()),
+        + sum(oper["launches"]["sweep_multi"].values())
+        + sum(repl["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

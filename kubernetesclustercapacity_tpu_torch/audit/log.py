@@ -1,6 +1,11 @@
 """Durable audit log (counterpart of ``kubernetesclustercapacity_tpu/audit/
-log.py``, verbatim: the on-disk format, segment naming and digests are the
-JAX module's, so either package reads the other's logs).
+log.py``, verbatim but for one fix: the on-disk format, segment naming and
+digests are the JAX module's, so either package reads the other's logs.
+Two fixes, each writing what the JAX reader already reads: a diff that
+adds two or more nodes out of key order records the row order, which the
+JAX writer leaves out; and a generation whose taints changed (a tainted
+node added, say) is written as a checkpoint, where the JAX writer writes
+a diff that drops them; see ``record_generation``).
 
 The log records two families of events:
 
@@ -220,6 +225,7 @@ class AuditLog:
         self._by_kind: dict[str, int] = {}
         # Replay/diff state: the previous generation's summary vocabulary.
         self._last_summary: dict[str, tuple[int, ...]] | None = None
+        self._last_taints: list = []
         self._last_semantics: str | None = None
         self._last_digest = ""
         self._last_generation = 0
@@ -294,10 +300,16 @@ class AuditLog:
         digest = snapshot_digest(snapshot)
         names_by_key = dict(zip(summary.keys(), snapshot.names))
         with self._lock:
+            # Taints ride checkpoints only (a diff has no word for them,
+            # and the digest does not cover them): a generation whose
+            # taints moved, a tainted node added among them, is written
+            # as a checkpoint, so its replay masks what the server masked.
             checkpoint = (
                 self._last_summary is None
                 or snapshot.semantics != self._last_semantics
                 or self._since_checkpoint >= self.checkpoint_every
+                or taints_changed(self._last_summary, self._last_taints,
+                                  summary, snapshot.taints)
             )
             rec: dict = {
                 "generation": int(generation),
@@ -353,12 +365,22 @@ class AuditLog:
                 # apply() yields old-order-minus-removed then added; when
                 # the true row order differs (a mid-list insert), record
                 # it — the digest covers row order, so replay must too.
-                expected = list(diff.apply(self._last_summary))
+                # The record is written with sorted keys, so a reader
+                # appends the added rows in key order: two nodes added out
+                # of key order need the order too (the JAX writer compares
+                # with the in-memory order and leaves it out, and its log
+                # then fails its own digest chain).
+                kept = [
+                    k for k in diff.apply(self._last_summary)
+                    if k not in diff.added
+                ]
+                expected = kept + sorted(diff.added)
                 if expected != list(summary):
                     rec["order"] = list(summary)
                 self._since_checkpoint += 1
             ref = self._append_locked(rec)
             self._last_summary = summary
+            self._last_taints = list(snapshot.taints or [])
             self._last_semantics = snapshot.semantics
             self._last_digest = digest
             self._last_generation = int(generation)
@@ -663,6 +685,16 @@ class AuditReader:
         return snapshot_from_summary(
             rows, name_of, taints_of, semantics, labels_of=labels_of
         )
+
+
+def taints_changed(old_summary: dict, old_taints, summary: dict,
+                   taints) -> bool:
+    """True iff a row of ``summary`` carries other taints than the same
+    row of ``old_summary`` (taint lists in row order; a removed row does
+    not count)."""
+    old = dict(zip(old_summary.keys(), old_taints or []))
+    new = dict(zip(summary.keys(), taints or []))
+    return any((new.get(k) or []) != (old.get(k) or []) for k in summary)
 
 
 def snapshot_from_summary(

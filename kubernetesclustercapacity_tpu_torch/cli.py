@@ -11,7 +11,9 @@ and the stochastic family, ``_run_car_status``, ``_run_car_spec``,
 and ``_run_plan``, ``:675-1010``, and ``_run_gang_status``,
 ``_run_gang_spec`` and ``_run_optimize``, ``:1012-1148``, the operator's
 ``_run_timeline``, ``:612-647``, ``_run_slo_status`` and ``_run_dump``,
-``:1158-1214``, and the telemetry wrapper of ``main``, ``:466-541``).
+``:1158-1214``, ``_run_plane_status``, ``:1252-1290``, and
+``_run_replay``, ``:1361-1430``, and the telemetry wrapper of ``main``,
+``:466-541``).
 The reference's six flags parse exactly as there
 (``ClusterCapacity.go:50-83``), so an invalid memory or replicas value
 prints the reference's fatal line.  Then, for one spec, it prints the
@@ -45,8 +47,11 @@ is the pure-Python oracle, the reference's sequential walk, as a
 cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
 ``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
 other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
-native``) and the replay, doctor, profiling, plane and federation
-surfaces are not ported yet and say so with exit 1.
+native``) and the doctor, profiling and federation surfaces are not
+ported yet and say so with exit 1.  ``-replay DIR``
+(``-replay-ref``, ``-replay-generation``, ``-replay-tenant``) re-answers
+a server's audit log on ``-device``, and ``-plane-status HOST:PORT``
+prints an endpoint's place in the replicated serving plane.
 
 Examples::
 
@@ -83,11 +88,6 @@ _UNPORTED_FLAGS = (
     ("-doctor-timeout", "value"),
     ("-doctor-service", "value"),
     ("-jax-profile", "value"),
-    ("-replay", "value"),
-    ("-replay-ref", "value"),
-    ("-replay-generation", "value"),
-    ("-replay-tenant", "value"),
-    ("-plane-status", "value"),
     ("-fed-status", "value"),
     ("-fed-sweep", "value"),
     ("-doctor-federation", "value"),
@@ -354,6 +354,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with -optimize: the certified LP/PDHG solver "
                         "(lp, default) or the bug-compatible first-fit "
                         "reference walk alone (ffd)")
+    p.add_argument("-replay", default="", metavar="DIR",
+                   help="replay a capacity server's audit log: verify "
+                        "the generation digest chain, reconstruct every "
+                        "recorded generation from the nearest "
+                        "checkpoint, and re-answer every recorded "
+                        "request bit-for-bit against its recorded "
+                        "result digest, on -device; -output json "
+                        "selects the structured form; exit 1 on any "
+                        "mismatch")
+    p.add_argument("-replay-ref", default=None, dest="replay_ref",
+                   metavar="SEGMENT:OFFSET",
+                   help="with -replay: replay only the request at this "
+                        "audit ref (the audit_ref field flight-recorder "
+                        "dump records carry)")
+    p.add_argument("-replay-generation", type=int, default=None,
+                   dest="replay_generation", metavar="GEN",
+                   help="with -replay: reconstruct generation GEN and "
+                        "verify its digest instead of replaying "
+                        "requests")
+    p.add_argument("-replay-tenant", default=None, dest="replay_tenant",
+                   metavar="TENANT",
+                   help="with -replay: replay only requests the server "
+                        "attributed to TENANT (servers started with "
+                        "-tenants stamp the derived tenant into each "
+                        "audited request)")
+    p.add_argument("-plane-status", default=None, dest="plane_status",
+                   metavar="HOST:PORT",
+                   help="print a running server's serving-plane status "
+                        "(leader fan-out stats or replica sync/"
+                        "staleness state, plus capabilities) and exit; "
+                        "exit 1 when the replica is stale or the "
+                        "server is draining")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
     add_unported_flags(p, _UNPORTED_FLAGS)
@@ -392,6 +424,10 @@ def main(argv: list[str] | None = None) -> int:
         return _run_dump(args)
     if args.drain_server and not unported:
         return _run_drain_server(args)
+    if args.plane_status and not unported:
+        return _run_plane_status(args)
+    if args.replay and not unported:
+        return _run_replay(args)
     # Telemetry surfaces (both opt-in, zero cost otherwise): a scrape
     # endpoint over the process registry and a JSONL span for the whole
     # invocation, as in the JAX CLI.
@@ -755,6 +791,122 @@ def _run_drain_server(args) -> int:
             + (" (already draining)" if record.get("already") else "")
         )
     return 0 if record.get("drained") else 1
+
+
+def _run_plane_status(args) -> int:
+    """-plane-status HOST:PORT: one look at an endpoint's place in the
+    replicated serving plane — role, generation, fan-out or sync
+    health, capabilities.  Exit 1 when the endpoint should be routed
+    around (stale replica / draining server)."""
+    addr = _parse_addr("-plane-status", args.plane_status)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            info = c.info(plane=True)
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot reach {addr[0]}:{addr[1]}: {e}",
+              file=sys.stderr)
+        return 1
+    plane = info.get("plane")
+    caps = info.get("capabilities") or {}
+    draining = bool(info.get("draining"))
+    if args.output == "json":
+        print(json.dumps(
+            {"plane": plane, "capabilities": caps, "draining": draining},
+            sort_keys=True,
+        ))
+    else:
+        if plane is None:
+            print("plane     : not a plane member")
+        else:
+            print(f"plane     : role={plane.get('role')} "
+                  f"generation={plane.get('generation')}")
+            if plane.get("role") == "replica":
+                print(f"sync      : age_s={plane.get('sync_age_s')} "
+                      f"stale={plane.get('stale')} "
+                      f"applied={plane.get('applied')} "
+                      f"resyncs={plane.get('resyncs')}")
+            else:
+                print(f"fan-out   : subscribers={plane.get('subscribers')} "
+                      f"published={plane.get('published')} "
+                      f"ejected={plane.get('ejected')}")
+        print(f"caps      : {caps or '(pre-plane server)'}")
+        print(f"draining  : {draining}")
+    stale = bool(plane and plane.get("role") == "replica" and plane.get("stale"))
+    return 1 if (stale or draining) else 0
+
+
+def _run_replay(args) -> int:
+    """-replay DIR: the offline half of the audit subsystem — turn a
+    recorded history into a verified repro, re-answered on ``-device``.
+    Exits by the verdict: 0 only when the digest chain holds and every
+    replayed request re-answered identically."""
+    from kubernetesclustercapacity_tpu_torch.audit import (
+        AuditError,
+        AuditReader,
+        Replayer,
+    )
+    from kubernetesclustercapacity_tpu_torch.report import (
+        replay_json_report,
+        replay_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.timeline.diff import (
+        snapshot_digest,
+    )
+
+    try:
+        reader = AuditReader.load(args.replay)
+    except AuditError as e:
+        print(f"ERROR : cannot load audit log: {e}", file=sys.stderr)
+        return 1
+    if args.replay_generation is not None:
+        try:
+            snap = reader.snapshot_at(args.replay_generation)
+        except AuditError as e:
+            print(f"ERROR : {e}", file=sys.stderr)
+            return 1
+        out = {
+            "generation": args.replay_generation,
+            "nodes": snap.n_nodes,
+            "semantics": snap.semantics,
+            "digest": snapshot_digest(snap),
+            "verified": True,
+        }
+        if args.output == "json":
+            print(json.dumps(out, sort_keys=True))
+        else:
+            print(
+                f"generation {out['generation']}: {out['nodes']} node(s) "
+                f"({out['semantics']}), digest {out['digest']} — "
+                "reconstruction verified"
+            )
+        return 0
+    with Replayer(reader, device=args.device) as replayer:
+        if args.replay_ref:
+            try:
+                rec = reader.record_at(args.replay_ref)
+            except AuditError as e:
+                print(f"ERROR : {e}", file=sys.stderr)
+                return 1
+            outcome = replayer.replay_record(rec)
+            result = {
+                "directory": reader.directory,
+                "generations_verified": [],
+                "chain_error": None,
+                "recovered_tail_records": reader.recovered_tail,
+                "requests": 1,
+                "counts": {outcome["status"]: 1},
+                "outcomes": [outcome],
+                "clean": outcome["status"] in ("ok", "skipped"),
+            }
+        else:
+            result = replayer.replay_all(tenant=args.replay_tenant)
+    if args.output == "json":
+        print(replay_json_report(result))
+    else:
+        print(replay_table_report(result))
+    return 0 if result["clean"] else 1
 
 
 def _run_timeline(args) -> int:

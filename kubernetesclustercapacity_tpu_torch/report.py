@@ -3,7 +3,8 @@ structured views.
 
 Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec,
 explain, capacity-at-risk, forecast, plan, gang and optimize renderers,
-and the operator's timeline, SLO and flight-recorder views).  The
+the operator's timeline, SLO and flight-recorder views, and the audit
+replay's).  The
 reference's whole observability story is
 ``fmt.Printf`` to stdout (SURVEY.md §5); :func:`reference_report`
 reproduces that text exactly, the typos ("allocatbale", "scehdule") and Go's
@@ -51,6 +52,8 @@ __all__ = [
     "optimize_json_report",
     "gang_status_table_report",
     "gang_status_json_report",
+    "replay_table_report",
+    "replay_json_report",
 ]
 
 _RULE = "=" * 110  # the reference prints 110 '=' (ClusterCapacity.go:142,149)
@@ -1020,3 +1023,55 @@ def gang_status_table_report(status: dict) -> str:
 def gang_status_json_report(status: dict) -> str:
     """``kccap -gang -output json``: the wire shape verbatim."""
     return json.dumps(status, indent=2, sort_keys=True)
+
+
+def replay_table_report(result: dict) -> str:
+    """``kccap-torch -replay`` as operator-readable text: the chain verdict,
+    the request tallies, and one line per non-ok outcome (a clean
+    replay stays terse — the verdict IS the product)."""
+    lines = [
+        f"audit replay: {result['directory']}",
+        f"  generations verified: {len(result['generations_verified'])}"
+        + (
+            f" (chain BROKEN: {result['chain_error']})"
+            if result.get("chain_error")
+            else ""
+        ),
+    ]
+    if result.get("recovered_tail_records"):
+        lines.append(
+            f"  recovered: {result['recovered_tail_records']} torn tail "
+            "record(s) dropped (crash-consistent load)"
+        )
+    c = result["counts"]
+    lines.append(
+        f"  requests replayed: {result['requests']}  "
+        f"ok={c.get('ok', 0)} mismatch={c.get('mismatch', 0)} "
+        f"skipped={c.get('skipped', 0)} error={c.get('error', 0)}"
+    )
+    for o in result["outcomes"]:
+        if o["status"] == "ok":
+            continue
+        line = (
+            f"  {o['status'].upper():<8} {o.get('op')} "
+            f"gen={o.get('generation')} ref={o.get('ref')}"
+        )
+        if o["status"] == "mismatch":
+            line += (
+                f"  recorded={o.get('recorded_digest')} "
+                f"replayed={o.get('replayed_digest', o.get('replayed_error'))}"
+            )
+        elif o.get("reason"):
+            line += f"  ({o['reason']})"
+        lines.append(line)
+    lines.append(
+        "verdict: "
+        + ("CLEAN — every replay re-answered identically"
+           if result["clean"] else "MISMATCH — see lines above")
+    )
+    return "\n".join(lines)
+
+
+def replay_json_report(result: dict) -> str:
+    """``kccap-torch -replay -output json``: the replay summary verbatim."""
+    return json.dumps(result, indent=2, sort_keys=True)

@@ -37,6 +37,7 @@ __all__ = [
     "NotLeaderError",
     "ClusterLostError",
     "TenantQuotaError",
+    "TokenBucket",
     "WIRE_CODES",
     "decorrelated_jitter",
 ]
@@ -468,3 +469,65 @@ class CircuitBreaker:
                 "rejected": self._rejected,
                 "last_error": self._last_error,
             }
+
+
+class TokenBucket:
+    """Thread-safe token bucket: ``rate_per_s`` tokens/second of refill
+    up to ``capacity`` (the burst bound), starting full.
+
+    The rps half of server admission control: one :meth:`try_acquire`
+    per request; a request that finds the bucket empty is shed with
+    :class:`OverloadedError` instead of queued (the concurrency limiter
+    owns the queue; stacking a second queue here would just hide the
+    overload behind latency).  Non-blocking by design — the refill is
+    computed lazily from the injectable monotonic ``clock``, so there is
+    no filler thread to leak and the arithmetic is exactly testable
+    against an offline oracle (``tests/test_plane.py`` pins it against
+    a numpy recurrence).
+    """
+
+    def __init__(
+        self,
+        rate_per_s: float,
+        capacity: float | None = None,
+        *,
+        clock=time.monotonic,
+    ) -> None:
+        if rate_per_s <= 0:
+            raise ValueError(f"rate_per_s must be > 0, got {rate_per_s}")
+        if capacity is None:
+            capacity = max(float(rate_per_s), 1.0)
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.rate_per_s = float(rate_per_s)
+        self.capacity = float(capacity)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._tokens = self.capacity
+        self._last = clock()
+
+    def _refill_locked(self) -> None:
+        now = self._clock()
+        elapsed = now - self._last
+        self._last = now
+        if elapsed > 0:
+            self._tokens = min(
+                self.capacity, self._tokens + elapsed * self.rate_per_s
+            )
+
+    def try_acquire(self, tokens: float = 1.0) -> bool:
+        """Take ``tokens`` if available right now; never blocks."""
+        if tokens <= 0:
+            raise ValueError(f"tokens must be > 0, got {tokens}")
+        with self._lock:
+            self._refill_locked()
+            if self._tokens >= tokens:
+                self._tokens -= tokens
+                return True
+            return False
+
+    def available(self) -> float:
+        """Current token count after refill (observability/tests)."""
+        with self._lock:
+            self._refill_locked()
+            return self._tokens

@@ -9,10 +9,18 @@ costs one kernel dispatch:
 * :mod:`.server`   — threaded TCP server dispatching to the kernels;
 * :mod:`.batching` — micro-batching: concurrent sweeps share one launch;
 * :mod:`.coalesce` — ``-follow``'s bounded-rate snapshot publisher;
-* :mod:`.client`   — Python client.
+* :mod:`.client`   — Python client;
+* :mod:`.tenancy`  — the tenant map and the weighted-fair slot queue;
+* :mod:`.plane`    — the replicated serving plane: leader→replica
+  snapshot fan-out, admission control;
+* :mod:`.replicaset` — multi-endpoint client: failover, hedged reads,
+  read-your-generation monotonicity across replicas.
 
-Either package's client talks to either package's server.
+Either package's client talks to either package's server, and either
+package's replica follows either package's leader.
 """
 
 from kubernetesclustercapacity_tpu_torch.service.client import CapacityClient  # noqa: F401
+from kubernetesclustercapacity_tpu_torch.service.coalesce import SnapshotCoalescer  # noqa: F401
+from kubernetesclustercapacity_tpu_torch.service.replicaset import ReplicaSet  # noqa: F401
 from kubernetesclustercapacity_tpu_torch.service.server import CapacityServer  # noqa: F401

@@ -25,11 +25,13 @@ the wire.
 
 Registry-backed metrics: ``kccap_batch_size`` (batch-size histogram —
 ``sum/count`` is the mean batch size), ``kccap_batch_window_wait_seconds``
-(how long leaders actually waited), ``kccap_fold_specs`` (scenario rows
-per dispatch), and batched/solo/bypass counters.
+(how long leaders actually waited), ``kccap_batch_tenants`` (distinct
+tenants folded into each dispatched batch — cross-tenant folding is the
+multi-tenancy win: one padded dispatch, split per tenant on return,
+bit-exact vs solo), ``kccap_fold_specs`` (scenario rows per dispatch),
+and batched/solo/bypass counters.
 
-A copy of the JAX package's ``service/batching.py`` without its tenancy
-accounting (the port has no tenant map yet).
+A copy of the JAX package's ``service/batching.py``.
 """
 
 from __future__ import annotations
@@ -50,12 +52,16 @@ _FOLLOWER_TIMEOUT_S = 120.0
 
 class _Batch:
     __slots__ = (
-        "items", "weights", "closed", "full", "done", "results",
+        "items", "tenants", "weights", "closed", "full", "done", "results",
         "error", "leader_span_id", "opened_at",
     )
 
     def __init__(self, opened_at: float = 0.0) -> None:
         self.items: list = []
+        # Parallel to ``items``: who asked (None when tenancy is off).
+        # Results scatter back BY INDEX, so per-tenant attribution never
+        # influences — or could even touch — the combined dispatch.
+        self.tenants: list = []
         # Parallel to ``items``: scenario rows each member contributes
         # to the folded dispatch (the fold-accounting weight).
         self.weights: list = []
@@ -92,6 +98,8 @@ class MicroBatcher:
         max_batch: int = 32,
         registry=None,
         trace_sink=None,
+        fold_hook=None,
+        clock=None,
     ) -> None:
         from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
             MetricsRegistry,
@@ -108,7 +116,14 @@ class MicroBatcher:
         # "batch:join" span linked to it — the trace-tree form of "who
         # rode whose kernel launch".
         self._trace_sink = trace_sink
-        self._clock = time.perf_counter
+        # Fold-accounting hook: called once per MULTI-request dispatch
+        # with the members' tenant labels (service/tenancy.py's
+        # FoldAccounting when tenancy is armed; None otherwise).
+        # Strictly best-effort — accounting must never fail a dispatch.
+        self._fold_hook = fold_hook
+        # Injectable monotonic clock (tests freeze it to pin the
+        # joiner-bypass window arithmetic); production uses perf_counter.
+        self._clock = clock if clock is not None else time.perf_counter
         self.window_s = float(window_s)
         self.max_batch = int(max_batch)
         self._lock = threading.Lock()
@@ -137,6 +152,12 @@ class MicroBatcher:
             "kccap_batch_deadline_bypass_total",
             "Requests that bypassed batching because their deadline "
             "would expire inside the window.",
+        )
+        self._m_tenants = m.histogram(
+            "kccap_batch_tenants",
+            "Distinct tenants folded into each dispatched micro-batch "
+            "(1 when tenancy is off; >1 means cross-tenant sharing).",
+            buckets=_BATCH_SIZE_BUCKETS,
         )
         self._m_specs = m.histogram(
             "kccap_fold_specs",
@@ -174,11 +195,16 @@ class MicroBatcher:
         }
 
     def submit(
-        self, key, item, *, deadline=None, trace=None, weight=1
+        self, key, item, *, deadline=None, tenant=None, trace=None, weight=1
     ):
         """Run ``item`` through a (possibly shared) dispatch; returns its
         own result.  Blocking — callers are the server's per-connection
         threads, each already holding a compute slot.
+
+        ``tenant`` is pure attribution: concurrent tenants' same-key
+        sweeps FOLD into one padded dispatch and split per tenant on
+        return (bit-exact vs solo, because the combined dispatch is
+        index-scattered and never reads the label).
 
         ``weight`` is the scenario-row count this member contributes to
         the folded dispatch (fold accounting only — never consulted by
@@ -238,6 +264,7 @@ class MicroBatcher:
                     leader = True
                 idx = len(batch.items)
                 batch.items.append(item)
+                batch.tenants.append(tenant)
                 batch.weights.append(weight)
                 if len(batch.items) >= self.max_batch:
                     batch.full.set()
@@ -247,6 +274,7 @@ class MicroBatcher:
             self._m_bypass.inc()
             self._m_solo.inc()
             self._m_size.observe(1)
+            self._m_tenants.observe(1)
             self._m_specs.observe(weight)
             return self._dispatch(key, [item])[0]
 
@@ -283,11 +311,22 @@ class MicroBatcher:
                 raise
             finally:
                 self._m_size.observe(len(items))
+                # Distinct tenants per dispatch: None (tenancy off)
+                # counts as one anonymous tenant, so the histogram is
+                # well-defined on the pre-tenancy path too.
+                self._m_tenants.observe(
+                    len(set(batch.tenants[: len(items)])) or 1
+                )
                 self._m_specs.observe(
                     sum(batch.weights[: len(items)]) or 1
                 )
                 if len(items) > 1:
                     self._m_batched.inc(len(items))
+                    if self._fold_hook is not None:
+                        try:
+                            self._fold_hook(batch.tenants[: len(items)])
+                        except Exception:  # noqa: BLE001 - accounting
+                            pass  # must never fail a dispatch
                 else:
                     self._m_solo.inc()
                 batch.done.set()

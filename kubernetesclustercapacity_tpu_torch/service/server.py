@@ -32,9 +32,13 @@ card).  Replies equal the JAX server's apart from kernel labels
 (``cuda_``/``plain_``/``torch_int64`` for ``pallas_``/``xla_int64``) and
 volatile fields (latencies, ids, ``eval_ms``).  ``-metrics-port`` serves
 the registry as Prometheus text with ``/healthz``
-(:func:`healthz_probes`).  The port has no fast-path breaker (a kernel that
-fails to build or launch raises); ``info`` reports one that never opens,
-in the JAX snapshot's shape, for clients that read it.
+(:func:`healthz_probes`).  ``-audit-dir`` and ``-shadow-sample-rate`` keep
+the audit trail and the shadow oracle, ``-tenants`` and ``-admission-*``
+attribute and gate requests, and ``-plane-port`` / ``-plane-leader`` make
+the server a leader or a replica of the replicated serving plane.  The
+port has no fast-path breaker (a kernel that fails to build or launch
+raises); ``info`` reports one that never opens, in the JAX snapshot's
+shape, for clients that read it.
 
     python -m kubernetesclustercapacity_tpu_torch.service.server \\
         -snapshot tests/fixtures/kind-3node.json -port 7077 -device cpu
@@ -66,6 +70,7 @@ from kubernetesclustercapacity_tpu_torch.resilience import (
     Deadline,
     DeadlineExpired,
     DrainingError,
+    NotLeaderError,
 )
 from kubernetesclustercapacity_tpu_torch.scenario import (
     ScenarioError,
@@ -284,6 +289,22 @@ class CapacityServer:
     JSON-able dict (the ``-follow`` wiring passes the follower's
     :meth:`~..follower.ClusterFollower.stats`); it is surfaced under
     ``info.resilience.follower``.
+
+    ``audit_log`` (an :class:`~..audit.AuditLog`) records every published
+    generation and every answering or mutating request with its stripped
+    args and result digest (flight records then carry an ``audit_ref``);
+    ``shadow`` (an :class:`~..audit.ShadowSampler`) re-checks sampled
+    sweep replies against the pure-Python oracle on its own thread.
+    ``tenants`` (a :class:`~.tenancy.TenantMap`) attributes each request
+    to a tenant (per-tenant token, then an explicit ``tenant`` label,
+    else ``"default"``) for admission, metrics, logs, the audit trail and
+    the flight recorder; ``admission`` (a
+    :class:`~.plane.AdmissionController`) gates every compute op before
+    any work and takes the certified shadow price of each ``lp``
+    ``optimize``.  ``plane`` (a :class:`~.plane.PlanePublisher`) makes
+    this server a plane leader: every published generation fans out to
+    its replicas; a :class:`~.plane.PlaneSubscriber` makes a server a
+    replica, which refuses mutations with the ``not_leader`` code.
     """
 
     def __init__(
@@ -310,6 +331,11 @@ class CapacityServer:
         timeline=None,
         request_log=None,
         slo=None,
+        audit_log=None,
+        shadow=None,
+        admission=None,
+        plane=None,
+        tenants=None,
     ) -> None:
         from kubernetesclustercapacity_tpu_torch.telemetry.flightrec import (
             FlightRecorder,
@@ -337,9 +363,18 @@ class CapacityServer:
         )
         self._timeline = timeline
         self._slo = slo
+        self._audit = audit_log
+        self._shadow = shadow
+        self._admission = admission
+        self._plane = plane
+        self._plane_role = "leader" if plane is not None else None
+        self._plane_stats_source = (
+            plane.stats if plane is not None else None
+        )
+        self._drain_hooks: list = []
         # Graceful-drain state: _draining flips once and never back;
         # _active_gated counts in-flight drain-gated ops (compute +
-        # reload) so begin_drain can wait for quiesce.
+        # mutations) so begin_drain can wait for quiesce.
         self._drain_timeout_s = float(drain_timeout_s)
         self._drain_cv = threading.Condition()
         self._draining = False
@@ -387,6 +422,26 @@ class CapacityServer:
             ("op", "phase"),
             buckets=SUB_MS_LATENCY_BUCKETS_S,
         )
+        # Tenancy: None is the exact tenantless dispatch path (no
+        # attribution, no per-tenant metrics, unchanged record shapes).
+        # Every label passes TenantMap.label(), so the cardinality is
+        # bounded by the map (unmapped names fold to "other").
+        self._tenants = tenants
+        self._m_tenant_requests = None
+        self._m_tenant_latency = None
+        if tenants is not None:
+            self._m_tenant_requests = m.counter(
+                "kccap_tenant_requests_total",
+                "Requests dispatched, by tenant (bounded: mapped names "
+                "+ default + other).",
+                ("tenant",),
+            )
+            self._m_tenant_latency = m.histogram(
+                "kccap_tenant_request_latency_seconds",
+                "End-to-end dispatch latency, by tenant (bounded "
+                "cardinality; feeds per-tenant SLO specs).",
+                ("tenant",),
+            )
         self._flight = FlightRecorder(flight_records)
         self._flight_dump_path = flight_dump_path
         # Tail-based sampling: span ids are always minted; span bodies
@@ -406,12 +461,23 @@ class CapacityServer:
                 MicroBatcher,
             )
 
+            fold_hook = None
+            if self._tenants is not None:
+                from kubernetesclustercapacity_tpu_torch.service import (
+                    tenancy as _tenancy,
+                )
+
+                if _tenancy.enabled():
+                    # Cross-tenant fold attribution: the batcher reports
+                    # each multi-request launch's member tenants.
+                    fold_hook = _tenancy.FoldAccounting(self._tenants, m)
             self._batcher = MicroBatcher(
                 self._dispatch_sweep_batch,
                 window_s=float(batch_window_ms) / 1e3,
                 max_batch=batch_max,
                 registry=m,
                 trace_sink=self._trace_sink,
+                fold_hook=fold_hook,
             )
         # Per-dispatch-thread context: the snapshot generation captured
         # under the dispatch lock, so replies and flight records say
@@ -438,8 +504,10 @@ class CapacityServer:
         self._thread: threading.Thread | None = None
         self._serving = False
         # Generation 1 is a generation too: the timeline's baseline
-        # record, so the first publish already has something to diff.
+        # record, so the first publish already has something to diff
+        # (and the audit log's first checkpoint).
         self._observe_timeline(snapshot, self._generation)
+        self._audit_generation(snapshot, self._generation)
 
     @property
     def address(self) -> tuple[str, int]:
@@ -495,15 +563,34 @@ class CapacityServer:
         dispatch (thread-local; the reply-envelope watermark)."""
         return getattr(self._dispatch_tls, "last_generation", None)
 
+    def set_plane_role(self, role: str, stats_source=None) -> None:
+        """Declare this server's plane membership (``"leader"`` /
+        ``"replica"``).  A replica serves a read-only view — mutations
+        are refused with the ``not_leader`` wire code.  ``stats_source``
+        (zero-arg, JSON-able) feeds the ``info {plane: true}`` section."""
+        if role not in ("leader", "replica"):
+            raise ValueError(f"plane role must be leader/replica, got {role!r}")
+        self._plane_role = role
+        if stats_source is not None:
+            self._plane_stats_source = stats_source
+
+    def add_drain_hook(self, hook) -> None:
+        """Register a zero-arg callable run at the START of a graceful
+        drain (plane deregistration: the replica's subscriber stop).
+        Best-effort, run in registration order."""
+        self._drain_hooks.append(hook)
+
     def begin_drain(self, *, timeout_s=None, reason: str = "") -> dict:
         """Gracefully drain this server: stop accepting compute and
-        reload ops (refused with the ``draining`` wire code — retryable
-        elsewhere), wait up to ``timeout_s`` for in-flight gated ops to
-        finish, then fire :attr:`on_drained` with the drain record.
+        mutation ops (refused with the ``draining`` wire code — retryable
+        elsewhere), deregister from the plane (drain hooks and the
+        leader's drain announcement), wait up to ``timeout_s`` for
+        in-flight gated ops to finish, then write ONE drain record to the
+        audit log and the request log and fire :attr:`on_drained`.
 
         Idempotent and thread-safe: the second and later callers get the
         first drain's record back with ``"already": true``.  Diagnostics
-        (ping/info) keep answering throughout.
+        (ping/info/dump) keep answering throughout.
         """
         timeout_s = (
             self._drain_timeout_s if timeout_s is None else float(timeout_s)
@@ -515,6 +602,16 @@ class CapacityServer:
         with self._drain_lock:
             if self._drain_result is not None:
                 return {**self._drain_result, "already": True}
+            for hook in list(self._drain_hooks):
+                try:
+                    hook()
+                except Exception:  # noqa: BLE001 - hooks never block a drain
+                    pass
+            if self._plane is not None:
+                try:
+                    self._plane.announce_drain()
+                except Exception:  # noqa: BLE001 - fan-out never blocks a drain
+                    pass
             t0 = time.monotonic()
             with self._drain_cv:
                 while self._active_gated > 0:
@@ -534,6 +631,19 @@ class CapacityServer:
                 "waited_s": round(waited, 3),
                 "drained": remaining == 0,
             }
+            # The final drain record, durable in the audit log and the
+            # request log: this exit was intentional, and here is what it
+            # waited for.
+            if self._audit is not None:
+                try:
+                    self._audit.append_raw(record)
+                except Exception:  # noqa: BLE001 - best-effort by contract
+                    pass
+            if self._request_log is not None:
+                try:
+                    self._request_log.record(**record)
+                except Exception:  # noqa: BLE001 - best-effort by contract
+                    pass
             self._drain_result = record
         if self.on_drained is not None:
             try:
@@ -570,12 +680,89 @@ class CapacityServer:
         # Every publish path funnels here, so the node-shape-compression
         # gauges update on the same publisher thread.
         _snapshot_publish_group_metrics(snapshot)
+        # Plane fan-out rides the same publisher thread, BEFORE the
+        # timeline's O(N) watchlist evaluation: replicas hear about a
+        # generation as early as possible, and a failed fan-out never
+        # fails the swap it observes.
+        if self._plane is not None:
+            try:
+                self._plane.publish(snapshot, generation)
+            except Exception:  # noqa: BLE001 - fan-out never fails a swap
+                pass
         if self._timeline is None:
             return
         try:
             self._timeline.observe(snapshot, generation)
         except Exception:  # noqa: BLE001 - observability never fails a swap
             pass
+
+    def _audit_generation(self, snapshot, generation: int) -> None:
+        """Record one published generation in the audit log.  Same
+        best-effort contract as the timeline hook: auditing never fails
+        the publish it records."""
+        if self._audit is None:
+            return
+        try:
+            self._audit.record_generation(snapshot, generation)
+        except Exception:  # noqa: BLE001 - auditing never fails a swap
+            pass
+
+    # Ops worth a durable audit record: everything that answers from or
+    # mutates served state.  Pure diagnostics (ping/info/dump/timeline)
+    # would only bury the forensic record under its own readers.
+    _AUDITED_OPS = frozenset(
+        {
+            "fit", "sweep", "sweep_multi", "place", "drain",
+            "topology_spread", "plan", "explain", "car", "gang",
+            "optimize", "forecast", "update", "reload",
+        }
+    )
+
+    def _audit_request(
+        self, msg, op_label, gen, error, result, tenant=None,
+        trace_sampled=None,
+    ):
+        """One audit-log request record; returns its audit ref (or
+        ``None``).  Best-effort: the audit trail observes dispatch, it
+        never fails it.  When tenancy is armed the DERIVED tenant rides
+        the stripped args (tokens never do), so a replay can filter one
+        tenant's traffic.  ``trace_sampled`` is the tail sampler's
+        verdict for this request (``None`` = no sampler)."""
+        if self._audit is None or op_label not in self._AUDITED_OPS:
+            return None
+        from kubernetesclustercapacity_tpu_torch.audit.log import strip_args
+
+        try:
+            args = strip_args(msg)
+            if tenant is not None:
+                args = dict(args, tenant=tenant)
+            return self._audit.record_request(
+                op=op_label,
+                args=args,
+                generation=gen,
+                status="error" if error else "ok",
+                result=result,
+                error=error,
+                trace_sampled=trace_sampled,
+            )
+        except Exception:  # noqa: BLE001 - auditing never fails an op
+            return None
+
+    def _tenant_of(self, msg: dict) -> str:
+        """Attribute one request to a tenant (tenancy armed only).  The
+        dedicated ``tenant_token`` field wins, then the ``token`` field
+        doubling as a per-tenant token, then an explicit ``tenant``
+        label (trusted only as a LABEL — quotas, not secrets), then the
+        ``"default"`` identity every tenantless client gets.
+        Attribution never authenticates; `_dispatch_routed` does."""
+        t = self._tenants.tenant_of(msg.get("tenant_token"))
+        if t is None:
+            t = self._tenants.tenant_of(msg.get("token"))
+        if t is None:
+            explicit = msg.get("tenant")
+            if isinstance(explicit, str) and explicit:
+                t = explicit
+        return t or "default"
 
     def start(self) -> None:
         self._serving = True
@@ -640,17 +827,16 @@ class CapacityServer:
         "plan", "explain", "car", "gang",
     })
 
+    # The ops admission control governs: everything that dispatches
+    # device work.  Diagnostics (ping/info/dump/...) always pass — an
+    # overloaded replica must still answer health probes.
+    _ADMISSION_OPS = _COMPUTE_OPS | {"optimize", "forecast"}
+
     # The ops a graceful drain refuses and waits out: compute work plus
     # mutations.  ping/info/dump/timeline/slo stay answerable so load
     # balancers and operators can watch the drain; drain_server itself
     # must pass.
-    _DRAIN_GATED_OPS = frozenset(
-        {
-            "fit", "sweep", "sweep_multi", "place", "drain",
-            "topology_spread", "plan", "explain", "car", "gang",
-            "optimize", "forecast", "update", "reload",
-        }
-    )
+    _DRAIN_GATED_OPS = _ADMISSION_OPS | {"update", "reload"}
 
     def dispatch(self, msg: dict) -> dict | str:
         """Instrumented entry: count/time every request (by op), record a
@@ -682,13 +868,24 @@ class CapacityServer:
             span_ctx if self._trace_sink is not None else None
         )
         wall0 = time.time()
+        # Tenant attribution happens ONCE, up front, and rides the whole
+        # dispatch: admission quotas, the micro-batcher (through the
+        # dispatch TLS), per-tenant metrics, the request log, the audit
+        # trail and the flight record.  None ⇔ tenancy off.
+        tenant = self._tenant_of(msg) if self._tenants is not None else None
+        self._dispatch_tls.tenant = tenant
         self._m_requests.labels(op=op_label).inc()
+        if self._m_tenant_requests is not None:
+            self._m_tenant_requests.labels(
+                tenant=self._tenants.label(tenant)
+            ).inc()
         self._m_inflight.inc()
         clk = _phases.new_clock()
         prev_clk = _phases.activate(clk)
         t0 = time.perf_counter()
         error: str | None = None
         result = None
+        release = None
         gated = False
         try:
             if op_label in self._DRAIN_GATED_OPS:
@@ -700,9 +897,26 @@ class CapacityServer:
                 if draining:
                     # Refused BEFORE any work: safe to retry elsewhere
                     # (the wire code says so), mutations included.
+                    if self._admission is not None:
+                        self._admission.count_shed(op_label, "draining")
                     raise DrainingError(
                         "server is draining; retry another replica"
                     )
+            if (
+                self._admission is not None
+                and op_label in self._ADMISSION_OPS
+            ):
+                # Admission gates BEFORE routing: a shed request never
+                # parses a grid, waits for a compute slot or touches the
+                # device.
+                release = self._admission.admit(
+                    op_label,
+                    self._check_deadline(msg, shed=False),
+                    # optimize refreshes the shadow-price signal, so it
+                    # is never gated by it (see AdmissionController).
+                    priced=op_label != "optimize",
+                    tenant=tenant,
+                )
             result = self._dispatch_routed(msg)
             return result
         except Exception as e:
@@ -710,6 +924,8 @@ class CapacityServer:
             error = f"{type(e).__name__}: {e}"
             raise
         finally:
+            if release is not None:
+                release()
             if gated:
                 with self._drain_cv:
                     self._active_gated -= 1
@@ -723,6 +939,11 @@ class CapacityServer:
                     span_ctx.trace_id if span_ctx is not None else None
                 ),
             )
+            self._dispatch_tls.tenant = None
+            if self._m_tenant_latency is not None:
+                self._m_tenant_latency.labels(
+                    tenant=self._tenants.label(tenant)
+                ).observe(dur)
             phase_items = clk.items() if clk else ()
             for ph, secs in phase_items:
                 self._m_phase.labels(op=op_label, phase=ph).observe(secs)
@@ -765,13 +986,18 @@ class CapacityServer:
                         generation=gen,
                         latency_ms=round(dur * 1e3, 3),
                         status="error" if error else "ok",
+                        **({"tenant": tenant} if tenant is not None else {}),
                         **({"error": error} if error else {}),
                     )
                 except Exception:  # noqa: BLE001 - logging must not fail ops
                     pass
+            audit_ref = self._audit_request(
+                msg, op_label, gen, error, result, tenant=tenant,
+                trace_sampled=sampled,
+            )
             self._flight_record(
-                msg, op_label, trace_id, dur, error, result, gen,
-                phases=(clk.to_ms() if clk else None),
+                msg, op_label, trace_id, dur, error, result, gen, audit_ref,
+                phases=(clk.to_ms() if clk else None), tenant=tenant,
                 trace_sampled=sampled,
             )
 
@@ -816,7 +1042,7 @@ class CapacityServer:
 
     def _flight_record(
         self, msg, op_label, trace_id, dur, error, result, gen,
-        phases=None, trace_sampled=None,
+        audit_ref=None, phases=None, tenant=None, trace_sampled=None,
     ) -> None:
         """One flight-recorder entry per dispatch (the failing request
         included), then — on error, when configured — the whole ring
@@ -836,7 +1062,9 @@ class CapacityServer:
                     "" if result is None else flightrec.result_digest(result)
                 ),
                 error=error,
+                audit_ref=audit_ref,
                 phases=phases,
+                tenant=tenant or "",
                 trace_sampled=trace_sampled,
             )
             if error and self._flight_dump_path:
@@ -858,6 +1086,16 @@ class CapacityServer:
             ok = isinstance(token, str) and hmac.compare_digest(
                 token.encode(), self._auth_token.encode()
             )
+            if not ok and self._tenants is not None:
+                # A mapped per-tenant token authenticates too (looked up
+                # by SHA-256 digest, no data-dependent scan over secrets),
+                # in the ``token`` field or the dedicated
+                # ``tenant_token`` field.
+                ok = (
+                    self._tenants.tenant_of(token) is not None
+                    or self._tenants.tenant_of(msg.get("tenant_token"))
+                    is not None
+                )
             if not ok:
                 raise PermissionError("missing or invalid auth token")
         if op in UNPORTED_OPS:
@@ -1033,18 +1271,24 @@ class CapacityServer:
             # The protocol feature handshake: what THIS server speaks.
             "capabilities": {
                 "protocol": 2,
-                "plane": False,
-                "admission": False,
+                "plane": self._plane_role is not None,
+                "admission": self._admission is not None,
                 "drain": True,
-                "tenancy": False,
+                "tenancy": self._tenants is not None,
             },
             "draining": self.draining,
         }
         # Opt-in sections (the default shape is pinned by clients that
-        # diff it); the plane, tenancy and audit sections answer as a
-        # server without those subsystems does.
+        # diff it).  ``plane``: the leader's fan-out stats or the
+        # replica's sync and staleness state.
         if msg.get("plane"):
-            out["plane"] = None
+            if self._plane_stats_source is None:
+                out["plane"] = None
+            else:
+                try:
+                    out["plane"] = self._plane_stats_source()
+                except Exception as e:  # noqa: BLE001 - info must not fail
+                    out["plane"] = {"error": f"{type(e).__name__}: {e}"}
         if msg.get("metrics"):
             out["metrics"] = self.registry.snapshot()
         if msg.get("hot_path"):
@@ -1073,12 +1317,37 @@ class CapacityServer:
                     ),
                 },
             }
+        # ``tenancy``: the tenant map's shape (never tokens) and the
+        # per-tenant admission counters.
         if msg.get("tenancy"):
-            out["tenancy"] = None
+            if self._tenants is None:
+                out["tenancy"] = None
+            else:
+                out["tenancy"] = {
+                    "tenants": self._tenants.to_wire(),
+                    "admission": (
+                        self._admission.tenant_stats()
+                        if self._admission is not None
+                        else None
+                    ),
+                }
         if msg.get("tracing"):
             out["tracing"] = self.tracing_stats()
+        # ``audit``: the audit log's and the shadow sampler's status.
         if msg.get("audit"):
-            out["audit"] = {"enabled": False, "log": None, "shadow": None}
+            out["audit"] = {
+                "enabled": (
+                    self._audit is not None or self._shadow is not None
+                ),
+                "log": (
+                    self._audit.stats() if self._audit is not None else None
+                ),
+                "shadow": (
+                    self._shadow.stats()
+                    if self._shadow is not None
+                    else None
+                ),
+            }
         return out
 
     # PodSpec extension fields a fit message may carry beyond the
@@ -1936,8 +2205,8 @@ class CapacityServer:
           (the production fit path's placed counts).
 
         Same semantics and implicit strict-mode taint mask as fit/sweep.
-        The port has no admission controller, so no shadow price is fed
-        to one (as in a JAX server without one).
+        A certified ``lp`` solve feeds its worst scenario's capacity
+        share to the admission controller's shadow-price gate.
         """
         from kubernetesclustercapacity_tpu_torch.ops.fit import sweep_snapshot
         from kubernetesclustercapacity_tpu_torch.optimize import (
@@ -1996,6 +2265,17 @@ class CapacityServer:
             except (OptimizeError, ScenarioError) as e:
                 raise ValueError(f"bad optimize request: {e}") from e
             out = result.to_wire()
+            if self._admission is not None and result.all_certified:
+                # The dual prices the capacity this server serves: feed
+                # the worst (most scarce) scenario's capacity share to
+                # the shed-by-shadow-price gate.
+                share = max(
+                    (s["capacity_share"] for s in result.shadow),
+                    default=0.0,
+                )
+                self._admission.observe_shadow_price(
+                    share, certified=True
+                )
         output = msg.get("output")
         if output in ("table", "json"):
             from kubernetesclustercapacity_tpu_torch.report import (
@@ -2037,6 +2317,7 @@ class CapacityServer:
                 self._batch_key(snap, "auto"),
                 ("explain", snap, implicit_mask, grid),
                 deadline=self._check_deadline(msg),
+                tenant=getattr(self._dispatch_tls, "tenant", None),
                 trace=getattr(self._dispatch_tls, "trace_ctx", None),
                 weight=grid.size,
             )
@@ -2082,14 +2363,16 @@ class CapacityServer:
         if "priorities" in msg:
             return self._sweep_with_priorities(msg, snap, grid, fixture)
         kernel_req = msg.get("kernel", "auto")
+        key = self._batch_key(snap, kernel_req)
         if self._batcher is not None:
             # Validate BEFORE joining a batch: a bad grid must fail its
             # own request, never a batch it rode into.
             grid.validate()
             totals, sched, kernel = self._batcher.submit(
-                self._batch_key(snap, kernel_req),
+                key,
                 ("sweep", snap, implicit_mask, grid),
                 deadline=self._check_deadline(msg),
+                tenant=getattr(self._dispatch_tls, "tenant", None),
                 trace=getattr(self._dispatch_tls, "trace_ctx", None),
                 weight=grid.size,
             )
@@ -2119,6 +2402,20 @@ class CapacityServer:
                 sched = np.asarray(sched)
             if clk:
                 clk.record("fetch_overlap", time.perf_counter() - t0)
+        # Shadow-oracle sampling: the decision and a queue append of the
+        # host arrays the reply is built from (the oracle walk runs on
+        # the sampler's worker thread).  Best-effort by the
+        # observability contract.
+        if self._shadow is not None:
+            try:
+                ctx = getattr(self._dispatch_tls, "trace_ctx", None)
+                self._shadow.maybe_submit(
+                    snap, key[0], grid, totals, sched,
+                    node_mask=implicit_mask,
+                    trace_id=ctx.trace_id if ctx is not None else None,
+                )
+            except Exception:  # noqa: BLE001 - monitoring never fails ops
+                pass
         with clk.phase("serialize"):
             return {
                 "totals": totals.tolist(),
@@ -2318,6 +2615,7 @@ class CapacityServer:
         *,
         fixture_source=None,
         warm: bool = False,
+        generation: int | None = None,
     ) -> None:
         """Atomically swap the served snapshot (e.g. from a live follower).
 
@@ -2338,11 +2636,24 @@ class CapacityServer:
         are copied in place into its tensors where that is safe, and a
         request arriving next finds them staged.  The retired snapshot's
         cache entries are dropped either way, so its device memory frees
-        promptly.  The timeline then observes the new generation on the
-        same thread, after the warm pre-stage.
+        promptly.  The timeline, the plane and the audit log then observe
+        the new generation on the same thread, after the warm pre-stage.
+
+        ``generation`` (plane replicas only) ADOPTS the given generation
+        number instead of incrementing the local counter, so a replica
+        stamps its replies with the LEADER's generation.  A regressing
+        generation is refused: the plane stream is ordered, and serving
+        it would let watermarked clients see time run backwards.
         """
         mask = _implicit_taint_mask(snapshot)
         with self._lock:
+            if generation is not None:
+                generation = int(generation)
+                if generation < self._generation:
+                    raise ValueError(
+                        f"generation must not regress: {generation} < "
+                        f"served {self._generation}"
+                    )
             old = self.snapshot
             self.snapshot = snapshot
             self.fixture = fixture
@@ -2350,8 +2661,11 @@ class CapacityServer:
             self._store = None  # stale after a wholesale replace
             self._fixture_dirty = False
             self._implicit_mask = mask
-            self._generation += 1
-            generation = self._generation
+            if generation is None:
+                self._generation += 1
+                generation = self._generation
+            else:
+                self._generation = generation
         if old is not snapshot:
             if warm and _devcache.donate_enabled():
                 _devcache.CACHE.stage_replace(old, snapshot, self._device)
@@ -2362,12 +2676,27 @@ class CapacityServer:
                     _devcache.CACHE.warm(snapshot, self._device)
         # Timeline observation rides the publisher's thread (the
         # coalescer's worker under -follow) AFTER warming: a query
-        # dispatcher never pays for it.
+        # dispatcher never pays for it.  The audit record follows for the
+        # same reason (the diff walk is O(N) host work).
         self._observe_timeline(snapshot, generation)
+        self._audit_generation(snapshot, generation)
+
+    def _require_leader(self) -> None:
+        """Mutations against a plane REPLICA are refused before any
+        work: the replica's state is the leader's stream, and a local
+        mutation would silently fork it (and be clobbered by the next
+        frame).  The ``not_leader`` wire code tells multi-endpoint
+        clients to re-route, not to fail."""
+        if self._plane_role == "replica":
+            raise NotLeaderError(
+                "this server is a plane replica (read-only view of the "
+                "leader's snapshot stream); send mutations to the leader"
+            )
 
     def _op_reload(self, msg: dict, snap: ClusterSnapshot) -> dict:
         """``snap`` is the dispatch's lock-captured snapshot — reading
         ``self.snapshot`` here could tear against a concurrent reload."""
+        self._require_leader()
         with self._lock:
             if self._fixture_source is not None:
                 # Same rule as update: the next coalesced publish would
@@ -2424,6 +2753,7 @@ class CapacityServer:
         """
         from kubernetesclustercapacity_tpu_torch.store import ClusterStore
 
+        self._require_leader()
         events = msg.get("events")
         if not isinstance(events, list):
             raise ValueError("update needs an 'events' list")
@@ -2463,6 +2793,7 @@ class CapacityServer:
         # on its dispatch thread keeps the record synchronous with the
         # event batch that produced the generation.
         self._observe_timeline(snap, generation)
+        self._audit_generation(snap, generation)
         return {
             "nodes": snap.n_nodes,
             "healthy_nodes": int(np.sum(snap.healthy)),
@@ -2511,7 +2842,8 @@ def follow_publisher(server: CapacityServer, follower, *,
 
 
 def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
-                   timeline=None, slo=None):
+                   timeline=None, slo=None, audit_log=None, shadow=None,
+                   plane=None, subscriber=None):
     """``(healthy, status)``: the two callables a
     :class:`~..telemetry.exposition.MetricsServer` takes for ``/healthz``,
     as the JAX server's ``main`` wires them.
@@ -2520,13 +2852,16 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
     generation; the follower's last-relist age and fatal error; the
     coalescer's counters (``coalescers`` is read at probe time, so a
     caller may fill it after the endpoint starts); the timeline's stats;
-    the SLO monitor's (evaluated on read); ``draining``; and the device
-    ledger, reconciled on every probe.  ``healthy`` is False — a 503 —
-    while the follower is dead, an SLO fast-burns, a capacity-at-risk,
-    gang or forecast watch is breached, a drain has begun, or the device
-    ledger sees a sustained leak or a breached budget.  Plain watch
-    breaches stay advisory: they describe the cluster, not the promise
-    this server makes.
+    the audit log's and the shadow sampler's; the SLO monitor's
+    (evaluated on read); the plane's (the leader's ``plane`` publisher or
+    the replica's ``subscriber``); ``draining``; and the device ledger,
+    reconciled on every probe.  ``healthy`` is False — a 503 — while the
+    follower is dead, the shadow oracle has caught a divergence, an SLO
+    fast-burns, a capacity-at-risk, gang or forecast watch is breached,
+    the replica is stale, a drain has begun, or the device ledger sees a
+    sustained leak or a breached budget.  Plain watch breaches stay
+    advisory: they describe the cluster, not the promise this server
+    makes.
     """
 
     def status() -> dict:
@@ -2540,9 +2875,19 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
             out["coalescer"] = coalescers[0].stats()
         if timeline is not None:
             out["timeline"] = timeline.stats()
+        if audit_log is not None:
+            out["audit"] = audit_log.stats()
+        if shadow is not None:
+            # A diverged shadow oracle is a correctness incident, and the
+            # scraper must see it.
+            out["shadow"] = shadow.stats()
         if slo is not None:
             slo.evaluate()
             out["slo"] = slo.stats()
+        if plane is not None:
+            out["plane"] = plane.stats()
+        elif subscriber is not None:
+            out["plane"] = subscriber.stats()
         if server.draining:
             out["draining"] = True
         if _memledger.enabled():
@@ -2556,6 +2901,8 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
     def healthy() -> bool:
         if follower is not None and follower.fatal is not None:
             return False
+        if shadow is not None and shadow.diverged:
+            return False
         if slo is not None and slo.fast_burning:
             return False
         if timeline is not None and (
@@ -2563,6 +2910,8 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
             or timeline.gang_breached()
             or timeline.forecast_breached()
         ):
+            return False
+        if subscriber is not None and subscriber.stale:
             return False
         if server.draining:
             return False
@@ -2580,19 +2929,6 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
 # table): each is declared, so using it exits 1 with "not yet ported".
 _UNPORTED_SERVER_FLAGS = (
     ("-profile-hz", "value"),
-    ("-audit-dir", "value"),
-    ("-audit-max-bytes", "value"),
-    ("-audit-checkpoint-every", "value"),
-    ("-shadow-sample-rate", "value"),
-    ("-shadow-bundle", "value"),
-    ("-plane-port", "value"),
-    ("-plane-leader", "value"),
-    ("-plane-stale-after-s", "value"),
-    ("-admission-max-concurrent", "value"),
-    ("-admission-rps", "value"),
-    ("-admission-burst", "value"),
-    ("-admission-price-budget", "value"),
-    ("-tenants", "value"),
 )
 
 
@@ -2708,6 +3044,35 @@ def build_parser():
                    dest="log_json_max_bytes", metavar="N",
                    help="rotate the -log-json file to PATH.1 once it "
                         "exceeds N bytes (0 = unbounded)")
+    p.add_argument("-audit-dir", default=None, dest="audit_dir",
+                   metavar="DIR",
+                   help="durable audit log: append JSONL segments to "
+                        "DIR recording every snapshot generation "
+                        "(invertible diffs + periodic checkpoints, "
+                        "digest-chained) and every answering/mutating "
+                        "request (full args + result digest) — replay "
+                        "offline with kccap-torch -replay DIR")
+    p.add_argument("-audit-max-bytes", type=int, default=8 << 20,
+                   dest="audit_max_bytes", metavar="N",
+                   help="rotate audit segments once they exceed N "
+                        "bytes (default 8 MiB)")
+    p.add_argument("-audit-checkpoint-every", type=int, default=16,
+                   dest="audit_checkpoint_every", metavar="K",
+                   help="write a full-snapshot checkpoint every K "
+                        "generations (bounds replay cost; default 16)")
+    p.add_argument("-shadow-sample-rate", type=float, default=0.0,
+                   dest="shadow_sample_rate", metavar="FRACTION",
+                   help="re-check this fraction of live sweep "
+                        "responses against the pure-Python oracle, off "
+                        "the request path (0 = off); a divergence "
+                        "flips /healthz, trips the shadow alert, and "
+                        "writes a repro bundle")
+    p.add_argument("-shadow-bundle", default=None, dest="shadow_bundle",
+                   metavar="PATH",
+                   help="append shadow-divergence repro bundles as "
+                        "JSONL to PATH (default: "
+                        "<audit-dir>/shadow-divergence.jsonl when "
+                        "-audit-dir is set)")
     p.add_argument("-slo", default=None, metavar="FILE",
                    help="SLO file (YAML/JSON): latency objectives "
                         "('p99 < 80ms', per op or all ops) and "
@@ -2724,6 +3089,60 @@ def build_parser():
                    dest="slo_eval_s", metavar="SECONDS",
                    help="background SLO evaluation cadence (the slo op "
                         "and /healthz also evaluate on read)")
+    p.add_argument("-plane-port", type=int, default=0, dest="plane_port",
+                   metavar="PORT",
+                   help="serve the replication plane on this port "
+                        "(LEADER mode): every published snapshot "
+                        "generation fans out to subscribed replica "
+                        "servers as digest-chained checkpoint/diff "
+                        "frames (0 = no plane)")
+    p.add_argument("-plane-leader", default=None, dest="plane_leader",
+                   metavar="HOST:PORT",
+                   help="follow another server's replication plane "
+                        "(REPLICA mode): stage each digest-verified "
+                        "generation from the leader's stream and serve "
+                        "it read-only, stamped with the leader's "
+                        "generation numbers")
+    p.add_argument("-plane-stale-after-s", type=float, default=10.0,
+                   dest="plane_stale_after_s", metavar="SECONDS",
+                   help="replica staleness bound: with no plane frame "
+                        "(heartbeats included) for this long, the "
+                        "replica reports itself stale via info/healthz "
+                        "so clients route around it")
+    p.add_argument("-admission-max-concurrent", type=int, default=0,
+                   dest="admission_max_concurrent", metavar="N",
+                   help="admission control: at most N compute requests "
+                        "admitted at once; excess queues briefly then "
+                        "sheds with the retryable-elsewhere "
+                        "'overloaded' error (0 = no concurrency gate)")
+    p.add_argument("-admission-rps", type=float, default=0.0,
+                   dest="admission_rps", metavar="RPS",
+                   help="admission control: token-bucket cap on "
+                        "admitted compute requests per second "
+                        "(0 = no rps cap)")
+    p.add_argument("-admission-burst", type=float, default=0.0,
+                   dest="admission_burst", metavar="N",
+                   help="token-bucket burst capacity for -admission-rps "
+                        "(0 = max(rps, 1))")
+    p.add_argument("-admission-price-budget", type=float, default=0.0,
+                   dest="admission_price_budget", metavar="SHARE",
+                   help="shed-by-shadow-price: while the last CERTIFIED "
+                        "optimize solve prices more than this share of "
+                        "capacity (its shadow-price capacity_share in "
+                        "(0, 1]), compute requests shed with the "
+                        "retryable-elsewhere 'overloaded' error "
+                        "(0 = no price gate; the optimize op itself is "
+                        "never price-gated)")
+    p.add_argument("-tenants", default=None, metavar="FILE",
+                   help="tenant map (YAML/JSON): named tenants with "
+                        "per-tenant auth tokens, rps caps, concurrency "
+                        "quotas, and weighted-fair admission weights; "
+                        "requests are attributed by token (old "
+                        "tenantless clients become 'default'), quota "
+                        "overage sheds with the authoritative "
+                        "'tenant_quota' error, and kccap_tenant_* "
+                        "metrics follow the identity with bounded "
+                        "cardinality (KCCAP_TENANCY=0 disables)")
     p.add_argument("-drain-timeout-s", type=float, default=10.0,
                    dest="drain_timeout_s", metavar="SECONDS",
                    help="graceful drain bound (SIGTERM/SIGINT or the "
@@ -2869,6 +3288,35 @@ def main(argv=None) -> int:
         request_log = TraceLog(
             args.log_json, max_bytes=max(args.log_json_max_bytes, 0)
         )
+    audit_log = None
+    if args.audit_dir:
+        from kubernetesclustercapacity_tpu_torch.audit import AuditLog
+
+        try:
+            audit_log = AuditLog(
+                args.audit_dir,
+                segment_max_bytes=max(args.audit_max_bytes, 1),
+                checkpoint_every=max(args.audit_checkpoint_every, 1),
+                registry=REGISTRY,
+            )
+        except OSError as e:
+            return _fail(f"ERROR : cannot open audit dir: {e}")
+    shadow = None
+    if args.shadow_sample_rate > 0:
+        from kubernetesclustercapacity_tpu_torch.audit import ShadowSampler
+
+        bundle = args.shadow_bundle
+        if bundle is None and args.audit_dir:
+            bundle = os.path.join(args.audit_dir, "shadow-divergence.jsonl")
+        try:
+            shadow = ShadowSampler(
+                args.shadow_sample_rate,
+                registry=REGISTRY,
+                bundle_path=bundle,
+                audit_log=audit_log,
+            )
+        except ValueError as e:
+            return _fail(f"ERROR : {e}")
     slo_monitor = None
     if args.slo:
         from kubernetesclustercapacity_tpu_torch.telemetry.slo import (
@@ -2885,6 +3333,58 @@ def main(argv=None) -> int:
             ).start(max(args.slo_eval_s, 0.5))
         except (OSError, SLOError) as e:
             return _fail(f"ERROR : bad SLO file: {e}")
+    tenants = None
+    if args.tenants:
+        from kubernetesclustercapacity_tpu_torch.service import tenancy
+
+        if not tenancy.enabled():
+            # The escape hatch beats the flag: KCCAP_TENANCY=0 keeps the
+            # tenantless single-queue admission path.
+            print("WARN  : -tenants ignored (KCCAP_TENANCY=0)",
+                  file=sys.stderr)
+        else:
+            try:
+                tenants = tenancy.load_tenants(args.tenants)
+            except (OSError, tenancy.TenancyError) as e:
+                return _fail(f"ERROR : bad tenant map: {e}")
+    admission = None
+    if (
+        args.admission_max_concurrent > 0
+        or args.admission_rps > 0
+        or args.admission_price_budget > 0
+        or tenants is not None
+    ):
+        from kubernetesclustercapacity_tpu_torch.service.plane import (
+            AdmissionController,
+        )
+
+        if not 0.0 <= args.admission_price_budget <= 1.0:
+            return _fail("ERROR : -admission-price-budget must be in [0, 1]")
+        admission = AdmissionController(
+            max_concurrent=max(args.admission_max_concurrent, 0),
+            rps=max(args.admission_rps, 0.0),
+            burst=args.admission_burst if args.admission_burst > 0 else None,
+            price_budget=args.admission_price_budget,
+            registry=REGISTRY,
+            tenants=tenants,
+        )
+    plane_pub = None
+    if args.plane_port:
+        if args.plane_leader:
+            return _fail("ERROR : -plane-port (leader) and -plane-leader "
+                         "(replica) are mutually exclusive")
+        from kubernetesclustercapacity_tpu_torch.service.plane import (
+            PlanePublisher,
+        )
+
+        try:
+            plane_pub = PlanePublisher(
+                host=args.host, port=args.plane_port,
+                token=auth_token, registry=REGISTRY,
+                trace_log=trace_log,
+            )
+        except OSError as e:
+            return _fail(f"ERROR : cannot bind plane port: {e}")
 
     server = CapacityServer(
         snap,
@@ -2909,7 +3409,36 @@ def main(argv=None) -> int:
         timeline=timeline,
         request_log=request_log,
         slo=slo_monitor,
+        audit_log=audit_log,
+        shadow=shadow,
+        admission=admission,
+        plane=plane_pub,
+        tenants=tenants,
     )
+    subscriber = None
+    if args.plane_leader:
+        if args.follow:
+            server.shutdown()
+            return _fail("ERROR : a plane replica (-plane-leader) cannot "
+                         "also -follow a cluster (its state IS the "
+                         "leader's stream)")
+        from kubernetesclustercapacity_tpu_torch.service.plane import (
+            PlaneSubscriber,
+        )
+
+        host_s, _, port_s = args.plane_leader.rpartition(":")
+        if not host_s or not port_s.isdigit():
+            server.shutdown()
+            return _fail(f"ERROR : bad -plane-leader {args.plane_leader!r} "
+                         "(want HOST:PORT)")
+        subscriber = PlaneSubscriber(
+            (host_s, int(port_s)),
+            server,
+            token=auth_token,
+            stale_after_s=max(args.plane_stale_after_s, 0.1),
+            registry=REGISTRY,
+            trace_log=trace_log,
+        )
     metrics_server = None
     coalescers: list = []  # filled below; /healthz reads it per probe
     if args.metrics_port:
@@ -2919,7 +3448,8 @@ def main(argv=None) -> int:
 
         healthy, status = healthz_probes(
             server, follower=follower, coalescers=coalescers,
-            timeline=timeline, slo=slo_monitor,
+            timeline=timeline, slo=slo_monitor, audit_log=audit_log,
+            shadow=shadow, plane=plane_pub, subscriber=subscriber,
         )
         try:
             metrics_server = start_metrics_server(
@@ -3007,6 +3537,10 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if subscriber is not None:
+            subscriber.stop()
+        if plane_pub is not None:
+            plane_pub.close()
         if follower is not None:
             follower.stop()
         if coalescer is not None:
@@ -3017,6 +3551,10 @@ def main(argv=None) -> int:
             timeline.close()  # flush the -timeline-log JSONL
         if slo_monitor is not None:
             slo_monitor.close()  # stop the evaluator, flush -slo-log
+        if shadow is not None:
+            shadow.close()
+        if audit_log is not None:
+            audit_log.close()
         server.shutdown()
     return 0
 

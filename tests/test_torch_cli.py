@@ -165,8 +165,8 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
     [
         (["-snapshot", KIND, "-backend", "native"],
          "-backend native: not yet ported"),
-        (["-snapshot", KIND, "-replay", "audit-dir"],
-         "-replay: not yet ported"),
+        (["-snapshot", KIND, "-trace-tree", "ab" * 16],
+         "-trace-tree: not yet ported"),
         (["-snapshot", KIND, "-fed-status", "127.0.0.1:1", "-grid", "4"],
          "-fed-status: not yet ported"),
     ],
@@ -374,6 +374,10 @@ def _options(parser):
 
 JAX_FLAGS = _options(j_cli.build_parser())
 PORTED_NEW = ("-save-snapshot", "-node-bucket-floor", "-group-min-count")
+# The audit-replay and plane flags: each runs as in the JAX CLI (exit code
+# and error line equal on the same command line).
+PORTED_AUDIT_PLANE = ("-replay", "-replay-ref", "-replay-generation",
+                      "-replay-tenant", "-plane-status")
 
 
 @pytest.fixture
@@ -429,6 +433,14 @@ def test_no_jax_cli_flag_gives_argparse_exit_2(
                        "package ...exiting\n")
     elif flag in PORTED_NEW:
         assert rc == 0
+    elif flag in PORTED_AUDIT_PLANE:
+        outs = []
+        for main, run_argv in ((t_cli.main, argv), (j_cli.main, argv[:-2])):
+            run_rc = main(run_argv)
+            run_out, run_err = capsys.readouterr()
+            outs.append((run_rc, run_out, run_err.splitlines()[:1]))
+        assert outs[0] == outs[1] and outs[0][0] == rc
+        assert "not yet ported" not in str(outs[0])
 
 
 def test_save_snapshot_writes_the_jax_clis_arrays(tmp_path, capsys):

@@ -6,7 +6,9 @@ card (the seeded draws equal the host's; capacity-at-risk, the horizon and
 the catalog plan equal their oracles and host runs), and gang capacity and
 the LP optimizer on the card (the int64 gang programs, grouped and per
 node, equal ``gang_oracle`` and the host; the PDHG's integer answers equal
-the host's).
+the host's), and the audit trail and the plane on the card (a log replays
+clean on the card, one B1 launch a replayed sweep, equal to the host's
+replay; a replica's sweep launches B1 once and equals the leader's).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -941,3 +943,75 @@ def test_healthz_and_metrics_answer_with_a_card(cuda):
     assert body["device_memory"]["leak_alert"]["state"] != "breached"
     assert 'kccap_watch_replicas{watch="plain"}' in text
     assert 'kccap_car_replicas{watch="p95"}' in text
+
+
+def test_replay_on_the_card_launches_b1_and_equals_the_host(cuda, tmp_path):
+    """A log written by a server on the card replays clean on the card
+    (each replayed sweep one launch of B1) and on the host, alike."""
+    from kubernetesclustercapacity_tpu_torch.audit import (
+        AuditLog,
+        AuditReader,
+        Replayer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service import CapacityServer
+
+    log = AuditLog(str(tmp_path / "audit"), checkpoint_every=2)
+    server = CapacityServer(synthetic_snapshot(3_000, seed=31),
+                            device="cuda", batch_window_ms=0, audit_log=log)
+    try:
+        for g in range(3):
+            server.dispatch({"op": "sweep", "random": {"n": 256, "seed": g}})
+            server.dispatch({"op": "explain", "cpuRequests": "300m",
+                             "memRequests": "500mb"})
+            server.replace_snapshot(synthetic_snapshot(3_000, seed=32 + g))
+    finally:
+        server.shutdown()
+        log.close()
+    results = {}
+    for device in ("cuda", "cpu"):
+        before = ff.LAUNCHES
+        with Replayer(AuditReader.load(str(tmp_path / "audit")),
+                      device=device) as rp:
+            results[device] = rp.replay_all()
+        if device == "cuda":
+            assert ff.LAUNCHES - before == 3
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"]["clean"]
+    assert results["cuda"]["counts"] == {"ok": 6, "mismatch": 0,
+                                         "skipped": 0, "error": 0}
+
+
+def test_replica_sweep_launches_b1_once_and_equals_the_leader(cuda):
+    """A replica on the card stages each verified generation there; its
+    sweep is one launch of B1 and equals the leader's."""
+    import time
+
+    from kubernetesclustercapacity_tpu_torch.service import CapacityServer
+    from kubernetesclustercapacity_tpu_torch.service.plane import (
+        PlanePublisher,
+        PlaneSubscriber,
+    )
+
+    pub = PlanePublisher(heartbeat_s=3600.0)
+    leader = CapacityServer(synthetic_snapshot(4_000, seed=41),
+                            device="cuda", batch_window_ms=0, plane=pub)
+    replica = CapacityServer(synthetic_snapshot(10, seed=1), device="cuda",
+                             batch_window_ms=0)
+    sub = PlaneSubscriber(pub.address, replica, stale_after_s=30.0)
+    try:
+        leader.replace_snapshot(synthetic_snapshot(4_000, seed=42))
+        deadline = time.monotonic() + 60
+        while sub.applied_generation < leader.generation:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        msg = {"op": "sweep", "random": {"n": 1_000, "seed": 7}}
+        before = ff.LAUNCHES
+        got = replica.dispatch(dict(msg))
+        assert ff.LAUNCHES - before == 1
+        assert got["kernel"] == "cuda_i32_rcp_fused"
+        assert got["totals"] == leader.dispatch(dict(msg))["totals"]
+    finally:
+        pub.close()
+        sub.stop()
+        leader.shutdown()
+        replica.shutdown()

@@ -73,7 +73,11 @@ def test_the_scan_is_not_vacuous():
                    "optimize/lp.py", "optimize/__init__.py",
                    "telemetry/exposition.py", "telemetry/process.py",
                    "telemetry/slo.py", "timeline/watchlist.py",
-                   "timeline/history.py", "timeline/__init__.py"):
+                   "timeline/history.py", "timeline/__init__.py",
+                   "audit/replay.py", "audit/shadow.py",
+                   "audit/__init__.py", "testing_faults.py",
+                   "service/tenancy.py", "service/plane.py",
+                   "service/replicaset.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 

@@ -761,11 +761,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_server_main_rejects_unported_flags_with_exit_1(capsys):
     from kubernetesclustercapacity_tpu_torch.service import server
 
-    rc = server.main(["-snapshot", KIND, "-profile-hz", "5",
-                      "-tenants", "t.yaml"])
+    assert [f for f, _ in server._UNPORTED_SERVER_FLAGS] == ["-profile-hz"]
+    rc = server.main(["-snapshot", KIND, "-profile-hz", "5"])
     err = capsys.readouterr().err
     assert rc == 1
-    assert err == ("ERROR : -profile-hz, -tenants: not yet ported to "
+    assert err == ("ERROR : -profile-hz: not yet ported to "
                    "the PyTorch package ...exiting\n")
 
 
