@@ -64,9 +64,21 @@ its sweeps, B2 for ``sweep_multi``); two replicas on the card follow its
 plane (one through a fault proxy that cuts the stream once), each equal to
 the leader at every generation with one B1 launch a sweep; the capped
 tenant is refused; ``-replay`` of the leader's log verifies every request
-on the card (B1 once a replayed sweep) and equals the host's replay.  Any
-failure
-raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
+on the card (B1 once a replayed sweep) and equals the host's replay.  Path
+(s) drives the federation tier: the JAX bench's fleet of 4 x 1,000,000
+nodes injected into one federation on the card (per-cluster totals equal
+``fit_totals_numpy``, cluster-0 stale then lost and excluded by name on a
+driven clock), then three strict 5,000-node leaders on the card feeding a
+federation on the card through their planes (one through a fault proxy):
+after each of 6 ``update`` batches on one leader every ``per_cluster`` row
+of ``fed_sweep`` equals that leader's B1 sweep, and the proxied cluster is
+partitioned (stale, lost: excluded, ``spillover`` refused, ``/healthz``
+503, ``-fed-status``/``-fed-sweep`` exit 1) and healed.  Path (t) drives
+the diagnostics against those servers: ``-doctor`` (exit 0 naming the
+card, 1 with the cluster lost), ``-trace-tree`` over their span logs, a
+leader's sampling profiler through ``-profile``, and ``-jax-profile`` of a
+``-grid`` run, whose ``torch.profiler`` trace names ``sweep_fit``.  Any
+failure raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
 Output: phase lines, one JSON line per timed kernel variant, a
@@ -4682,6 +4694,586 @@ def repl_healthz(url: str, stage: str) -> dict:
     return {"stage": stage, "code": code}
 
 
+# ---------------------------------------------------------------------------
+# Path (s): the federation tier; path (t): the diagnostics against it
+# ---------------------------------------------------------------------------
+# (s1) the JAX bench's federated fleet (bench.py:1600-1660): 4 clusters of
+# synthetic_snapshot(1_000_000, seed=100+i, shapes=8) injected into one
+# federation on a driven clock, the bench's 3-scenario query.
+FED_BENCH_NODES = 1_000_000
+FED_BENCH_CLUSTERS = 4
+FED_BENCH_QUERY = {"cpu_request_milli": [100, 250, 900],
+                   "mem_request_bytes": [10 ** 8, 3 * 10 ** 8, 10 ** 9],
+                   "replicas": [1, 4, 16]}
+# (s2) three live member clusters at (m)'s size, each a strict leader on
+# the card with a plane publisher; the federation's horizons are seconds.
+FED_MEMBERS = ("c0", "c1", "c2")
+FED_PROXIED = "c2"
+FED_STALE_S, FED_EVICT_S = 3.0, 8.0
+FED_HEARTBEAT_S = 0.2
+FED_WARM = 20
+FED_ONE = {"cpuRequests": "500m", "memRequests": "1gb", "replicas": "5000"}
+FED_COSTS = {"c0": 3.0, "c1": 1.0}
+FED_DEVICE = "cuda"
+FED_B1_LABEL = "cuda_i32_rcp_fused"
+PROFILE_HZ = 97
+
+
+JAX_PROFILE_CHILD = """\
+import json, sys
+from kubernetesclustercapacity_tpu_torch import cli
+from kubernetesclustercapacity_tpu_torch.ops import fused_fit
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"launches": fused_fit.LAUNCHES}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def wait_until(what: str, predicate, timeout_s: float = 120.0,
+               interval_s: float = 0.001) -> float:
+    """Poll ``predicate`` until it holds; returns the host clock then."""
+    deadline = time.perf_counter() + timeout_s
+    while not predicate():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(interval_s)
+    return time.perf_counter()
+
+
+def http_status(url: str) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_cli_both(cli, argv: list[str]) -> tuple[int, str, str]:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def grid_wire(grid) -> dict:
+    return {"cpu_request_milli": grid.cpu_request_milli.tolist(),
+            "mem_request_bytes": grid.mem_request_bytes.tolist(),
+            "replicas": grid.replicas.tolist()}
+
+
+def phase_fed_bench(pkg, ff) -> dict:
+    """(s1): the bench's federated fleet, its partition of cluster-0 on
+    the driven clock (stale, then lost and excluded by name), and the
+    parity gate against ``fit_totals_numpy`` at each stamped
+    generation."""
+    from kubernetesclustercapacity_tpu_torch.federation import (
+        FederationServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.stochastic.car import (
+        fit_totals_numpy,
+    )
+
+    t_phase = time.perf_counter()
+    now = [0.0]
+    query = {"op": "fed_sweep", **FED_BENCH_QUERY}
+    cpu = np.asarray(FED_BENCH_QUERY["cpu_request_milli"], dtype=np.int64)
+    mem = np.asarray(FED_BENCH_QUERY["mem_request_bytes"], dtype=np.int64)
+    fed = FederationServer(stale_after_s=30.0, evict_after_s=120.0,
+                           clock=lambda: now[0], device=FED_DEVICE)
+    try:
+        snaps = {}
+        for i in range(FED_BENCH_CLUSTERS):
+            name = f"cluster-{i}"
+            snaps[name] = pkg.synthetic_snapshot(FED_BENCH_NODES,
+                                                 seed=100 + i, shapes=8)
+            fed.inject(name, snaps[name], generation=i + 1)
+        built_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        r_first = fed.dispatch(dict(query))
+        first_ms = (time.perf_counter() - t0) * 1e3
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fed.dispatch(dict(query))
+            warm.append((time.perf_counter() - t0) * 1e3)
+        now[0] = 60.0
+        for i, (name, snap) in enumerate(snaps.items()):
+            if name != "cluster-0":
+                fed.inject(name, snap, generation=100 + i)
+        r_stale = fed.dispatch(dict(query))
+        c0 = r_stale["clusters"]["cluster-0"]
+        if c0["state"] != "stale" or not 30.0 < c0["age_s"] <= 120.0 or \
+                "cluster-0" not in r_stale["per_cluster"]:
+            raise AssertionError(f"(s1) cluster-0 after 60 s: {c0}")
+        diffs = 0
+        for result in (r_first, r_stale):
+            grand = np.zeros(len(cpu), dtype=np.int64)
+            for name, snap in snaps.items():
+                want = fit_totals_numpy(
+                    snap.alloc_cpu_milli, snap.alloc_mem_bytes,
+                    snap.alloc_pods, snap.used_cpu_req_milli,
+                    snap.used_mem_req_bytes, snap.pods_count, snap.healthy,
+                    cpu, mem, mode=snap.semantics)
+                got = np.asarray(result["per_cluster"][name], dtype=np.int64)
+                diffs += int(np.sum(want != got))
+                grand = grand + got
+            diffs += int(np.sum(grand != np.asarray(result["totals"])))
+        if diffs:
+            raise AssertionError(f"(s1) {diffs} parity differences")
+        now[0] = 200.0
+        for i, (name, snap) in enumerate(snaps.items()):
+            if name != "cluster-0":
+                fed.inject(name, snap, generation=200 + i)
+        r_lost = fed.dispatch(dict(query))
+        survivors = sum(np.asarray(r_lost["per_cluster"][n], dtype=np.int64)
+                        for n in snaps if n != "cluster-0")
+        if r_lost["excluded"] != ["cluster-0"] or \
+                "cluster-0" in r_lost["per_cluster"] or \
+                r_lost["clusters"]["cluster-0"]["state"] != "lost" or \
+                not np.array_equal(survivors, r_lost["totals"]):
+            raise AssertionError(f"(s1) cluster-0 after 200 s: "
+                                 f"{r_lost['clusters']['cluster-0']}, "
+                                 f"excluded {r_lost['excluded']}")
+    finally:
+        fed.close()
+    out = {"first_ms": first_ms, "warm_ms": ms_stats(warm),
+           "parity_diffs": diffs, "nodes": FED_BENCH_CLUSTERS
+           * FED_BENCH_NODES, "built_s": built_s,
+           "launches": ff.LAUNCHES,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"(s1) {FED_BENCH_CLUSTERS} x {FED_BENCH_NODES} nodes (shapes=8) "
+        f"built and injected in {built_s:.2f} s; fed_sweep of 3 scenarios: "
+        f"first {first_ms:.3f} ms, warm {fmt_stats(out['warm_ms'])} ms; "
+        f"cluster-0 stale at 60 s (age {c0['age_s']}), lost and excluded "
+        f"by name at 200 s; {diffs} parity differences against "
+        f"fit_totals_numpy; B1 launched {ff.LAUNCHES} times")
+    return out
+
+
+def federation_members(pkg, tmp: str):
+    """(s2)'s three strict leaders on the card, each with a plane
+    publisher and a span log; cluster k is ``synthetic_fixture(5_000,
+    seed=8+k, pods_per_node=30, taint_frac=0.1)``."""
+    from kubernetesclustercapacity_tpu_torch.service import CapacityServer
+    from kubernetesclustercapacity_tpu_torch.service.plane import (
+        PlanePublisher,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+
+    fixtures, leaders, pubs = {}, {}, {}
+    for k, name in enumerate(FED_MEMBERS):
+        fixtures[name] = pkg.synthetic_fixture(
+            LIVE_NODES, seed=8 + k, pods_per_node=LIVE_PODS_PER_NODE,
+            taint_frac=0.1)
+        snap = pkg.snapshot_from_fixture(fixtures[name], semantics="strict")
+        if pkg.implicit_taint_mask(snap) is None:
+            raise AssertionError(f"(s2) {name} carries no taints")
+        pubs[name] = PlanePublisher(heartbeat_s=FED_HEARTBEAT_S,
+                                    registry=MetricsRegistry())
+        leaders[name] = CapacityServer(
+            snap, fixture=fixtures[name], device=FED_DEVICE,
+            batch_window_ms=0, plane=pubs[name], registry=MetricsRegistry(),
+            trace_log=os.path.join(tmp, "traces", f"leader-{name}.jsonl"))
+        leaders[name].start()
+    return fixtures, leaders, pubs
+
+
+def phase_federation(pkg, cli, ff, fm, tmp: str, identity: str) -> dict:
+    """Paths (s2) and (t).
+
+    (s2) Three strict 5,000-node leaders on the card (plane publishers,
+    span logs) and a ``FederationServer`` on the card attached to all
+    three, ``c2`` through a ``FaultProxy``, with a metrics endpoint and a
+    span log.  ``c0`` takes the seed-9 churn stream as 6 ``update``
+    batches of 100; after each, once the federation's watermark reaches
+    the leader's generation, each leader's ``sweep`` of
+    ``random_scenario_grid(1000, seed=7)`` (B1 once each) equals its
+    ``per_cluster`` row of the federation's ``fed_sweep``.  Then
+    ``fed_rank`` with a costs map and ``spillover`` of ``c1``, 20 warm
+    requests of each; ``c2`` is partitioned (stale, lost: excluded and
+    named, ``spillover`` refused with ``cluster_lost``, ``/healthz`` 503,
+    ``-fed-status``/``-fed-sweep`` exit 1) and healed (fresh, equal
+    totals, exit 0).
+
+    (t) Against those servers while they run: ``-doctor -doctor-service
+    -doctor-federation`` exits 0 naming the card, and 1 with ``c2`` lost;
+    ``-trace-tree`` over the span logs of one traced ``fed_sweep`` shows
+    one ``fed:member`` per cluster; a sampling profiler on ``c1``'s
+    leader, under 1,000-scenario sweeps from a client thread, answers
+    ``-profile -profile-seconds 2 -profile-out`` with a dominant phase and
+    ``/healthz`` carries its entry; ``-snapshot (a).npz -grid 1000
+    -jax-profile DIR`` writes a Chrome trace that names ``sweep_fit``
+    (one B1 launch)."""
+    import gc
+
+    from kubernetesclustercapacity_tpu_torch import devcache
+    from kubernetesclustercapacity_tpu_torch.federation import (
+        FederationServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.resilience import (
+        ClusterLostError,
+    )
+    from kubernetesclustercapacity_tpu_torch.service import CapacityClient
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        healthz_probes,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry import profiler
+    from kubernetesclustercapacity_tpu_torch.telemetry.exposition import (
+        start_metrics_server,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+    )
+    from kubernetesclustercapacity_tpu_torch.testing_faults import (
+        FaultPlan,
+        FaultProxy,
+    )
+
+    out: dict = {"launches": {"sweep_fit": {}, "sweep_multi": {}},
+                 "ms": {}, "rc": {}}
+    t_phase = time.perf_counter()
+    ff.LAUNCHES = fm.LAUNCHES = 0
+    out["s1"] = phase_fed_bench(pkg, ff)
+    out["launches"]["sweep_fit"]["(s1) the bench's fleet"] = ff.LAUNCHES
+    out["launches"]["sweep_multi"]["(s1) the bench's fleet"] = fm.LAUNCHES
+
+    t_s2 = time.perf_counter()
+    traces = os.path.join(tmp, "traces")
+    os.makedirs(traces)
+    fixtures, leaders, pubs = federation_members(pkg, tmp)
+    events = churn_events(fixtures["c0"])
+    per = len(events) // REPL_BATCHES
+    batches = [events[i * per:(i + 1) * per] for i in range(REPL_BATCHES)]
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    wire = grid_wire(grid)
+    card = torch.cuda.get_device_name(0)
+    proxy = FaultProxy(pubs[FED_PROXIED].address, FaultPlan([]),
+                       stream=True).start()
+    addrs = {n: (proxy.address if n == FED_PROXIED else pubs[n].address)
+             for n in FED_MEMBERS}
+    reg = MetricsRegistry()
+    fed = FederationServer(addrs, stale_after_s=FED_STALE_S,
+                           evict_after_s=FED_EVICT_S, registry=reg,
+                           trace_log=os.path.join(traces, "fed.jsonl"),
+                           device=FED_DEVICE).start()
+    fed_addr = f"{fed.address[0]}:{fed.address[1]}"
+    metrics = start_metrics_server(
+        reg, healthy=fed.healthy, status=lambda: {"federation": fed.status()})
+    clients = {n: CapacityClient(*leaders[n].address, timeout_s=600,
+                                 retry=None) for n in FED_MEMBERS}
+    fc = CapacityClient(*fed.address, timeout_s=600, retry=None)
+    prof = prof_metrics = None
+    stop_load = threading.Event()
+    loader = None
+    healthz: list = []
+    try:
+        def states():
+            return {n: c["state"] for n, c in fed.status()["clusters"].items()}
+
+        def leader_sweeps(stage: str) -> dict:
+            want = {}
+            for n in FED_MEMBERS:
+                before = ff.LAUNCHES
+                doc = clients[n].sweep(**wire)
+                if ff.LAUNCHES - before != 1 or doc["kernel"] != FED_B1_LABEL:
+                    raise AssertionError(
+                        f"(s2) {stage}: {n}'s sweep ({doc['kernel']}) "
+                        f"launched B1 {ff.LAUNCHES - before} times")
+                want[n] = doc["totals"]
+            return want
+
+        def fed_matches(stage: str, want: dict, excluded=()) -> dict:
+            doc = fc.fed_sweep(**wire)
+            rows = {n: t for n, t in want.items() if n not in excluded}
+            if doc["per_cluster"] != rows or \
+                    sorted(doc["excluded"]) != sorted(excluded) or \
+                    doc["totals"] != [sum(t) for t in zip(*rows.values())]:
+                raise AssertionError(f"(s2) {stage}: the federation's rows "
+                                     "differ from the leaders' sweeps")
+            for n in rows:
+                if doc["clusters"][n]["generation"] != leaders[n].generation:
+                    raise AssertionError(
+                        f"(s2) {stage}: {n} at generation "
+                        f"{doc['clusters'][n]['generation']}, its leader at "
+                        f"{leaders[n].generation}")
+            return doc
+
+        wait_until("(s2) every member fresh",
+                   lambda: set(states().values()) == {"fresh"})
+        b1_at_start = ff.LAUNCHES
+        want = leader_sweeps("at the start")
+        fed_matches("at the start", want)
+        watermark_ms, entries = [], []
+        for b, events_b in enumerate(batches):
+            t_update = time.perf_counter()
+            clients["c0"].update(events_b)
+            gen = leaders["c0"].generation
+            seen = wait_until(
+                f"(s2) c0's watermark at generation {gen}",
+                lambda: fed.status()["clusters"]["c0"]["generation"] >= gen)
+            watermark_ms.append((seen - t_update) * 1e3)
+            want = leader_sweeps(f"batch {b}")
+            fed_matches(f"batch {b}", want)
+            gc.collect()
+            entries.append(devcache.CACHE.stats()["entries"])
+        if len(set(entries[1:])) != 1:
+            raise AssertionError(f"(s2) device cache entries grew over the "
+                                 f"stream: {entries}")
+        out["launches"]["sweep_fit"]["(s2) the leaders' sweeps"] = \
+            ff.LAUNCHES - b1_at_start
+        one = fc.fed_sweep(**FED_ONE)
+        rank = fc.fed_rank(costs=FED_COSTS, **FED_ONE)
+        spill = fc.spillover("c1", **FED_ONE)
+        rows = {r["cluster"]: r["total"] for r in rank["ranking"]}
+        if rows != {n: t[0] for n, t in one["per_cluster"].items()} or \
+                [r["rank"] for r in rank["ranking"]] != [1, 2, 3] or \
+                spill["demand"] != int(leaders["c1"].snapshot.pods_count
+                                       .sum()) or \
+                sum(p["replicas"] for p in spill["placements"]) \
+                + spill["unplaced"] != spill["demand"]:
+            raise AssertionError(f"(s2) fed_rank {rank['ranking']}, "
+                                 f"spillover {spill}")
+        for op, call in (
+            ("fed_sweep", lambda: fc.fed_sweep(**wire)),
+            ("fed_rank", lambda: fc.fed_rank(costs=FED_COSTS, **FED_ONE)),
+            ("spillover", lambda: fc.spillover("c1", **FED_ONE)),
+        ):
+            st = timed_requests(call, runs=FED_WARM)
+            out["ms"][op] = {k: st[k] for k in ("median_ms", "p90_ms")}
+        out["ms"]["update_to_watermark"] = ms_stats(watermark_ms)
+        out["ms"]["update_to_watermark_by_batch"] = watermark_ms
+        code, body = http_status(metrics.url + "/healthz")
+        if code != 200:
+            raise AssertionError(f"(s2) /healthz with every member fresh: "
+                                 f"{code} {body}")
+        healthz.append(("fresh", code))
+
+        # -- (t) the doctor with every member fresh ----------------------
+        doctor_argv = ["-doctor", "-doctor-timeout", "120",
+                       "-doctor-service",
+                       f"{leaders['c0'].address[0]}:"
+                       f"{leaders['c0'].address[1]}",
+                       "-doctor-federation", fed_addr, "-device", FED_DEVICE]
+        t0 = time.perf_counter()
+        rc, text, _ = run_cli_both(cli, doctor_argv)
+        doctor_s = time.perf_counter() - t0
+        lines = dict((ln[:23].rstrip(), ln[25:]) for ln in text.splitlines())
+        if rc != 0 or not lines.get("backend probe", "").startswith("ok: ") \
+                or card not in lines["backend probe"] or \
+                not lines.get("federation", "").startswith("ok: 3 cluster"):
+            raise AssertionError(f"(t) -doctor exited {rc}:\n{text}")
+        out["rc"]["doctor_fresh"] = rc
+        out["doctor_probe"] = lines["backend probe"]
+        out["ms"]["doctor_s"] = doctor_s
+
+        # -- (t) one traced fed_sweep, stitched from the span logs -------
+        tid = "5e" * 16
+        fc.call("fed_sweep", trace_id=tid, **wire)
+        rc, text, _ = run_cli_both(cli, ["-trace-tree", tid, "-trace-logs",
+                                         traces, "-output", "json"])
+        tree = json.loads(text)
+        (root,) = tree["roots"]
+        members = sorted(c["cluster"] for c in root["children"]
+                         if c["op"] == "fed:member")
+        if rc != 0 or root["op"] != "fed:fed_sweep" or \
+                members != list(FED_MEMBERS):
+            raise AssertionError(f"(t) -trace-tree exited {rc}: root "
+                                 f"{root['op']}, members {members}")
+        out["rc"]["trace_tree"] = rc
+        out["trace_dominant"] = tree["critical_path"]["dominant"]
+
+        # -- (s2) partition c2: stale, lost, refused, 503 ----------------
+        t_cut = time.perf_counter()
+        proxy.partition("both")
+        t_stale = wait_until("(s2) c2 stale",
+                             lambda: states()[FED_PROXIED] == "stale",
+                             interval_s=0.01)
+        doc = fc.fed_sweep(**wire)
+        if doc["clusters"][FED_PROXIED]["state"] != "stale" or \
+                doc["per_cluster"][FED_PROXIED] != want[FED_PROXIED] or \
+                not doc["degraded"]:
+            raise AssertionError(f"(s2) stale c2: {doc['clusters']}")
+        t_lost = wait_until("(s2) c2 lost",
+                            lambda: states()[FED_PROXIED] == "lost",
+                            interval_s=0.01)
+        doc = fed_matches("c2 lost", want, excluded=(FED_PROXIED,))
+        try:
+            fc.spillover(FED_PROXIED, **FED_ONE)
+            raise AssertionError("(s2) spillover of a lost cluster answered")
+        except ClusterLostError:
+            pass
+        code, body = http_status(metrics.url + "/healthz")
+        if code != 503 or body["federation"]["excluded"] != [FED_PROXIED]:
+            raise AssertionError(f"(s2) /healthz with c2 lost: {code}")
+        healthz.append(("c2 lost", code))
+        rc_status, status_text, _ = run_cli_both(cli, ["-fed-status",
+                                                       fed_addr])
+        rc_sweep, sweep_text, _ = run_cli_both(cli, ["-fed-sweep", fed_addr])
+        if rc_status != 1 or rc_sweep != 1 or \
+                "DEGRADED — lost: c2" not in status_text or \
+                "EXCLUDED from totals" not in sweep_text:
+            raise AssertionError(f"(s2) -fed-status {rc_status}, -fed-sweep "
+                                 f"{rc_sweep} with c2 lost")
+        out["rc"]["fed_status_lost"] = rc_status
+        out["rc"]["fed_sweep_lost"] = rc_sweep
+        rc, text, _ = run_cli_both(cli, doctor_argv)
+        fed_line = dict((ln[:23].rstrip(), ln[25:])
+                        for ln in text.splitlines()).get("federation", "")
+        if rc != 1 or not fed_line.startswith("FAILED: cluster(s) lost — c2"):
+            raise AssertionError(f"(t) -doctor with c2 lost exited {rc}: "
+                                 f"{fed_line}")
+        out["rc"]["doctor_lost"] = rc
+
+        # -- (s2) heal ----------------------------------------------------
+        t_heal = time.perf_counter()
+        proxy.heal()
+        t_fresh = wait_until("(s2) c2 fresh after the heal",
+                             lambda: states()[FED_PROXIED] == "fresh",
+                             interval_s=0.01)
+        fed_matches("after the heal", want)
+        code, _ = http_status(metrics.url + "/healthz")
+        rc_status, _, _ = run_cli_both(cli, ["-fed-status", fed_addr])
+        rc_sweep, _, _ = run_cli_both(cli, ["-fed-sweep", fed_addr])
+        if code != 200 or rc_status != 0 or rc_sweep != 0:
+            raise AssertionError(f"(s2) after the heal: /healthz {code}, "
+                                 f"-fed-status {rc_status}, -fed-sweep "
+                                 f"{rc_sweep}")
+        healthz.append(("healed", code))
+        out["rc"]["fed_status_healed"] = rc_status
+        out["rc"]["fed_sweep_healed"] = rc_sweep
+        out["ms"]["cut_to_stale_s"] = t_stale - t_cut
+        out["ms"]["cut_to_lost_s"] = t_lost - t_cut
+        out["ms"]["heal_to_fresh_s"] = t_fresh - t_heal
+        out["dropped_frames"] = proxy.partition_dropped
+        out["launches"]["sweep_fit"]["(s2) the leaders' sweeps"] = \
+            ff.LAUNCHES - b1_at_start
+
+        # -- (t) the sampling profiler on c1's leader ---------------------
+        b1_before = ff.LAUNCHES
+        prof = profiler.start_profiler(PROFILE_HZ)
+        healthy, status = healthz_probes(leaders["c1"], profiler=prof)
+        prof_metrics = start_metrics_server(
+            MetricsRegistry(), healthy=healthy, status=status,
+            debug={"/debug/profile": prof.debug_handler})
+        loaded = []
+
+        def load():
+            with CapacityClient(*leaders["c1"].address, timeout_s=600,
+                                retry=None) as c:
+                while not stop_load.is_set():
+                    c.sweep(**wire)
+                    loaded.append(1)
+
+        loader = threading.Thread(target=load, daemon=True)
+        loader.start()
+        collapsed = os.path.join(tmp, "c1.collapsed")
+        rc, _, err = run_cli_both(cli, [
+            "-profile", f"127.0.0.1:{prof_metrics.address[1]}",
+            "-profile-seconds", "2", "-profile-out", collapsed])
+        stop_load.set()
+        loader.join(120)
+        dominant = [ln for ln in err.splitlines()
+                    if ln.startswith("# dominant phase: ")]
+        code, body = http_status(prof_metrics.url + "/healthz")
+        with open(collapsed, encoding="utf-8") as f:
+            samples = sum(int(ln.rsplit(" ", 1)[1]) for ln in f if ln.strip())
+        if rc != 0 or not dominant or code != 200 or \
+                body.get("profiler", {}).get("hz") != PROFILE_HZ or \
+                not samples:
+            raise AssertionError(f"(t) -profile exited {rc}: {err[-500:]}; "
+                                 f"/healthz {code} {body.get('profiler')}")
+        out["rc"]["profile"] = rc
+        phase, share = dominant[0][len("# dominant phase: "):].split()[:2]
+        out["profile"] = {"dominant": phase, "share": share.strip("(%"),
+                          "samples": samples, "sweeps_during": len(loaded),
+                          "healthz_profiler": body["profiler"]}
+        out["launches"]["sweep_fit"]["(t) the profiled leader's sweeps"] = \
+            ff.LAUNCHES - b1_before
+    finally:
+        stop_load.set()
+        if loader is not None:
+            loader.join(120)
+        if prof_metrics is not None:
+            prof_metrics.shutdown()
+        profiler.stop_profiler()
+        fc.close()
+        for c in clients.values():
+            c.close()
+        metrics.shutdown()
+        fed.close()
+        proxy.stop()
+        for n in FED_MEMBERS:
+            pubs[n].close()
+            leaders[n].shutdown()
+    out["s2_seconds"] = time.perf_counter() - t_s2
+    s = out["ms"]
+    log(f"(s2) 3 x {LIVE_NODES} strict members on the card, c2 through a "
+        f"fault proxy: after each of {REPL_BATCHES} batches of {per} events "
+        f"every per_cluster row equal to its leader's B1 sweep; update -> "
+        f"federation watermark {fmt_stats(s['update_to_watermark'])} ms; "
+        f"1,000 scenarios x {3 * LIVE_NODES} nodes: " + ", ".join(
+            f"{op} median {s[op]['median_ms']:.3f} p90 {s[op]['p90_ms']:.3f} "
+            f"ms" for op in ("fed_sweep", "fed_rank", "spillover"))
+        + f" ({FED_WARM} warm); c2 cut: stale after "
+        f"{s['cut_to_stale_s']:.2f} s, lost after {s['cut_to_lost_s']:.2f} s "
+        f"(spillover refused cluster_lost, /healthz 503, -fed-status and "
+        f"-fed-sweep exit 1), fresh {s['heal_to_fresh_s']:.2f} s after the "
+        f"heal with equal totals; /healthz {healthz}; device cache entries "
+        f"{entries} ({identity})")
+
+    # -- (t) -jax-profile: a torch.profiler trace of a -grid run ---------
+    # In a process of its own, as a user runs it: the child is the CLI and
+    # reports its B1 launch count on its last stderr line.
+    npz = os.path.join(tmp, "a.npz")
+    pkg.synthetic_snapshot(10_000, seed=1).save(npz)
+    trace_dir = os.path.join(tmp, "jax_profile")
+    child = subprocess.run(
+        [sys.executable, "-c", JAX_PROFILE_CHILD, "-snapshot", npz, "-grid",
+         "1000", "-output", "json", "-jax-profile", trace_dir, "-device",
+         FED_DEVICE],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    reported = [ln for ln in child.stderr.splitlines() if ln.startswith("{")]
+    if child.returncode != 0 or not reported:
+        raise AssertionError(f"(t) -jax-profile exited {child.returncode}: "
+                             f"{child.stderr[-2000:]}")
+    doc = json.loads(child.stdout.strip().splitlines()[-1])
+    b1_profiled = json.loads(reported[-1])["launches"]
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    with open(os.path.join(trace_dir, files[0]), encoding="utf-8") as f:
+        trace = json.load(f)
+    cats: dict = {}
+    for e in trace["traceEvents"]:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    kernels = sorted({e.get("name", "") for e in trace["traceEvents"]
+                      if e.get("cat") == "kernel"
+                      and "sweep_fit" in e.get("name", "")})
+    if doc["kernel"] != FED_B1_LABEL or b1_profiled != 1 or not kernels:
+        raise AssertionError(f"(t) -jax-profile: {doc['kernel']}, B1 "
+                             f"{b1_profiled} launches, trace kernels "
+                             f"{kernels}, events by category {cats}")
+    out["launches"]["sweep_fit"]["(t) -grid 1000 -jax-profile"] = b1_profiled
+    out["jax_profile"] = {"files": len(files), "kernels": kernels,
+                          "events": len(trace["traceEvents"])}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(t) -doctor exit {out['rc']['doctor_fresh']} in {doctor_s:.1f} s "
+        f"(backend probe: {out['doctor_probe']}), "
+        f"{out['rc']['doctor_lost']} with c2 lost; -trace-tree: "
+        f"fed:fed_sweep with {len(members)} fed:member children, dominated "
+        f"by {out['trace_dominant']}; -profile: {out['profile']['samples']} "
+        f"samples at {PROFILE_HZ} Hz over "
+        f"{out['profile']['sweeps_during']} sweeps, dominant phase "
+        f"{out['profile']['dominant']} ({out['profile']['share']}% of the "
+        f"attributed samples); -jax-profile: {kernels} in "
+        f"{out['jax_profile']['events']} trace events ({identity})")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -4916,6 +5508,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         repl = phase_replicated(pkg, cli, ff, fm, tmp, identity)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (r)")
+    with tempfile.TemporaryDirectory() as tmp:
+        fed = phase_federation(pkg, cli, ff, fm, tmp, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after paths (s) "
+        "and (t)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -4966,6 +5562,17 @@ def main() -> int:
         "replicated_tenants": repl["tenants"],
         "replicated_log_bytes": repl["log_bytes"],
         "replicated_s": repl["seconds"],
+        "federation_bench": {k: v for k, v in fed["s1"].items()
+                             if k != "launches"},
+        "federation_ms": fed["ms"],
+        "federation_rc": fed["rc"],
+        "federation_launches": fed["launches"],
+        "federation_dropped_frames": fed["dropped_frames"],
+        "diagnostics_profile": fed["profile"],
+        "diagnostics_doctor_probe": fed["doctor_probe"],
+        "diagnostics_trace_dominant": fed["trace_dominant"],
+        "diagnostics_jax_profile": fed["jax_profile"],
+        "federation_s": fed["seconds"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -4982,7 +5589,8 @@ def main() -> int:
         + sum(stoch["launches"]["sweep_fit"].values())
         + sum(gopt["launches"]["sweep_fit"].values())
         + sum(oper["launches"]["sweep_fit"].values())
-        + sum(repl["launches"]["sweep_fit"].values()),
+        + sum(repl["launches"]["sweep_fit"].values())
+        + sum(fed["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -5010,7 +5618,8 @@ def main() -> int:
         + sum(stoch["launches"]["sweep_multi"].values())
         + sum(gopt["launches"]["sweep_multi"].values())
         + sum(oper["launches"]["sweep_multi"].values())
-        + sum(repl["launches"]["sweep_multi"].values()),
+        + sum(repl["launches"]["sweep_multi"].values())
+        + sum(fed["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

@@ -15,12 +15,17 @@ L5 service   :mod:`.service` (``CapacityServer``: the snapshot stays on the
              launch; ``update`` applies watch events; ``-follow`` keeps it
              synced to a live cluster through :mod:`.follower` and a
              coalesced publish; ``CapacityClient``; the JAX package's wire
-             protocol), with :mod:`.resilience` and :mod:`.telemetry`
+             protocol), with :mod:`.resilience` and :mod:`.telemetry`;
+             :mod:`.federation` (``FederationServer``, ``kccap-torch-fed``:
+             one query plane over N leaders' planes, fresh/stale/lost)
 L4 CLI       :mod:`.cli` (the single-spec transcript, ``-explain``, the
              ``-grid`` sweep, ``-extended-request``, ``-car-spec``,
              ``-forecast-spec``, ``-plan -catalog``, ``-gang-spec``,
              ``-optimize``, on a file or a live cluster; the six reference
-             flags; every other flag of the JAX CLI declared)
+             flags; the diagnostics ``-doctor`` (:mod:`.utils.doctor`),
+             ``-profile``, ``-trace-tree``, ``-bench-diff``
+             (:mod:`.analysis`) and ``-jax-profile``; every flag of the
+             JAX CLI)
 L3 model     :mod:`.models` (``CapacityModel``: ``evaluate``, ``sweep`` on
              kernel B1, ``sweep_multi`` on kernel B2, and scheduler
              fidelity: ``place``, ``drain``, ``topology_spread``,

@@ -46,12 +46,19 @@ default) runs the port's device programs on ``-device``; ``-backend cpu``
 is the pure-Python oracle, the reference's sequential walk, as a
 cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
 ``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
-other flag of the JAX CLI is declared: the compiled C++ loop (``-backend
-native``) and the doctor, profiling and federation surfaces are not
-ported yet and say so with exit 1.  ``-replay DIR``
+other flag of the JAX CLI runs; only the compiled C++ loop (``-backend
+native``) is not ported yet and says so with exit 1.  ``-replay DIR``
 (``-replay-ref``, ``-replay-generation``, ``-replay-tenant``) re-answers
 a server's audit log on ``-device``, and ``-plane-status HOST:PORT``
 prints an endpoint's place in the replicated serving plane.
+``-fed-status``/``-fed-sweep HOST:PORT`` read a federation endpoint
+(``kccap-torch-fed``); ``-doctor`` (``-doctor-timeout``,
+``-doctor-service``, ``-doctor-federation``) diagnoses the environment
+on ``-device``; ``-profile HOST:PORT`` fetches a server's sampling
+profile; ``-trace-tree ID -trace-logs DIRS`` stitches a distributed
+trace; ``-bench-diff`` compares bench artifacts; and ``-jax-profile DIR``
+captures a ``torch.profiler`` Chrome trace of the run (the JAX CLI's
+name, kept).
 
 Examples::
 
@@ -80,25 +87,12 @@ import numpy as np
 __all__ = ["main", "build_parser", "load_source", "run"]
 
 # The JAX CLI's flags for surfaces that are not ported yet, each with what
-# it takes: a value, a switch, or one or more values.  Every one is
-# declared, so using it prints a "not yet ported" line and exits 1 (the
-# JAX CLI would run; argparse would exit 2 on an unknown flag).
-_UNPORTED_FLAGS = (
-    ("-doctor", "switch"),
-    ("-doctor-timeout", "value"),
-    ("-doctor-service", "value"),
-    ("-jax-profile", "value"),
-    ("-fed-status", "value"),
-    ("-fed-sweep", "value"),
-    ("-doctor-federation", "value"),
-    ("-trace-tree", "value"),
-    ("-trace-logs", "value"),
-    ("-profile", "value"),
-    ("-profile-seconds", "value"),
-    ("-profile-out", "value"),
-    ("-bench-diff", "values"),
-    ("-bench-thresholds", "value"),
-)
+# it takes: a value, a switch, or one or more values.  Every one would be
+# declared, so that using it prints a "not yet ported" line and exits 1
+# (the JAX CLI would run; argparse would exit 2 on an unknown flag).  None
+# is left: the one surface still missing is ``-backend native``, a value
+# of a ported flag, which ``_run_command`` refuses.
+_UNPORTED_FLAGS: tuple = ()
 
 #: The one line a ``-node-bucket-floor`` run prints (to stderr) before it
 #: goes on: the flag sizes the JAX package's shape-bucket ladder.
@@ -386,6 +380,90 @@ def build_parser() -> argparse.ArgumentParser:
                         "staleness state, plus capabilities) and exit; "
                         "exit 1 when the replica is stale or the "
                         "server is draining")
+    p.add_argument("-doctor", action="store_true",
+                   help="diagnose the environment (backend probe with a "
+                        "hang-proof timeout, native toolchain, fast-path "
+                        "state) and exit; exit code 1 on any hard failure")
+    p.add_argument("-doctor-timeout", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="how long -doctor waits for backend init before "
+                        "declaring it wedged")
+    p.add_argument("-doctor-service", dest="doctor_service", default=None,
+                   metavar="HOST:PORT",
+                   help="with -doctor: also probe a running capacity "
+                        "service's resilience counters (deadline sheds, "
+                        "fused-path breaker, follower backoff) over its "
+                        "info op")
+    p.add_argument("-jax-profile", default="", dest="jax_profile",
+                   metavar="DIR",
+                   help="capture a torch.profiler trace of the run (CPU "
+                        "and, on -device cuda, CUDA activity) into DIR as "
+                        "a Chrome trace (view with Perfetto or "
+                        "TensorBoard); the flag keeps the JAX CLI's name")
+    p.add_argument("-fed-status", default=None, dest="fed_status",
+                   metavar="HOST:PORT",
+                   help="print a federation endpoint's per-cluster "
+                        "degradation vector (generation, verified age, "
+                        "fresh/stale/lost) and exit; exit 1 when any "
+                        "cluster is lost (excluded from fleet totals)")
+    p.add_argument("-fed-sweep", default=None, dest="fed_sweep",
+                   metavar="HOST:PORT",
+                   help="fleet-global capacity for the six scenario "
+                        "flags against a federation endpoint: grand "
+                        "totals over non-lost clusters plus the "
+                        "per-cluster split, every reply annotated with "
+                        "the staleness vector; exit 1 when the scenario "
+                        "does not fit or any cluster is lost")
+    p.add_argument("-doctor-federation", dest="doctor_federation",
+                   default=None, metavar="HOST:PORT",
+                   help="with -doctor: also probe a federation "
+                        "endpoint (cluster states, generations) — a "
+                        "lost cluster is a hard FAILED line")
+    p.add_argument("-trace-tree", default=None, dest="trace_tree",
+                   metavar="TRACE_ID",
+                   help="stitch one distributed trace back together "
+                        "from per-process span logs (-trace-logs) and "
+                        "print the tree, critical path, and dominating "
+                        "phase; -output json selects the structured "
+                        "form; exit 1 when the trace is not found or "
+                        "the critical path is refused (clock skew)")
+    p.add_argument("-trace-logs", default="", dest="trace_logs",
+                   metavar="DIR[,DIR...]",
+                   help="with -trace-tree: comma-separated trace-log "
+                        "files or directories (directories contribute "
+                        "every *.jsonl plus .1 rotations) — one per "
+                        "process in the topology")
+    p.add_argument("-profile", default=None, metavar="HOST:PORT",
+                   help="collect a collapsed flamegraph window from a "
+                        "running capacity service's sampling profiler "
+                        "(/debug/profile on its metrics port), print "
+                        "the phase-attribution summary, and exit; "
+                        "-output json selects the structured form; "
+                        "exit 1 when the server's profiler is off")
+    p.add_argument("-profile-seconds", type=float, default=5.0,
+                   dest="profile_seconds", metavar="SECONDS",
+                   help="with -profile: how long the server samples "
+                        "before replying (server caps at 300)")
+    p.add_argument("-profile-out", default="", dest="profile_out",
+                   metavar="FILE",
+                   help="with -profile: write the collapsed profile "
+                        "to FILE (flamegraph.pl/speedscope food) "
+                        "instead of stdout")
+    p.add_argument("-bench-diff", nargs="+", default=None,
+                   dest="bench_diff", metavar="OLD_NEW_OR_DIR",
+                   help="compare two bench artifacts (OLD.json "
+                        "NEW.json) under the committed per-row noise "
+                        "thresholds and exit 1 on any regression; a "
+                        "single directory argument walks every "
+                        "BENCH_r*.json round in order (trajectory "
+                        "mode); degraded rounds and missing rows are "
+                        "named, never failed; -output json selects "
+                        "the structured artifact")
+    p.add_argument("-bench-thresholds", default="",
+                   dest="bench_thresholds", metavar="FILE",
+                   help="with -bench-diff: the per-row noise model "
+                        "(default: BENCH_THRESHOLDS.json next to the "
+                        "inputs, else built-in defaults)")
     p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
                    help="run on the GPU (default) or the host")
     add_unported_flags(p, _UNPORTED_FLAGS)
@@ -410,6 +488,35 @@ def main(argv: list[str] | None = None) -> int:
     )
     unported = unported_flags_used(args, _UNPORTED_FLAGS)
     # The one-shot diagnostics, as in the JAX CLI: no spec, no source.
+    if args.doctor and not unported:
+        from kubernetesclustercapacity_tpu_torch.utils.doctor import run_doctor
+
+        service_addr = None
+        if args.doctor_service:
+            host, _, port = args.doctor_service.rpartition(":")
+            try:
+                service_addr = (host or "127.0.0.1", int(port))
+            except ValueError:
+                print(f"ERROR : bad -doctor-service {args.doctor_service!r} "
+                      "(want HOST:PORT)", file=sys.stderr)
+                return 1
+        federation_addr = None
+        if args.doctor_federation:
+            host, _, port = args.doctor_federation.rpartition(":")
+            try:
+                federation_addr = (host or "127.0.0.1", int(port))
+            except ValueError:
+                print(f"ERROR : bad -doctor-federation "
+                      f"{args.doctor_federation!r} (want HOST:PORT)",
+                      file=sys.stderr)
+                return 1
+        report, code = run_doctor(
+            backend_timeout_s=args.doctor_timeout, service_addr=service_addr,
+            federation_addr=federation_addr, device=args.device,
+        )
+        print(report)
+        return code
+
     if args.timeline and not unported:
         return _run_timeline(args)
     if args.car and not unported:
@@ -426,8 +533,18 @@ def main(argv: list[str] | None = None) -> int:
         return _run_drain_server(args)
     if args.plane_status and not unported:
         return _run_plane_status(args)
+    if args.fed_status and not unported:
+        return _run_fed_status(args)
+    if args.fed_sweep and not unported:
+        return _run_fed_sweep(args)
     if args.replay and not unported:
         return _run_replay(args)
+    if args.trace_tree and not unported:
+        return _run_trace_tree(args)
+    if args.profile and not unported:
+        return _run_profile(args)
+    if args.bench_diff and not unported:
+        return _run_bench_diff(args)
     # Telemetry surfaces (both opt-in, zero cost otherwise): a scrape
     # endpoint over the process registry and a JSONL span for the whole
     # invocation, as in the JAX CLI.
@@ -479,15 +596,51 @@ def main(argv: list[str] | None = None) -> int:
                 "grid" if args.grid > 0 else "fit"
             )
             with Span(f"kccap:{mode}", trace_log=trace_log) as span:
-                rc = _run_command(args, unported)
+                rc = _run_profiled(args, unported)
                 span._extra["exit_code"] = rc
                 return rc
-        return _run_command(args, unported)
+        return _run_profiled(args, unported)
     finally:
         if trace_log is not None:
             trace_log.close()
         if metrics_server is not None:
             metrics_server.shutdown()
+
+
+def _run_profiled(args, unported: list[str]) -> int:
+    """:func:`_run_command`, inside a ``torch.profiler`` capture when
+    ``-jax-profile DIR`` asks for one: the whole run's CPU activity and,
+    on ``-device cuda``, its CUDA activity (kernels, copies), written into
+    DIR as one Chrome trace (``HOST_PID.pt.trace.json``) when the run
+    ends.  Like the JAX CLI's ``jax.profiler`` capture, it only
+    observes."""
+    if not args.jax_profile:
+        return _run_command(args, unported)
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetesclustercapacity_tpu_torch.devcache import resolve_device
+
+    cuda = resolve_device(args.device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            try:
+                return _run_command(args, unported)
+            finally:
+                if cuda:  # the run's device work ends inside the capture
+                    torch.cuda.synchronize()
+    finally:
+        os.makedirs(args.jax_profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            args.jax_profile,
+            f"{socket.gethostname()}_{os.getpid()}.pt.trace.json",
+        ))
 
 
 def _run_command(args, unported: list[str]) -> int:
@@ -835,6 +988,212 @@ def _run_plane_status(args) -> int:
         print(f"draining  : {draining}")
     stale = bool(plane and plane.get("role") == "replica" and plane.get("stale"))
     return 1 if (stale or draining) else 0
+
+
+def _run_fed_status(args) -> int:
+    """-fed-status HOST:PORT: the federation tier's degradation vector.
+    Exit by the verdict: 1 when any cluster is LOST — a fleet answer is
+    provably incomplete then, and scripts must see that, not parse
+    prose.  Stale clusters render explicitly but stay exit 0 (they are
+    the contract working, not a failure of it)."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        fed_status_json_report,
+        fed_status_table_report,
+    )
+
+    addr = _parse_addr("-fed-status", args.fed_status)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.fed_status()
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch federation status from "
+              f"{addr[0]}:{addr[1]}: {e}", file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(fed_status_json_report(result))
+    else:
+        print(fed_status_table_report(result))
+    if not result.get("enabled", False):
+        return 1
+    return 1 if result.get("excluded") else 0
+
+
+def _run_fed_sweep(args) -> int:
+    """-fed-sweep HOST:PORT: fleet capacity for the six scenario flags.
+    Exit 0 only when the scenario fits across the fleet AND no cluster
+    is lost (a lost cluster makes every total an explicit lower bound)."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        fed_sweep_json_report,
+        fed_sweep_table_report,
+    )
+
+    addr = _parse_addr("-fed-sweep", args.fed_sweep)
+    if addr is None:
+        return 1
+    try:
+        with _diag_client(addr) as c:
+            result = c.fed_sweep(
+                cpuRequests=args.cpuRequests,
+                cpuLimits=args.cpuLimits,
+                memRequests=args.memRequests,
+                memLimits=args.memLimits,
+                replicas=args.replicas,
+            )
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fed-sweep {addr[0]}:{addr[1]}: {e}",
+              file=sys.stderr)
+        return 1
+    if args.output == "json":
+        print(fed_sweep_json_report(result))
+    else:
+        print(fed_sweep_table_report(result))
+    schedulable = all(result.get("schedulable", []) or [False])
+    return 0 if schedulable and not result.get("excluded") else 1
+
+
+def _run_trace_tree(args) -> int:
+    """-trace-tree TRACE_ID: the offline analyzer of the tracing
+    subsystem — stitch one trace's spans from per-process JSONL logs
+    into a tree (parent linkage only, never wall clock), compute the
+    greedy critical path, and name the dominating contributor.  Exits
+    by the verdict: 0 only when the trace was found and attribution
+    was not refused."""
+    from kubernetesclustercapacity_tpu_torch.report import (
+        trace_json_report,
+        trace_table_report,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry.traceview import (
+        analyze_trace,
+    )
+
+    if not args.trace_logs:
+        print(
+            "ERROR : -trace-tree needs -trace-logs DIR[,DIR...] "
+            "(the per-process span logs to stitch)",
+            file=sys.stderr,
+        )
+        return 1
+    tree = analyze_trace(args.trace_logs, args.trace_tree)
+    if args.output == "json":
+        print(trace_json_report(tree))
+    else:
+        print(trace_table_report(tree))
+    if not tree.get("found"):
+        return 1
+    return 0 if not tree["critical_path"].get("refused") else 1
+
+
+def _run_profile(args) -> int:
+    """-profile HOST:PORT: ask a running server's sampling profiler
+    for a collapsed flamegraph window (``/debug/profile`` on its
+    metrics port), write the fold, and summarize the phase attribution
+    — the view that answers "WHICH frames inside serialize?"."""
+    from urllib.request import urlopen
+
+    from kubernetesclustercapacity_tpu_torch.telemetry.profiler import (
+        dominant_phase,
+        phase_counts,
+        top_frame,
+    )
+
+    addr = _parse_addr("-profile", args.profile)
+    if addr is None:
+        return 1
+    seconds = max(float(args.profile_seconds), 0.0)
+    url = (f"http://{addr[0]}:{addr[1]}/debug/profile"
+           f"?seconds={seconds:g}")
+    try:
+        with urlopen(url, timeout=seconds + 30.0) as resp:
+            text = resp.read().decode("utf-8", "replace")
+    except Exception as e:  # noqa: BLE001 - a CLI reports, never tracebacks
+        print(f"ERROR : cannot fetch profile from "
+              f"{addr[0]}:{addr[1]}: {e} (a server started with "
+              "-metrics-port serves /debug/profile there)",
+              file=sys.stderr)
+        return 1
+    if text.startswith("# profiler disabled"):
+        print(text.strip(), file=sys.stderr)
+        return 1
+    counts = phase_counts(text)
+    total = sum(counts.values())
+    phase, share = dominant_phase(text)
+    if args.profile_out:
+        with open(args.profile_out, "w", encoding="utf-8") as f:
+            f.write(text)
+        print(f"collapsed profile ({total} sample(s)) written to "
+              f"{args.profile_out}", file=sys.stderr)
+    if args.output == "json":
+        print(json.dumps({
+            "seconds": seconds,
+            "samples": total,
+            "phase_samples": counts,
+            "dominant_phase": phase,
+            "dominant_share": round(share, 4),
+            "top_frame": top_frame(text),
+            "top_frame_dominant_phase": (
+                top_frame(text, phase) if phase else None
+            ),
+        }, indent=2, sort_keys=True))
+    else:
+        if not args.profile_out:
+            sys.stdout.write(text)
+        for name in sorted(counts, key=lambda p: -counts[p]):
+            print(f"# phase {name}: {counts[name]} sample(s)",
+                  file=sys.stderr)
+        if phase is not None:
+            print(f"# dominant phase: {phase} "
+                  f"({share * 100:.1f}% of attributed samples; top "
+                  f"frame {top_frame(text, phase)})", file=sys.stderr)
+    return 0
+
+
+def _run_bench_diff(args) -> int:
+    """-bench-diff OLD NEW (or DIR): the typed comparator over bench
+    artifacts — exit 1 only on a threshold-breaching regression on a
+    comparable, parity-clean row; exit 2 on usage errors (bad JSON,
+    bad thresholds, wrong argument shape)."""
+    from kubernetesclustercapacity_tpu_torch.analysis import benchdiff
+
+    paths = args.bench_diff
+    trajectory_dir = None
+    if len(paths) == 1 and os.path.isdir(paths[0]):
+        trajectory_dir = paths[0]
+    elif len(paths) != 2:
+        print("ERROR : -bench-diff wants OLD.json NEW.json (or one "
+              "directory for trajectory mode)", file=sys.stderr)
+        return 2
+    th_path = args.bench_thresholds or None
+    if th_path is None:
+        anchor = trajectory_dir or os.path.dirname(
+            os.path.abspath(paths[1])
+        )
+        cand = os.path.join(anchor, benchdiff.THRESHOLDS_FILENAME)
+        if os.path.exists(cand):
+            th_path = cand
+    try:
+        th = benchdiff.load_thresholds(th_path)
+        if trajectory_dir is not None:
+            diffs = benchdiff.trajectory(trajectory_dir, th)
+        else:
+            diffs = [benchdiff.diff_files(paths[0], paths[1], th)]
+    except (OSError, ValueError) as e:
+        print(f"ERROR : {e}", file=sys.stderr)
+        return 2
+    regressions = sum(len(d.regressions) for d in diffs)
+    if args.output == "json":
+        print(json.dumps({
+            "thresholds": th_path,
+            "pairs": [d.to_json() for d in diffs],
+            "regressions": regressions,
+            "clean": regressions == 0,
+        }, indent=2))
+    elif trajectory_dir is not None:
+        print(benchdiff.render_trajectory(diffs))
+    else:
+        print(benchdiff.render(diffs[0]))
+    return 1 if regressions else 0
 
 
 def _run_replay(args) -> int:

@@ -3,8 +3,8 @@ structured views.
 
 Counterpart of ``kubernetesclustercapacity_tpu/report.py`` (its single-spec,
 explain, capacity-at-risk, forecast, plan, gang and optimize renderers,
-the operator's timeline, SLO and flight-recorder views, and the audit
-replay's).  The
+the operator's timeline, SLO and flight-recorder views, the federation's
+status and sweep, the audit replay's and the trace tree's).  The
 reference's whole observability story is
 ``fmt.Printf`` to stdout (SURVEY.md §5); :func:`reference_report`
 reproduces that text exactly, the typos ("allocatbale", "scehdule") and Go's
@@ -52,8 +52,14 @@ __all__ = [
     "optimize_json_report",
     "gang_status_table_report",
     "gang_status_json_report",
+    "fed_status_table_report",
+    "fed_status_json_report",
+    "fed_sweep_table_report",
+    "fed_sweep_json_report",
     "replay_table_report",
     "replay_json_report",
+    "trace_table_report",
+    "trace_json_report",
 ]
 
 _RULE = "=" * 110  # the reference prints 110 '=' (ClusterCapacity.go:142,149)
@@ -1025,6 +1031,99 @@ def gang_status_json_report(status: dict) -> str:
     return json.dumps(status, indent=2, sort_keys=True)
 
 
+def fed_status_table_report(status: dict) -> str:
+    """``kccap -fed-status`` as operator-readable text: one row per
+    cluster with its generation watermark, verified age, and
+    fresh/stale/lost state — the degradation contract at a glance."""
+    if not status.get("enabled", False):
+        return "federation: no clusters attached to this endpoint"
+    header = f"{'CLUSTER':<24} {'GENERATION':>11} {'AGE_S':>9}  STATE"
+    lines = [
+        (
+            f"federation: {status['counts']['total']} cluster(s) "
+            f"(stale>{status.get('stale_after_s'):g}s, "
+            f"lost>{status.get('evict_after_s'):g}s)"
+        ),
+        header,
+        "-" * len(header),
+    ]
+    for name in sorted(status.get("clusters", {})):
+        c = status["clusters"][name]
+        age = c.get("age_s")
+        lines.append(
+            f"{name:<24} {c.get('generation'):>11} "
+            f"{'-' if age is None else age:>9}  {c.get('state')}"
+        )
+    lines.append("-" * len(header))
+    excluded = status.get("excluded", [])
+    lines.append(
+        "verdict: "
+        + (
+            "DEGRADED — lost: " + ", ".join(excluded)
+            if excluded
+            else (
+                "ok — every cluster within the staleness bound"
+                if status["counts"].get("stale", 0) == 0
+                else "STALE — "
+                + str(status["counts"]["stale"])
+                + " cluster(s) serving explicitly-stale views"
+            )
+        )
+    )
+    return "\n".join(lines)
+
+
+def fed_status_json_report(status: dict) -> str:
+    """``kccap -fed-status -output json``: the wire shape verbatim."""
+    return json.dumps(status, indent=2, sort_keys=True)
+
+
+def fed_sweep_table_report(result: dict) -> str:
+    """``kccap -fed-sweep`` as operator-readable text: the fleet total
+    per scenario, the per-cluster split (each row carrying its stamped
+    generation and state), and the named exclusions — a lost cluster is
+    never a silent hole in a sum."""
+    header = f"{'CLUSTER':<24} {'GENERATION':>11}  {'STATE':<6}  TOTALS"
+    lines = [header, "-" * len(header)]
+    clusters = result.get("clusters", {})
+    for name in sorted(result.get("per_cluster", {})):
+        c = clusters.get(name, {})
+        totals = result["per_cluster"][name]
+        lines.append(
+            f"{name:<24} {c.get('generation'):>11}  "
+            f"{c.get('state'):<6}  {totals}"
+        )
+    for name in result.get("excluded", []):
+        c = clusters.get(name, {})
+        lines.append(
+            f"{name:<24} {c.get('generation'):>11}  "
+            f"{'lost':<6}  EXCLUDED from totals"
+        )
+    lines.append("-" * len(header))
+    lines.append(f"fleet totals      : {result.get('totals')}")
+    lines.append(f"schedulable       : {result.get('schedulable')}")
+    excluded = result.get("excluded", [])
+    lines.append(
+        "verdict: "
+        + (
+            "DEGRADED — totals exclude lost cluster(s): "
+            + ", ".join(excluded)
+            if excluded
+            else (
+                "ok (some clusters explicitly stale)"
+                if result.get("degraded")
+                else "ok — every cluster fresh"
+            )
+        )
+    )
+    return "\n".join(lines)
+
+
+def fed_sweep_json_report(result: dict) -> str:
+    """``kccap -fed-sweep -output json``: the wire shape verbatim."""
+    return json.dumps(result, indent=2, sort_keys=True)
+
+
 def replay_table_report(result: dict) -> str:
     """``kccap-torch -replay`` as operator-readable text: the chain verdict,
     the request tallies, and one line per non-ok outcome (a clean
@@ -1075,3 +1174,110 @@ def replay_table_report(result: dict) -> str:
 def replay_json_report(result: dict) -> str:
     """``kccap-torch -replay -output json``: the replay summary verbatim."""
     return json.dumps(result, indent=2, sort_keys=True)
+
+
+def trace_table_report(tree: dict) -> str:
+    """``kccap -trace-tree`` as operator-readable text: the assembled
+    span tree (parent linkage only — indentation IS causality), the
+    greedy critical path with per-step self time, and the dominating
+    contributor in the ``phases`` vocabulary.  A clock-skew refusal is
+    reported as a refusal, never as a confident wrong answer."""
+    tid = tree.get("trace_id", "")
+    if not tree.get("found"):
+        return (
+            f"trace {tid}: no spans found in the given logs\n"
+            "verdict: NOT FOUND — wrong -trace-logs directories, or the "
+            "trace's bodies were dropped by tail sampling on every hop"
+        )
+    lines = [
+        f"trace {tid}: {tree.get('spans', 0)} span(s) across "
+        + (", ".join(tree.get("processes", [])) or "unknown processes")
+        + (
+            f"  (orphaned: {tree['orphans']})"
+            if tree.get("orphans")
+            else ""
+        )
+    ]
+    skew = tree.get("clock_skew_spans", [])
+    if skew:
+        lines.append(
+            f"clock skew: {len(skew)} span(s) with negative durations "
+            "flagged (wall-clock stepped mid-span): " + ", ".join(skew)
+        )
+    in_flight = tree.get("in_flight", [])
+    if in_flight:
+        lines.append(
+            f"in flight: {len(in_flight)} span(s) recorded without a "
+            "usable duration (process died mid-request?) excluded "
+            "from assembly: " + ", ".join(in_flight)
+        )
+
+    def _walk(node, depth, seen):
+        if id(node) in seen or depth > 64:
+            return
+        seen.add(id(node))
+        flags = []
+        if node.get("clock_skew"):
+            flags.append("CLOCK_SKEW")
+        if node.get("status") not in (None, "ok"):
+            flags.append(str(node.get("status")).upper())
+        for key in ("hedge", "winner", "leader"):
+            if node.get(key):
+                flags.append(key)
+        if node.get("failover_reason"):
+            flags.append(f"failover={node['failover_reason']}")
+        if node.get("cluster"):
+            flags.append(f"cluster={node['cluster']}")
+        if node.get("state") and node.get("state") != "fresh":
+            flags.append(f"state={node['state']}")
+        dur = node.get("duration_ms")
+        lines.append(
+            "  " * depth
+            + f"- {node.get('op', '?')} [{node.get('service', '?')}] "
+            + (f"{dur:g}ms" if isinstance(dur, (int, float)) else "?ms")
+            + (("  " + " ".join(flags)) if flags else "")
+        )
+        for child in node.get("children", ()):
+            _walk(child, depth + 1, seen)
+
+    seen: set = set()
+    for root in tree.get("roots", []):
+        _walk(root, 1, seen)
+    cp = tree.get("critical_path") or {}
+    if cp.get("refused"):
+        lines.append(
+            "critical path: REFUSED ("
+            + cp["refused"]
+            + (
+                ") — a poisoned (negative) duration is on the path; "
+                "fix the host clock or read the raw spans"
+                if cp["refused"] == "clock_skew"
+                else ") — nothing to attribute"
+            )
+        )
+        return "\n".join(lines)
+    lines.append(f"critical path ({cp.get('total_ms', 0.0):g}ms end-to-end):")
+    for step in cp.get("path", []):
+        lines.append(
+            f"  {step.get('op', '?'):<24} [{step.get('service', '?'):<10}] "
+            f"{step.get('duration_ms', 0.0):>10g}ms  "
+            f"self {step.get('self_ms', 0.0):g}ms"
+            + (
+                f"  {str(step.get('status')).upper()}"
+                if step.get("status")
+                else ""
+            )
+        )
+    dom = cp.get("dominant")
+    if dom:
+        lines.append(
+            f"verdict: dominated by {dom['name']} — {dom['ms']:g}ms "
+            f"({dom['share'] * 100:.1f}% of end-to-end)"
+        )
+    return "\n".join(lines)
+
+
+def trace_json_report(tree: dict) -> str:
+    """``kccap -trace-tree -output json``: the assembled tree (nested
+    ``children``) plus ``critical_path`` verbatim."""
+    return json.dumps(tree, indent=2, sort_keys=True)

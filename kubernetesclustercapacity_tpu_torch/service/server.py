@@ -35,7 +35,9 @@ the registry as Prometheus text with ``/healthz``
 (:func:`healthz_probes`).  ``-audit-dir`` and ``-shadow-sample-rate`` keep
 the audit trail and the shadow oracle, ``-tenants`` and ``-admission-*``
 attribute and gate requests, and ``-plane-port`` / ``-plane-leader`` make
-the server a leader or a replica of the replicated serving plane.  The
+the server a leader or a replica of the replicated serving plane.
+``-profile-hz`` sets the sampling profiler's rate; it serves collapsed
+flamegraphs at ``/debug/profile`` on the metrics port.  The
 port has no fast-path breaker (a kernel that fails to build or launch
 raises); ``info`` reports one that never opens, in the JAX snapshot's
 shape, for clients that read it.
@@ -882,6 +884,11 @@ class CapacityServer:
         self._m_inflight.inc()
         clk = _phases.new_clock()
         prev_clk = _phases.activate(clk)
+        if clk:
+            # Live (op, tenant) attribution for the sampling profiler: a
+            # sample landing anywhere in this dispatch carries the op and
+            # tenant; phase blocks add the third coordinate.
+            _phases.live_set(op=op_label, tenant=tenant)
         t0 = time.perf_counter()
         error: str | None = None
         result = None
@@ -930,6 +937,8 @@ class CapacityServer:
                 with self._drain_cv:
                     self._active_gated -= 1
                     self._drain_cv.notify_all()
+            if clk:
+                _phases.live_clear()
             _phases.restore(prev_clk)
             dur = time.perf_counter() - t0
             self._m_inflight.dec()
@@ -2843,7 +2852,7 @@ def follow_publisher(server: CapacityServer, follower, *,
 
 def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
                    timeline=None, slo=None, audit_log=None, shadow=None,
-                   plane=None, subscriber=None):
+                   plane=None, subscriber=None, profiler=None):
     """``(healthy, status)``: the two callables a
     :class:`~..telemetry.exposition.MetricsServer` takes for ``/healthz``,
     as the JAX server's ``main`` wires them.
@@ -2854,8 +2863,9 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
     caller may fill it after the endpoint starts); the timeline's stats;
     the audit log's and the shadow sampler's; the SLO monitor's
     (evaluated on read); the plane's (the leader's ``plane`` publisher or
-    the replica's ``subscriber``); ``draining``; and the device ledger,
-    reconciled on every probe.  ``healthy`` is False — a 503 — while the
+    the replica's ``subscriber``); ``draining``; the device ledger,
+    reconciled on every probe; and the sampling ``profiler``'s stats.
+    ``healthy`` is False — a 503 — while the
     follower is dead, the shadow oracle has caught a divergence, an SLO
     fast-burns, a capacity-at-risk, gang or forecast watch is breached,
     the replica is stale, a drain has begun, or the device ledger sees a
@@ -2896,6 +2906,8 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
             except Exception:  # noqa: BLE001 - audit != liveness
                 pass
             out["device_memory"] = _memledger.LEDGER.stats()
+        if profiler is not None:
+            out["profiler"] = profiler.stats()
         return out
 
     def healthy() -> bool:
@@ -2926,10 +2938,9 @@ def healthz_probes(server: CapacityServer, *, follower=None, coalescers=(),
 
 
 # The JAX server's flags for subsystems not ported yet (see the CLI's
-# table): each is declared, so using it exits 1 with "not yet ported".
-_UNPORTED_SERVER_FLAGS = (
-    ("-profile-hz", "value"),
-)
+# table): each would be declared, so that using it exits 1 with "not yet
+# ported".  None is left.
+_UNPORTED_SERVER_FLAGS: tuple = ()
 
 
 def build_parser():
@@ -2971,6 +2982,14 @@ def build_parser():
                    metavar="PORT",
                    help="serve Prometheus /metrics and /healthz on this "
                         "port (0 = disabled); binds the -host address")
+    p.add_argument("-profile-hz", type=float, default=0.0,
+                   dest="profile_hz", metavar="HZ",
+                   help="continuous-profiler sampling rate (0 = "
+                        "KCCAP_PROFILE_HZ or the 29 Hz default); the "
+                        "profiler itself arms with the server unless "
+                        "KCCAP_PROFILER=0, and serves collapsed "
+                        "flamegraphs at /debug/profile?seconds=N on "
+                        "the metrics port")
     p.add_argument("-device-budget-bytes", type=int, default=0,
                    dest="device_budget_bytes", metavar="BYTES",
                    help="device-memory budget: when the ledger's live "
@@ -3238,8 +3257,13 @@ def main(argv=None) -> int:
         print(line, file=sys.stderr)
         if follower is not None:
             follower.stop()
+        stop_profiler()
         return 1
 
+    from kubernetesclustercapacity_tpu_torch.telemetry.profiler import (
+        start_profiler,
+        stop_profiler,
+    )
     from kubernetesclustercapacity_tpu_torch.telemetry.tracing import TraceLog
 
     trace_log = None
@@ -3258,6 +3282,11 @@ def main(argv=None) -> int:
     )
 
     register_process_metrics(REGISTRY)
+    # The continuous profiler rides the whole serve (KCCAP_PROFILER=0
+    # pins it to zero threads + zero registry calls).
+    profiler = start_profiler(
+        args.profile_hz if args.profile_hz > 0 else None
+    )
     if args.device_budget_bytes > 0:
         _memledger.LEDGER.set_budget(args.device_budget_bytes)
     timeline = None
@@ -3450,6 +3479,7 @@ def main(argv=None) -> int:
             server, follower=follower, coalescers=coalescers,
             timeline=timeline, slo=slo_monitor, audit_log=audit_log,
             shadow=shadow, plane=plane_pub, subscriber=subscriber,
+            profiler=profiler,
         )
         try:
             metrics_server = start_metrics_server(
@@ -3458,6 +3488,11 @@ def main(argv=None) -> int:
                 port=args.metrics_port,
                 healthy=healthy,
                 status=status,
+                debug=(
+                    {"/debug/profile": profiler.debug_handler}
+                    if profiler is not None
+                    else None
+                ),
             )
         except OSError as e:
             server.shutdown()
@@ -3555,6 +3590,7 @@ def main(argv=None) -> int:
             shadow.close()
         if audit_log is not None:
             audit_log.close()
+        stop_profiler()
         server.shutdown()
     return 0
 

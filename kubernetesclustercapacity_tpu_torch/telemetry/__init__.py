@@ -13,8 +13,9 @@ keeps resident; :mod:`.compilewatch` splits each kernel label's first
 dispatch (its build or load) from the steady state; :mod:`.exposition`
 serves the registry as Prometheus text with ``/healthz``;
 :mod:`.process` adds the process gauges; :mod:`.slo` turns the request
-metrics into error-budget burn rates.  The sampling profiler is not
-ported yet.
+metrics into error-budget burn rates; :mod:`.profiler` samples every
+thread's stack joined to the live phase table; :mod:`.traceview` stitches
+per-process span logs into one trace tree and its critical path.
 
 Hot-path rule: all instrumentation lives on the host around kernel
 dispatch, and the dispatch-side hooks honor :func:`~.metrics.enabled` so

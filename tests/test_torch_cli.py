@@ -165,13 +165,23 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
     [
         (["-snapshot", KIND, "-backend", "native"],
          "-backend native: not yet ported"),
-        (["-snapshot", KIND, "-trace-tree", "ab" * 16],
-         "-trace-tree: not yet ported"),
+        # -trace-tree and -fed-status are ported: each runs as the JAX CLI
+        # does on the same command line (here: both refuse with exit 1).
+        (["-snapshot", KIND, "-trace-tree", "ab" * 16], None),
         (["-snapshot", KIND, "-fed-status", "127.0.0.1:1", "-grid", "4"],
-         "-fed-status: not yet ported"),
+         None),
     ],
 )
 def test_unported_surfaces_say_so(argv, needle, capsys):
+    if needle is None:
+        outs = []
+        for main, extra in ((j_cli.main, []),
+                            (t_cli.main, ["-device", "cpu"])):
+            rc = main(argv + extra)
+            outs.append((rc, *capsys.readouterr()))
+        assert outs[0] == outs[1] and outs[0][0] == 1
+        assert "not yet ported" not in str(outs[1])
+        return
     rc, out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
     assert rc == 1
     assert needle in out and out.startswith("ERROR : ")
@@ -378,6 +388,14 @@ PORTED_NEW = ("-save-snapshot", "-node-bucket-floor", "-group-min-count")
 # and error line equal on the same command line).
 PORTED_AUDIT_PLANE = ("-replay", "-replay-ref", "-replay-generation",
                       "-replay-tenant", "-plane-status")
+# The federation and diagnostics flags: each runs as in the JAX CLI too,
+# -doctor aside (its report describes this package and this host, so it is
+# held to the JAX report's check names in tests/test_torch_doctor.py).
+PORTED_FED_DIAG = ("-doctor-timeout", "-doctor-service", "-jax-profile",
+                   "-fed-status", "-fed-sweep", "-doctor-federation",
+                   "-trace-tree", "-trace-logs", "-profile",
+                   "-profile-seconds", "-profile-out", "-bench-diff",
+                   "-bench-thresholds")
 
 
 @pytest.fixture
@@ -411,6 +429,8 @@ def _flag_argv(flag, tmp_path):
         return [flag, str(tmp_path / "saved.npz")]
     if flag == "-trace-log":
         return [flag, str(tmp_path / "trace.jsonl")]
+    if flag in ("-jax-profile", "-profile-out"):
+        return [flag, str(tmp_path / flag.lstrip("-"))]
     if flag == "-extended-request":
         return [flag, "nvidia.com/gpu=0"]
     return [flag, "x"]
@@ -433,7 +453,10 @@ def test_no_jax_cli_flag_gives_argparse_exit_2(
                        "package ...exiting\n")
     elif flag in PORTED_NEW:
         assert rc == 0
-    elif flag in PORTED_AUDIT_PLANE:
+    elif flag == "-doctor":
+        assert rc == 0 and out.startswith("package ")
+        assert "not yet ported to the PyTorch package) — -backend" in out
+    elif flag in PORTED_AUDIT_PLANE + PORTED_FED_DIAG:
         outs = []
         for main, run_argv in ((t_cli.main, argv), (j_cli.main, argv[:-2])):
             run_rc = main(run_argv)

@@ -8,7 +8,10 @@ the LP optimizer on the card (the int64 gang programs, grouped and per
 node, equal ``gang_oracle`` and the host; the PDHG's integer answers equal
 the host's), and the audit trail and the plane on the card (a log replays
 clean on the card, one B1 launch a replayed sweep, equal to the host's
-replay; a replica's sweep launches B1 once and equals the leader's).
+replay; a replica's sweep launches B1 once and equals the leader's), and
+the federation and the doctor on the card (each per-cluster row of a
+``fed_sweep`` equals its leader's B1 sweep; the doctor's probe names the
+card).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -1015,3 +1018,69 @@ def test_replica_sweep_launches_b1_once_and_equals_the_leader(cuda):
         sub.stop()
         leader.shutdown()
         replica.shutdown()
+
+
+def test_federation_rows_on_the_card_equal_the_leaders_b1_sweeps(cuda):
+    """A federation on the card follows three leaders on the card; each
+    ``per_cluster`` row of its ``fed_sweep`` equals that leader's ``sweep``
+    (one B1 launch each) of the same grid, and the grand totals their
+    sum."""
+    import time
+
+    from kubernetesclustercapacity_tpu_torch.federation import (
+        FederationServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.service import CapacityServer
+    from kubernetesclustercapacity_tpu_torch.service.plane import (
+        PlanePublisher,
+    )
+
+    leaders, pubs = {}, {}
+    for k, name in enumerate(("east", "west", "north")):
+        fx = synthetic_fixture(2_000, seed=8 + k, taint_frac=0.1)
+        pubs[name] = PlanePublisher(heartbeat_s=0.2)
+        leaders[name] = CapacityServer(
+            snapshot_from_fixture(fx, semantics="strict"), device="cuda",
+            batch_window_ms=0, plane=pubs[name])
+    fed = FederationServer({n: p.address for n, p in pubs.items()},
+                           stale_after_s=30.0, evict_after_s=60.0,
+                           device="cuda")
+    try:
+        deadline = time.monotonic() + 60
+        while fed.status()["counts"]["fresh"] < 3:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        grid = random_scenario_grid(1_000, seed=7)
+        msg = {"op": "sweep",
+               "cpu_request_milli": grid.cpu_request_milli.tolist(),
+               "mem_request_bytes": grid.mem_request_bytes.tolist(),
+               "replicas": grid.replicas.tolist()}
+        want = {}
+        for name, leader in leaders.items():
+            before = ff.LAUNCHES
+            reply = leader.dispatch(dict(msg))
+            assert ff.LAUNCHES - before == 1
+            assert reply["kernel"] == "cuda_i32_rcp_fused"
+            want[name] = reply["totals"]
+        got = fed.dispatch({"op": "fed_sweep", **{
+            k: v for k, v in msg.items() if k != "op"}})
+        assert got["per_cluster"] == want
+        assert got["totals"] == [sum(t) for t in zip(*want.values())]
+        assert got["excluded"] == [] and got["degraded"] is False
+    finally:
+        fed.close()
+        for name in leaders:
+            pubs[name].close()
+            leaders[name].shutdown()
+
+
+def test_doctor_probe_names_the_card(cuda):
+    from kubernetesclustercapacity_tpu_torch.utils import doctor
+
+    res = doctor._probe_backend(120.0, device="cuda")
+    name = torch.cuda.get_device_name(0)
+    assert res.startswith("ok: ")
+    assert res.endswith(f"s {name} x{torch.cuda.device_count()}")
+    out, rc = doctor.run_doctor(backend_timeout_s=120.0, device="cuda")
+    assert rc == 0, out
+    assert f"{name} x" in out

@@ -77,7 +77,10 @@ def test_the_scan_is_not_vacuous():
                    "audit/replay.py", "audit/shadow.py",
                    "audit/__init__.py", "testing_faults.py",
                    "service/tenancy.py", "service/plane.py",
-                   "service/replicaset.py"):
+                   "service/replicaset.py", "federation/__init__.py",
+                   "federation/server.py", "utils/doctor.py",
+                   "telemetry/profiler.py", "telemetry/traceview.py",
+                   "analysis/__init__.py", "analysis/benchdiff.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -300,6 +303,31 @@ _BLOCKED_RUN = textwrap.dedent(
         metrics.shutdown()
         server.shutdown()
         monitor.close()
+    from kubernetesclustercapacity_tpu_torch.analysis import benchdiff
+    from kubernetesclustercapacity_tpu_torch.federation import (
+        FederationServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry import (
+        profiler as _profiler,
+        traceview,
+    )
+    from kubernetesclustercapacity_tpu_torch.utils import doctor
+
+    with FederationServer(device="cpu") as fed:
+        fed.inject("a", kt.synthetic_snapshot(40, seed=1))
+        fed.inject("b", kt.synthetic_snapshot(30, seed=2))
+        fed_reply = fed.dispatch({"op": "fed_sweep", "cpuRequests": "100m",
+                                  "memRequests": "100mb"})
+    checks = doctor.doctor_report(
+        backend_timeout_s=60.0, probe_code="print('DEVICES 0s D x1')",
+        device="cpu")
+    prof = _profiler.start_profiler(50)
+    prof_running = prof.running()
+    _profiler.stop_profiler()
+    fed_diag = [sorted(fed_reply["per_cluster"]), fed_reply["excluded"],
+                doctor.healthy(checks), len(checks), prof_running,
+                traceview.analyze_trace([], "x")["found"],
+                benchdiff.infer_direction("x_ms")]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -319,6 +347,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "stochastic": stochastic_results,
                       "gang_opt": gang_opt,
                       "operator": operator,
+                      "fed_diag": fed_diag,
                       "loaded": loaded}))
     """
 )
@@ -350,6 +379,8 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "stochastic": [True, [3, 32], True, [1, 2, 3], 8],
         "gang_opt": ["per-node", True, True, "per-node", 0],
         "operator": [1, True, 2, True, 200, True],
+        "fed_diag": [["a", "b"], [], True, 13, True, False,
+                     "lower_is_better"],
         "loaded": [],
     }
     assert doc["scheduling"][0] > 0
@@ -425,3 +456,40 @@ def test_scheduling_default_device_raises_without_cuda(no_cuda, capsys):
         t_cli.main(["-snapshot", "tests/fixtures/kind-3node.json",
                     "-semantics", "strict", "-drain", "kind-worker"])
     assert capsys.readouterr().out == ""
+
+
+def test_federation_default_device_raises_without_cuda(no_cuda):
+    from kubernetesclustercapacity_tpu_torch.federation import (
+        FederationServer,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FederationServer()
+    with FederationServer(device="cpu") as fed:
+        assert fed.status()["enabled"] is False
+
+
+def test_fed_main_default_device_raises_without_cuda(no_cuda, capsys):
+    from kubernetesclustercapacity_tpu_torch.federation import server
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.main(["-cluster", "east=127.0.0.1:1", "-port", "0"])
+    assert capsys.readouterr().out == ""
+
+
+def test_doctor_default_device_fails_without_cuda(no_cuda, monkeypatch,
+                                                  capsys):
+    """``-doctor`` without ``-device cpu`` and without a card: the probe
+    child (which sees no card either) is a FAILED line, the optimizer
+    check refuses the missing card, and the exit code is 1."""
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert t_cli.main(["-doctor", "-doctor-timeout", "120"]) == 1
+    lines = dict(
+        (ln[:23].rstrip(), ln[25:])
+        for ln in capsys.readouterr().out.splitlines()
+    )
+    assert lines["backend probe"] == (
+        "FAILED: CUDA is not available (pass -device cpu to run on the host)")
+    assert lines["optimizer"].startswith(
+        "FAILED: RuntimeError: device 'cuda' requested but CUDA is not "
+        "available")

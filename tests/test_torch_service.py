@@ -759,14 +759,22 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_server_main_rejects_unported_flags_with_exit_1(capsys):
+    """No server flag is left unported: -profile-hz, the last, parses as
+    the JAX server's does and a command line using it runs as the JAX
+    server's (here both stop at a missing snapshot, before the profiler
+    starts; the served profiler is driven in tests/test_torch_profiler.py).
+    """
+    from kubernetesclustercapacity_tpu.service import server as j_server
     from kubernetesclustercapacity_tpu_torch.service import server
 
-    assert [f for f, _ in server._UNPORTED_SERVER_FLAGS] == ["-profile-hz"]
-    rc = server.main(["-snapshot", KIND, "-profile-hz", "5"])
+    assert [f for f, _ in server._UNPORTED_SERVER_FLAGS] == []
+    argv = ["-snapshot", "missing.json", "-profile-hz", "5"]
+    rc = server.main(argv)
     err = capsys.readouterr().err
-    assert rc == 1
-    assert err == ("ERROR : -profile-hz: not yet ported to "
-                   "the PyTorch package ...exiting\n")
+    assert rc == j_server.main(argv) == 1
+    assert err == capsys.readouterr().err
+    assert "not yet ported" not in err
+    assert server.build_parser().parse_args(argv[2:]).profile_hz == 5.0
 
 
 def test_live_cluster_surfaces_are_ported(tmp_path):
