@@ -77,7 +77,17 @@ partitioned (stale, lost: excluded, ``spillover`` refused, ``/healthz``
 the diagnostics against those servers: ``-doctor`` (exit 0 naming the
 card, 1 with the cluster lost), ``-trace-tree`` over their span logs, a
 leader's sampling profiler through ``-profile``, and ``-jax-profile`` of a
-``-grid`` run, whose ``torch.profiler`` trace names ``sweep_fit``.  Any
+``-grid`` run, whose ``torch.profiler`` trace names ``sweep_fit``.  Path
+(u) drives the native backend and the multi-device sweep: ``-backend
+native`` on (g)'s fleet (byte-equal to (g)'s transcripts), ``native.sweep``
+at 10,000 x 1,000 equal to B1, the exact program and the host, the
+divide-by-zero panic (exit 2), the native pod walk on (m)'s cluster (every
+column equal to the Python walk's; the script fails if the Python walk ran
+or a native piece did not build), ``kccap-client`` built with ``g++``
+against a port server on the card, the JAX package's 1,000,003-node mesh
+layouts (shard_map 1x8, GSPMD 2x4) on a mesh that names the card eight
+times, and two processes over gloo on the card (this script with
+``--multihost-worker``).  Any
 failure raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
@@ -1130,7 +1140,7 @@ def phase_single_spec(pkg, cli, fit, ff, fm, tmp: str,
     scenario = pkg.scenario_from_flags(
         cpuRequests="200m", cpuLimits="400m", memRequests="250mb",
         memLimits="500mb", replicas="5000")
-    out = {"seconds": {}, "totals": {}, "launches": {}}
+    out = {"seconds": {}, "totals": {}, "launches": {}, "transcripts": {}}
     for semantics in ("reference", "strict"):
         argv = ["-snapshot", path, "-semantics", semantics, *SPEC_FLAGS]
         ff.LAUNCHES = fm.LAUNCHES = 0
@@ -1156,6 +1166,7 @@ def phase_single_spec(pkg, cli, fit, ff, fm, tmp: str,
             raise AssertionError(f"(g) {semantics}: transcript total {got}, "
                                  f"host sum of fit_per_node {want}")
         out["totals"][semantics] = want
+        out["transcripts"][semantics] = card
         log(f"main path (g) single spec, {SINGLE_SPEC_NODES} nodes, "
             f"{semantics}: -backend torch on the card "
             f"{out['seconds'][f'(g) {semantics} torch']:.3f} s and "
@@ -5274,6 +5285,322 @@ def phase_federation(pkg, cli, ff, fm, tmp: str, identity: str) -> dict:
     return out
 
 
+# --- Path (u): the native backend and the multi-device sweep --------------
+# (u1) the C++ capacity library: -backend native on (g)'s fleet, its sweep
+# on (a)'s and (b)'s fleets, the panic; (u2) the columnar pod walk on (m)'s
+# cluster; (u3) the compiled front end against a port server on the card;
+# (u4) the JAX package's TestMillionNodeScale layouts on a mesh that names
+# the card eight times, and two processes over gloo on the card.
+NATIVE_PANIC = "panic: integer divide by zero (ClusterCapacity.go:123/129)\n"
+MESH_NODES = 1_000_003  # prime: pads the node axis
+MULTIHOST_BACKEND = "gloo"  # NCCL puts no two ranks on one card
+KIND_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "kind-3node.json")
+
+
+def snapshot_columns(snap) -> tuple:
+    return (snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+            snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+            snap.pods_count)
+
+
+def multihost_worker(argv: list[str]) -> int:
+    """One rank of (u4)'s two-process run (``chip_smoke.py
+    --multihost-worker PORT RANK N``): a gloo group over 127.0.0.1, each
+    rank sweeping its scenario block on ``cuda:0``.  Prints one JSON line
+    of every result."""
+    import torch.distributed as dist
+
+    from kubernetesclustercapacity_tpu_torch import fixtures, scenario
+    from kubernetesclustercapacity_tpu_torch import snapshot as snapshots
+    from kubernetesclustercapacity_tpu_torch.ops.fit import (
+        snapshot_device_arrays,
+    )
+    from kubernetesclustercapacity_tpu_torch.parallel import multihost
+
+    port, rank, n = argv[0], int(argv[1]), int(argv[2])
+    multihost.initialize(f"127.0.0.1:{port}", n, rank,
+                         backend=MULTIHOST_BACKEND)
+    snap = snapshots.synthetic_snapshot(10_000, seed=1)
+    grid = scenario.random_scenario_grid(1_000, seed=7)
+    arrays = snapshot_device_arrays(snap, "cuda")
+    reqs = (grid.cpu_request_milli, grid.mem_request_bytes, grid.replicas)
+    multi = fixtures.synthetic_multi_workload(snap, grid.size, seed=44)
+    out = {"backend": dist.get_backend(),
+           "block": multihost.scenario_block(grid.size, rank, n), "ms": {}}
+    for gather in (True, False):
+        t0 = time.perf_counter()
+        t, s = multihost.sweep_multihost(arrays, *reqs, gather=gather,
+                                         device="cuda")
+        out["ms"][f"sweep gather={gather}"] = (time.perf_counter() - t0) * 1e3
+        out[f"sweep_{gather}"] = [t.tolist(), s.tolist()]
+        t0 = time.perf_counter()
+        t, s = multihost.sweep_multihost_multi(
+            multi[0], multi[1], snap.alloc_pods, snap.pods_count,
+            snap.healthy, multi[2], multi[3], mode="strict", gather=gather,
+            device="cuda")
+        out["ms"][f"multi gather={gather}"] = (time.perf_counter() - t0) * 1e3
+        out[f"multi_{gather}"] = [t.tolist(), s.tolist()]
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_multihost(pkg, fit, identity: str) -> dict:
+    """(u4)'s two processes, each this script in worker mode, checked
+    against one process's sweeps on the card."""
+    from kubernetesclustercapacity_tpu_torch.fixtures import (
+        synthetic_multi_workload,
+    )
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(port), str(rank), "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t0
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        if p.returncode != 0:
+            raise AssertionError(f"(u4) rank {rank} exited {p.returncode}: "
+                                 f"{stderr[-3000:]}")
+    docs = [json.loads(stdout.strip().splitlines()[-1])
+            for stdout, _ in results]
+    snap = pkg.synthetic_snapshot(10_000, seed=1)
+    grid = pkg.random_scenario_grid(1_000, seed=7)
+    single = fit.sweep_snapshot(snap, grid, device="cuda")
+    alloc_rn, used_rn, reqs_sr, reps = synthetic_multi_workload(
+        snap, grid.size, seed=44)
+    put = lambda a, dt=torch.int64: torch.as_tensor(  # noqa: E731
+        np.asarray(a), dtype=dt, device="cuda")
+    multi = fit.sweep_grid_multi(
+        put(alloc_rn), put(used_rn), put(snap.alloc_pods),
+        put(snap.pods_count), put(snap.healthy, torch.bool), put(reqs_sr),
+        put(reps), mode="strict")
+    want = {"sweep": [np.asarray(a).tolist() for a in single],
+            "multi": [a.cpu().numpy().tolist() for a in multi]}
+    for rank, doc in enumerate(docs):
+        if doc["backend"] != MULTIHOST_BACKEND:
+            raise AssertionError(f"(u4) rank {rank}: backend {doc['backend']}")
+        b0, b1 = doc["block"]
+        for what in ("sweep", "multi"):
+            if doc[f"{what}_True"] != want[what]:
+                raise AssertionError(f"(u4) rank {rank}: gathered {what} "
+                                     "differs from one process's")
+            if doc[f"{what}_False"] != [c[b0:b1] for c in want[what]]:
+                raise AssertionError(f"(u4) rank {rank}: {what} block "
+                                     f"[{b0}, {b1}) differs")
+    log(f"(u4) two processes over {MULTIHOST_BACKEND} on one card, 10000 "
+        f"nodes x 1000 scenarios (blocks {docs[0]['block']} and "
+        f"{docs[1]['block']}): sweep_multihost and sweep_multihost_multi, "
+        f"gathered and per block, equal to one process's sweeps; rank 0 "
+        f"{ {k: round(v, 3) for k, v in docs[0]['ms'].items()} } ms, "
+        f"{wall_s:.1f} s for both processes from start ({identity})")
+    return {"wall_s": wall_s, "rank_ms": [d["ms"] for d in docs],
+            "backend": MULTIHOST_BACKEND}
+
+
+def phase_native_parallel(pkg, cli, fit, ff, tmp: str, identity: str,
+                          transcripts: dict) -> dict:
+    """Path (u).  ``transcripts`` are (g)'s ``-backend torch`` transcripts
+    of the same fleet (equal to ``-backend cpu``'s there).  Returns the
+    times, B1's launches and the (u4) run."""
+    from kubernetesclustercapacity_tpu_torch import native, parallel
+    from kubernetesclustercapacity_tpu_torch import snapshot as snapshots
+    from kubernetesclustercapacity_tpu_torch.native import ingest
+    from kubernetesclustercapacity_tpu_torch.service import CapacityServer
+
+    t_phase = time.perf_counter()
+    out = {"ms": {}, "launches": {"sweep_fit": {}}}
+    for what, ok, mod in (("capacity library", native.available(), native),
+                          ("pod walk", ingest.available(), ingest)):
+        if not ok:
+            raise AssertionError(f"(u) the native {what} is unavailable: "
+                                 f"{mod._BUILD_ERROR}")
+
+    # (u1) -backend native on (g)'s fleet, both semantics.
+    fixture = pkg.synthetic_fixture(SINGLE_SPEC_NODES, seed=6, taint_frac=0.1)
+    g_path = os.path.join(tmp, "u.json")
+    pkg.save_fixture(fixture, g_path)
+    for semantics in ("reference", "strict"):
+        ff.LAUNCHES = 0
+        t0 = time.perf_counter()
+        text = run_cli_text(cli, ["-snapshot", g_path, "-semantics",
+                                  semantics, *SPEC_FLAGS, "-backend",
+                                  "native"])
+        out["ms"][f"(u1) -backend native {semantics}"] = \
+            (time.perf_counter() - t0) * 1e3
+        if text != transcripts[semantics] or ff.LAUNCHES:
+            raise AssertionError(f"(u1) {semantics}: the -backend native "
+                                 "transcript differs from (g)'s")
+    args = cli.build_parser().parse_args(["-backend", "native",
+                                          "-semantics", "reference"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli._run_single(args, None, pkg.synthetic_snapshot(8, seed=1),
+                             pkg.Scenario(0, MIB, 5))
+    if (rc, buf.getvalue()) != (2, NATIVE_PANIC):
+        raise AssertionError(f"(u1) panic: exit {rc}, {buf.getvalue()!r}")
+
+    # (u1) native.sweep against B1, the exact program and the host.
+    grid = pkg.random_scenario_grid(1_000, seed=7)
+    strict = pkg.snapshot_from_fixture(
+        pkg.synthetic_fixture(10_000, seed=3, taint_frac=0.1),
+        semantics="strict")
+    taint = pkg.implicit_taint_mask(strict)
+    for name, snap, mode, mask in (
+            ("(u1) 10k x 1k reference", pkg.synthetic_snapshot(10_000,
+                                                               seed=1),
+             "reference", None),
+            ("(u1) 10k x 1k strict, taint-masked", strict, "strict", taint)):
+        ff.LAUNCHES = 0
+        b1, _, label = ff.sweep_snapshot_auto(snap, grid, mode=mode,
+                                              node_mask=mask, device="cuda")
+        out["launches"]["sweep_fit"][name] = ff.LAUNCHES
+        if label != "cuda_i32_rcp_fused" or ff.LAUNCHES != 1:
+            raise AssertionError(f"{name}: B1 took {label}, {ff.LAUNCHES} "
+                                 "launches")
+        healthy = None if mask is None else snap.healthy & mask
+        nat = native.sweep(*snapshot_columns(snap), grid.cpu_request_milli,
+                           grid.mem_request_bytes, mode=mode,
+                           healthy=healthy)
+        check_equal(f"{name} native vs B1", nat, b1)
+        check_totals(name, fit, ff, snap, grid, nat, mode=mode, mask=mask)
+        out["ms"][f"{name} native.sweep"] = host_median_ms(
+            lambda: native.sweep(*snapshot_columns(snap),
+                                 grid.cpu_request_milli,
+                                 grid.mem_request_bytes, mode=mode,
+                                 healthy=healthy), runs=5, warmup=1)
+        out["ms"][f"{name} B1 sweep_snapshot_auto"] = host_median_ms(
+            lambda: ff.sweep_snapshot_auto(snap, grid, mode=mode,
+                                           node_mask=mask, device="cuda"))
+        log(f"{name}: native.sweep = B1 ({label}, 1 launch) = exact on the "
+            f"card = host; native.sweep "
+            f"{out['ms'][f'{name} native.sweep']:.3f} ms (host, median of "
+            f"5, {os.cpu_count()} CPUs), B1 end to end "
+            f"{out['ms'][f'{name} B1 sweep_snapshot_auto']:.4f} ms (median "
+            f"of 20) ({identity})")
+
+    # (u2) the pod walk on (m)'s cluster, both semantics.
+    live = live_fixture_source(pkg)
+    n_pods = len(live["pods"])
+    for semantics in ("reference", "strict"):
+        kw = {"semantics": semantics}
+        if semantics == "strict":
+            kw["extended_resources"] = EXTENDED
+        walked = snapshots.NATIVE_WALKS[semantics]
+        t0 = time.perf_counter()
+        with_walk = pkg.snapshot_from_fixture(live, **kw)
+        walk_s = time.perf_counter() - t0
+        if snapshots.NATIVE_WALKS[semantics] - walked != 1:
+            raise AssertionError(f"(u2) {semantics}: the Python pod walk "
+                                 "ran on a well-formed cluster")
+        os.environ["KCC_DISABLE_NATIVE_INGEST"] = "1"
+        try:
+            t0 = time.perf_counter()
+            pure = pkg.snapshot_from_fixture(live, **kw)
+            pure_s = time.perf_counter() - t0
+        finally:
+            del os.environ["KCC_DISABLE_NATIVE_INGEST"]
+        if snapshots.NATIVE_WALKS[semantics] - walked != 1:
+            raise AssertionError(f"(u2) {semantics}: the walk ran while "
+                                 "disabled")
+        for f in dataclasses.fields(with_walk):
+            a, b = getattr(with_walk, f.name), getattr(pure, f.name)
+            same = (all(np.array_equal(a[r][k], b[r][k])
+                        for r in a for k in (0, 1)) and a.keys() == b.keys()
+                    if f.name == "extended" else
+                    np.array_equal(a, b) if isinstance(a, np.ndarray)
+                    else a == b)
+            if not same:
+                raise AssertionError(f"(u2) {semantics}: column {f.name} "
+                                     "differs between the walks")
+        out["ms"][f"(u2) pack {semantics} native walk"] = walk_s * 1e3
+        out["ms"][f"(u2) pack {semantics} Python walk"] = pure_s * 1e3
+        log(f"(u2) {semantics} pack of {LIVE_NODES} nodes, {n_pods} pods: "
+            f"native walk {walk_s:.3f} s, Python walk {pure_s:.3f} s (host "
+            f"clock, one pack each), every column equal")
+
+    # (u3) kccap-client against a port server on the card.
+    src = os.path.join(os.path.dirname(native.__file__), "kccap_client.cc")
+    exe = os.path.join(tmp, "kccap-client")
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O2", "-std=c++17", "-o", exe, src], check=True,
+                   capture_output=True, timeout=300)
+    out["ms"]["(u3) g++ kccap-client"] = (time.perf_counter() - t0) * 1e3
+    for name, path, fx in (("kind-3node", KIND_FIXTURE, None),
+                           ("(g)'s 10,000 nodes", g_path, fixture)):
+        fx = fx if fx is not None else pkg.load_fixture(path)
+        server = CapacityServer(pkg.snapshot_from_fixture(fx), fixture=fx,
+                                port=0, device="cuda")
+        server.start()
+        try:
+            host, port = server.address
+            t0 = time.perf_counter()
+            proc = subprocess.run([exe, "-server", f"{host}:{port}",
+                                   *SPEC_FLAGS], capture_output=True,
+                                  text=True, timeout=300)
+            out["ms"][f"(u3) kccap-client {name}"] = \
+                (time.perf_counter() - t0) * 1e3
+        finally:
+            server.shutdown()
+        want = run_cli_text(cli, ["-snapshot", path, *SPEC_FLAGS])
+        if proc.returncode != 0 or proc.stdout != want:
+            raise AssertionError(f"(u3) {name}: kccap-client exit "
+                                 f"{proc.returncode}, its output differs "
+                                 f"from the CLI's: {proc.stderr[-500:]}")
+    log(f"(u3) kccap-client (g++ {out['ms']['(u3) g++ kccap-client']:.0f} "
+        f"ms) against a port server on the card: kind-3node and 10,000 "
+        f"nodes byte-equal to the CLI, "
+        f"{out['ms']['(u3) kccap-client (g)' + chr(39) + 's 10,000 nodes']:.1f}"
+        f" ms at 10,000 nodes")
+
+    # (u4) the sharded sweeps on one card, then two processes.
+    snap = pkg.synthetic_snapshot(MESH_NODES, seed=31)
+    grid = pkg.random_scenario_grid(8, seed=32)
+    reqs = (grid.cpu_request_milli, grid.mem_request_bytes, grid.replicas)
+    single = fit.sweep_snapshot(snap, grid, device="cuda")
+    check_equal("(u4) single sweep vs the host", single[0],
+                fit.sweep_snapshot(snap, grid, device="cpu")[0])
+    out["ms"]["(u4) single-device sweep_snapshot"] = host_median_ms(
+        lambda: fit.sweep_snapshot(snap, grid, device="cuda"), runs=5,
+        warmup=1)
+    arrays = fit.snapshot_device_arrays(snap, "cuda")
+    card8 = [torch.device("cuda", 0)] * 8
+    for name, fn, sp, np_ in (("shard_map 1x8", parallel.sweep_shard_map,
+                               1, 8),
+                              ("gspmd 2x4", parallel.sweep_gspmd, 2, 4)):
+        plan = parallel.make_mesh(sp, np_, devices=card8)
+        totals, sched = fn(plan, arrays, *reqs)
+        if not (np.array_equal(totals, single[0])
+                and np.array_equal(sched, single[1])):
+            raise AssertionError(f"(u4) {name}: differs from the single "
+                                 "sweep")
+        out["ms"][f"(u4) {name}"] = host_median_ms(
+            lambda: fn(plan, arrays, *reqs), runs=5, warmup=1)
+    log(f"(u4) {MESH_NODES} nodes x 8 scenarios on [cuda:0] x 8: "
+        f"shard_map 1x8 {out['ms']['(u4) shard_map 1x8']:.1f} ms, gspmd 2x4 "
+        f"{out['ms']['(u4) gspmd 2x4']:.1f} ms, the single sweep "
+        f"{out['ms']['(u4) single-device sweep_snapshot']:.1f} ms (host "
+        f"clock, median of 5), totals and schedulable equal ({identity})")
+    del arrays
+    out["multihost"] = run_multihost(pkg, fit, identity)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(u) {out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = ("sweep_fit", "sweep_multi")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
@@ -5441,6 +5768,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(sys.argv[2:])
     if sys.argv[1:] == ["--sass-only"]:
         from kubernetesclustercapacity_tpu_torch.ops import _build
 
@@ -5512,6 +5841,10 @@ def main() -> int:
         fed = phase_federation(pkg, cli, ff, fm, tmp, identity)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after paths (s) "
         "and (t)")
+    with tempfile.TemporaryDirectory() as tmp:
+        nat = phase_native_parallel(pkg, cli, fit, ff, tmp, identity,
+                                    single.pop("transcripts"))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (u)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -5573,6 +5906,10 @@ def main() -> int:
         "diagnostics_trace_dominant": fed["trace_dominant"],
         "diagnostics_jax_profile": fed["jax_profile"],
         "federation_s": fed["seconds"],
+        "native_parallel_ms": nat["ms"],
+        "native_parallel_launches": nat["launches"],
+        "native_parallel_multihost": nat["multihost"],
+        "native_parallel_s": nat["seconds"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -5590,7 +5927,8 @@ def main() -> int:
         + sum(gopt["launches"]["sweep_fit"].values())
         + sum(oper["launches"]["sweep_fit"].values())
         + sum(repl["launches"]["sweep_fit"].values())
-        + sum(fed["launches"]["sweep_fit"].values()),
+        + sum(fed["launches"]["sweep_fit"].values())
+        + sum(nat["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

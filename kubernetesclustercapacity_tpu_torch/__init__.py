@@ -53,7 +53,10 @@ L0 kernels   :mod:`.ops.fused_fit` (the fused int32 sweep, CUDA kernel B1
              and its async fetch), :mod:`.ops.placement` (the placement
              scans), :mod:`.ops.preemption` (priority-threshold tables
              and the preemptive sweep), :mod:`.devcache` (device-resident
-             columns, re-staged in place on a snapshot swap)
+             columns, re-staged in place on a snapshot swap),
+             :mod:`.parallel` (the sweep over a mesh of devices and over
+             processes), :mod:`.native` (the compiled C++ loop behind
+             ``-backend native`` and the columnar pod walk, on the host)
 ===========  ===============================================================
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

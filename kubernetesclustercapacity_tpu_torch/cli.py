@@ -43,11 +43,11 @@ The source is ``-snapshot`` (a fixture ``.json`` or a checkpoint
 ``$HOME/.kube/config``): two paginated Lists through the port's stdlib
 client (:mod:`.kubeapi`), packed like a fixture.  ``-backend torch`` (the
 default) runs the port's device programs on ``-device``; ``-backend cpu``
-is the pure-Python oracle, the reference's sequential walk, as a
-cross-check.  ``-save-snapshot`` checkpoints the loaded snapshot and
-``-group-min-count`` sets the grouping gate, as in the JAX CLI.  Every
-other flag of the JAX CLI runs; only the compiled C++ loop (``-backend
-native``) is not ported yet and says so with exit 1.  ``-replay DIR``
+is the pure-Python oracle, the reference's sequential walk, and
+``-backend native`` the compiled C++ loop (:mod:`.native`), each a
+single-spec cross-check.  ``-save-snapshot`` checkpoints the loaded
+snapshot and ``-group-min-count`` sets the grouping gate, as in the JAX
+CLI.  Every other flag of the JAX CLI runs too.  ``-replay DIR``
 (``-replay-ref``, ``-replay-generation``, ``-replay-tenant``) re-answers
 a server's audit log on ``-device``, and ``-plane-status HOST:PORT``
 prints an endpoint's place in the replicated serving plane.
@@ -90,8 +90,7 @@ __all__ = ["main", "build_parser", "load_source", "run"]
 # it takes: a value, a switch, or one or more values.  Every one would be
 # declared, so that using it prints a "not yet ported" line and exits 1
 # (the JAX CLI would run; argparse would exit 2 on an unknown flag).  None
-# is left: the one surface still missing is ``-backend native``, a value
-# of a ported flag, which ``_run_command`` refuses.
+# is left.
 _UNPORTED_FLAGS: tuple = ()
 
 #: The one line a ``-node-bucket-floor`` run prints (to stderr) before it
@@ -147,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="torch",
                    help="the device programs (torch, on -device), the "
                         "pure-Python sequential walk (cpu), or the compiled "
-                        "C++ loop (native, not yet ported)")
+                        "C++ loop (native)")
     p.add_argument("-snapshot", default="",
                    help="offline source: fixture .json or checkpoint .npz")
     p.add_argument("-semantics", choices=("reference", "strict"),
@@ -663,8 +662,6 @@ def _run_command(args, unported: list[str]) -> int:
         # The reference prints an ERROR line and exits 1 (:68-83).
         print(e.reference_line or f"ERROR : {e} ...exiting")
         return 1
-    if args.backend == "native":
-        unported.append("-backend native")
     if unported:
         print(f"ERROR : {', '.join(unported)}: not yet ported to the "
               "PyTorch package ...exiting")
@@ -832,7 +829,8 @@ def _run_explain(args, snapshot, scenario) -> int:
 
     if args.backend != "torch":
         print("ERROR : -explain runs on the device programs (-backend "
-              "torch); the cpu backend is a fit-only cross-check ...exiting")
+              "torch); cpu/native backends are fit-only cross-checks "
+              "...exiting")
         return 1
     result = explain_snapshot(
         snapshot, ScenarioGrid.from_scenarios([scenario]),
@@ -1850,7 +1848,8 @@ def _run_optimize(args, snapshot, scenario) -> int:
 
 def _run_single(args, fixture, snapshot, scenario) -> int:
     """One spec: per-node fits from the device program (or the oracle
-    under ``-backend cpu``), then the chosen report."""
+    under ``-backend cpu``, the C++ loop under ``-backend native``), then
+    the chosen report."""
     from kubernetesclustercapacity_tpu_torch.masks import implicit_taint_mask
     from kubernetesclustercapacity_tpu_torch.ops.fit import fit_snapshot
     from kubernetesclustercapacity_tpu_torch.oracle import (
@@ -1865,7 +1864,8 @@ def _run_single(args, fixture, snapshot, scenario) -> int:
         return 1
     if ext_requests:
         # The R-resource fit through the model facade (R-way min and the
-        # implicit strict mask).  The cpu backend walks 2 resources only.
+        # implicit strict mask).  The cpu/native backends walk 2 resources
+        # only.
         if args.backend != "torch":
             print("ERROR : -extended-request needs -backend torch "
                   "...exiting")
@@ -1894,7 +1894,29 @@ def _run_single(args, fixture, snapshot, scenario) -> int:
             return 1
         return _emit_report(args, snapshot, result.fits, scenario)
 
-    if args.backend == "cpu":
+    if args.backend == "native":
+        from kubernetesclustercapacity_tpu_torch import native
+
+        try:
+            fits = native.fit_arrays(
+                snapshot.alloc_cpu_milli,
+                snapshot.alloc_mem_bytes,
+                snapshot.alloc_pods,
+                snapshot.used_cpu_req_milli,
+                snapshot.used_mem_req_bytes,
+                snapshot.pods_count,
+                int64_bits(scenario.cpu_request_milli),
+                scenario.mem_request_bytes,
+                mode=args.semantics,
+                healthy=snapshot.healthy,
+            )
+        except native.NativeUnavailable as e:
+            print(f"ERROR : native backend unavailable: {e}")
+            return 1
+        except native.NativePanic as e:
+            print(f"panic: {e}")
+            return 2
+    elif args.backend == "cpu":
         try:
             if fixture is not None and args.semantics == "reference":
                 fits = reference_run(fixture, scenario).fits
@@ -1958,10 +1980,10 @@ def _run_grid(args, snapshot) -> int:
     )
 
     if args.backend != "torch":
-        # Running the device sweep under -backend cpu would defeat a
-        # cross-check; the sequential backend is single-spec.
+        # Running the device sweep under -backend cpu/native would defeat
+        # a cross-check; the sequential backends are single-spec.
         print("ERROR : -grid sweeps run on the device programs (-backend "
-              "torch); the cpu backend is a single-spec cross-check "
+              "torch); cpu/native backends are single-spec cross-checks "
               "...exiting")
         return 1
     ext_requests = _parse_extended_requests(args)

@@ -3,15 +3,20 @@
 Counterpart of ``kubernetesclustercapacity_tpu/fixtures.py``: the same
 deterministic, seedable generator of node/pod fixtures in the reference's
 schema (memory in ``Ki``, the legacy 5-condition layout, ~110-pod
-capacity), so the same seed gives the same fixture in both packages.
-The R-resource workload helper is not ported yet.
+capacity), so the same seed gives the same fixture in both packages, and
+the same R-resource workload (:func:`synthetic_multi_workload`).
 """
 
 from __future__ import annotations
 
 import json
 
-__all__ = ["synthetic_fixture", "load_fixture", "save_fixture"]
+__all__ = [
+    "synthetic_fixture",
+    "load_fixture",
+    "save_fixture",
+    "synthetic_multi_workload",
+]
 
 # Legacy 5-condition layout the reference's health check hardcodes
 # (SURVEY.md §2.2 C3): the first four must be "False" for a node to count.
@@ -333,3 +338,37 @@ def save_fixture(fixture: dict, path: str) -> None:
     with open(path, "w") as f:
         json.dump(fixture, f, indent=1)
 
+
+
+def synthetic_multi_workload(snap, n_scenarios: int, *, seed: int = 0):
+    """A 3-resource (cpu, memory, GPU-count) R-dim workload over ``snap``.
+
+    Returns ``(alloc_rn, used_rn, reqs_sr, replicas)``: the ``[3, N]``
+    resource matrix (GPU allocatables drawn 0-8, none used), an ``[S, 3]``
+    request grid whose GPU column includes zeros ("does not consume"),
+    and the ``[S]`` replica targets.  The same seed gives the JAX
+    package's arrays.
+    """
+    import numpy as np
+
+    from kubernetesclustercapacity_tpu_torch.scenario import (
+        random_scenario_grid,
+    )
+
+    rng = np.random.default_rng(seed)
+    n = snap.n_nodes
+    alloc_rn = np.stack(
+        [snap.alloc_cpu_milli, snap.alloc_mem_bytes,
+         rng.integers(0, 9, n)]
+    )
+    used_rn = np.stack(
+        [snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+         np.zeros(n, dtype=np.int64)]
+    )
+    grid = random_scenario_grid(n_scenarios, seed=seed + 1)
+    reqs_sr = np.stack(
+        [grid.cpu_request_milli, grid.mem_request_bytes,
+         rng.integers(0, 3, n_scenarios)],
+        axis=1,
+    ).astype(np.int64)
+    return alloc_rn, used_rn, reqs_sr, grid.replicas

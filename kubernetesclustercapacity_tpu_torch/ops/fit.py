@@ -66,6 +66,7 @@ __all__ = [
     "sweep_grid_staged",
     "sweep_grouped_staged",
     "sweep_snapshot",
+    "snapshot_device_arrays",
 ]
 
 _INT64_MIN = -(1 << 63)
@@ -418,6 +419,23 @@ def sweep_grid_grouped(
          healthy),
         counts, cpu_reqs, mem_reqs, replicas,
         mode=mode, node_mask=None, return_fits=return_per_group,
+    )
+
+
+def snapshot_device_arrays(snapshot, device="cuda") -> tuple:
+    """A snapshot's seven exact-program node columns as tensors on
+    ``device`` (six int64, ``healthy`` bool), staged per call."""
+    return _devcache.stage_exact(
+        (
+            snapshot.alloc_cpu_milli,
+            snapshot.alloc_mem_bytes,
+            snapshot.alloc_pods,
+            snapshot.used_cpu_req_milli,
+            snapshot.used_mem_req_bytes,
+            snapshot.pods_count,
+            snapshot.healthy,
+        ),
+        _devcache.resolve_device(device),
     )
 
 

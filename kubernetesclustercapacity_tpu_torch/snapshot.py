@@ -19,8 +19,9 @@ Two ingestion semantics, pinned by SURVEY.md §2.4:
   ``healthy``.
 
 :meth:`ClusterSnapshot.save` / :func:`load_snapshot` read and write the JAX
-package's ``.npz`` checkpoint format field for field.  The pod walks are
-the pure-Python loops (the JAX package's native C ingest is not ported).
+package's ``.npz`` checkpoint format field for field.  The pod walks run
+the native columnar walk (:mod:`.native.ingest`) when it builds, and the
+pure-Python loops otherwise; :data:`NATIVE_WALKS` counts the native ones.
 :func:`snapshot_from_live_cluster` lists a live apiserver (two paginated
 Lists, :mod:`.kubeapi`) and packs the result like a fixture.
 """
@@ -35,6 +36,7 @@ from dataclasses import dataclass, field, fields
 
 import numpy as np
 
+from kubernetesclustercapacity_tpu_torch.native import ingest as _ingest
 from kubernetesclustercapacity_tpu_torch.oracle import reference as _oracle
 from kubernetesclustercapacity_tpu_torch.utils import quantity as _q
 
@@ -69,6 +71,17 @@ COLUMNS = (
 
 # Phases that never consume node capacity in strict mode (terminated pods).
 _STRICT_TERMINATED = frozenset({"Succeeded", "Failed"})
+
+#: Pod walks that the native extension took, by semantics; a walk that
+#: fell back to the pure-Python loop adds nothing.  Read it before and
+#: after a pack to see which loop ran.
+NATIVE_WALKS = {"reference": 0, "strict": 0}
+_NATIVE_WALKS_LOCK = threading.Lock()
+
+
+def _count_native_walk(semantics: str) -> None:
+    with _NATIVE_WALKS_LOCK:
+        NATIVE_WALKS[semantics] += 1
 
 
 @dataclass
@@ -702,7 +715,25 @@ def container_cpu_error_payloads(pods) -> list[str]:
 def _walk_pods_reference(pods):
     """Reference-mode pod walk: returns ``(interned, name_gid, pod_gids,
     c_gids, c_codes)`` — the insertion-ordered quad→code dict, the
-    nodeName→group dict, and the per-pod / per-container index lists."""
+    nodeName→group dict, and the per-pod / per-container index vectors.
+
+    Runs the native C walk when available (the same dict operations at C
+    speed), and the pure-Python loop otherwise or whenever the native walk
+    reports input that is not JSON-shaped (``None``), so malformed
+    fixtures raise exactly the pure loop's exceptions.
+    """
+    if _ingest.available():
+        out = _ingest.walk_reference(pods, _oracle._EXCLUDED_PHASES)
+        if out is not None:
+            _count_native_walk("reference")
+            name_gid, interned, pg, cg, cc = out
+            return (
+                interned,
+                name_gid,
+                np.frombuffer(pg, dtype=np.int64),
+                np.frombuffer(cg, dtype=np.int64),
+                np.frombuffer(cc, dtype=np.int64),
+            )
     interned: dict = {}  # quad tuple -> code; keys in insertion order
     name_gid: dict[str, int] = {}
     pod_gids: list[int] = []  # per surviving pod: its name group
@@ -833,7 +864,24 @@ def _pack_strict(
 
 def _walk_pods_strict(pods, index, extended_resources):
     """Strict-mode pod walk (containers + initContainers): returns
-    ``(interned, pod_nodes, c_pod, c_codes, i_pod, i_codes)``."""
+    ``(interned, pod_nodes, c_pod, c_codes, i_pod, i_codes)``.  The native
+    C walk when available, the pure-Python loop otherwise or on input that
+    is not JSON-shaped — see :func:`_walk_pods_reference`."""
+    if _ingest.available():
+        out = _ingest.walk_strict(
+            pods, index, _STRICT_TERMINATED, tuple(extended_resources)
+        )
+        if out is not None:
+            _count_native_walk("strict")
+            interned, pn, cp, cc, ip, ic = out
+            return (
+                interned,
+                np.frombuffer(pn, dtype=np.int64),
+                np.frombuffer(cp, dtype=np.int64),
+                np.frombuffer(cc, dtype=np.int64),
+                np.frombuffer(ip, dtype=np.int64),
+                np.frombuffer(ic, dtype=np.int64),
+            )
     interned: dict = {}  # quad tuple -> code; keys in insertion order
     pod_nodes: list[int] = []
     c_pod: list[int] = []  # container -> pod ordinal

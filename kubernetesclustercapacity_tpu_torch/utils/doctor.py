@@ -19,8 +19,9 @@ JAX doctor asks PJRT, this one asks torch and CUDA:
 * ``fused fast path`` reads the breaker the ``info`` op reports, which
   never opens (a kernel that fails to build or launch raises); it builds
   and launches nothing;
-* ``native kernel (C++)``, ``native pod-walk (C ext)`` and ``sanitizer``
-  are soft lines: those modules are not ported yet;
+* ``native kernel (C++)`` and ``native pod-walk (C ext)`` say whether
+  the port's own native library and extension build (:mod:`.native`);
+  ``sanitizer`` is a soft line: that module is not ported yet;
 * ``device memory`` reconciles the port's device ledger against the
   caching allocator, as ``/healthz`` does; ``optimizer`` runs one small
   certified solve on the chosen device.
@@ -172,20 +173,25 @@ def doctor_report(
     )
     # int64 is native in torch: there is no switch to leave off.
     check("x64 ints", lambda: "ok: int64 is native in torch")
-    check(
-        "native kernel (C++)",
-        lambda: (
-            "unavailable (not yet ported to the PyTorch package) — "
-            "-backend native off"
-        ),
-    )
-    check(
-        "native pod-walk (C ext)",
-        lambda: (
-            "unavailable (not yet ported to the PyTorch package) — "
-            "packers use the pure-Python walk"
-        ),
-    )
+
+    def _native():
+        from kubernetesclustercapacity_tpu_torch import native as _ncap
+
+        return ("ok: compiled" if _ncap.available() else
+                "unavailable (g++ missing or build failed) — "
+                "-backend native off")
+
+    check("native kernel (C++)", _native)
+
+    def _walk():
+        from kubernetesclustercapacity_tpu_torch.native import (
+            ingest as _ingest,
+        )
+
+        return ("ok: compiled" if _ingest.available() else
+                "unavailable — packers use the pure-Python walk")
+
+    check("native pod-walk (C ext)", _walk)
 
     def _fast():
         # The breaker the info op reports: it never opens, because a

@@ -134,20 +134,22 @@ def test_error_lines_match_jax(argv, capsys):
     assert t_out == j_out
 
 
+@pytest.mark.parametrize("backend", ["cpu", "native"])
 @pytest.mark.parametrize("extra", [[], ["-extended-request",
                                        "nvidia.com/gpu=1"]])
-def test_grid_rejects_the_cpu_backend_like_jax(extra, npz_sources, capsys):
-    # The sequential oracle is a single-spec cross-check in both packages;
-    # only the backend's name differs.
-    argv = ["-snapshot", npz_sources["gpu_npz"], "-grid", "4", *extra]
-    j_rc, j_out = _run(j_cli.main, argv + ["-backend", "cpu"], capsys)
-    t_rc, t_out = _run(t_cli.main, argv + ["-backend", "cpu", "-device",
-                                           "cpu"], capsys)
+def test_grid_rejects_the_cpu_backend_like_jax(extra, backend, npz_sources,
+                                               capsys):
+    # The sequential oracle and the C++ loop are single-spec cross-checks
+    # in both packages; only the device backend's name differs.
+    argv = ["-snapshot", npz_sources["gpu_npz"], "-grid", "4", *extra,
+            "-backend", backend]
+    j_rc, j_out = _run(j_cli.main, argv, capsys)
+    t_rc, t_out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
     assert j_rc == t_rc == 1
     assert j_out.startswith("ERROR : -grid sweeps run on the TPU kernels")
     assert t_out == (
         "ERROR : -grid sweeps run on the device programs (-backend torch); "
-        "the cpu backend is a single-spec cross-check ...exiting\n"
+        "cpu/native backends are single-spec cross-checks ...exiting\n"
     )
 
 
@@ -161,31 +163,24 @@ def test_semantics_conflict_matches_jax(npz_sources, capsys):
 
 
 @pytest.mark.parametrize(
-    "argv,needle",
+    "argv,want_rc",
     [
-        (["-snapshot", KIND, "-backend", "native"],
-         "-backend native: not yet ported"),
-        # -trace-tree and -fed-status are ported: each runs as the JAX CLI
-        # does on the same command line (here: both refuse with exit 1).
-        (["-snapshot", KIND, "-trace-tree", "ab" * 16], None),
-        (["-snapshot", KIND, "-fed-status", "127.0.0.1:1", "-grid", "4"],
-         None),
+        # -backend native, -trace-tree and -fed-status are ported: each
+        # runs as the JAX CLI does on the same command line (the C++ loop's
+        # transcript; the other two refuse with exit 1).
+        (["-snapshot", KIND, "-backend", "native"], 0),
+        (["-snapshot", KIND, "-trace-tree", "ab" * 16], 1),
+        (["-snapshot", KIND, "-fed-status", "127.0.0.1:1", "-grid", "4"], 1),
     ],
 )
-def test_unported_surfaces_say_so(argv, needle, capsys):
-    if needle is None:
-        outs = []
-        for main, extra in ((j_cli.main, []),
-                            (t_cli.main, ["-device", "cpu"])):
-            rc = main(argv + extra)
-            outs.append((rc, *capsys.readouterr()))
-        assert outs[0] == outs[1] and outs[0][0] == 1
-        assert "not yet ported" not in str(outs[1])
-        return
-    rc, out = _run(t_cli.main, argv + ["-device", "cpu"], capsys)
-    assert rc == 1
-    assert needle in out and out.startswith("ERROR : ")
-    assert out.rstrip().endswith("...exiting")
+def test_unported_surfaces_say_so(argv, want_rc, capsys):
+    outs = []
+    for main, extra in ((j_cli.main, []),
+                        (t_cli.main, ["-device", "cpu"])):
+        rc = main(argv + extra)
+        outs.append((rc, *capsys.readouterr()))
+    assert outs[0] == outs[1] and outs[0][0] == want_rc
+    assert "not yet ported" not in str(outs[1])
 
 
 @pytest.mark.parametrize("flag", ["-slo-status", "-dump", "-timeline"])
@@ -454,8 +449,13 @@ def test_no_jax_cli_flag_gives_argparse_exit_2(
     elif flag in PORTED_NEW:
         assert rc == 0
     elif flag == "-doctor":
+        from kubernetesclustercapacity_tpu_torch import native
+
         assert rc == 0 and out.startswith("package ")
-        assert "not yet ported to the PyTorch package) — -backend" in out
+        lines = dict((ln[:23].rstrip(), ln[25:]) for ln in out.splitlines())
+        assert lines["native kernel (C++)"] == (
+            "ok: compiled" if native.available() else
+            "unavailable (g++ missing or build failed) — -backend native off")
     elif flag in PORTED_AUDIT_PLANE + PORTED_FED_DIAG:
         outs = []
         for main, run_argv in ((t_cli.main, argv), (j_cli.main, argv[:-2])):

@@ -535,9 +535,12 @@ def test_partition_stale_lost_heal_contract(semantics):
         assert 2.0 < r["clusters"]["east"]["age_s"] <= 6.0
         assert r["degraded"] is True
         _assert_reply_exact(fleet, r)
-        assert fleet.proxies["east"].partition_dropped > 0
-        # A generation published during the partition appears nowhere.
+        # A generation published during the partition is traffic the cut
+        # must drop, and it appears nowhere.
         fleet.publish("east", _mutate(fleet.snaps["east"], seed=99))
+        _wait_for(lambda: fleet.proxies["east"].partition_dropped > 0,
+                  timeout_s=5.0, what="a frame dropped at the cut")
+        assert fleet.proxies["east"].partition_dropped > 0
         assert query()["clusters"]["east"]["generation"] == watermarks["east"]
 
         fleet.now[0] = 7.0

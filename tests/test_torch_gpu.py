@@ -11,7 +11,9 @@ clean on the card, one B1 launch a replayed sweep, equal to the host's
 replay; a replica's sweep launches B1 once and equals the leader's), and
 the federation and the doctor on the card (each per-cluster row of a
 ``fed_sweep`` equals its leader's B1 sweep; the doctor's probe names the
-card).
+card), and the native backend and the sharded sweeps against the card
+(``native.sweep`` equals B1; ``sweep_shard_map`` and ``sweep_gspmd`` over
+a mesh that names the card eight times equal the single sweep).
 
 These tests need a CUDA device and the CUDA toolkit (``nvcc``); elsewhere
 they skip.  This file imports no JAX, so it runs on a GPU host without it:
@@ -1084,3 +1086,57 @@ def test_doctor_probe_names_the_card(cuda):
     out, rc = doctor.run_doctor(backend_timeout_s=120.0, device="cuda")
     assert rc == 0, out
     assert f"{name} x" in out
+
+
+# ---------------------------------------------------------------------------
+# The native backend and the sharded sweeps against the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["reference", "strict"])
+def test_native_sweep_equals_b1_on_the_card(cuda, mode):
+    """The host's compiled loop and kernel B1 on the card give the same
+    totals at 10,000 × 1,000 (strict with a taint-style lane mask)."""
+    from kubernetesclustercapacity_tpu_torch import native
+
+    snap = synthetic_snapshot(10_000, seed=1)
+    grid = random_scenario_grid(1_000, seed=7)
+    mask = None
+    healthy = None
+    if mode == "strict":
+        mask = np.arange(snap.n_nodes) % 11 != 5
+        healthy = snap.healthy & mask
+    before = ff.LAUNCHES
+    totals, _, name = sweep_snapshot_auto(snap, grid, mode=mode,
+                                          node_mask=mask)
+    assert name.startswith("cuda_") and ff.LAUNCHES == before + 1
+    got = native.sweep(
+        snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+        snap.used_cpu_req_milli, snap.used_mem_req_bytes, snap.pods_count,
+        grid.cpu_request_milli, grid.mem_request_bytes, mode=mode,
+        healthy=healthy)
+    np.testing.assert_array_equal(got, totals)
+
+
+@pytest.mark.parametrize("fn,sp,np_", [("shard_map", 1, 8),
+                                        ("gspmd", 2, 4),
+                                        ("shard_map", 4, 2)])
+def test_sharded_sweeps_on_one_card_equal_the_single_sweep(cuda, fn, sp,
+                                                           np_):
+    from kubernetesclustercapacity_tpu_torch.ops.fit import (
+        snapshot_device_arrays,
+        sweep_snapshot,
+    )
+    from kubernetesclustercapacity_tpu_torch.parallel import (
+        make_mesh,
+        sweep_gspmd,
+        sweep_shard_map,
+    )
+
+    snap = synthetic_snapshot(100_003, seed=31)
+    grid = random_scenario_grid(64, seed=32)
+    plan = make_mesh(sp, np_, devices=[torch.device("cuda", 0)] * 8)
+    f = sweep_shard_map if fn == "shard_map" else sweep_gspmd
+    totals, sched = f(plan, snapshot_device_arrays(snap), grid.cpu_request_milli,
+                      grid.mem_request_bytes, grid.replicas)
+    want = sweep_snapshot(snap, grid)
+    np.testing.assert_array_equal(totals, want[0])
+    np.testing.assert_array_equal(sched, want[1])

@@ -80,7 +80,11 @@ def test_the_scan_is_not_vacuous():
                    "service/replicaset.py", "federation/__init__.py",
                    "federation/server.py", "utils/doctor.py",
                    "telemetry/profiler.py", "telemetry/traceview.py",
-                   "analysis/__init__.py", "analysis/benchdiff.py"):
+                   "analysis/__init__.py", "analysis/benchdiff.py",
+                   "native/__init__.py", "native/_build_util.py",
+                   "native/ingest.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/sweep.py",
+                   "parallel/multihost.py"):
         assert f"kubernetesclustercapacity_tpu_torch/{module}" in names
 
 
@@ -328,6 +332,30 @@ _BLOCKED_RUN = textwrap.dedent(
                 doctor.healthy(checks), len(checks), prof_running,
                 traceview.analyze_trace([], "x")["found"],
                 benchdiff.infer_direction("x_ms")]
+    from kubernetesclustercapacity_tpu_torch import native, parallel
+    from kubernetesclustercapacity_tpu_torch import snapshot as _snapshot
+
+    walks = dict(_snapshot.NATIVE_WALKS)
+    kt.snapshot_from_fixture(fx, semantics="strict")
+    with contextlib.redirect_stdout(io.StringIO()):
+        native_rc = cli.main(["-snapshot", fx_path, "-backend", "native",
+                              "-device", "cpu"])
+    arrays = [getattr(snap, f) for f in (
+        "alloc_cpu_milli", "alloc_mem_bytes", "alloc_pods",
+        "used_cpu_req_milli", "used_mem_req_bytes", "pods_count",
+        "healthy")]
+    pgrid = kt.random_scenario_grid(8, seed=8)
+    sharded = parallel.sweep_shard_map(
+        parallel.make_mesh(2, 2, devices=["cpu"] * 4), arrays,
+        pgrid.cpu_request_milli, pgrid.mem_request_bytes, pgrid.replicas)[0]
+    native_parallel = [
+        native.available(),
+        _snapshot.NATIVE_WALKS["strict"] - walks["strict"],
+        native_rc,
+        sharded.tolist() == native.sweep(
+            *arrays[:6], pgrid.cpu_request_milli,
+            pgrid.mem_request_bytes).tolist(),
+    ]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -348,6 +376,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "gang_opt": gang_opt,
                       "operator": operator,
                       "fed_diag": fed_diag,
+                      "native_parallel": native_parallel,
                       "loaded": loaded}))
     """
 )
@@ -381,6 +410,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "operator": [1, True, 2, True, 200, True],
         "fed_diag": [["a", "b"], [], True, 13, True, False,
                      "lower_is_better"],
+        "native_parallel": [True, 1, 0, True],
         "loaded": [],
     }
     assert doc["scheduling"][0] > 0
