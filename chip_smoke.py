@@ -87,8 +87,19 @@ or a native piece did not build), ``kccap-client`` built with ``g++``
 against a port server on the card, the JAX package's 1,000,003-node mesh
 layouts (shard_map 1x8, GSPMD 2x4) on a mesh that names the card eight
 times, and two processes over gloo on the card (this script with
-``--multihost-worker``).  Any
-failure raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
+``--multihost-worker``).  Path (v) drives the static analyzer and the
+runtime sanitizer: ``kccap-torch-lint --json`` over the package of this
+checkout (0 findings, 0 baselined; the device roots, the functions
+reachable from them and the inline markers counted), then (b)'s strict
+server on the card with the sanitizer installed (seed 0) under 16 client
+threads x 20 sweeps of ``random_scenario_grid(1000, seed=7)`` folded by
+the micro-batcher (every total equal to the solo sweep, B1 launched, 0
+races, 0 lock-order cycles), the same load without the sanitizer, and
+the hammer over seeds 0-2 (0 findings); last ``torch.cuda.
+set_sync_debug_mode("warn")`` around ``place_replicas`` at 64 and 256
+steps, ``_pdhg_chunk`` at 50 and 500 iterations and a gang spread search
+at two search depths, whose sync count must not grow with the steps.
+Any failure raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
 Output: phase lines, one JSON line per timed kernel variant, a
@@ -5763,6 +5774,297 @@ def check_sass(counts: dict) -> None:
         f"{len(main)} main-path rcp kernels")
 
 
+# ---------------------------------------------------------------------------
+# Path (v): the static analyzer and the runtime sanitizer.  (v1) lints the
+# package of this checkout; (v2) runs (b)'s strict server on the card with
+# the sanitizer installed, under 16 clients x 20 folded sweeps, then the
+# same load without it, then the hammer over seeds 0-2; (v3) counts what
+# torch's sync debug mode flags around the device loops at two step counts.
+
+V_CLIENTS = 16
+V_SWEEPS = 20
+
+
+def count_syncs(fn) -> tuple[int, dict]:
+    """Synchronizing CUDA operations ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags them (the mode is
+    off again before the caller synchronizes), and the Python lines that
+    made them (``file:line`` → count)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sites: dict = {}
+    for w in caught:
+        if "synchronizing" in str(w.message):
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sum(sites.values()), sites
+
+
+def folded_load(server, want: list) -> tuple[list[float], list]:
+    """``V_CLIENTS`` client threads, each sending ``V_SWEEPS`` sweeps of
+    ``random_scenario_grid(1000, seed=7)``; returns every request's time
+    (ms) and the failures (an error, or totals other than ``want``)."""
+    from kubernetesclustercapacity_tpu_torch.service import CapacityClient
+
+    times: list[float] = []
+    bad: list = []
+    lock = threading.Lock()
+    barrier = threading.Barrier(V_CLIENTS)
+
+    def client(t: int) -> None:
+        try:
+            with CapacityClient(*server.address, connect_timeout_s=60,
+                                timeout_s=300, retry=None) as c:
+                barrier.wait(timeout=60)
+                for _ in range(V_SWEEPS):
+                    t0 = time.perf_counter()
+                    doc = c.sweep(random={"n": 1000, "seed": 7})
+                    dt = (time.perf_counter() - t0) * 1e3
+                    with lock:
+                        times.append(dt)
+                        if doc["totals"] != want:
+                            bad.append(f"client {t}: totals differ")
+        except Exception as e:  # noqa: BLE001 - raised by the caller
+            with lock:
+                bad.append(f"client {t}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(V_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        bad.append("a client thread did not finish")
+    return times, bad
+
+
+def phase_analysis(pkg, ff, identity: str) -> dict:
+    """Path (v).  Returns the times, B1's launches and the sync counts."""
+    from kubernetesclustercapacity_tpu_torch.analysis import cli as lint_cli
+    from kubernetesclustercapacity_tpu_torch.analysis import hammer, sanitize
+    from kubernetesclustercapacity_tpu_torch.analysis.callgraph import (
+        CallGraph,
+    )
+    from kubernetesclustercapacity_tpu_torch.analysis.engine import (
+        Baseline,
+        Project,
+    )
+    from kubernetesclustercapacity_tpu_torch.ops import placement as pl
+    from kubernetesclustercapacity_tpu_torch.optimize import lp
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.topology import gang
+
+    t_phase = time.perf_counter()
+    out = {"ms": {}, "launches": {"sweep_fit": {}}, "syncs": {}}
+    pkg_dir = os.path.dirname(os.path.abspath(pkg.__file__))
+    repo_root = os.path.dirname(pkg_dir)
+
+    # (v1) kccap-torch-lint --json over the package of this checkout.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_cli.run([pkg_dir, "--json"])
+    lint_s = time.perf_counter() - t0
+    counts = json.loads(buf.getvalue())["counts"]
+    if rc != 0 or counts["findings"] or counts["baselined"]:
+        raise AssertionError(f"(v1) kccap-torch-lint: exit {rc}, {counts}")
+    graph = CallGraph.build(Project(pkg_dir))
+    roots, reachable = len(graph.roots()), len(graph.reachable())
+    if roots < 35 or reachable <= roots or graph.unresolved_roots:
+        raise AssertionError(f"(v1) {roots} roots, {reachable} reachable, "
+                             f"unresolved {graph.unresolved_roots}")
+    out["lint"] = {"seconds": lint_s, "roots": roots,
+                   "reachable": reachable, "markers": counts["suppressed"]}
+    log(f"path (v1) kccap-torch-lint --json: 0 findings, 0 baselined, "
+        f"{counts['suppressed']} admitted inline; {roots} device roots, "
+        f"{reachable} functions reachable from them; {lint_s:.2f} s on the "
+        "host")
+
+    # (v2) (b)'s strict server on the card, with and without the sanitizer.
+    fixture = pkg.synthetic_fixture(10_000, seed=3, taint_frac=0.1)
+    strict = pkg.snapshot_from_fixture(fixture, semantics="strict")
+    grid = pkg.random_scenario_grid(1000, seed=7)
+    mask = pkg.implicit_taint_mask(strict)
+    want = ff.sweep_snapshot_auto(strict, grid, mode="strict",
+                                  node_mask=mask, device="cuda")[0]
+    want = [int(x) for x in np.asarray(want)]
+    baseline = Baseline.load(os.path.join(repo_root,
+                                          "LINT_BASELINE_TORCH.json"))
+
+    def serve_and_load(label: str) -> tuple[list[float], int]:
+        server = CapacityServer(strict, device="cuda", batch_window_ms=5.0,
+                                batch_max=V_CLIENTS,
+                                max_inflight=2 * V_CLIENTS)
+        server.start()
+        try:
+            with CapacityClient(*server.address, connect_timeout_s=60,
+                                timeout_s=300, retry=None) as c:
+                solo = c.sweep(random={"n": 1000, "seed": 7})["totals"]
+            check_equal(f"(v2) {label} solo sweep vs sweep_snapshot_auto",
+                        solo, want)
+            ff.LAUNCHES = 0
+            t0 = time.perf_counter()
+            times, bad = folded_load(server, solo)
+            wall = time.perf_counter() - t0
+            launches = ff.LAUNCHES
+            batch = server.batching_stats or {}
+        finally:
+            server.shutdown()
+        if bad:
+            raise AssertionError(f"(v2) {label}: {bad[:3]}")
+        if len(times) != V_CLIENTS * V_SWEEPS or launches < 1:
+            raise AssertionError(f"(v2) {label}: {len(times)} replies, B1 "
+                                 f"launches {launches}")
+        out["ms"][f"(v2) load wall, {label}"] = wall * 1e3
+        out["ms"][f"(v2) p90 request, {label}"] = float(
+            np.percentile(times, 90))
+        out[f"batching_{label}"] = {
+            k: batch.get(k) for k in ("dispatches", "mean_batch_size")}
+        return times, launches
+
+    gate = os.environ.get(sanitize.ENV_SWITCH)
+    os.environ[sanitize.ENV_SWITCH] = "1"
+    try:
+        sanitize.install(seed=0, classes=hammer.instrument_targets(pkg_dir))
+        try:
+            on_times, on_launches = serve_and_load("sanitized")
+            san = sanitize.current()
+            found = sanitize.findings_of(san, repo_root)
+            st = sanitize.stats_of(san)
+        finally:
+            sanitize.uninstall()
+        part = sanitize.partition(found, baseline, repo_root)
+        races = sum(f.rule == sanitize.RACE_RULE for f in part.findings)
+        cycles = sum(f.rule == sanitize.ORDER_RULE for f in part.findings)
+        if part.findings or st["field_events"] == 0:
+            raise AssertionError(
+                "(v2) the sanitizer found races or lock-order cycles on the "
+                "card:\n" + "\n".join(f.render() for f in part.findings))
+        off_times, off_launches = serve_and_load("plain")
+        hammer_runs = []
+        for seed in range(3):
+            t0 = time.perf_counter()
+            h_found, h_st = hammer.run(seed=seed, threads=V_CLIENTS,
+                                       package_dir=pkg_dir)
+            h_part = sanitize.partition(h_found, baseline, repo_root)
+            if h_part.findings or h_st["threads_seen"] < V_CLIENTS:
+                raise AssertionError(
+                    f"(v2) hammer seed {seed}:\n"
+                    + "\n".join(f.render() for f in h_part.findings))
+            hammer_runs.append({"seed": seed,
+                                "s": time.perf_counter() - t0,
+                                "classes": h_st["instrumented_classes"],
+                                "field_events": h_st["field_events"],
+                                "raw_races": h_st["races"]})
+    finally:
+        if gate is None:
+            os.environ.pop(sanitize.ENV_SWITCH, None)
+        else:
+            os.environ[sanitize.ENV_SWITCH] = gate
+    out["launches"]["sweep_fit"]["(v2) sanitized 16 x 20"] = on_launches
+    out["launches"]["sweep_fit"]["(v2) plain 16 x 20"] = off_launches
+    on_ms, off_ms = statistics.median(on_times), statistics.median(off_times)
+    out["ms"]["(v2) median request, sanitized"] = on_ms
+    out["ms"]["(v2) median request, plain"] = off_ms
+    out["sanitizer"] = {"races": races, "cycles": cycles,
+                        "raw_races": st["races"],
+                        "suppressed": len(part.suppressed),
+                        "field_events": st["field_events"],
+                        "lock_events": st["lock_events"],
+                        "instrumented_classes": st["instrumented_classes"],
+                        "hammer": hammer_runs}
+    log(f"path (v2) strict 10k-node server on the card, {V_CLIENTS} clients "
+        f"x {V_SWEEPS} folded sweeps of 1000: every total equal to the solo "
+        f"sweep; sanitized: B1 launches {on_launches}, median request "
+        f"{on_ms:.3f} ms, 0 races, 0 lock-order cycles "
+        f"({st['field_events']} field events, {st['lock_events']} lock "
+        f"events, {st['races']} raw races, {len(part.suppressed)} admitted "
+        f"inline); plain: B1 launches {off_launches}, median request "
+        f"{off_ms:.3f} ms; loads of {V_CLIENTS * V_SWEEPS} requests "
+        f"{out['ms']['(v2) load wall, sanitized'] / 1e3:.2f} / "
+        f"{out['ms']['(v2) load wall, plain'] / 1e3:.2f} s, folds "
+        f"{out['batching_sanitized']} / {out['batching_plain']} "
+        f"({identity})")
+    log("path (v2) hammer, 16 threads, seeds 0-2: 0 findings ("
+        + ", ".join(f"seed {h['seed']} {h['s']:.1f} s" for h in hammer_runs)
+        + f", {hammer_runs[0]['classes']} classes)")
+
+    # (v3) the static host-sync claim, checked at run time.
+    dev = torch.device("cuda")
+    cols = (strict.alloc_cpu_milli, strict.alloc_mem_bytes,
+            strict.alloc_pods, strict.used_cpu_req_milli,
+            strict.used_mem_req_bytes, strict.pods_count, strict.healthy)
+
+    def place(steps: int):
+        return lambda: pl.place_replicas(
+            *cols, 500, 512 << 20, n_replicas=steps, policy="best-fit",
+            node_mask=mask, device="cuda")
+
+    rng = np.random.default_rng(5)
+    s_, g_ = 64, 256
+    caps = rng.random((s_, g_, 3)) * rng.integers(1, 10**6, (s_, 1, 1))
+    demand = rng.integers(1, 10**7, s_).astype(np.float64)
+    scale = np.maximum(1.0, np.minimum(demand, caps.min(axis=2).sum(axis=1)))
+    state = [torch.from_numpy(a).to(dev) for a in (
+        caps, demand, scale, rng.random((s_, g_)),
+        rng.random((s_, g_, 3)) * 0.1, rng.random(s_))]
+
+    def pdhg(iters: int):
+        return lambda: lp._pdhg_chunk(*state, iters=iters)
+
+    sub = torch.from_numpy(rng.integers(0, 4000, size=(64, 400))).to(dev)
+    parent = torch.from_numpy(rng.integers(-1, 8, size=400)).to(dev)
+
+    def spread(mult: int):
+        return lambda: gang._gangs_spread(sub * mult, parent, 16, 4, n_co=8)
+
+    cases = {
+        "place_replicas": ((64, place(64)), (256, place(256))),
+        "_pdhg_chunk": ((50, pdhg(50)), (500, pdhg(500))),
+        "_gangs_spread": ((1, spread(1)), (1 << 20, spread(1 << 20))),
+    }
+    sites = {}
+    for name, ((lo, fn_lo), (hi, fn_hi)) in cases.items():
+        fn_lo(), fn_hi()  # warm: first-use allocations are not the loop's
+        torch.cuda.synchronize()
+        # Three counts of each, interleaved: the gate compares the least
+        # of each, so a wait that happens once in a while (not once per
+        # step) cannot decide it.
+        runs = {lo: [], hi: []}
+        for _ in range(3):
+            for steps, fn in ((lo, fn_lo), (hi, fn_hi)):
+                n, where = count_syncs(fn)
+                runs[steps].append(n)
+                sites.setdefault(name, {}).update(where)
+        out["syncs"][name] = {str(k): v for k, v in runs.items()}
+        if min(runs[hi]) > min(runs[lo]):
+            raise AssertionError(f"(v3) {name}: {runs[lo]} syncs at {lo}, "
+                                 f"{runs[hi]} at {hi}: a wait per step")
+    out["sync_sites"] = sites
+    steps = {m: gang._search_steps((sub * m).sum(dim=1)) for m in (1, 1 << 20)}
+    log("path (v3) sync debug mode around the device loops: "
+        + "; ".join(f"{k} {v}" for k, v in out["syncs"].items())
+        + f" (gang search steps {steps[1]} and {steps[1 << 20]}); the least "
+        "count does not grow with the steps, as device-purity's 0 host-sync "
+        f"findings say; flagged at {sites} ({identity})")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(v) B1 launches on the path: {on_launches + off_launches}; "
+        f"path (v) took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5845,6 +6147,8 @@ def main() -> int:
         nat = phase_native_parallel(pkg, cli, fit, ff, tmp, identity,
                                     single.pop("transcripts"))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (u)")
+    ana = phase_analysis(pkg, ff, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (v)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -5910,6 +6214,15 @@ def main() -> int:
         "native_parallel_launches": nat["launches"],
         "native_parallel_multihost": nat["multihost"],
         "native_parallel_s": nat["seconds"],
+        "analysis_lint": ana["lint"],
+        "analysis_ms": ana["ms"],
+        "analysis_launches": ana["launches"],
+        "analysis_sanitizer": ana["sanitizer"],
+        "analysis_syncs": ana["syncs"],
+        "analysis_sync_sites": ana["sync_sites"],
+        "analysis_batching": [ana["batching_sanitized"],
+                              ana["batching_plain"]],
+        "analysis_s": ana["seconds"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -5928,7 +6241,8 @@ def main() -> int:
         + sum(oper["launches"]["sweep_fit"].values())
         + sum(repl["launches"]["sweep_fit"].values())
         + sum(fed["launches"]["sweep_fit"].values())
-        + sum(nat["launches"]["sweep_fit"].values()),
+        + sum(nat["launches"]["sweep_fit"].values())
+        + sum(ana["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

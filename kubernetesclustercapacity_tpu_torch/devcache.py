@@ -219,9 +219,9 @@ class DeviceCache:
         for value in (per or {}).values():
             _memledger.retire(value)
 
-    def _per(self, snapshot) -> dict:
+    def _per_locked(self, snapshot) -> dict:
         """The snapshot's entry dict, created (with its finalizer) on
-        first use; callers hold the lock."""
+        first use; callers hold the lock (the ``*_locked`` convention)."""
         sid = id(snapshot)
         per = self._entries.get(sid)
         if per is None:
@@ -231,7 +231,7 @@ class DeviceCache:
 
     def get(self, snapshot, key: tuple, build):
         with self._lock:
-            hit = self._per(snapshot).get(key)
+            hit = self._per_locked(snapshot).get(key)
             if hit is not None:
                 self._hits += 1
                 return hit
@@ -251,7 +251,7 @@ class DeviceCache:
         _memledger.register(value, key[0])
         with self._lock:
             self._misses += 1
-            stored = self._per(snapshot).setdefault(key, value)
+            stored = self._per_locked(snapshot).setdefault(key, value)
         if stored is not value:
             _memledger.retire(value)
         return stored
@@ -365,7 +365,7 @@ class DeviceCache:
             staged = tuple(staged)
             _memledger.register(staged, form)
             with self._lock:
-                per = self._per(new)
+                per = self._per_locked(new)
                 overwritten = per.get((form, device))
                 per[(form, device)] = staged
             # A request between the server's swap and this re-stage may

@@ -69,6 +69,7 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _count(name: str) -> None:
+    # kccap: lint-ok[device-purity] the launch counter: one uncontended lock per launch, never per step
     with _COUNT_LOCK:
         globals()[name] += 1
 
@@ -315,6 +316,7 @@ def sweep_fused(
         return totals
     with torch.cuda.device(device):
         sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+        # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
         rc = _sweep_fn()(
             _ptr(ac), _ptr(am), _ptr(ap), _ptr(uc), _ptr(um), _ptr(pc),
             _ptr(mask), _ptr(counts), _ptr(cr), _ptr(mr), _ptr(crr),

@@ -69,6 +69,7 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _count(name: str) -> None:
+    # kccap: lint-ok[device-purity] the launch counter: one uncontended lock per launch, never per step
     with _COUNT_LOCK:
         globals()[name] += 1
 
@@ -298,6 +299,7 @@ def sweep_multi(
         return totals
     with torch.cuda.device(device):
         sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+        # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
         rc = _multi_fn()(
             _ptr(alloc), _ptr(used), _ptr(ap), _ptr(pc), _ptr(mask),
             _ptr(reqs), _ptr(rcps), _ptr(totals),

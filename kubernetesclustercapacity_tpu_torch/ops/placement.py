@@ -216,6 +216,7 @@ def place_replicas(
     full recompute.
     """
     _check(policy, n_replicas)
+    # kccap: lint-ok[device-purity] staging: resolve the device and upload the columns once, before the step loop
     dev, put = _devcache.int64_putter(device)
     alloc_cpu, alloc_mem = put(alloc_cpu), put(alloc_mem)
     c, m = int(cpu_req), int(mem_req)
@@ -633,6 +634,7 @@ def place_replicas_spread(
         raise ValueError("n_zones must be >= 1 (no domains = nothing places)")
     if max_skew < 1:
         raise ValueError("max_skew must be >= 1")
+    # kccap: lint-ok[device-purity] staging: resolve the device and upload the columns once, before the step loop
     dev, put = _devcache.int64_putter(device)
     alloc_cpu, alloc_mem = put(alloc_cpu), put(alloc_mem)
     c, m = int(cpu_req), int(mem_req)
@@ -701,6 +703,7 @@ def _place_pods_scan(
 ) -> np.ndarray:
     """The heterogeneous scan: ``reqs_rp`` is ``[R, P]`` (one request
     column per step).  Returns numpy ``assignments[P]``."""
+    # kccap: lint-ok[device-purity] staging: resolve the device and upload the columns once, before the step loop
     dev, put = _devcache.int64_putter(device)
     alloc_rn = put(alloc_rn)
     n_res, n = alloc_rn.shape
@@ -936,6 +939,7 @@ def place_replicas_multi(
     per-replica request vector (zero rows do not consume).
     """
     _check(policy, n_replicas)
+    # kccap: lint-ok[device-purity] staging: resolve the device and upload the columns once, before the step loop
     dev, put = _devcache.int64_putter(device)
     alloc_rn = put(alloc_rn)
     n_res, n = alloc_rn.shape

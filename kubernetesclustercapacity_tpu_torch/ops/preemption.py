@@ -274,6 +274,7 @@ def sweep_preemption(
     runs the R-resource fit on its gathered usage.  The ``[N, K+1]`` tables
     are gathered one row at a time, so no ``[S, N, K+1]`` tensor exists.
     """
+    # kccap: lint-ok[device-purity] staging: resolve the device and upload the levels once, before the sweep
     _, put = _devcache.int64_putter(device)
     kidx = torch.searchsorted(put(levels), put(priorities), side="left")
     used_cpu_ge, used_mem_ge, pods_ge = (

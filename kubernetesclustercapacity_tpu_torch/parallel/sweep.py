@@ -103,10 +103,12 @@ def _scenario_shards(plan: MeshPlan, cpu_reqs, mem_reqs, replicas, s):
     for i, row in enumerate(plan.devices):
         sl = slice(i * per, (i + 1) * per)
         blocks.append(tuple(
+            # kccap: lint-ok[device-purity] staging: one upload per shard and device, before any launch
             tuple(_devcache.to_device(a[sl], dev)
                   for a in (cpu_p, mem_p, rep_p))
             for dev in row
         ))
+    # kccap: lint-ok[device-purity] staging: one upload per shard and device, before any launch
     return blocks, _devcache.to_device(rep_p, plan.first_device)
 
 

@@ -3515,10 +3515,18 @@ def main(argv=None) -> int:
     # after a short grace so the drain op's reply flushes first.
     def _stop_serving(record: dict) -> None:
         def _stop() -> None:
-            time.sleep(0.25)  # let replies flush before teardown
-            if follower is not None:
-                follower.stop()
-            server.shutdown()
+            try:
+                time.sleep(0.25)  # let replies flush before teardown
+                if follower is not None:
+                    follower.stop()
+            except Exception as e:  # noqa: BLE001 - shutdown must follow
+                print(f"drain teardown: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+            try:
+                server.shutdown()
+            except Exception as e:  # noqa: BLE001 - last resort is loud
+                print(f"drain shutdown: {type(e).__name__}: {e}",
+                      file=sys.stderr)
 
         print(
             f"drain complete: inflight_at_start="

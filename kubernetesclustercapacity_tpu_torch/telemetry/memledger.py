@@ -252,11 +252,14 @@ class DeviceLedger:
                 return leaf_id in live_ids
             return ref is None or ref() is not None
 
+        # The walk runs outside the lock (a weak reference resolved here
+        # may drop the last strong one, and its finalizer retires under
+        # the lock); the suspects are read and replaced in ONE locked
+        # block, so concurrent reconciles never judge against a set the
+        # other has just replaced.
         with self._lock:
             entries = list(self._entries.values())
-        missing: set[int] = set()
-        missing_bytes = 0
-        sustained_bytes = 0
+        missing: list[tuple[int, int]] = []
         cuda_bytes = 0
         for _form, _nbytes, pairs in entries:
             for rec in pairs:
@@ -264,19 +267,21 @@ class DeviceLedger:
                     if rec[3] == "cuda":
                         cuda_bytes += rec[1]
                     continue
-                missing.add(rec[0])
-                missing_bytes += rec[1]
-                if rec[0] in self._suspects:
-                    sustained_bytes += rec[1]
+                missing.append((rec[0], rec[1]))
+        missing_bytes = sum(nbytes for _, nbytes in missing)
         if allocated_bytes is None:
             allocated_bytes = _cuda_allocated_bytes()
         excess = max(0, cuda_bytes - int(allocated_bytes))
         with self._lock:
+            sustained_bytes = sum(
+                nbytes for leaf_id, nbytes in missing
+                if leaf_id in self._suspects
+            )
             if excess and self._excess_suspect:
                 sustained_bytes += excess
             self._excess_suspect = excess > 0
             self._reconciles += 1
-            self._suspects = missing
+            self._suspects = {leaf_id for leaf_id, _ in missing}
             self._leaked_bytes = sustained_bytes
             # WatchAlert breaches on total < min_replicas: feed the
             # negated discrepancy so "any sustained leaked byte" is the

@@ -21,7 +21,9 @@ JAX doctor asks PJRT, this one asks torch and CUDA:
   and launches nothing;
 * ``native kernel (C++)`` and ``native pod-walk (C ext)`` say whether
   the port's own native library and extension build (:mod:`.native`);
-  ``sanitizer`` is a soft line: that module is not ported yet;
+  ``sanitizer`` reads the port's :mod:`..analysis.sanitize` (installed,
+  armed by ``KCCAP_SANITIZE=1``, or dormant) and the supervised-thread
+  deaths, as the JAX doctor's does;
 * ``device memory`` reconciles the port's device ledger against the
   caching allocator, as ``/healthz`` does; ``optimizer`` runs one small
   certified solve on the chosen device.
@@ -255,8 +257,11 @@ def doctor_report(
     check("device snapshot cache", _hot_path)
 
     def _sanitizer():
-        # The dynamic sanitizer is not ported yet; the supervised-thread
-        # death note still reads this process's own workers.
+        # The concurrency-certification gate: is the dynamic sanitizer
+        # armed in THIS process, and has any supervised worker died?
+        # (No probe run here — the hammer lives in the tests and the CLI;
+        # the doctor reports the standing state an operator can act on.)
+        from kubernetesclustercapacity_tpu_torch.analysis import sanitize
         from kubernetesclustercapacity_tpu_torch.utils import threads as _threads
 
         deaths = _threads.death_count()
@@ -267,9 +272,24 @@ def doctor_report(
                 f"; WARNING {deaths} supervised thread death(s), "
                 f"last: {name}: {err}"
             )
+        if sanitize.installed():
+            st = sanitize.stats()
+            return (
+                f"INSTALLED: seed {st['seed']}, "
+                f"{st['instrumented_classes']} class(es) instrumented, "
+                f"{st['races']} race(s) observed — a serving process "
+                "should never run instrumented" + death_note
+            )
+        if sanitize.enabled():
+            return (
+                "armed (KCCAP_SANITIZE=1): instrumentation installs on "
+                "demand; run kccap-torch-sanitize for the seeded hammer"
+                + death_note
+            )
         return (
-            "unavailable (not yet ported to the PyTorch package) — zero "
-            "instrumentation" + death_note
+            "dormant (KCCAP_SANITIZE unset) — zero instrumentation; "
+            "races/lock-order are certified by the tier-1 hammer"
+            + death_note
         )
 
     check("sanitizer", _sanitizer)

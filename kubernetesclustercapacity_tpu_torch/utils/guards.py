@@ -45,6 +45,7 @@ def _check(ok, message: str) -> None:
 
 
 def _int64(a, device) -> torch.Tensor:
+    # kccap: lint-ok[device-purity] staging: one upload per operand, before the checks
     return to_device(np.asarray(a, dtype=np.int64), device)
 
 
@@ -72,6 +73,7 @@ def checked_fit_totals(
 ) -> int:
     """Fit total (reference semantics) with validity checks; raises
     :class:`GuardError` on the first violated check."""
+    # kccap: lint-ok[device-purity] staging: resolve the device once, before the checks
     device = resolve_device(device)
     alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count = (
         _int64(a, device)
@@ -97,6 +99,7 @@ def checked_fit_totals(
     )
     fits = fit_per_node(
         alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        # kccap: lint-ok[device-purity] staging: one upload of the health mask, before the fit
         to_device(np.asarray(healthy, dtype=bool), device), cpu_req,
         mem_req, mode="reference",
     )
@@ -109,6 +112,7 @@ def checked_fit_totals_multi(
     device="cuda",
 ) -> int:
     """R-dim (strict) fit total with validity checks."""
+    # kccap: lint-ok[device-purity] staging: resolve the device once, before the checks
     device = resolve_device(device)
     alloc_rn, used_rn, alloc_pods, pods_count, reqs_r = (
         _int64(a, device)
@@ -129,6 +133,7 @@ def checked_fit_totals_multi(
     )
     fits = fit_per_node_multi(
         alloc_rn, used_rn, alloc_pods, pods_count,
+        # kccap: lint-ok[device-purity] staging: one upload of the health mask, before the fit
         to_device(np.asarray(healthy, dtype=bool), device), reqs_r,
         mode="strict",
     )

@@ -132,7 +132,9 @@ def test_the_probe_child_imports_only_torch():
 # ---------------------------------------------------------------------------
 # The report
 # ---------------------------------------------------------------------------
-def test_check_names_in_the_jax_order(profilers_stopped):
+def test_check_names_in_the_jax_order(profilers_stopped, monkeypatch):
+    # The sanitizer line reads the gate: closed here whatever ran before.
+    monkeypatch.delenv("KCCAP_SANITIZE", raising=False)
     j = j_doc.doctor_report(backend_timeout_s=20.0, probe_code=OK_PROBE)
     t = t_doc.doctor_report(backend_timeout_s=20.0, probe_code=OK_PROBE,
                             device="cpu")
@@ -144,7 +146,8 @@ def test_check_names_in_the_jax_order(profilers_stopped):
     assert got["optimizer"].startswith("ok: certified in ")
     for native in ("native kernel (C++)", "native pod-walk (C ext)"):
         assert got[native] == dict(j)[native]
-    assert got["sanitizer"].startswith("unavailable (not yet ported")
+    assert got["sanitizer"] == dict(j)["sanitizer"]
+    assert got["sanitizer"].startswith("dormant (KCCAP_SANITIZE unset)")
     assert got["fused fast path"].startswith("armed (never trips")
     assert got["profiler"] == dict(j)["profiler"]
 

@@ -1140,3 +1140,141 @@ def test_sharded_sweeps_on_one_card_equal_the_single_sweep(cuda, fn, sp,
     want = sweep_snapshot(snap, grid)
     np.testing.assert_array_equal(totals, want[0])
     np.testing.assert_array_equal(sched, want[1])
+
+
+# ---------------------------------------------------------------------------
+# The sanitizer around a folded sweep on the card, and the static host-sync
+# claim checked at run time.
+
+
+def test_folded_sweeps_under_the_sanitizer_on_the_card(cuda, monkeypatch):
+    """A strict server on the card with the sanitizer installed: 8 clients
+    x 5 folded sweeps each equal the solo sweep, B1 launches, and the
+    sanitizer sees no race and no lock-order cycle."""
+    import os
+    import threading
+
+    from kubernetesclustercapacity_tpu_torch.analysis import hammer, sanitize
+    from kubernetesclustercapacity_tpu_torch.analysis.engine import Baseline
+    from kubernetesclustercapacity_tpu_torch.service import (
+        CapacityClient,
+        CapacityServer,
+    )
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    snap = snapshot_from_fixture(
+        synthetic_fixture(2_000, seed=3, taint_frac=0.1), semantics="strict")
+    monkeypatch.setenv(sanitize.ENV_SWITCH, "1")
+    sanitize.install(seed=0, classes=hammer.instrument_targets())
+    try:
+        server = CapacityServer(snap, device="cuda", batch_window_ms=5.0,
+                                batch_max=8, max_inflight=16)
+        server.start()
+        try:
+            with CapacityClient(*server.address, timeout_s=120,
+                                retry=None) as c:
+                solo = c.sweep(random={"n": 256, "seed": 7})["totals"]
+            got, errors = [], []
+
+            def client():
+                try:
+                    with CapacityClient(*server.address, timeout_s=120,
+                                        retry=None) as c:
+                        for _ in range(5):
+                            got.append(c.sweep(
+                                random={"n": 256, "seed": 7})["totals"])
+                except Exception as e:  # noqa: BLE001 - asserted below
+                    errors.append(e)
+
+            ff.LAUNCHES = 0
+            threads = [threading.Thread(target=client) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            launches = ff.LAUNCHES
+        finally:
+            server.shutdown()
+        found = sanitize.findings(repo_root=repo)
+        stats = sanitize.stats()
+    finally:
+        sanitize.uninstall()
+    assert not errors and len(got) == 40
+    assert all(t == solo for t in got)
+    assert 1 <= launches <= 40
+    part = sanitize.partition(
+        found, Baseline.load(os.path.join(repo, "LINT_BASELINE_TORCH.json")),
+        repo)
+    assert part.clean, [f.render() for f in part.findings]
+    assert stats["field_events"] > 0
+
+
+def _count_syncs(fn) -> int:
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("program", ["place_replicas", "_pdhg_chunk",
+                                     "_gangs_spread"])
+def test_device_loops_do_not_sync_once_per_step(cuda, program):
+    """What ``torch.cuda.set_sync_debug_mode("warn")`` flags around a
+    device loop does not grow with its step count — device-purity's
+    ``host-sync`` claim, at run time."""
+    from kubernetesclustercapacity_tpu_torch.ops import placement as pl
+    from kubernetesclustercapacity_tpu_torch.optimize import lp
+    from kubernetesclustercapacity_tpu_torch.topology import gang
+
+    rng = np.random.default_rng(5)
+    if program == "place_replicas":
+        snap = snapshot_from_fixture(_sched_fixture(2_000, 3),
+                                     semantics="strict")
+        cols = (snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+                snap.used_cpu_req_milli, snap.used_mem_req_bytes,
+                snap.pods_count, snap.healthy)
+
+        def run(steps):
+            return lambda: pl.place_replicas(
+                *cols, 500, 512 << 20, n_replicas=steps, policy="best-fit",
+                device="cuda")
+
+        small, large = 16, 128
+    elif program == "_pdhg_chunk":
+        s, g = 8, 64
+        caps = rng.random((s, g, 3)) * 1000
+        demand = rng.integers(1, 10**5, s).astype(np.float64)
+        state = [torch.from_numpy(a).to(cuda) for a in (
+            caps, demand, np.maximum(1.0, demand), rng.random((s, g)),
+            rng.random((s, g, 3)) * 0.1, rng.random(s))]
+
+        def run(steps):
+            return lambda: lp._pdhg_chunk(*state, iters=steps)
+
+        small, large = 10, 100
+    else:
+        sub = torch.from_numpy(rng.integers(0, 4000, (16, 60))).to(cuda)
+        parent = torch.from_numpy(rng.integers(-1, 4, 60)).to(cuda)
+
+        def run(mult):
+            return lambda: gang._gangs_spread(sub * mult, parent, 16, 4,
+                                              n_co=4)
+
+        small, large = 1, 1 << 20
+    for steps in (small, large):
+        run(steps)()  # warm
+    torch.cuda.synchronize()
+    # The least of three interleaved counts each: a wait that happens once
+    # in a while (not once per step) cannot decide the comparison.
+    counts = {small: [], large: []}
+    for _ in range(3):
+        for steps in (small, large):
+            counts[steps].append(_count_syncs(run(steps)))
+    assert min(counts[large]) <= min(counts[small]), counts

@@ -81,6 +81,13 @@ def test_the_scan_is_not_vacuous():
                    "federation/server.py", "utils/doctor.py",
                    "telemetry/profiler.py", "telemetry/traceview.py",
                    "analysis/__init__.py", "analysis/benchdiff.py",
+                   "analysis/engine.py", "analysis/callgraph.py",
+                   "analysis/rules_jit.py", "analysis/rules_locks.py",
+                   "analysis/rules_lockorder.py",
+                   "analysis/rules_surface.py",
+                   "analysis/rules_hygiene.py", "analysis/cli.py",
+                   "analysis/sanitize.py", "analysis/sanitize_cli.py",
+                   "analysis/hammer.py",
                    "native/__init__.py", "native/_build_util.py",
                    "native/ingest.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/sweep.py",
@@ -356,6 +363,17 @@ _BLOCKED_RUN = textwrap.dedent(
             *arrays[:6], pgrid.cpu_request_milli,
             pgrid.mem_request_bytes).tolist(),
     ]
+    import os, threading
+    from kubernetesclustercapacity_tpu_torch.analysis import (
+        Analyzer, Project, hammer, sanitize)
+    os.environ[sanitize.ENV_SWITCH] = "1"
+    hammer_found, hammer_stats = hammer.run(seed=0, threads=2, iters=2)
+    del os.environ[sanitize.ENV_SWITCH]
+    lint = Analyzer(Project(os.path.dirname(kt.__file__)),
+                    rules=("device-purity", "lock-discipline")).run()
+    analysis = [len(hammer_found), hammer_stats["instrumented_classes"],
+                len(lint.findings), len(lint.suppressed) > 10,
+                threading.Lock.__module__ in ("_thread", "threading")]
     loaded = sorted(
         m for m in sys.modules
         if m == "kubernetesclustercapacity_tpu"
@@ -377,6 +395,7 @@ _BLOCKED_RUN = textwrap.dedent(
                       "operator": operator,
                       "fed_diag": fed_diag,
                       "native_parallel": native_parallel,
+                      "analysis": analysis,
                       "loaded": loaded}))
     """
 )
@@ -411,6 +430,7 @@ def test_port_runs_with_jax_and_jax_package_blocked(tmp_path):
         "fed_diag": [["a", "b"], [], True, 13, True, False,
                      "lower_is_better"],
         "native_parallel": [True, 1, 0, True],
+        "analysis": [0, 15, 0, True, True],
         "loaded": [],
     }
     assert doc["scheduling"][0] > 0

@@ -889,6 +889,114 @@ def test_server_main_serves_until_drained(tmp_path):
     assert result == {"rc": 0}
 
 
+def _drain_main_with_failing_follower(main, follower_cls, tmp_path,
+                                      monkeypatch):
+    """Run one package's server ``main`` with ``-follow`` against a mock
+    apiserver, with a follower whose ``stop`` raises, then drain it.
+
+    Returns the seconds from the drain's reply until the server's serve
+    loop had returned (the port refuses connections), or ``None`` if it
+    still answered 5 s later.  The follower is then stopped for real so
+    ``main`` itself returns, and its exit code is checked."""
+    import threading
+
+    import yaml
+    from test_kubeapi import MockApiserver
+
+    real_stop = follower_cls.stop
+    followers = []
+
+    def failing_stop(self):
+        followers.append(self)
+        raise RuntimeError("follower stop failed")
+
+    monkeypatch.setattr(follower_cls, "stop", failing_stop)
+    srv = MockApiserver(synthetic_fixture(8, seed=6), require_token="tok")
+    kubeconfig = tmp_path / f"kubeconfig-{follower_cls.__module__}"
+    kubeconfig.write_text(yaml.safe_dump({
+        "apiVersion": "v1", "kind": "Config", "current-context": "mock",
+        "contexts": [{"name": "mock",
+                      "context": {"cluster": "c", "user": "u"}}],
+        "clusters": [{"name": "c", "cluster": {
+            "server": f"http://127.0.0.1:{srv.port}"}}],
+        "users": [{"name": "u", "user": {"token": "tok"}}],
+    }))
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    argv = ["-follow", "-kubeconfig", str(kubeconfig), "-port", str(port),
+            "-coalesce-ms", "10", "-batch-window-ms", "0"]
+    if "torch" in follower_cls.__module__:
+        argv += ["-device", "cpu"]
+    ended = {}
+    thread = threading.Thread(
+        target=lambda: ended.update(rc=main(argv)), daemon=True
+    )
+    thread.start()
+    try:
+        deadline = time.time() + TIMEOUT_S
+        while True:
+            try:
+                assert _raw(("127.0.0.1", port), {"op": "ping"})["ok"]
+                break
+            except OSError:
+                assert time.time() < deadline
+                time.sleep(0.05)
+        drained = _raw(("127.0.0.1", port), {"op": "drain_server"})
+        assert drained["result"]["drained"] is True
+        t0 = time.monotonic()
+        took = None
+        while time.monotonic() - t0 < 5.0:
+            try:
+                with socket.create_connection(("127.0.0.1", port),
+                                              timeout=1.0) as sock:
+                    sock.settimeout(1.0)
+                    protocol.send_msg(sock, {"op": "ping"})
+                    protocol.recv_msg(sock)
+            except (OSError, ConnectionError, EOFError, ValueError):
+                took = time.monotonic() - t0
+                break
+            time.sleep(0.05)
+        return took
+    finally:
+        # Let main return: the follower really stops, and main's own
+        # teardown calls the real stop again.
+        monkeypatch.setattr(follower_cls, "stop", real_stop)
+        for f in followers[:1]:
+            real_stop(f)
+        thread.join(timeout=TIMEOUT_S)
+        srv.close()
+        if followers:
+            assert not thread.is_alive() and ended == {"rc": 0}
+
+
+def test_drain_shuts_down_when_the_follower_stop_raises(tmp_path,
+                                                        monkeypatch, capsys):
+    """The drain teardown thread runs ``follower.stop()`` and then
+    ``server.shutdown()``, each in its own guard, in both packages: a
+    follower whose ``stop`` raises is reported on stderr, and the
+    server's serve loop still returns (it stops answering) within 5 s
+    of the drain."""
+    from kubernetesclustercapacity_tpu import follower as j_follower
+    from kubernetesclustercapacity_tpu.service import server as j_server
+    from kubernetesclustercapacity_tpu_torch import follower as t_follower
+    from kubernetesclustercapacity_tpu_torch.service import server as t_server
+
+    for main, cls in ((j_server.main, j_follower.ClusterFollower),
+                      (t_server.main, t_follower.ClusterFollower)):
+        capsys.readouterr()
+        took = _drain_main_with_failing_follower(main, cls, tmp_path,
+                                                 monkeypatch)
+        err = capsys.readouterr().err
+        assert took is not None, (
+            f"{cls.__module__}: the server still answered 5 s after the "
+            f"drain:\n{err[-2000:]}"
+        )
+        assert "drain complete:" in err
+        assert "drain teardown: RuntimeError: follower stop failed" in err
+        assert "drain shutdown:" not in err
+
+
 # Gang capacity and the optimizer.  A strict and a reference server on a
 # fleet labelled with a zone/rack hierarchy, beside the kind fixture and
 # the .npz checkpoint (no topology labels: every node its own domain).
