@@ -99,7 +99,13 @@ the hammer over seeds 0-2 (0 findings); last ``torch.cuda.
 set_sync_debug_mode("warn")`` around ``place_replicas`` at 64 and 256
 steps, ``_pdhg_chunk`` at 50 and 500 iterations and a gang spread search
 at two search depths, whose sync count must not grow with the steps.
-Any failure raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
+Path (w) runs the twins of the JAX package's ``examples/`` scripts
+(``examples_torch/``, one for every script) in this process with their
+asserts live: each device twin with ``device="cuda"`` (B1 must launch in
+``02`` and ``12``, B2 in ``02``), the analyzer and sanitizer twins on the
+host; eight deterministic twins are run again on the host and must print
+the same lines (durations aside; the CPU tests hold the host's lines
+against the JAX scripts').  Any failure raises, so the script exits nonzero without its final line.  It needs a CUDA device and the package beside it;
 it imports nothing of JAX.
 
 Output: phase lines, one JSON line per timed kernel variant, a
@@ -6065,6 +6071,126 @@ def phase_analysis(pkg, ff, identity: str) -> dict:
     return out
 
 
+# Path (w): the twins of examples/ in examples_torch/.  The twins that must
+# launch a kernel on the card, and the twins whose output the same twin on
+# the host must print again, line for line (the CPU tests hold the host's
+# output against the JAX script's).
+EXAMPLE_LAUNCHES = {
+    "02_what_if_sweep.py": ("sweep_fit", "sweep_multi"),
+    "12_million_node_sweep.py": ("sweep_fit",),
+}
+EXAMPLE_HOST_PARITY = (
+    "01_reference_run.py", "02_what_if_sweep.py",
+    "03_constraints_and_placement.py", "12_million_node_sweep.py",
+    "14_capacity_at_risk.py", "16_gang_capacity.py",
+    "17_optimized_packing.py", "20_forecast_and_plan.py",
+)
+_DURATION = re.compile(r"\d(?:\.\d+)?\s?(?:ms|s)\b")
+
+
+def example_lines(text: str) -> list[str]:
+    """A twin's stdout without the lines that carry a duration, with the
+    card's kernel labels (``cuda_``) written as the host's (``plain_``)."""
+    return [line.replace("cuda_", "plain_") for line in text.splitlines()
+            if not _DURATION.search(line)]
+
+
+def run_example(path: str, device: str) -> tuple[str, bool]:
+    """Run one twin's ``main`` in this process, asserts live, on
+    ``device`` where it takes one.  Its stdout, and whether it did."""
+    import importlib.util
+    import inspect
+
+    name = os.path.basename(path)
+    spec = importlib.util.spec_from_file_location(
+        f"example_torch_{name[:-3]}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    buf = io.StringIO()
+    try:
+        spec.loader.exec_module(mod)
+        takes_device = "device" in inspect.signature(mod.main).parameters
+        with contextlib.redirect_stdout(buf):
+            if takes_device:
+                mod.main(device=device)
+            else:
+                mod.main()
+    finally:
+        sys.modules.pop(spec.name, None)
+    return buf.getvalue(), takes_device
+
+
+def phase_examples(ff, fm, identity: str) -> dict:
+    """Path (w).  Every twin in ``examples_torch/`` in this process with
+    its asserts live: the device twins on the card (``device="cuda"``),
+    the two host-only ones (the analyzer, the sanitizer) as they are.
+    The launch counts are set to 0 before each twin and read after it.
+    Returns the seconds and the launches by twin."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    directory = os.path.join(root, "examples_torch")
+    names = sorted(f for f in os.listdir(directory) if f.endswith(".py"))
+    missing = sorted(set(f for f in os.listdir(os.path.join(root, "examples"))
+                         if f.endswith(".py")) - set(names))
+    if missing:
+        raise AssertionError(f"(w) no twin in examples_torch/ for {missing}")
+    out_dir = os.path.join(root, "chiprun_out", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    for var in ("KCCAP_SANITIZE", "KCC_EXAMPLE_NODES", "KCCAP_GROUPING",
+                "KCCAP_GROUP_MIN_COUNT"):
+        if var in os.environ:
+            raise AssertionError(f"(w) {var} is set: the twins run at their "
+                                 "own defaults")
+    t_phase = time.perf_counter()
+    out = {"s": {}, "launches": {"sweep_fit": {}, "sweep_multi": {}},
+           "host_parity_s": {}}
+    for name in names:
+        path = os.path.join(directory, name)
+        ff.LAUNCHES = fm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        text, takes_device = run_example(path, "cuda")
+        seconds = time.perf_counter() - t0
+        b1, b2 = ff.LAUNCHES, fm.LAUNCHES
+        out["s"][name] = seconds
+        out["launches"]["sweep_fit"][name] = b1
+        out["launches"]["sweep_multi"][name] = b2
+        with open(os.path.join(out_dir, name[:-3] + ".txt"), "w",
+                  encoding="utf-8") as fh:
+            fh.write(text)
+        if not text.strip():
+            raise AssertionError(f"(w) {name} printed nothing")
+        need = EXAMPLE_LAUNCHES.get(name, ())
+        for kernel, n in (("sweep_fit", b1), ("sweep_multi", b2)):
+            if kernel in need and n == 0:
+                raise AssertionError(f"(w) {name} launched {kernel} 0 times")
+        last = text.strip().splitlines()[-1]
+        log(f"(w) {name}: {seconds:.2f} s on "
+            f"{'cuda' if takes_device else 'the host (host-only twin)'}, "
+            f"B1 {b1}, B2 {b2} launches, {len(text.splitlines())} lines; "
+            f"last: {last[:100]}")
+        if name in EXAMPLE_HOST_PARITY:
+            # The same twin on the host, outside the launch counts.
+            t0 = time.perf_counter()
+            host, _ = run_example(path, "cpu")
+            out["host_parity_s"][name] = time.perf_counter() - t0
+            card_lines, host_lines = example_lines(text), example_lines(host)
+            if card_lines != host_lines:
+                diff = [(c, h) for c, h in zip(card_lines, host_lines)
+                        if c != h][:3]
+                raise AssertionError(
+                    f"(w) {name} on the card differs from the host: "
+                    f"{len(card_lines)} against {len(host_lines)} lines, "
+                    f"first differences {diff}")
+            log(f"(w) {name}: the card's {len(card_lines)} lines equal the "
+                f"host's (durations dropped, cuda_ read as plain_)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"(w) {len(names)} twins, {sum(out['s'].values()):.1f} s on the card, "
+        f"{sum(out['host_parity_s'].values()):.1f} s of host reruns; B1 "
+        f"{sum(out['launches']['sweep_fit'].values())}, B2 "
+        f"{sum(out['launches']['sweep_multi'].values())} launches; path (w) "
+        f"took {out['seconds']:.1f} s ({identity})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6149,6 +6275,8 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (u)")
     ana = phase_analysis(pkg, ff, identity)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (v)")
+    ex = phase_examples(ff, fm, identity)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after path (w)")
     main_launches = {"(a)": launches["(a) 10k x 1k reference"],
                      "(b)": launches["(b) 10k x 1k strict, taint-masked"],
                      "(c)": launches["(c) 100k grouped (48 shapes) x 1k"]}
@@ -6223,6 +6351,10 @@ def main() -> int:
         "analysis_batching": [ana["batching_sanitized"],
                               ana["batching_plain"]],
         "analysis_s": ana["seconds"],
+        "examples_s": ex["seconds"],
+        "examples_ms": {k: v * 1e3 for k, v in ex["s"].items()},
+        "examples_launches": ex["launches"],
+        "examples_host_parity_s": ex["host_parity_s"],
         "gpu": identity,
     }}), flush=True)
     head = rows[0]
@@ -6242,7 +6374,8 @@ def main() -> int:
         + sum(repl["launches"]["sweep_fit"].values())
         + sum(fed["launches"]["sweep_fit"].values())
         + sum(nat["launches"]["sweep_fit"].values())
-        + sum(ana["launches"]["sweep_fit"].values()),
+        + sum(ana["launches"]["sweep_fit"].values())
+        + sum(ex["launches"]["sweep_fit"].values()),
         "max_abs_err": max_err,
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -6271,7 +6404,8 @@ def main() -> int:
         + sum(gopt["launches"]["sweep_multi"].values())
         + sum(oper["launches"]["sweep_multi"].values())
         + sum(repl["launches"]["sweep_multi"].values())
-        + sum(fed["launches"]["sweep_multi"].values()),
+        + sum(fed["launches"]["sweep_multi"].values())
+        + sum(ex["launches"]["sweep_multi"].values()),
         "max_abs_err": multi_max_err,
         "ms": multi_rows_timed[0]["ms"],
         "plain_ms": multi_rows_timed[0]["plain_ms"],

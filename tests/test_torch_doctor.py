@@ -16,7 +16,9 @@ real probe is a FAILED line and ``-doctor`` exits 1.
 Tolerance: none (line text equal where not named volatile).
 """
 
+import contextlib
 import dataclasses
+import threading
 import time
 
 import pytest
@@ -31,6 +33,7 @@ from kubernetesclustercapacity_tpu.snapshot import (
     synthetic_snapshot as j_synthetic,
 )
 from kubernetesclustercapacity_tpu.utils import doctor as j_doc
+from kubernetesclustercapacity_tpu.utils import threads as j_threads
 from kubernetesclustercapacity_tpu_torch import cli as t_cli
 from kubernetesclustercapacity_tpu_torch import federation as t_fed
 from kubernetesclustercapacity_tpu_torch.service.server import (
@@ -41,6 +44,7 @@ from kubernetesclustercapacity_tpu_torch.snapshot import (
 )
 from kubernetesclustercapacity_tpu_torch.telemetry import profiler as t_prof
 from kubernetesclustercapacity_tpu_torch.utils import doctor as t_doc
+from kubernetesclustercapacity_tpu_torch.utils import threads as t_threads
 
 OK_PROBE = "print('DEVICES 0s D x1')"
 SERVICE_LINES = (
@@ -81,6 +85,38 @@ def profilers_stopped():
         mod.stop_profiler()
     for mod, hz in running:
         mod.start_profiler(hz)
+
+
+@contextlib.contextmanager
+def _thread_deaths_cleared():
+    """Both packages' supervised-thread death records emptied, and the
+    old lists put back after.
+
+    The sanitizer line appends ``; WARNING n supervised thread death(s),
+    last: ...`` when its own package's ``utils/threads`` has recorded a
+    death in this process, and the record is process-global: a test run
+    earlier in the same process (``tests/test_torch_runtime.py::
+    test_supervised_thread_records_its_death`` records a port death on
+    purpose) would put the note in one package's line only.  Each
+    module's list is swapped under that module's own lock.
+    """
+    saved = []
+    for mod in (j_threads, t_threads):
+        with mod._lock:
+            saved.append((mod, mod._deaths))
+            mod._deaths = []
+    try:
+        yield
+    finally:
+        for mod, deaths in saved:
+            with mod._lock:
+                mod._deaths = deaths
+
+
+@pytest.fixture
+def thread_deaths_cleared():
+    with _thread_deaths_cleared():
+        yield
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +168,20 @@ def test_the_probe_child_imports_only_torch():
 # ---------------------------------------------------------------------------
 # The report
 # ---------------------------------------------------------------------------
-def test_check_names_in_the_jax_order(profilers_stopped, monkeypatch):
-    # The sanitizer line reads the gate: closed here whatever ran before.
-    monkeypatch.delenv("KCCAP_SANITIZE", raising=False)
+# Process-global inputs of the lines the next test compares exactly.
+# Both packages read the same environment variables, so an unset one
+# cannot make the lines differ; it is cleared so the expected text is
+# the default's.  The native loaders' caches (``native._LIB`` and
+# ``_BUILD_ERROR``, ``native.ingest._MOD`` and ``_BUILD_ERROR``) are
+# only ever set by a successful build or patched with monkeypatch; the
+# sanitizer is installed only inside a try/finally that uninstalls it.
+DOCTOR_ENV = ("KCCAP_SANITIZE", "KCC_DISABLE_NATIVE_INGEST",
+              "KCCAP_PROFILER", "KCCAP_TELEMETRY", "KCCAP_PROFILE_HZ")
+
+
+def _assert_check_names_in_the_jax_order(monkeypatch):
+    for var in DOCTOR_ENV:
+        monkeypatch.delenv(var, raising=False)
     j = j_doc.doctor_report(backend_timeout_s=20.0, probe_code=OK_PROBE)
     t = t_doc.doctor_report(backend_timeout_s=20.0, probe_code=OK_PROBE,
                             device="cpu")
@@ -150,6 +197,40 @@ def test_check_names_in_the_jax_order(profilers_stopped, monkeypatch):
     assert got["sanitizer"].startswith("dormant (KCCAP_SANITIZE unset)")
     assert got["fused fast path"].startswith("armed (never trips")
     assert got["profiler"] == dict(j)["profiler"]
+
+
+def test_check_names_in_the_jax_order(profilers_stopped,
+                                      thread_deaths_cleared, monkeypatch):
+    _assert_check_names_in_the_jax_order(monkeypatch)
+
+
+def _record_a_death(threads_mod, message):
+    def die():
+        raise RuntimeError(message)
+
+    t = threading.Thread(
+        target=threads_mod.supervised(die, name="pin"), name="pin"
+    )
+    t.start()
+    t.join()
+
+
+def test_thread_deaths_recorded_earlier_leave_the_comparison_exact(
+        profilers_stopped, monkeypatch):
+    """One supervised death in each package, recorded before the doctor
+    runs (as by tests run earlier in the same process): the sanitizer
+    lines would differ (``jax bang`` against ``port bang``), and with the
+    records cleared they are equal, and the records come back after."""
+    with _thread_deaths_cleared():
+        _record_a_death(j_threads, "jax bang")
+        _record_a_death(t_threads, "port bang")
+        assert j_threads.last_death() == ("pin", "RuntimeError: jax bang")
+        assert t_threads.last_death() == ("pin", "RuntimeError: port bang")
+        before = (j_threads.death_count(), t_threads.death_count())
+        with _thread_deaths_cleared():
+            _assert_check_names_in_the_jax_order(monkeypatch)
+        assert (j_threads.death_count(), t_threads.death_count()) == before
+        assert t_threads.last_death() == ("pin", "RuntimeError: port bang")
 
 
 def test_one_broken_check_does_not_abort_the_report(monkeypatch):
