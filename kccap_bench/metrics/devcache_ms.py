@@ -1,0 +1,12 @@
+"""Device cache (``devcache.py``): the ``devcache`` phase of the window's
+sweeps (staging a new generation), over the sweeps answered."""
+
+from kccap_bench.artifacts import hist_delta, mean_ms
+
+
+def read(artifacts):
+    s, _ = hist_delta(artifacts, "start", "end", "server",
+                      "kccap_phase_seconds", op="sweep", phase="devcache")
+    _, n = hist_delta(artifacts, "start", "end", "server",
+                      "kccap_request_latency_seconds", op="sweep")
+    return mean_ms(s, n)
