@@ -1,0 +1,18 @@
+"""Server compute slots (``service/server.py``): the ``queue_wait``
+phase of the window's requests of the cell's query op, the wait for a
+compute slot, over those requests answered.
+None where the program has no such phase."""
+
+from kccap_bench.artifacts import hist, hist_delta, mean_ms
+
+
+def read(artifacts):
+    op = artifacts["cell"]["query_op"]
+    if not hist(artifacts, "end", "server", "kccap_phase_seconds",
+                op=op, phase="queue_wait")[1]:
+        return None
+    s, _ = hist_delta(artifacts, "start", "end", "server",
+                      "kccap_phase_seconds", op=op, phase="queue_wait")
+    _, n = hist_delta(artifacts, "start", "end", "server",
+                      "kccap_request_latency_seconds", op=op)
+    return mean_ms(s, n)

@@ -1,0 +1,19 @@
+"""Dispatch (``ops/fused_fit.py``, ``ops/fused_multi.py``): the
+``stage`` phase of the window's requests of the cell's query op, the
+per-call operand build and its host-to-device copies, over those
+requests answered.
+None where the program has no such phase."""
+
+from kccap_bench.artifacts import hist, hist_delta, mean_ms
+
+
+def read(artifacts):
+    op = artifacts["cell"]["query_op"]
+    if not hist(artifacts, "end", "server", "kccap_phase_seconds",
+                op=op, phase="stage")[1]:
+        return None
+    s, _ = hist_delta(artifacts, "start", "end", "server",
+                      "kccap_phase_seconds", op=op, phase="stage")
+    _, n = hist_delta(artifacts, "start", "end", "server",
+                      "kccap_request_latency_seconds", op=op)
+    return mean_ms(s, n)

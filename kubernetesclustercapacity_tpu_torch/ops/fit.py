@@ -613,18 +613,27 @@ def fetch(tensors, *, sync: bool = True) -> tuple:
     return tuple(_AsyncView(pending, i) for i in range(len(pending._meta)))
 
 
-def observed_fetch(label: str, t0: float, tensors, *, sync: bool = True):
+def observed_fetch(label: str, t0: float, tensors, *, sync: bool = True,
+                   staged: float | None = None):
     """:func:`fetch` for a dispatch launched at ``t0``, accounted for.
 
     The request's phase clock gets ``device_exec`` (``t0`` until now, the
     launch) and ``fetch`` (the copy and its wait), and compilewatch files
     the whole host-timed interval under ``label``; a label's first
     dispatch (the kernel build or library load on the card) is filed,
-    and clocked, as ``compile``.  An asynchronous fetch is neither timed
-    nor observed: its host interval excludes the device wait.
+    and clocked, as ``compile``.  ``staged``, where the dispatch staged
+    its per-call operands from ``t0`` on, ends that staging: the clock
+    gets it as ``stage`` (sync or not) and ``device_exec`` starts there,
+    while compilewatch keeps the whole interval from ``t0``.  An
+    asynchronous fetch is otherwise neither timed nor observed: its host
+    interval excludes the device wait.
     """
     clk = _phases.current()
     t_launch = time.perf_counter()
+    t_exec = t0
+    if clk and staged is not None:
+        clk.record("stage", staged - t0)
+        t_exec = staged
     with clk.live("fetch"):
         out = fetch(tensors, sync=sync)
     if not sync:
@@ -635,9 +644,9 @@ def observed_fetch(label: str, t0: float, tensors, *, sync: bool = True):
         kind = _compilewatch.observe_dispatch(label, t_done - t0)
     if clk:
         if kind == "compile":
-            clk.record("compile", t_done - t0)
+            clk.record("compile", t_done - t_exec)
         else:
-            clk.record("device_exec", t_launch - t0)
+            clk.record("device_exec", t_launch - t_exec)
             clk.record("fetch", t_done - t_launch)
     return out
 

@@ -397,36 +397,42 @@ def _fused_sweep(
     views over one pending copy (:func:`..fit.fetch`), the comparison
     with ``replicas`` then made on the device so that one copy carries
     both.  A synchronous dispatch is clocked and observed under ``label``
-    (:func:`..fit.observed_fetch`)."""
+    (:func:`..fit.observed_fetch`); the staging is the ``stage`` phase
+    either way."""
+    clk = _phases.current()
     t0 = time.perf_counter()
-    cr = np.asarray(cpu_reqs, dtype=np.int64).astype(np.int32)
-    mr = (np.asarray(mem_reqs, dtype=np.int64) // 1024).astype(np.int32)
-    crr = mrr = None
-    if use_rcp:
-        crr = _devcache.to_device(scenario_reciprocals(cr), device)
-        mrr = _devcache.to_device(scenario_reciprocals(mr), device)
-    if mask is not None:
-        # The kernel takes any non-zero lane as 1; the plain version
-        # multiplies by it.  Staging the mask as 0/1 keeps them equal.
-        mask = _devcache.to_device(
-            np.asarray(mask, dtype=bool).astype(np.int32), device
-        )
-    if counts is not None:
-        counts = _devcache.to_device(
-            np.asarray(counts, dtype=np.int64).astype(np.int32), device
-        )
-    cr, mr = _devcache.to_device(cr, device), _devcache.to_device(mr, device)
-    with _phases.current().live("device_exec"):
+    with clk.live("stage"):
+        cr = np.asarray(cpu_reqs, dtype=np.int64).astype(np.int32)
+        mr = (np.asarray(mem_reqs, dtype=np.int64) // 1024).astype(np.int32)
+        crr = mrr = None
+        if use_rcp:
+            crr = _devcache.to_device(scenario_reciprocals(cr), device)
+            mrr = _devcache.to_device(scenario_reciprocals(mr), device)
+        if mask is not None:
+            # The kernel takes any non-zero lane as 1; the plain version
+            # multiplies by it.  Staging the mask as 0/1 keeps them equal.
+            mask = _devcache.to_device(
+                np.asarray(mask, dtype=bool).astype(np.int32), device
+            )
+        if counts is not None:
+            counts = _devcache.to_device(
+                np.asarray(counts, dtype=np.int64).astype(np.int32), device
+            )
+        cr = _devcache.to_device(cr, device)
+        mr = _devcache.to_device(mr, device)
+    staged = time.perf_counter() if clk else None
+    with clk.live("device_exec"):
         totals = sweep_fused(
             *node_cols, cr, mr, crr, mrr, mask, counts, strict=strict,
         )
     if sync:
-        (totals,) = observed_fetch(label, t0, (totals,))
+        (totals,) = observed_fetch(label, t0, (totals,), staged=staged)
         return totals, totals >= np.asarray(replicas, dtype=np.int64)
     replicas = _devcache.to_device(
         np.asarray(replicas, dtype=np.int64), device
     )
-    return observed_fetch(label, t0, (totals, totals >= replicas), sync=False)
+    return observed_fetch(label, t0, (totals, totals >= replicas),
+                          sync=False, staged=staged)
 
 
 def sweep_auto(
@@ -470,10 +476,15 @@ def sweep_auto(
         )
     else:
         kernel_mask = node_mask
-    if not force_exact and fast_sweep_eligible(*nodes, cpu_reqs, mem_reqs):
-        use_rcp = rcp_division_eligible(
-            alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_reqs, mem_reqs
-        )
+    use_rcp = None
+    if not force_exact:
+        with _phases.current().phase("proof"):
+            if fast_sweep_eligible(*nodes, cpu_reqs, mem_reqs):
+                use_rcp = rcp_division_eligible(
+                    alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_reqs,
+                    mem_reqs,
+                )
+    if use_rcp is not None:
         label = _fused_label(device, use_rcp)
         totals, schedulable = _fused_sweep(
             _devcache.CACHE.kernel_tensors(snapshot, device), cpu_reqs,
@@ -510,17 +521,21 @@ def _sweep_auto_grouped(
     counts = grouped.effective_counts(node_mask)
     cpu_reqs = grid.cpu_request_milli
     mem_reqs = grid.mem_request_bytes
-    if not force_exact and fast_sweep_eligible(
-        grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
-        grouped.alloc_pods, grouped.used_cpu_req_milli,
-        grouped.used_mem_req_bytes, grouped.pods_count,
-        cpu_reqs, mem_reqs, counts=counts,
-    ):
-        use_rcp = rcp_division_eligible(
-            grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
-            grouped.used_cpu_req_milli, grouped.used_mem_req_bytes,
-            cpu_reqs, mem_reqs,
-        )
+    use_rcp = None
+    if not force_exact:
+        with _phases.current().phase("proof"):
+            if fast_sweep_eligible(
+                grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
+                grouped.alloc_pods, grouped.used_cpu_req_milli,
+                grouped.used_mem_req_bytes, grouped.pods_count,
+                cpu_reqs, mem_reqs, counts=counts,
+            ):
+                use_rcp = rcp_division_eligible(
+                    grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
+                    grouped.used_cpu_req_milli, grouped.used_mem_req_bytes,
+                    cpu_reqs, mem_reqs,
+                )
+    if use_rcp is not None:
         kernel_mask = (
             np.asarray(grouped.healthy, dtype=bool)
             if mode == "strict" else None

@@ -394,9 +394,16 @@ def sweep_multi_auto(
         else:
             fused_ok = False
     if fused_ok:
-        scales, ok = fast_multi_eligible(
-            alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr
-        )
+        clk = _phases.current()
+        use_rcp = None
+        with clk.phase("proof"):
+            scales, ok = fast_multi_eligible(
+                alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr
+            )
+            if ok:
+                use_rcp = rcp_multi_eligible(
+                    alloc_rn, used_rn, reqs_sr, scales
+                )
         if ok:
             if mode == "strict":
                 healthy_arr = np.asarray(healthy, dtype=bool)
@@ -406,16 +413,17 @@ def sweep_multi_auto(
                 )
             else:
                 kernel_mask = shared_mask
-            use_rcp = rcp_multi_eligible(alloc_rn, used_rn, reqs_sr, scales)
             label = _multi_label(device, use_rcp)
             t0 = time.perf_counter()
-            ops = stage_multi_operands(
-                alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr, scales,
-                kernel_mask, use_rcp=use_rcp, device=device,
-            )
-            with _phases.current().live("device_exec"):
+            with clk.live("stage"):
+                ops = stage_multi_operands(
+                    alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr,
+                    scales, kernel_mask, use_rcp=use_rcp, device=device,
+                )
+            staged = time.perf_counter() if clk else None
+            with clk.live("device_exec"):
                 totals = sweep_multi(*ops, strict=mode == "strict")
-            (totals,) = observed_fetch(label, t0, (totals,))
+            (totals,) = observed_fetch(label, t0, (totals,), staged=staged)
             schedulable = totals >= np.asarray(replicas, dtype=np.int64)
             return totals, schedulable, label
     totals, schedulable = sweep_grid_multi_staged(

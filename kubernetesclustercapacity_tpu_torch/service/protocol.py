@@ -143,7 +143,10 @@ import json
 import socket
 import struct
 
-__all__ = ["send_msg", "recv_msg", "MAX_FRAME", "ProtocolError"]
+__all__ = [
+    "send_msg", "recv_msg", "recv_frame", "decode_frame", "MAX_FRAME",
+    "ProtocolError",
+]
 
 MAX_FRAME = 64 * 1024 * 1024
 
@@ -178,6 +181,13 @@ def recv_msg(sock: socket.socket) -> dict | None:
     None), so callers handle exactly two shapes — None = no more frames,
     ProtocolError = broken peer/transport.
     """
+    body = recv_frame(sock)
+    return None if body is None else decode_frame(body)
+
+
+def recv_frame(sock: socket.socket) -> bytes | None:
+    """:func:`recv_msg`'s read half: one frame's body, undecoded (the
+    server times the decode apart from the wait for the frame)."""
     try:
         header = sock.recv(4)
     except ConnectionResetError:
@@ -195,9 +205,13 @@ def recv_msg(sock: socket.socket) -> dict | None:
         (length,) = struct.unpack(">I", header)
         if length > MAX_FRAME:
             raise ProtocolError(f"frame too large: {length}")
-        body = _recv_exact(sock, length)
+        return _recv_exact(sock, length)
     except OSError as e:  # reset/abort/timeout mid-frame
         raise ProtocolError(f"socket error mid-frame: {e}") from e
+
+
+def decode_frame(body: bytes) -> dict:
+    """:func:`recv_msg`'s decode half."""
     try:
         return json.loads(body)
     except ValueError as e:  # malformed/empty body is a protocol error

@@ -55,6 +55,7 @@ import socketserver
 import threading
 import time
 import weakref
+from contextlib import ExitStack, contextmanager, nullcontext
 
 import numpy as np
 
@@ -91,6 +92,9 @@ from kubernetesclustercapacity_tpu_torch.telemetry import (
 )
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 from kubernetesclustercapacity_tpu_torch.telemetry import (
+    process as _process,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry import (
     tracectx as _tracectx,
 )
 
@@ -119,12 +123,17 @@ class _Handler(socketserver.BaseRequestHandler):
         server: "CapacityServer" = self.server.capacity_server  # type: ignore[attr-defined]
         while True:
             try:
-                msg = protocol.recv_msg(self.request)
+                body = protocol.recv_frame(self.request)
+                if body is None:
+                    return
+                # The handler's own clock: decode and reply lie outside
+                # the dispatch, so they are filed apart from its phases.
+                clk = _phases.new_clock()
+                with clk.phase("decode"):
+                    msg = protocol.decode_frame(body)
             except (protocol.ProtocolError, OSError):
                 # Mid-frame resets/aborts are routine client behavior, not
                 # server errors — drop the connection quietly.
-                return
-            if msg is None:
                 return
             try:
                 reply = {"ok": True, "result": server.dispatch(msg)}
@@ -142,9 +151,12 @@ class _Handler(socketserver.BaseRequestHandler):
             if gen is not None:
                 reply["generation"] = gen
             try:
-                protocol.send_msg(self.request, reply)
+                with clk.phase("reply"):
+                    protocol.send_msg(self.request, reply)
             except OSError:
                 return  # peer went away while we answered
+            finally:
+                server.observe_handler_phases(msg, clk)
 
 
 class _ThreadingServer(socketserver.ThreadingTCPServer):
@@ -243,6 +255,27 @@ class _FoldedSlice:
     def __array__(self, dtype=None, copy=None):
         view = self._fetch.arrays()[self._which][self._offset:self._end]
         return np.asarray(view) if dtype is None else np.asarray(view, dtype)
+
+
+#: :func:`_lock_wait` with no clock: nothing to time.
+_NO_WAIT = nullcontext(lambda: None)
+
+
+def _lock_wait():
+    """The request's ``lock_wait`` for the lock that follows in the same
+    ``with`` statement: the block's first statement calls the yielded
+    ``acquired()``, and an acquire that raises closes the phase on the
+    way out.  The lock stays lexical at each site, where the
+    lock-discipline rule reads which fields it guards."""
+    clk = _phases.current()
+    return _timed_wait(clk) if clk else _NO_WAIT
+
+
+@contextmanager
+def _timed_wait(clk):
+    with ExitStack() as waiting:
+        waiting.enter_context(clk.phase("lock_wait"))
+        yield waiting.close
 
 
 class CapacityServer:
@@ -767,6 +800,7 @@ class CapacityServer:
         return t or "default"
 
     def start(self) -> None:
+        _process.annotate_collections()
         self._serving = True
         self._thread = threading.Thread(
             target=self._tcp.serve_forever, daemon=True
@@ -774,6 +808,7 @@ class CapacityServer:
         self._thread.start()
 
     def serve_forever(self) -> None:
+        _process.annotate_collections()
         self._serving = True
         self._tcp.serve_forever()
 
@@ -1010,6 +1045,18 @@ class CapacityServer:
                 trace_sampled=sampled,
             )
 
+    def observe_handler_phases(self, msg, clk) -> None:
+        """File a connection handler's own phases (``decode``,
+        ``reply``) under the op label :meth:`dispatch` gave the request;
+        they lie outside its clock, so its phases still sum to at most
+        its latency."""
+        if not clk:
+            return
+        op = msg.get("op") if isinstance(msg, dict) else None
+        op_label = op if op in self._KNOWN_OPS else "unknown"
+        for ph, secs in clk.items():
+            self._m_phase.labels(op=op_label, phase=ph).observe(secs)
+
     def _emit_spans(self, span_ctx, span_id, parent_span_id, op_label,
                     wall0, dur, error, phase_items, sampled) -> None:
         """The request span and one child span per recorded phase, then
@@ -1148,7 +1195,8 @@ class CapacityServer:
         # so a concurrent reload/update can never produce a torn read.  The
         # raw fixture is rebuilt from the store lazily — only when an op
         # actually consumes it, not on every watch-event batch.
-        with self._lock:
+        with _lock_wait() as acquired, self._lock:
+            acquired()
             snap = self.snapshot
             self._dispatch_tls.generation = self._generation
             needs_fixture = (
@@ -1201,7 +1249,8 @@ class CapacityServer:
             # takes the follower's lock — holding both would stall every
             # concurrent request AND watch-event application).
             fixture = source()
-            with self._lock:
+            with _lock_wait() as acquired, self._lock:
+                acquired()
                 if self.snapshot is snap and self.fixture is None:
                     self.fixture = fixture  # cache until the next publish
         if op == "info":
@@ -2609,13 +2658,14 @@ class CapacityServer:
             force_exact=(msg.get("kernel", "auto") == "exact"),
             device=self._device,
         )
-        return {
-            "totals": totals.tolist(),
-            "schedulable": sched.tolist(),
-            "scenarios": grid.size,
-            "resources": list(grid.resources),
-            "kernel": kernel,
-        }
+        with _phases.current().phase("serialize"):
+            return {
+                "totals": totals.tolist(),
+                "schedulable": sched.tolist(),
+                "scenarios": grid.size,
+                "resources": list(grid.resources),
+                "kernel": kernel,
+            }
 
     def replace_snapshot(
         self,
@@ -2655,7 +2705,8 @@ class CapacityServer:
         it would let watermarked clients see time run backwards.
         """
         mask = _implicit_taint_mask(snapshot)
-        with self._lock:
+        with _lock_wait() as acquired, self._lock:
+            acquired()
             if generation is not None:
                 generation = int(generation)
                 if generation < self._generation:
@@ -2706,7 +2757,8 @@ class CapacityServer:
         """``snap`` is the dispatch's lock-captured snapshot — reading
         ``self.snapshot`` here could tear against a concurrent reload."""
         self._require_leader()
-        with self._lock:
+        with _lock_wait() as acquired, self._lock:
+            acquired()
             if self._fixture_source is not None:
                 # Same rule as update: the next coalesced publish would
                 # silently clobber the reloaded state.
@@ -2766,7 +2818,9 @@ class CapacityServer:
         events = msg.get("events")
         if not isinstance(events, list):
             raise ValueError("update needs an 'events' list")
-        with self._lock:
+        clk = _phases.current()
+        with _lock_wait() as acquired, self._lock:
+            acquired()
             if self._fixture_source is not None:
                 # A follower feeds this server: an op-side store would be
                 # clobbered by the next coalesced publish, silently
@@ -2789,11 +2843,13 @@ class CapacityServer:
                 )
             old = self.snapshot
             try:
-                self._store.apply(events)
+                with clk.phase("apply"):
+                    self._store.apply(events)
             finally:
-                snap = self.snapshot = self._store.snapshot()
+                with clk.phase("repack"):
+                    snap = self.snapshot = self._store.snapshot()
+                    self._implicit_mask = _implicit_taint_mask(snap)
                 self._fixture_dirty = True  # rebuilt on demand (cpu fit)
-                self._implicit_mask = _implicit_taint_mask(snap)
                 self._generation += 1
                 generation = self._generation
         if old is not snap:

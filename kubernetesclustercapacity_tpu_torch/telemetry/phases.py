@@ -1,10 +1,10 @@
 """Per-request latency decomposition: the phase clock.
 
-A copy of the JAX package's ``telemetry/phases.py`` for the PyTorch
-port's server.  Every answering request is split into a FIXED phase
-vocabulary (:data:`PHASES`, the JAX package's, so the two servers'
-``kccap_phase_seconds`` series line up), each phase a named sub-interval
-of the dispatch:
+The JAX package's ``telemetry/phases.py`` for the PyTorch port's server,
+extended.  Every answering request is split into a FIXED phase
+vocabulary (:data:`PHASES`): the JAX package's nine, so the two servers'
+``kccap_phase_seconds`` series line up, and then the port's own seven.
+Each phase is a named sub-interval of the request:
 
 ``admission``
     waiting in the admission controller's bounded concurrency queue
@@ -25,8 +25,9 @@ of the dispatch:
     vocabulary; the port builds its kernels once per process, outside
     any request's clock);
 ``device_exec``
-    the kernel call itself (launch + any host packing the wrapper does
-    before the sync point);
+    the kernel call itself: the launch.  On the kernel routes the
+    per-call operand staging before it is ``stage``; the exact programs'
+    own host packing before the sync point stays in ``device_exec``;
 ``fetch``
     the device→host materialization of a synchronous dispatch;
 ``fetch_overlap``
@@ -38,6 +39,33 @@ of the dispatch:
 ``serialize``
     building the wire response (``tolist`` and report rendering).
 
+The port's own:
+
+``decode``
+    the ``json.loads`` of a request body already read off the socket
+    (the server's connection handler; the wait for the frame is not in
+    it);
+``reply``
+    the reply's ``json.dumps`` and its send;
+``lock_wait``
+    waiting for the server's dispatch lock (every acquire on the dispatch
+    path: the snapshot capture, ``update``, ``reload``);
+``proof``
+    the kernels' eligibility proofs (``fast_*_eligible`` and
+    ``rcp_*_eligible``, ``ops/fused_fit.py``, ``ops/fused_multi.py``);
+``stage``
+    a kernel dispatch's per-call operands: their host build and their
+    host→device copies;
+``apply``
+    ``update``'s ``ClusterStore.apply`` of the request's events;
+``repack``
+    ``update``'s ``ClusterStore.snapshot()`` and implicit taint mask.
+
+``decode`` and ``reply`` happen outside the dispatch: the handler times
+them on a clock of its own and files them under the dispatch's op label,
+so a dispatch clock's phases still sum to at most the request's
+``kccap_request_latency_seconds``.
+
 Threading model: the clock rides a **thread-local** (:func:`activate` /
 :func:`restore` / :func:`current`), not a parameter — the phases land
 deep inside layers (devcache, the kernel wrappers) whose signatures must
@@ -45,6 +73,13 @@ not grow a telemetry argument.  The server's dispatch activates one
 clock per request; a micro-batch leader's kernel phases therefore land
 on the LEADER's clock while each follower records only its own
 ``batch_wait`` — per-request attribution stays honest.
+
+Device-trace clock: while a ``torch.profiler`` records, every
+:meth:`PhaseClock.phase` and :meth:`PhaseClock.live` block also opens
+``torch.profiler.record_function("kccap.<phase>")``, so the block lands
+as a ``user_annotation`` in the same trace as the kernels and copies, on
+the thread that did the work.  With no profiler the gate is one module
+attribute read (``torch.autograd.profiler._is_profiler_enabled``).
 
 Hot-path rule (the package's): with ``KCCAP_TELEMETRY=0``,
 :func:`new_clock` returns the process-wide :data:`NULL_CLOCK` singleton
@@ -59,6 +94,8 @@ import threading
 import time
 from contextlib import contextmanager
 
+from torch.autograd import profiler as _autograd_profiler
+
 __all__ = [
     "PHASES",
     "PhaseError",
@@ -71,11 +108,12 @@ __all__ = [
     "live_set",
     "live_clear",
     "live_snapshot",
+    "annotation",
 ]
 
-#: The fixed phase vocabulary.  Every phase name recorded anywhere in
-#: the package MUST appear here (and in the README's phase table) —
-#: pinned by ``tests/test_metric_names.py``'s conformance walk, so the
+#: The fixed phase vocabulary: the JAX package's nine, then the port's
+#: own.  Every phase name recorded anywhere in the package MUST appear
+#: here (and in the README's phase tables), so the
 #: ``kccap_phase_seconds{phase=...}`` label set cannot grow by typo.
 PHASES = (
     "admission",
@@ -87,9 +125,30 @@ PHASES = (
     "fetch",
     "fetch_overlap",
     "serialize",
+    "decode",
+    "reply",
+    "lock_wait",
+    "proof",
+    "stage",
+    "apply",
+    "repack",
 )
 
 _PHASE_SET = frozenset(PHASES)
+
+#: Each phase's name in a profiler trace.
+_ANNOTATIONS = {p: f"kccap.{p}" for p in PHASES}
+
+
+def annotation(name: str):
+    """An entered ``record_function`` named ``name`` while a
+    ``torch.profiler`` records, else None (one attribute read); the
+    caller exits it with ``__exit__(None, None, None)``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    rf = _autograd_profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 class PhaseError(ValueError):
@@ -272,18 +331,22 @@ class PhaseClock:
     def phase(self, name: str):
         """Time a block into ``name`` (host-side convenience).  Also
         publishes ``name`` to the live attribution table so a profiler
-        sample landing inside the block carries the phase."""
+        sample landing inside the block carries the phase, and, under a
+        ``torch.profiler``, annotates the block ``kccap.<name>``."""
         if name not in _PHASE_SET:
             raise PhaseError(
                 f"unknown phase {name!r} (vocabulary: {PHASES})"
             )
         ident = threading.get_ident()
         prev = _live_enter_phase(ident, name)
+        rf = annotation(_ANNOTATIONS[name])
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
             _live_exit_phase(ident, prev)
             self.record(name, dt)
 
@@ -295,16 +358,20 @@ class PhaseClock:
         window post hoc (the kernel wrappers' compile/device_exec
         split), so a profiler sample landing inside still carries a
         phase.  The accounting stays with the site's own ``record``
-        calls; this is attribution only."""
+        calls; this is attribution only (and, under a profiler, the
+        block's ``kccap.<phase>`` annotation)."""
         if name not in _PHASE_SET:
             raise PhaseError(
                 f"unknown phase {name!r} (vocabulary: {PHASES})"
             )
         ident = threading.get_ident()
         prev = _live_enter_phase(ident, name)
+        rf = annotation(_ANNOTATIONS[name])
         try:
             yield
         finally:
+            if rf is not None:
+                rf.__exit__(None, None, None)
             _live_exit_phase(ident, prev)
 
     def items(self) -> list[tuple[str, float]]:

@@ -18,6 +18,12 @@ background ticker, no per-request cost.  Registration is idempotent
 (same registry semantics as every other family) and a no-op under
 ``KCCAP_TELEMETRY=0`` — a silenced process must stay silent.
 
+:func:`annotate_collections` (installed once per process by the
+server's ``start``) puts the collector on the device trace's clock:
+while a ``torch.profiler`` records, each collection is a
+``kccap.gc.gen<N>`` annotation from its start to its stop, on the thread
+it stalled.  With no profiler a callback costs one attribute read.
+
 Sources are stdlib-only with graceful degradation: ``/proc/self`` where
 it exists (Linux), ``resource.getrusage`` fallback for RSS, ``-1`` for
 genuinely unknowable values (a gauge that lies with 0 would read as "no
@@ -30,7 +36,18 @@ import gc
 import os
 import threading
 
-__all__ = ["register_process_metrics", "rss_bytes", "open_fds"]
+from torch.autograd import profiler as _autograd_profiler
+
+from kubernetesclustercapacity_tpu_torch.telemetry.phases import (
+    annotation as _annotation,
+)
+
+__all__ = [
+    "annotate_collections",
+    "register_process_metrics",
+    "rss_bytes",
+    "open_fds",
+]
 
 
 def rss_bytes() -> float:
@@ -67,6 +84,40 @@ def _gc_collections() -> float:
         return float(sum(s.get("collections", 0) for s in gc.get_stats()))
     except Exception:  # noqa: BLE001 - telemetry degrades, never raises
         return -1.0
+
+
+_GC_ANNOTATIONS = tuple(f"kccap.gc.gen{g}" for g in range(3))
+_gc_install_lock = threading.Lock()
+_gc_installed = False
+# The annotation of the collection in progress: collections never
+# overlap (each holds the GIL from its start to its stop).
+_gc_open = None
+
+
+def _gc_annotate(phase: str, info: dict) -> None:
+    global _gc_open
+    if phase == "start":
+        if _autograd_profiler._is_profiler_enabled:
+            _gc_open = _annotation(_GC_ANNOTATIONS[info["generation"]])
+    elif _gc_open is not None:
+        rf, _gc_open = _gc_open, None
+        rf.__exit__(None, None, None)
+
+
+def annotate_collections() -> None:
+    """Install the collector's trace annotations (:data:`gc.callbacks`),
+    once per process; a no-op under ``KCCAP_TELEMETRY=0``."""
+    global _gc_installed
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        enabled as _telemetry_enabled,
+    )
+
+    if not _telemetry_enabled():
+        return
+    with _gc_install_lock:
+        if not _gc_installed:
+            gc.callbacks.append(_gc_annotate)
+            _gc_installed = True
 
 
 def register_process_metrics(registry, *, version: str | None = None):
