@@ -2080,7 +2080,9 @@ class CapacityServer:
         5 records, not the whole ring.  ``count`` is the post-filter
         record count; ``matched`` the pre-``limit`` match count, so a
         reader knows how much history the filter found beyond what it
-        was handed.
+        was handed.  Once an ``update`` has built the store,
+        ``store_pods`` counts its pods by form
+        (:meth:`..store.ClusterStore.pod_forms`).
         """
         # ``op`` names THIS request's op on the envelope, so the filter
         # rides as ``filter_op`` (the client's ``dump(op=...)`` maps it).
@@ -2129,7 +2131,7 @@ class CapacityServer:
         matched = len(records)
         if limit is not None:
             records = records[-limit:]
-        return {
+        out = {
             "records": records,
             "count": len(records),
             "matched": matched,
@@ -2137,6 +2139,11 @@ class CapacityServer:
             "dropped": self._flight.dropped,
             "generation": self.generation,
         }
+        with _lock_wait() as acquired, self._lock:
+            acquired()
+            if self._store is not None:  # built by the first update op
+                out["store_pods"] = self._store.pod_forms()
+        return out
 
     def _op_slo(self, msg: dict) -> dict:
         """SLO burn-rate status over the wire: every objective's current
@@ -2852,6 +2859,16 @@ class CapacityServer:
                 self._fixture_dirty = True  # rebuilt on demand (cpu fit)
                 self._generation += 1
                 generation = self._generation
+                # Registered with the first store, so a server that never
+                # takes an update exposes the JAX server's families alone.
+                gauge = self.registry.gauge(
+                    "kccap_store_pods",
+                    "Pods the update store holds, by form: an encoded "
+                    "record or a deep copy (the encoder's fallback).",
+                    ("form",),
+                )
+                for form, count in self._store.pod_forms().items():
+                    gauge.set(count, form=form)
         if old is not snap:
             _devcache.CACHE.invalidate(old)
         # update is a mutation op (never the query hot path): observing

@@ -20,12 +20,40 @@ after any sequence of events the store's snapshot is element-identical to a
 full :func:`~.snapshot.snapshot_from_fixture` repack of its state — under
 either semantics, including the reference quirks (phantom rows re-homing
 orphan pods, mod-2^64 usage wrap, parse-fail→0).
+
+Each pod is held as two immutable parts, its encoding (indexed by pod
+key) and its contribution (indexed by nodeName, then pod key):
+
+* the encoding is the raw object pickled once when it enters the store,
+  by a pickler that writes only exact builtin types (dicts in their
+  order, lists, tuples, str, int, float, bool, None, ...) and keeps no
+  memo, so a shared inner object is written out twice and a cycle
+  raises.  Bytes are the aliasing barrier: no caller object reaches the
+  store, :meth:`ClusterStore.fixture_view` decodes fresh objects, and
+  the collector does not track them.  An object the encoder refuses (a
+  ``str`` subclass, a numpy scalar, a cycle) falls back to
+  :func:`_isolate`'s deep copy for that pod alone, which keeps the
+  ``cyclic event object`` refusal; :meth:`ClusterStore.pod_forms` counts
+  the pods held in each form.
+* the contribution is the pod's parsed share of its row, computed once
+  where the event is validated: in strict semantics the scheduler-rule
+  effective requests (``None`` for a terminated pod), in reference
+  semantics the four ``pod_requests_limits`` terms of the pod alone and
+  its container CPU codec-error payloads (``None`` when the field
+  selector drops it).  A row recompute sums the cached contributions of
+  the row's pods; Go's uint64/int64 wrap is modular, so wrapping the
+  sum of the per-pod wrapped terms is the oracle's running-sum wrap.
+
+Nodes and PDBs stay deep-copied dicts (one per node: few and small).
 """
 
 from __future__ import annotations
 
 import collections
 import copy
+import io
+import itertools
+import pickle
 
 import numpy as np
 
@@ -86,6 +114,60 @@ def _isolate(obj):
     return copy.deepcopy(obj)
 
 
+class _BuiltinsOnlyPickler(pickle.Pickler):
+    # The C pickler writes exact builtin types without consulting this
+    # hook; anything else (a subclass, a numpy scalar, a class) reaches it
+    # and is refused, so a record decodes to exactly the types it held.
+    def reducer_override(self, obj):
+        raise TypeError(f"no record form for {type(obj).__name__}")
+
+
+class _Encoder:
+    """Pickles one JSON-shaped object into an immutable record, or returns
+    ``None`` for one it cannot hold exactly.  ``fast`` mode keeps no memo:
+    shared inner objects are written out twice (decoding un-shares them,
+    as :func:`_isolate` does) and a cycle raises instead of being
+    recorded.  Not thread-safe: a store is written by one thread at a
+    time."""
+
+    def __init__(self):
+        self._reset()
+
+    def _reset(self) -> None:
+        self._buf = io.BytesIO()
+        self._pickler = _BuiltinsOnlyPickler(
+            self._buf, pickle.HIGHEST_PROTOCOL
+        )
+        self._pickler.fast = True
+
+    def __call__(self, obj) -> bytes | None:
+        self._buf.seek(0)
+        self._buf.truncate()
+        try:
+            self._pickler.dump(obj)
+        except (pickle.PicklingError, TypeError, ValueError, RecursionError):
+            # Refused type, cycle (fast mode) or nesting too deep.
+            self._reset()  # no half-written state carries over
+            return None
+        return self._buf.getvalue()
+
+
+# Distinct contributions the store shares between pods before it starts
+# over (a few hundred in a real cluster; a tuple of ints is ~150 bytes).
+_SHAPES_MAX = 1 << 16
+
+# A construction-time contribution whose parse failed: re-parsed (and so
+# raised) by the first row recompute that reaches the pod, which is where
+# the deep-copy store raised; a pod on no row is held unparsed, as it was.
+_UNPARSED = object()
+
+
+def _decode(raw) -> dict:
+    """A fresh copy of a held pod: its encoding decoded, or its deep copy
+    copied again."""
+    return pickle.loads(raw) if type(raw) is bytes else _isolate(raw)
+
+
 def _pod_key(pod: dict) -> tuple[str, str]:
     return (pod.get("namespace", ""), pod.get("name", ""))
 
@@ -137,15 +219,27 @@ class ClusterStore:
             if key in self._pdbs:
                 raise StoreError(f"duplicate PDB {key} in fixture")
             self._pdbs[key] = _isolate(b)
-        self._pods: dict[tuple[str, str], dict] = {}
-        self._pods_by_node: dict[str, dict[tuple[str, str], dict]] = {}
+        # Pods as the module docstring describes: key -> encoding (or the
+        # fallback's deep copy), nodeName -> key -> contribution.
+        self._pods: dict[tuple[str, str], bytes | dict] = {}
+        self._pods_by_node: dict[str, dict[tuple[str, str], object]] = {}
+        self._n_copied = 0
+        self._encode = _Encoder()
+        # Pods of one shape share one contribution tuple; the table is
+        # emptied whenever it outgrows _SHAPES_MAX, so it stays bounded.
+        self._shapes: dict = {}
         for p in fixture.get("pods", []):
-            p = _isolate(p)
+            raw = self._encode(p)
+            if raw is None:
+                p = raw = _isolate(p)
             key = _pod_key(p)
             if key in self._pods:
                 raise StoreError(f"duplicate pod {key} in fixture")
-            self._pods[key] = p
-            self._pods_by_node.setdefault(p.get("nodeName", ""), {})[key] = p
+            try:
+                contrib = self._contribution(p)
+            except Exception:
+                contrib = _UNPARSED
+            self._insert_pod(key, raw, p.get("nodeName", ""), contrib)
 
         n = len(self._nodes)
         # Columns may carry spare capacity beyond the live row count (rows
@@ -199,12 +293,23 @@ class ClusterStore:
     def has_pdb(self, namespace: str, name: str) -> bool:
         return (namespace, name) in self._pdbs
 
+    def pod_forms(self) -> dict[str, int]:
+        """How many pods the store holds in each form: ``encoded`` records
+        and ``copied`` deep copies (the encoder's fallback)."""
+        return {
+            "encoded": len(self._pods) - self._n_copied,
+            "copied": self._n_copied,
+        }
+
     def fixture_view(self) -> dict:
-        """Current raw state in fixture schema (deep copy)."""
-        out = {"nodes": self._nodes, "pods": list(self._pods.values())}
+        """Current raw state in fixture schema (fresh objects throughout)."""
+        out = {
+            "nodes": _isolate(self._nodes),
+            "pods": [_decode(raw) for raw in self._pods.values()],
+        }
         if self._pdbs:
-            out["pdbs"] = list(self._pdbs.values())
-        return _isolate(out)
+            out["pdbs"] = _isolate(list(self._pdbs.values()))
+        return out
 
     def snapshot(self) -> ClusterSnapshot:
         """A packed snapshot decoupled from the store's raw state.
@@ -273,16 +378,18 @@ class ClusterStore:
             raise StoreError(f"unknown event type {etype!r}")
         if not isinstance(obj, dict):
             raise StoreError("event has no object")
-        try:
-            obj = _isolate(obj)
-        except RecursionError as e:
-            # A self-referential object is a malformed event, not a crash:
-            # keep apply_event's "bad event raises StoreError" contract
-            # (copy.deepcopy would have memoized the cycle; the fast
-            # copier declines it instead).
-            raise StoreError(f"cyclic event object: {e}") from e
+        raw = self._encode(obj) if kind == "Pod" else None
+        if raw is None:
+            try:
+                obj = raw = _isolate(obj)
+            except RecursionError as e:
+                # A self-referential object is a malformed event, not a
+                # crash: keep apply_event's "bad event raises StoreError"
+                # contract (copy.deepcopy would have memoized the cycle;
+                # the fast copier declines it instead).
+                raise StoreError(f"cyclic event object: {e}") from e
         if kind == "Pod":
-            self._apply_pod(etype, obj)
+            self._apply_pod(etype, obj, raw)
         elif kind == "Node":
             self._apply_node(etype, obj)
         elif kind == "PodDisruptionBudget":
@@ -308,7 +415,9 @@ class ClusterStore:
     # -- validation (before ANY mutation: a malformed object must never
     # enter raw state, or it would poison every later recompute AND the
     # full-repack invariant) ----------------------------------------------
-    def _validate_pod(self, pod: dict) -> tuple[str, str]:
+    def _validate_pod(self, pod: dict) -> tuple[tuple[str, str], object]:
+        """The pod's key and its row contribution, from one parse of the
+        pod (:meth:`_contribution`)."""
         try:
             key = _pod_key(pod)
             hash(key)
@@ -317,13 +426,36 @@ class ClusterStore:
             # an unhashable phase must be rejected HERE, not crash later.
             phase = pod.get("phase")
             phase in _STRICT_TERMINATED  # noqa: B015 - hashability probe
-            if self.semantics == "reference":
-                _oracle.pod_requests_limits([pod])
-            else:
-                _effective_pod_resources(pod, self.extended_resources)
+            contrib = self._contribution(pod, validate=True)
         except Exception as e:
             raise StoreError(f"malformed pod object: {e}") from e
-        return key
+        return key, contrib
+
+    def _contribution(self, pod: dict, *, validate: bool = False):
+        """What the pod adds to its row, or ``None`` when it does not
+        count there: strict ``(cpu_req, cpu_lim, mem_req, mem_lim,
+        *extended)``, reference ``(cpu_lim, cpu_req, mem_lim, mem_req,
+        cpu_error_payloads)`` with the terms wrapped as Go wraps them.
+        ``validate`` parses a pod that does not count as well, so that a
+        malformed one is refused whatever its phase."""
+        if self.semantics == "reference":
+            counts = _oracle._survives_field_selector(pod)
+            if not (counts or validate):
+                return None
+            terms = _oracle.pod_requests_limits([pod])
+            if not counts:
+                return None
+            return (*terms, tuple(_container_cpu_error_payloads([pod])))
+        counts = pod.get("phase") not in _STRICT_TERMINATED
+        if not (counts or validate):
+            return None
+        eff = _effective_pod_resources(pod, self.extended_resources)
+        if not counts:
+            return None
+        return (
+            eff["cpu_req"], eff["cpu_lim"], eff["mem_req"], eff["mem_lim"],
+            *(eff["ext"][r] for r in self.extended_resources),
+        )
 
     def _validate_pdb(self, pdb: dict) -> tuple[str, str]:
         """Run the budget arithmetic once against a synthetic pod in the
@@ -371,8 +503,11 @@ class ClusterStore:
             raise StoreError(f"malformed node object: {e}") from e
 
     # -- pods --------------------------------------------------------------
-    def _apply_pod(self, etype: str, pod: dict) -> None:
-        key = self._validate_pod(pod)
+    def _apply_pod(self, etype: str, pod: dict, raw) -> None:
+        """``raw`` is the pod's record form: its encoding, or (fallback)
+        ``pod`` itself, already a deep copy.  A DELETED object is encoded
+        and parsed too, so it is refused exactly when an ADDED one is."""
+        key, contrib = self._validate_pod(pod)
         old = self._pods.get(key)
         if etype == "ADDED" and old is not None:
             raise StoreError(f"pod {key} already exists")
@@ -381,19 +516,30 @@ class ClusterStore:
 
         touched = set()
         if old is not None:
-            old_node = old.get("nodeName", "")
+            copied = type(old) is not bytes
+            old_node = (old if copied else pickle.loads(old)).get(
+                "nodeName", ""
+            )
             del self._pods_by_node[old_node][key]
+            self._n_copied -= copied
             touched.add(old_node)
         if etype == "DELETED":
             del self._pods[key]
         else:
             new_node = pod.get("nodeName", "")
-            self._pods[key] = pod
-            self._pods_by_node.setdefault(new_node, {})[key] = pod
+            self._insert_pod(key, raw, new_node, contrib)
             touched.add(new_node)
         for node_name in touched:
             for i in self._rows_matching(node_name):
                 self._recompute_row(i)
+
+    def _insert_pod(self, key, raw, node_name: str, contrib) -> None:
+        if len(self._shapes) >= _SHAPES_MAX:
+            self._shapes.clear()
+        contrib = self._shapes.setdefault(contrib, contrib)
+        self._pods[key] = raw
+        self._pods_by_node.setdefault(node_name, {})[key] = contrib
+        self._n_copied += type(raw) is not bytes
 
     def _rows_matching(self, node_name: str) -> list[int]:
         """Rows whose pod-match name equals ``node_name`` (indexed, O(1)).
@@ -509,8 +655,16 @@ class ClusterStore:
         self._rows_by_view.setdefault("", set()).add(n)
 
     # -- row packing (the single source of per-row truth) ------------------
-    def _node_pods(self, match_name: str) -> list[dict]:
-        return list(self._pods_by_node.get(match_name, {}).values())
+    def _row_contributions(self, match_name: str) -> list[tuple]:
+        """The contributions of the pods that count on a row, in the
+        row's pod order (reference codec errors replay in it)."""
+        out = []
+        for key, contrib in self._pods_by_node.get(match_name, {}).items():
+            if contrib is _UNPARSED:
+                contrib = self._contribution(_decode(self._pods[key]))
+            if contrib is not None:
+                out.append(contrib)
+        return out
 
     def _recompute_row(self, i: int) -> None:
         raw = self._nodes[i]
@@ -524,12 +678,10 @@ class ClusterStore:
         # panic), reference codecs, phantom zeroing — identical to
         # _pack_reference's per-node step by construction.
         view = _oracle.healthy_nodes({"nodes": [raw]})[0]
-        pods = [
-            p
-            for p in self._node_pods(view.name)
-            if _oracle._survives_field_selector(p)
-        ]
-        cpu_lim, cpu_req, mem_lim, mem_req = _oracle.pod_requests_limits(pods)
+        pods = self._row_contributions(view.name)
+        cpu_lim, cpu_req, mem_lim, mem_req, errs = (
+            zip(*pods) if pods else ((),) * 5
+        )
         # Transcript provenance (same events _pack_reference records): the
         # node's cpu codec error, its skip line when unhealthy (with the
         # REAL name — the phantom row keeps ""), and its pods' container
@@ -545,15 +697,17 @@ class ClusterStore:
         if new_events != self._node_events[i]:
             self._node_events[i] = new_events
             self._node_log_cache = None  # row order changed the flat log
-        self._pod_errs[i] = tuple(_container_cpu_error_payloads(pods))
+        self._pod_errs[i] = tuple(itertools.chain.from_iterable(errs))
         c = self._cols
         c["alloc_cpu_milli"][i] = _clamp_i64(view.allocatable_cpu)
         c["alloc_mem_bytes"][i] = _clamp_i64(view.allocatable_memory)
         c["alloc_pods"][i] = view.allocatable_pods
-        c["used_cpu_req_milli"][i] = _clamp_i64(cpu_req)
-        c["used_cpu_lim_milli"][i] = _clamp_i64(cpu_lim)
-        c["used_mem_req_bytes"][i] = mem_req
-        c["used_mem_lim_bytes"][i] = mem_lim
+        # Per-pod terms are already wrapped; the wrap is modular, so
+        # wrapping their sum is the oracle's running-sum wrap.
+        c["used_cpu_req_milli"][i] = _clamp_i64(sum(cpu_req))
+        c["used_cpu_lim_milli"][i] = _clamp_i64(sum(cpu_lim))
+        c["used_mem_req_bytes"][i] = _oracle._to_go_int(sum(mem_req))
+        c["used_mem_lim_bytes"][i] = _oracle._to_go_int(sum(mem_lim))
         c["pods_count"][i] = len(pods)
         self._healthy[i] = bool(view.name)
         self._set_view_name(i, view.name)
@@ -577,24 +731,16 @@ class ClusterStore:
         self._healthy[i] = _strict_healthy(raw.get("conditions", []))
         self._set_view_name(i, name)
 
-        totals = dict.fromkeys(
-            ("cpu_req", "cpu_lim", "mem_req", "mem_lim", "count"), 0
+        pods = self._row_contributions(name)
+        totals = (
+            [sum(col) for col in zip(*pods)]
+            if pods else [0] * (4 + len(self.extended_resources))
         )
-        ext_used = dict.fromkeys(self.extended_resources, 0)
-        for p in self._node_pods(name):
-            if p.get("phase") in _STRICT_TERMINATED:
-                continue
-            totals["count"] += 1
-            eff = _effective_pod_resources(p, self.extended_resources)
-            for k in ("cpu_req", "cpu_lim", "mem_req", "mem_lim"):
-                totals[k] += eff[k]
-            for r in self.extended_resources:
-                ext_used[r] += eff["ext"][r]
-        c["used_cpu_req_milli"][i] = totals["cpu_req"]
-        c["used_cpu_lim_milli"][i] = totals["cpu_lim"]
-        c["used_mem_req_bytes"][i] = totals["mem_req"]
-        c["used_mem_lim_bytes"][i] = totals["mem_lim"]
-        c["pods_count"][i] = totals["count"]
-        for r in self.extended_resources:
+        c["used_cpu_req_milli"][i] = totals[0]
+        c["used_cpu_lim_milli"][i] = totals[1]
+        c["used_mem_req_bytes"][i] = totals[2]
+        c["used_mem_lim_bytes"][i] = totals[3]
+        c["pods_count"][i] = len(pods)
+        for e, r in enumerate(self.extended_resources):
             self._ext[r][0][i] = _strict_parse(allocatable.get(r))
-            self._ext[r][1][i] = ext_used[r]
+            self._ext[r][1][i] = totals[4 + e]
