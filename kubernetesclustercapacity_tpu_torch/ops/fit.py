@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -446,6 +447,20 @@ def _scenario_tensors(cpu_reqs, mem_reqs, replicas, device):
     )
 
 
+@contextmanager
+def _exact_annotation():
+    """``kccap.exact`` around the exact program's launches while a
+    ``torch.profiler`` records, so a trace tells its elementwise kernels
+    from the staging's; a trace-only mark, not a phase, and one attribute
+    read with no profiler."""
+    rf = _phases.annotation("kccap.exact")
+    try:
+        yield
+    finally:
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+
 def sweep_grid_staged(
     alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
     cpu_reqs, mem_reqs, replicas, *,
@@ -476,7 +491,7 @@ def sweep_grid_staged(
     if node_mask is not None:
         mask = _devcache.to_device(np.asarray(node_mask, dtype=bool), device)
     t0 = time.perf_counter()
-    with _phases.current().live("device_exec"):
+    with _phases.current().live("device_exec"), _exact_annotation():
         out = sweep_grid(
             *cols, *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),
             mode=mode, node_mask=mask, return_per_node=return_per_node,
@@ -511,7 +526,7 @@ def sweep_grouped_staged(
     cols = _devcache.CACHE.grouped_exact_tensors(grouped, device)
     counts = _devcache.to_device(grouped.effective_counts(node_mask), device)
     t0 = time.perf_counter()
-    with _phases.current().live("device_exec"):
+    with _phases.current().live("device_exec"), _exact_annotation():
         out = sweep_grid_grouped(
             *cols, counts,
             *_scenario_tensors(cpu_reqs, mem_reqs, replicas, device),

@@ -21,6 +21,9 @@ int64 program on the same device.  There is no fallback that hides the
 kernel: on a CUDA tensor the wrapper launches the kernel or raises, and a
 build or launch failure propagates to the caller.  On a CPU tensor the
 wrapper runs the kernel's plain version instead (``plain_*`` labels).
+Each routed dispatch is counted by its label and the reason for the route,
+the proof's first failed condition on the exact one
+(:mod:`..telemetry.routes`).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from kubernetesclustercapacity_tpu_torch.ops.fit import (
 )
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
+from kubernetesclustercapacity_tpu_torch.telemetry.routes import observe_route
 
 __all__ = [
     "LAUNCHES",
@@ -50,6 +54,7 @@ __all__ = [
     "rcp_division_eligible",
     "scenario_reciprocals",
     "sweep_fused",
+    "sweep_proof_failure",
     "sweep_fused_plain",
     "sweep_auto",
     "sweep_explain_snapshot_auto",
@@ -124,26 +129,53 @@ def fast_sweep_eligible(
     ``Σ count_g · bound_g``; the counts themselves must also be
     non-negative int32 (they multiply inside the kernel).
     """
+    return sweep_proof_failure(
+        alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+        cpu_reqs, mem_reqs, counts=counts,
+    ) is None
+
+
+def sweep_proof_failure(
+    alloc_cpu,
+    alloc_mem,
+    alloc_pods,
+    used_cpu,
+    used_mem,
+    pods_count,
+    cpu_reqs,
+    mem_reqs,
+    *,
+    counts=None,
+) -> str | None:
+    """:func:`fast_sweep_eligible`'s proof, naming the first condition
+    that failed: ``int32_range`` (a value negative or past int32, memory
+    after /1024), ``mem_not_kib`` (a memory value not a whole KiB),
+    ``zero_request`` or ``total_bound`` (condition 3); None when the
+    proof holds.  One pass, in the order the conditions are listed."""
     for a in (alloc_cpu, used_cpu, cpu_reqs, alloc_pods, pods_count):
         a = np.asarray(a)
         if a.size and (a.min() < 0 or a.max() > _I32_MAX):
-            return False
+            return "int32_range"
     if counts is not None:
         c = np.asarray(counts)
         if c.size and (c.min() < 0 or c.max() > _I32_MAX):
-            return False
+            return "int32_range"
     for a in (alloc_mem, used_mem, mem_reqs):
         a = np.asarray(a)
         if a.size == 0:
             continue
-        if a.min() < 0 or (a % 1024).any() or (a // 1024).max() > _I32_MAX:
-            return False
+        if a.min() < 0:
+            return "int32_range"
+        if (a % 1024).any():
+            return "mem_not_kib"
+        if (a // 1024).max() > _I32_MAX:
+            return "int32_range"
     cpu_reqs = np.asarray(cpu_reqs)
     mem_reqs = np.asarray(mem_reqs)
     if cpu_reqs.size == 0 or mem_reqs.size == 0:
-        return True
+        return None
     if cpu_reqs.min() < 1 or mem_reqs.min() < 1024:
-        return False
+        return "zero_request"
     per_node_bound = np.maximum(
         np.asarray(alloc_cpu, dtype=np.int64) // int(cpu_reqs.min()),
         np.maximum(
@@ -153,7 +185,9 @@ def fast_sweep_eligible(
     )
     if counts is not None:
         per_node_bound = per_node_bound * np.asarray(counts, dtype=np.int64)
-    return int(per_node_bound.sum()) <= _I32_MAX
+    if int(per_node_bound.sum()) > _I32_MAX:
+        return "total_bound"
+    return None
 
 
 def rcp_division_eligible(
@@ -477,9 +511,11 @@ def sweep_auto(
     else:
         kernel_mask = node_mask
     use_rcp = None
+    reason = "forced"
     if not force_exact:
         with _phases.current().phase("proof"):
-            if fast_sweep_eligible(*nodes, cpu_reqs, mem_reqs):
+            reason = sweep_proof_failure(*nodes, cpu_reqs, mem_reqs)
+            if reason is None:
                 use_rcp = rcp_division_eligible(
                     alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_reqs,
                     mem_reqs,
@@ -492,11 +528,13 @@ def sweep_auto(
             use_rcp=use_rcp, strict=mode == "strict", device=device,
             sync=sync, label=label,
         )
+        observe_route(label, "eligible", len(cpu_reqs))
         return totals, schedulable, label
     totals, schedulable = sweep_grid_staged(
         *nodes, snapshot.healthy, cpu_reqs, mem_reqs, replicas, mode=mode,
         node_mask=node_mask, snapshot=snapshot, device=device, sync=sync,
     )
+    observe_route("torch_int64", reason, len(cpu_reqs))
     return totals, schedulable, "torch_int64"
 
 
@@ -522,14 +560,16 @@ def _sweep_auto_grouped(
     cpu_reqs = grid.cpu_request_milli
     mem_reqs = grid.mem_request_bytes
     use_rcp = None
+    reason = "forced"
     if not force_exact:
         with _phases.current().phase("proof"):
-            if fast_sweep_eligible(
+            reason = sweep_proof_failure(
                 grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
                 grouped.alloc_pods, grouped.used_cpu_req_milli,
                 grouped.used_mem_req_bytes, grouped.pods_count,
                 cpu_reqs, mem_reqs, counts=counts,
-            ):
+            )
+            if reason is None:
                 use_rcp = rcp_division_eligible(
                     grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
                     grouped.used_cpu_req_milli, grouped.used_mem_req_bytes,
@@ -547,11 +587,13 @@ def _sweep_auto_grouped(
             use_rcp=use_rcp, strict=mode == "strict", device=device,
             sync=sync, label=label,
         )
+        observe_route(label, "eligible", len(cpu_reqs))
         return totals, schedulable, label
     totals, schedulable = sweep_grouped_staged(
         grouped, cpu_reqs, mem_reqs, grid.replicas,
         mode=mode, node_mask=node_mask, device=device, sync=sync,
     )
+    observe_route("torch_int64_grouped", reason, len(cpu_reqs))
     return totals, schedulable, "torch_int64_grouped"
 
 

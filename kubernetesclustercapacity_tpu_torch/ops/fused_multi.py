@@ -21,7 +21,8 @@ shared (or no) node mask and no per-node cap takes the fused kernel;
 ``[S, N]`` masks, ``max_per_node``, ``force_exact`` or failed eligibility
 take the exact int64 program on the same device.  On a CUDA tensor the
 wrapper launches the kernel or raises; only a CPU tensor runs the plain
-version (``plain_*`` labels).
+version (``plain_*`` labels).  Each routed dispatch is counted by its
+label and the reason for the route (:mod:`..telemetry.routes`).
 """
 
 from __future__ import annotations
@@ -46,12 +47,14 @@ from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
     scenario_reciprocals,
 )
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
+from kubernetesclustercapacity_tpu_torch.telemetry.routes import observe_route
 
 __all__ = [
     "LAUNCHES",
     "PLAIN_CALLS",
     "multi_row_scales",
     "fast_multi_eligible",
+    "multi_proof",
     "rcp_multi_eligible",
     "stage_multi_operands",
     "sweep_multi",
@@ -92,20 +95,29 @@ def multi_row_scales(alloc_rn, used_rn, reqs_sr) -> list[int] | None:
     implies divisibility by the smaller ones, so the first divisibility
     failure ends the row's search.
     """
+    return _row_scales(alloc_rn, used_rn, reqs_sr)[0]
+
+
+def _row_scales(alloc_rn, used_rn, reqs_sr):
+    """:func:`multi_row_scales` as ``(scales, None)``, or ``(None,
+    reason)`` naming the first condition that failed: ``row_count``,
+    ``negative_request``, ``int32_range`` (a negative node value) or
+    ``row_scale`` (no power of 1024 divides the row and brings it into
+    int32)."""
     alloc_rn = np.asarray(alloc_rn, dtype=np.int64)
     used_rn = np.asarray(used_rn, dtype=np.int64)
     reqs_sr = np.asarray(reqs_sr, dtype=np.int64)
     if reqs_sr.ndim != 2 or alloc_rn.shape[0] != reqs_sr.shape[1]:
-        return None
+        return None, "row_count"
     if reqs_sr.size and reqs_sr.min() < 0:
         # The exact program divides negative requests as-is; the kernel's
         # "active = req > 0" test would silently exclude them.
-        return None
+        return None, "negative_request"
     scales: list[int] = []
     for r in range(alloc_rn.shape[0]):
         row_arrays = (alloc_rn[r], used_rn[r], _positive_reqs(reqs_sr[:, r]))
         if any(a.size and a.min() < 0 for a in row_arrays):
-            return None
+            return None, "int32_range"
         chosen = None
         for s in _SCALES:
             if s > 1 and any(
@@ -119,9 +131,9 @@ def multi_row_scales(alloc_rn, used_rn, reqs_sr) -> list[int] | None:
                 chosen = s
                 break
         if chosen is None:
-            return None
+            return None, "row_scale"
         scales.append(chosen)
-    return scales
+    return scales, None
 
 
 def fast_multi_eligible(
@@ -141,14 +153,27 @@ def fast_multi_eligible(
     the bound is kept whole so that routing, and so the kernel labels,
     match the JAX package.
     """
-    scales = multi_row_scales(alloc_rn, used_rn, reqs_sr)
+    scales, reason = multi_proof(
+        alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr
+    )
+    return scales, reason is None
+
+
+def multi_proof(
+    alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr
+) -> tuple[list[int] | None, str | None]:
+    """:func:`fast_multi_eligible`'s proof as ``(row_scales, reason)``:
+    ``reason`` is None when it holds, else the first condition that
+    failed (:func:`_row_scales`' names, ``int32_range`` for the pod
+    columns, ``total_bound`` for the sum bound)."""
+    scales, reason = _row_scales(alloc_rn, used_rn, reqs_sr)
     if scales is None:
-        return None, False
+        return None, reason
     alloc_pods = np.asarray(alloc_pods, dtype=np.int64)
     pods_count = np.asarray(pods_count, dtype=np.int64)
     for a in (alloc_pods, pods_count):
         if a.size and (a.min() < 0 or a.max() > _I32_MAX):
-            return scales, False
+            return scales, "int32_range"
     alloc_rn = np.asarray(alloc_rn, dtype=np.int64)
     reqs_sr = np.asarray(reqs_sr, dtype=np.int64)
     bound = np.maximum(alloc_pods, pods_count)
@@ -156,7 +181,9 @@ def fast_multi_eligible(
         pos = _positive_reqs(reqs_sr[:, r])
         if pos.size:
             bound = np.maximum(bound, alloc_rn[r] // int(pos.min()))
-    return scales, int(bound.sum()) <= _I32_MAX
+    if int(bound.sum()) > _I32_MAX:
+        return scales, "total_bound"
+    return scales, None
 
 
 def rcp_multi_eligible(alloc_rn, used_rn, reqs_sr, scales) -> bool:
@@ -386,25 +413,26 @@ def sweep_multi_auto(
     if mode not in ("reference", "strict"):
         raise ValueError(f"unknown mode {mode!r}")
     shared_mask = None
-    fused_ok = max_per_node is None and not force_exact
+    reason = ("forced" if force_exact else
+              "max_per_node" if max_per_node is not None else None)
     if node_masks is not None:
         nm = np.asarray(node_masks)
         if nm.ndim == 1:
             shared_mask = nm.astype(bool)
         else:
-            fused_ok = False
-    if fused_ok:
+            reason = reason or "per_scenario_mask"
+    if reason is None:
         clk = _phases.current()
         use_rcp = None
         with clk.phase("proof"):
-            scales, ok = fast_multi_eligible(
+            scales, reason = multi_proof(
                 alloc_rn, used_rn, alloc_pods, pods_count, reqs_sr
             )
-            if ok:
+            if reason is None:
                 use_rcp = rcp_multi_eligible(
                     alloc_rn, used_rn, reqs_sr, scales
                 )
-        if ok:
+        if reason is None:
             if mode == "strict":
                 healthy_arr = np.asarray(healthy, dtype=bool)
                 kernel_mask = (
@@ -425,10 +453,12 @@ def sweep_multi_auto(
                 totals = sweep_multi(*ops, strict=mode == "strict")
             (totals,) = observed_fetch(label, t0, (totals,), staged=staged)
             schedulable = totals >= np.asarray(replicas, dtype=np.int64)
+            observe_route(label, "eligible", len(replicas))
             return totals, schedulable, label
     totals, schedulable = sweep_grid_multi_staged(
         alloc_rn, used_rn, alloc_pods, pods_count, healthy, reqs_sr,
         replicas, mode=mode, node_masks=node_masks,
         max_per_node=max_per_node, device=device,
     )
+    observe_route("torch_int64_multi", reason, len(replicas))
     return totals, schedulable, "torch_int64_multi"

@@ -86,6 +86,8 @@ def render_text(registry: MetricsRegistry) -> str:
     exemplar syntax — the metrics→traces join, no grepping required."""
     lines: list[str] = []
     for fam in registry.collect():
+        if not fam.scrape:
+            continue
         lines.append(f"# HELP {fam.name} {_escape_help(fam.help)}")
         lines.append(f"# TYPE {fam.name} {fam.type}")
         for key, child in fam._items():

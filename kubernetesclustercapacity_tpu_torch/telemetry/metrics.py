@@ -97,6 +97,10 @@ class _Family:
     """Shared family machinery: label validation + child table."""
 
     type: str = ""
+    #: False keeps the family out of the Prometheus text
+    #: (:func:`..exposition.render_text`); :meth:`MetricsRegistry.snapshot`
+    #: still holds it.
+    scrape: bool = True
 
     def __init__(self, name: str, help: str, labelnames=()) -> None:
         if not _NAME_RE.match(name):
@@ -359,14 +363,15 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._families: dict[str, _Family] = {}
 
-    def _register(self, cls, name, help, labelnames, **kw) -> _Family:
+    def _register(self, cls, name, help, labelnames, scrape=True,
+                  **kw) -> _Family:
         labelnames = tuple(labelnames)
         with self._lock:
             existing = self._families.get(name)
             if existing is not None:
                 if not isinstance(existing, cls) or (
                     existing.labelnames != labelnames
-                ):
+                ) or existing.scrape != scrape:
                     raise MetricsError(
                         f"metric {name!r} already registered as "
                         f"{existing.type}{existing.labelnames}, cannot "
@@ -386,11 +391,16 @@ class MetricsRegistry:
                         )
                 return existing
             fam = cls(name, help, labelnames, **kw)
+            fam.scrape = scrape
             self._families[name] = fam
             return fam
 
-    def counter(self, name: str, help: str = "", labelnames=()) -> Counter:
-        return self._register(Counter, name, help, labelnames)
+    def counter(self, name: str, help: str = "", labelnames=(), *,
+                scrape: bool = True) -> Counter:
+        """``scrape=False``: a family the snapshot holds and the
+        Prometheus text leaves out, for the port's own diagnostics beside
+        the families the JAX server serves."""
+        return self._register(Counter, name, help, labelnames, scrape)
 
     def gauge(self, name: str, help: str = "", labelnames=()) -> Gauge:
         return self._register(Gauge, name, help, labelnames)
