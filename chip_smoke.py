@@ -5,9 +5,9 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetesclustercapacity_tpu_torch/
-csrc`` (B1 ``sweep_fit.cu`` and B2 ``sweep_multi.cu``, one ``nvcc`` each,
-started together), holds every variant of each against its plain PyTorch
-version on the card, drives the ``-grid`` capacity sweep end to end through
+csrc`` (B1 ``sweep_fit.cu``, B2 ``sweep_multi.cu`` and the exact int64 sweep
+``sweep_exact.cu``, one ``nvcc`` each, started together), holds every
+variant of each against its plain PyTorch version on the card, drives the ``-grid`` capacity sweep end to end through
 the port's CLI at the north-star size (10,000 nodes x 1,000 scenarios, and
 100,000 nodes in the grouped form) and the R-resource sweep of BASELINE
 config 4 (``-extended-request``, 4 resources) through the CLI and the
@@ -135,6 +135,11 @@ import time
 
 import numpy as np
 import torch
+
+# The exact kernel's hostile inputs, shared with the tests (numpy only).
+sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests"))
+import exact_edges  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # Every operation, integer or float, takes at least one lane of an issued
@@ -347,24 +352,32 @@ def run_cli(cli, argv: list[str]) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def phase_main_path(pkg, cli, ff, tmp: str) -> dict:
+def phase_main_path(pkg, cli, fit, ff, tmp: str) -> tuple[dict, dict]:
     """The -grid sweep through the port's CLI, on the card, checked
     against the exact program on the card and everything on the host.
-    Returns the kernel launches counted around each path's run."""
-    launches = {}
+    Returns the launches of B1 and of the exact kernel counted around each
+    path's own run: B1's alone on (a)-(c), the exact kernel's alone on
+    (d)."""
+    launches, exact_launches = {}, {}
 
     def path(name: str, npz: str, expect_label: str, extra=()):
         argv = ["-snapshot", npz, "-grid", "1000", "-output", "json", *extra]
-        ff.LAUNCHES = 0
+        ff.LAUNCHES = fit.EXACT_LAUNCHES = 0
         t0 = time.perf_counter()
         doc = run_cli(cli, argv)
         dt = time.perf_counter() - t0
         launches[name] = ff.LAUNCHES
+        exact_launches[name] = fit.EXACT_LAUNCHES
         if doc["kernel"] != expect_label:
             raise AssertionError(f"{name}: label {doc['kernel']}, want "
                                  f"{expect_label}")
-        if expect_label.startswith("cuda_") and launches[name] < 1:
-            raise AssertionError(f"{name}: the kernel was not launched")
+        on, off = (exact_launches, launches) \
+            if expect_label.startswith("torch_int64") \
+            else (launches, exact_launches)
+        if on[name] < 1 or off[name]:
+            raise AssertionError(
+                f"{name}: sweep_fit launched {launches[name]} times, "
+                f"sweep_exact {exact_launches[name]} times")
         exact = run_cli(cli, argv + ["-kernel", "exact"])
         host = run_cli(cli, argv + ["-device", "cpu"])
         for other, what in ((exact, "exact on the card"), (host, "host")):
@@ -375,7 +388,8 @@ def phase_main_path(pkg, cli, ff, tmp: str) -> dict:
         if totals.shape != (1000,):
             raise AssertionError(f"{name}: {totals.shape} totals")
         log(f"main path {name}: label {doc['kernel']}, launches "
-            f"{launches[name]}, {dt:.3f} s through the CLI, totals "
+            f"{launches[name]} (sweep_exact {exact_launches[name]}), "
+            f"{dt:.3f} s through the CLI, totals "
             f"sum {int(totals.sum())}, p50 {doc['totals_p50']}, equal to "
             f"exact-on-card ({exact['kernel']}) and host ({host['kernel']})")
 
@@ -399,32 +413,17 @@ def phase_main_path(pkg, cli, ff, tmp: str) -> dict:
     d = os.path.join(tmp, "d.npz")
     pkg.synthetic_snapshot(10_000, seed=4, kib_quantized=False).save(d)
     path("(d) 10k x 1k not KiB-quantized", d, "torch_int64")
-    return launches
+    return launches, exact_launches
 
 
 def phase_exact_adversarial(fit) -> None:
     """The exact int64 program on hostile bit patterns (Go uint64 wrap,
     INT64_MIN headroom, requests of 1 and non-KiB memory), card vs host:
-    CUDA's int64 division is software and must agree."""
-    rng = np.random.default_rng(10)
-    n = 4099
-
-    def mixed(lo, hi):
-        v = rng.integers(lo, hi, size=n, dtype=np.int64)
-        hostile = rng.random(n) < 0.1
-        return np.where(
-            hostile, rng.integers(-(2**62), 2**62, size=n, dtype=np.int64), v)
-
-    cols = [mixed(0, 10**6), mixed(0, 2**45), rng.integers(0, 200, n),
-            mixed(0, 10**6), mixed(0, 2**45), rng.integers(0, 300, n),
-            rng.random(n) < 0.9]
-    cols[0][:4] = [-1, -(2**63), 5, 2**63 - 1]
-    cols[3][:4] = [-(2**63), -1, 2**63 - 1, 0]
-    cols[1][4], cols[4][4] = 0, -(2**63)  # headroom wraps to INT64_MIN
-    cpu = np.array([100, 1, 123457, -5, -(2**63), 2**62 + 1], np.int64)
-    mem = np.array([2**20, 1, 987654321, 3, 7, 1024], np.int64)
-    reps = np.zeros(cpu.size, np.int64)
-    mask = rng.random(n) < 0.7
+    CUDA's int64 division is software and must agree.  The inputs are
+    ``tests/exact_edges.py``'s."""
+    cols = exact_edges.columns(4099, seed=10)
+    cpu, mem, reps = exact_edges.requests(12, seed=11)
+    mask = exact_edges.mask(4099, seed=12)
     for mode, node_mask in itertools.product(("reference", "strict"),
                                              (None, mask)):
         card = fit.sweep_grid_staged(*cols, cpu, mem, reps, mode=mode,
@@ -437,6 +436,154 @@ def phase_exact_adversarial(fit) -> None:
             raise AssertionError(f"exact program: card != host ({mode})")
     log("exact int64 program: card == host on adversarial inputs "
         "(2 modes x masked/unmasked, per-node fits and totals)")
+
+
+# The cases of :func:`exact_kernel_cases` that :func:`phase_exact_times` times.
+EXACT_TIMED = ("5000x1000 k5k-ref", "10000x1000 (d)")
+
+
+def exact_kernel_cases(pkg) -> list[tuple[str, tuple, np.ndarray | None]]:
+    """The exact kernel's inputs: ``(label, (seven node columns, cpu, mem,
+    replicas), counts or None)``.  ``tests/exact_edges.py``'s hostile
+    columns and requests, the ``k5k-ref`` cluster (5,000 nodes, reference
+    packing, phantom and ``Gi`` rows) with 1,000 and a fold of 32,000
+    decimal-MB specs, and path (d)'s 10,000 nodes with 1,000."""
+    def decimal(s, seed):
+        rng = np.random.default_rng(seed)
+        return (rng.integers(50, 4000, s), rng.integers(64, 8192, s) * 10**6,
+                rng.integers(1, 500, s))
+
+    ref = pkg.snapshot_from_fixture(
+        pkg.synthetic_fixture(5_000, seed=12, unhealthy_frac=0.05,
+                              unparseable_mem_frac=0.02),
+        semantics="reference")
+    d = pkg.synthetic_snapshot(10_000, seed=4, kib_quantized=False)
+    g = pkg.synthetic_snapshot(100_000, seed=2, shapes=48).grouped()
+    cases = [("4099x257 adversarial",
+              (*exact_edges.columns(4099, seed=10),
+               *exact_edges.requests(257, seed=11)), None),
+             ("4099x257 adversarial, hostile counts",
+              (*exact_edges.columns(4099, seed=10),
+               *exact_edges.requests(257, seed=11)),
+              exact_edges.counts(4099, seed=13))]
+    for label, snap, reqs in (("5000x1000 k5k-ref", ref, decimal(1_000, 13)),
+                              ("5000x32000 k5k-ref fold", ref,
+                               decimal(32_000, 14)),
+                              ("10000x1000 (d)", d, decimal(1_000, 15))):
+        cases.append((label, (*snapshot_columns(snap), snap.healthy, *reqs),
+                      None))
+    cases.append(("48 groups x 1000 (c)",
+                  (*snapshot_columns(g), g.healthy, *decimal(1_000, 16)),
+                  g.count))
+    return cases
+
+
+def phase_exact_kernel_vs_plain(pkg, fit, device) -> tuple[int, int]:
+    """The exact kernel (``csrc/sweep_exact.cu``) against its plain
+    version (``fit._sweep``) on the card, both modes, without a mask,
+    with one, and grouped: totals and flags must be equal (tolerance 0:
+    integers).  Returns the kernel calls made and the largest |kernel -
+    plain| seen."""
+    calls = max_err = 0
+    before = fit.EXACT_LAUNCHES
+    for label, arrays, counts in exact_kernel_cases(pkg):
+        ops = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for a in arrays]
+        n = int(ops[0].shape[0])
+        masks = [None] if counts is not None else \
+            [None, torch.from_numpy(exact_edges.mask(n, seed=17)).to(device)]
+        cnt = None if counts is None else torch.from_numpy(
+            np.asarray(counts, np.int64)).to(device)
+        for mode, mask in itertools.product(("reference", "strict"), masks):
+            if cnt is None:
+                got = fit.sweep_grid(*ops, mode=mode, node_mask=mask)
+            else:
+                got = fit.sweep_grid_grouped(*ops[:7], cnt, *ops[7:],
+                                             mode=mode)
+            calls += 1
+            torch.cuda.synchronize()
+            want = fit._sweep(ops[:7], cnt, *ops[7:], mode=mode,
+                              node_mask=mask, return_fits=False)
+            err = int((got[0] - want[0]).abs().max()) if n else 0
+            max_err = max(max_err, err)
+            if err or not torch.equal(got[1], want[1]):
+                raise AssertionError(
+                    f"sweep_exact {mode} at {label}: kernel differs from "
+                    f"plain (max |diff| {err})")
+        log(f"exact kernel == plain at {label} (both modes"
+            f"{', masked and unmasked' if counts is None else ', counts'})")
+    if fit.EXACT_LAUNCHES - before != calls:
+        raise AssertionError(f"EXACT_LAUNCHES rose by "
+                             f"{fit.EXACT_LAUNCHES - before}, expected {calls}")
+    return calls, max_err
+
+
+def exact_bound(arrays, counts, mask, strict: bool, sms: int,
+                clock_hz: float):
+    """:meth:`Variant.bound` for the exact sweep: the least operations per
+    live cell (two quotients and their min, the epilogue, the count
+    multiply where there are counts, the accumulate) over the issue rate,
+    against the bytes (six int64 node columns, ``healthy`` and a mask as
+    bytes, the int64 counts, two int64 request rows read once and the
+    int64 totals written once) over the memory rate."""
+    n, s = len(arrays[0]), len(arrays[7])
+    live = np.ones(n, dtype=bool)
+    if mask is not None:
+        live &= mask
+    if strict:
+        live &= arrays[6]
+    if counts is not None:
+        live &= np.asarray(counts) != 0
+    per_cell = FIT_OPS + EPILOGUE_OPS[strict] + int(counts is not None) + 1
+    cells = int(live.sum()) * s
+    nbytes = (n * (6 * 8 + 1 + int(mask is not None)
+                   + 8 * int(counts is not None)) + s * 8 * 2 + s * 8)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = per_cell * cells / (sms * LANES_PER_SM * clock_hz)
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations", cells
+    return bytes_s * 1e3, "bytes", cells
+
+
+def phase_exact_times(pkg, fit, device, identity: str,
+                      clock_hz: float) -> list[dict]:
+    """The exact kernel at the main path's shapes (the ``k5k-ref`` cluster
+    x 1,000 decimal-MB specs, the benchmark's decimal cell, and path (d)'s
+    10,000 nodes x 1,000), reference mode unmasked as the service sends
+    them: the bare launch's device time (``ms``) and the plain version's
+    (``plain_ms``), each by :func:`device_ms`, the bound
+    (:func:`exact_bound`) and its share, and the host time per call
+    through the wrapper (``wrapper_host_ms``)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for label, arrays, _ in exact_kernel_cases(pkg):
+        if label not in EXACT_TIMED:
+            continue
+        ops = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for a in arrays]
+        n, s = int(ops[0].shape[0]), int(ops[7].shape[0])
+        _, launch = fit._exact_launch(ops[:7], None, *ops[7:],
+                                      mode="reference")
+        ms, hold_calls = device_ms(launch, clock_hz)
+        plain_ms, plain_hold_calls = device_ms(
+            lambda: fit._sweep(ops[:7], None, *ops[7:], mode="reference",
+                               node_mask=None, return_fits=False), clock_hz)
+        wrapper_host_ms = host_call_ms(
+            lambda: fit.sweep_grid(*ops, mode="reference"))
+        bound_ms, bound_by, cells = exact_bound(arrays, None, None, False,
+                                                sms, clock_hz)
+        rows.append({
+            "kernel": "sweep_exact[reference]", "shape": f"{n}x{s}",
+            "cluster": label, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / ms, "cells": cells,
+            "wrapper_host_ms": wrapper_host_ms,
+            "calls_per_hold": {"kernel": hold_calls,
+                               "plain": plain_hold_calls},
+            "library_ms": None, "gpu": identity,
+        })
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
 
 
 def device_ms(fn, clock_hz: float,
@@ -5618,9 +5765,9 @@ def phase_native_parallel(pkg, cli, fit, ff, tmp: str, identity: str,
     return out
 
 
-KERNELS = ("sweep_fit", "sweep_multi")
+KERNELS = ("sweep_fit", "sweep_multi", "sweep_exact")
 # A kernel's name and template arguments in its mangled symbol.
-KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi)_kernel\w*?)I((?:L[ib]\d+E)+)E")
+KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi|exact)_kernel\w*?)I((?:L[ib]\d+E)+)E")
 # The kernels of the main paths' rcp variants: B1 <rcp, strict, counts> and
 # B2 with requests in registers <R, rcp, strict>.
 MAIN_RCP = re.compile(r"sweep_fit_kernel<1,|sweep_multi_kernel_r<\d+,1,")
@@ -6222,7 +6369,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     seconds = build_kernels(_build, KERNELS)
-    log(f"build: csrc/sweep_fit.cu and csrc/sweep_multi.cu together in "
+    log(f"build: csrc/{', '.join(KERNELS)}.cu together in "
         f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
         + f"; {' '.join(_build.NVCC_FLAGS)})")
@@ -6236,8 +6383,10 @@ def main() -> int:
 
     calls, max_err = phase_kernel_vs_plain(ff, device)
     multi_calls, multi_max_err = phase_multi_kernel_vs_plain(fm, device)
+    exact_calls, exact_max_err = phase_exact_kernel_vs_plain(pkg, fit,
+                                                             device)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(pkg, cli, ff, tmp)
+        launches, exact_main = phase_main_path(pkg, cli, fit, ff, tmp)
         multi_paths = phase_multi_paths(pkg, cli, ff, fm, tmp)
         single = phase_single_spec(pkg, cli, fit, ff, fm, tmp, identity)
     phase_exact_adversarial(fit)
@@ -6287,6 +6436,7 @@ def main() -> int:
     e2e = phase_end_to_end(pkg, ff)
     multi_rows_timed = phase_multi_times(fm, ff, multi_paths, identity,
                                          clock_hz)
+    exact_rows = phase_exact_times(pkg, fit, device, identity, clock_hz)
     multi_e2e = phase_multi_end_to_end(fm, multi_paths["f_args"])
 
     print(json.dumps({"paths": {
@@ -6419,6 +6569,27 @@ def main() -> int:
         "variants": multi_rows_timed,
         "launch_floor_ms": floor,
         **multi_e2e,
+        "gpu": identity,
+    }, {
+        "name": "sweep_exact",
+        "route": "cuda",
+        "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_exact.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the exact int64 program, XLA's "
+                         "elementwise ops in the JAX package",
+        # Path (d)'s own run: the main path's exact route.
+        "launches": sum(exact_main.values()),
+        "max_abs_err": exact_max_err,
+        "ms": exact_rows[0]["ms"],
+        "plain_ms": exact_rows[0]["plain_ms"],
+        "bound_ms": exact_rows[0]["bound_ms"],
+        "bound_by": exact_rows[0]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "shape": exact_rows[0]["shape"],
+        "checked_calls": exact_calls,
+        "variants": exact_rows,
+        "launch_floor_ms": floor,
         "gpu": identity,
     }]}
     print(json.dumps(kernels), flush=True)

@@ -24,12 +24,18 @@ Bit-exactness notes:
   ``fit >= alloc_pods``.
 * Sums wrap mod 2^64, as in Go and XLA.
 
+On CUDA tensors, :func:`sweep_grid` and :func:`sweep_grid_grouped`
+without per-node fits are one launch of ``csrc/sweep_exact.cu``; the
+tensor program here is that kernel's plain version, and the program of
+every sweep that returns per-node fits.
+
 Modes: ``"reference"`` is bug-compatible; ``"strict"`` is the corrected
 3-way min with remaining pod slots, clamped at 0, unhealthy nodes zeroed.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 from contextlib import contextmanager
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from kubernetesclustercapacity_tpu_torch import devcache as _devcache
+from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 from kubernetesclustercapacity_tpu_torch.telemetry import (
     compilewatch as _compilewatch,
@@ -48,6 +55,8 @@ from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
 )
 
 __all__ = [
+    "EXACT_LAUNCHES",
+    "EXACT_PLAIN_CALLS",
     "AsyncFetch",
     "fetch",
     "observed_fetch",
@@ -76,6 +85,53 @@ _INT64_MAX = (1 << 63) - 1
 #: Cells per ``[S_chunk, N]`` block of the scenario batch (int64: 32 MiB a
 #: temporary).
 BLOCK_CELLS = 1 << 22
+
+#: Launches of the CUDA exact sweep kernel (``csrc/sweep_exact.cu``) in
+#: this process (one per launch, counted nowhere else).
+EXACT_LAUNCHES = 0
+#: Totals-only exact sweeps that ran the kernel's plain version (tensors
+#: not on CUDA): the host twin of :data:`EXACT_LAUNCHES`.
+EXACT_PLAIN_CALLS = 0
+#: Guards the launch counters of every CUDA kernel of the port (these and
+#: ``fused_fit``'s and ``fused_multi``'s): the service's handler threads
+#: dispatch concurrently, and ``+=`` on a module global is not atomic.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counters: dict, name: str) -> None:
+    """Add one to the counter ``name`` of a module's ``globals()``."""
+    # kccap: lint-ok[device-purity] the launch counter: one uncontended lock per launch, never per step
+    with _COUNT_LOCK:
+        counters[name] += 1
+
+
+#: Threads per block of the CUDA kernels (``kThreads`` in the sources), and
+#: the scenarios each thread owns (``kSpt``): a block covers
+#: ``SCENARIOS_PER_BLOCK`` scenarios.  B2 above 8 resource rows takes one
+#: scenario per thread; its grid is sized in its C entry.
+THREADS_PER_BLOCK = 128
+SCENARIOS_PER_THREAD = 2
+SCENARIOS_PER_BLOCK = THREADS_PER_BLOCK * SCENARIOS_PER_THREAD
+#: Blocks the wrappers aim for on each SM, and the fewest nodes a block
+#: takes (so a block's staging is worth its launch); measured choices, see
+#: PERF.md.  At 10,000 nodes a block takes 76, so the minimum acts only on
+#: small node counts, such as the grouped sweep's 48 groups.
+BLOCKS_PER_SM = 4
+MIN_NODES_PER_BLOCK = 16
+
+
+def node_chunk(n: int, s: int, sm_count: int) -> int:
+    """Nodes per block along the CUDA kernels' grid's y axis: enough
+    blocks to give every SM ``BLOCKS_PER_SM`` of them, no block under
+    ``MIN_NODES_PER_BLOCK`` nodes, and at most 65535 chunks."""
+    scenario_blocks = -(-s // SCENARIOS_PER_BLOCK)
+    want_chunks = max(1, -(-BLOCKS_PER_SM * sm_count // scenario_blocks))
+    chunk = max(MIN_NODES_PER_BLOCK, -(-n // want_chunks))
+    return max(chunk, -(-n // 65535))
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _u64_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -392,13 +448,17 @@ def sweep_grid(
     """S scenarios against N nodes: ``(totals[S], schedulable[S])`` tensors,
     plus ``fits[S, N]`` with ``return_per_node``.  Inputs are tensors on
     one device: the seven ``[N]`` node columns, ``[S]`` int64 requests and
-    replicas, and an optional shared ``[N]`` bool ``node_mask``."""
-    return _sweep(
-        (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
-         healthy),
-        None, cpu_reqs, mem_reqs, replicas,
-        mode=mode, node_mask=node_mask, return_fits=return_per_node,
-    )
+    replicas, and an optional shared ``[N]`` bool ``node_mask``.
+
+    Without ``return_per_node`` this is :func:`_sweep_totals`: one launch
+    of the exact kernel on CUDA tensors."""
+    cols = (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+            healthy)
+    if not return_per_node:
+        return _sweep_totals(cols, None, cpu_reqs, mem_reqs, replicas,
+                             mode=mode, node_mask=node_mask)
+    return _sweep(cols, None, cpu_reqs, mem_reqs, replicas, mode=mode,
+                  node_mask=node_mask, return_fits=True)
 
 
 def sweep_grid_grouped(
@@ -413,14 +473,121 @@ def sweep_grid_grouped(
     cluster total is ``Σ_g count_g · fit_g`` — bit-exact against the
     per-node sum even on wrapped carriers, since int64 multiply and add
     are both mod 2^64.  Returns ``(totals[S], schedulable[S])`` and, with
-    ``return_per_group``, ``fits[S, G]``.
+    ``return_per_group``, ``fits[S, G]``; without it this is
+    :func:`_sweep_totals`, one launch of the exact kernel on CUDA tensors.
     """
-    return _sweep(
-        (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
-         healthy),
-        counts, cpu_reqs, mem_reqs, replicas,
-        mode=mode, node_mask=None, return_fits=return_per_group,
-    )
+    cols = (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+            healthy)
+    if not return_per_group:
+        return _sweep_totals(cols, counts, cpu_reqs, mem_reqs, replicas,
+                             mode=mode, node_mask=None)
+    return _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, mode=mode,
+                  node_mask=None, return_fits=True)
+
+
+_EXACT_ARGTYPES = (ctypes.c_void_p,) * 12 + (
+    ctypes.c_longlong,  # n
+    ctypes.c_int,  # s
+    ctypes.c_longlong,  # chunk
+    ctypes.c_int,  # strict
+    ctypes.c_void_p,  # stream
+)
+
+
+def _exact_fn():
+    """The bound C entry point of ``csrc/sweep_exact.cu``, built and
+    declared on first use (without ``argtypes`` ctypes would pass each
+    pointer as a 32-bit int)."""
+    fn = _build.library("sweep_exact").kccap_sweep_exact
+    if fn.argtypes != _EXACT_ARGTYPES:
+        fn.argtypes = _EXACT_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_exact_operands(cols, cpu_reqs, mem_reqs, replicas, node_mask,
+                          counts) -> None:
+    """Raise on what the exact kernel does not take: every operand 1-D,
+    contiguous and on the node columns' device, int64 but for the bool
+    ``healthy`` and ``node_mask``, the node operands ``[N]`` long and the
+    scenario operands ``[S]``."""
+    n, s = int(cols[0].shape[-1]), int(cpu_reqs.shape[-1])
+    expected = [(t, torch.int64, n) for t in cols[:6]]
+    expected += [(cols[6], torch.bool, n), (cpu_reqs, torch.int64, s),
+                 (mem_reqs, torch.int64, s), (replicas, torch.int64, s)]
+    if node_mask is not None:
+        expected.append((node_mask, torch.bool, n))
+    if counts is not None:
+        expected.append((counts, torch.int64, n))
+    device = cols[0].device
+    for t, dtype, length in expected:
+        if t.device != device:
+            raise ValueError(
+                f"exact sweep operands span devices ({t.device} vs {device})"
+            )
+        if t.dtype != dtype:
+            raise TypeError(f"exact sweep operand is {t.dtype}, want {dtype}")
+        if t.dim() != 1 or t.shape[0] != length:
+            raise ValueError(
+                f"exact sweep operand has shape {tuple(t.shape)}, want "
+                f"({length},)"
+            )
+        if not t.is_contiguous():
+            raise ValueError("exact sweep operands must be contiguous")
+
+
+def _exact_launch(cols, counts, cpu_reqs, mem_reqs, replicas, *,
+                 mode: str, node_mask=None):
+    """The exact kernel bound to its operands, on CUDA tensors:
+    ``(totals, launch)``, ``totals`` a zeroed int64 ``[S]`` and
+    ``launch()`` one launch on the current stream (none where N or S is
+    0) that adds the sweep's totals into it and raises on a non-zero
+    launch code (the kernel
+    allocates nothing, and nothing falls back).  ``cols`` are
+    :func:`sweep_grid`'s seven node columns, ``counts`` an optional
+    ``[N]`` int64 node-shape multiplicity, ``node_mask`` an optional
+    ``[N]`` bool mask; every operand 1-D and contiguous on one device."""
+    if mode not in ("reference", "strict"):
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_exact_operands(cols, cpu_reqs, mem_reqs, replicas, node_mask,
+                          counts)
+    device = cols[0].device
+    n, s = int(cols[0].shape[0]), int(cpu_reqs.shape[0])
+    totals = torch.zeros(s, dtype=torch.int64, device=device)
+    if n == 0 or s == 0:
+        return totals, lambda: None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ptrs = (*(t.data_ptr() for t in cols), _ptr(node_mask), _ptr(counts),
+            cpu_reqs.data_ptr(), mem_reqs.data_ptr(), totals.data_ptr(),
+            n, s, node_chunk(n, s, sms), int(mode == "strict"))
+
+    def launch() -> None:
+        with torch.cuda.device(device):
+            # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
+            rc = _exact_fn()(*ptrs, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"sweep_exact kernel launch failed: CUDA error {rc}"
+            )
+        _count(globals(), "EXACT_LAUNCHES")
+
+    return totals, launch
+
+
+def _sweep_totals(cols, counts, cpu_reqs, mem_reqs, replicas, *, mode,
+                  node_mask):
+    """``(totals[S], schedulable[S])`` of the exact sweep: one launch of
+    the exact kernel on CUDA tensors, its plain version (:func:`_sweep`)
+    on any other device.  The two give the same bits."""
+    if cols[0].device.type == "cuda":
+        totals, launch = _exact_launch(cols, counts, cpu_reqs, mem_reqs,
+                                      replicas, mode=mode,
+                                      node_mask=node_mask)
+        launch()
+        return totals, totals >= replicas
+    _count(globals(), "EXACT_PLAIN_CALLS")
+    return _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, mode=mode,
+                  node_mask=node_mask, return_fits=False)
 
 
 def snapshot_device_arrays(snapshot, device="cuda") -> tuple:

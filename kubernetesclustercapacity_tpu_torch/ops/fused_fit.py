@@ -29,7 +29,6 @@ the proof's first failed condition on the exact one
 from __future__ import annotations
 
 import ctypes
-import threading
 import time
 
 import numpy as np
@@ -39,6 +38,9 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
+    _count,
+    _ptr,
+    node_chunk,
     observed_fetch,
     sweep_grid_staged,
     sweep_grouped_staged,
@@ -68,29 +70,6 @@ LAUNCHES = 0
 #: the host twin of :data:`LAUNCHES`, so a CPU run can count the
 #: dispatches that would launch the kernel on the card.
 PLAIN_CALLS = 0
-#: Guards both counters: the service's handler threads launch
-#: concurrently, and ``+=`` on a module global is not atomic.
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(name: str) -> None:
-    # kccap: lint-ok[device-purity] the launch counter: one uncontended lock per launch, never per step
-    with _COUNT_LOCK:
-        globals()[name] += 1
-
-#: Threads per block of the CUDA kernels (``kThreads`` in the sources), and
-#: the scenarios each thread owns (``kSpt``): a block covers
-#: ``SCENARIOS_PER_BLOCK`` scenarios.  B2 above 8 resource rows takes one
-#: scenario per thread; its grid is sized in its C entry.
-THREADS_PER_BLOCK = 128
-SCENARIOS_PER_THREAD = 2
-SCENARIOS_PER_BLOCK = THREADS_PER_BLOCK * SCENARIOS_PER_THREAD
-#: Blocks the wrapper aims for on each SM, and the fewest nodes a block
-#: takes (so a block's staging is worth its launch); measured choices, see
-#: PERF.md.  At 10,000 nodes a block takes 76, so the minimum acts only on
-#: small node counts, such as the grouped sweep's 48 groups.
-BLOCKS_PER_SM = 4
-MIN_NODES_PER_BLOCK = 16
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -285,10 +264,6 @@ def _check_operands(nodes, cr, mr, crr, mrr, mask, counts) -> torch.device:
     return device
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 _SWEEP_ARGTYPES = (ctypes.c_void_p,) * 13 + (
     ctypes.c_longlong,  # n
     ctypes.c_int,  # s
@@ -306,16 +281,6 @@ def _sweep_fn():
         fn.argtypes = _SWEEP_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
-
-
-def node_chunk(n: int, s: int, sm_count: int) -> int:
-    """Nodes per block along the grid's y axis: enough blocks to give every
-    SM ``BLOCKS_PER_SM`` of them, no block under ``MIN_NODES_PER_BLOCK``
-    nodes, and at most 65535 chunks."""
-    scenario_blocks = -(-s // SCENARIOS_PER_BLOCK)
-    want_chunks = max(1, -(-BLOCKS_PER_SM * sm_count // scenario_blocks))
-    chunk = max(MIN_NODES_PER_BLOCK, -(-n // want_chunks))
-    return max(chunk, -(-n // 65535))
 
 
 def sweep_fused(
@@ -337,7 +302,7 @@ def sweep_fused(
         (ac, am, ap, uc, um, pc), cr, mr, crr, mrr, mask, counts
     )
     if device.type == "cpu":
-        _count("PLAIN_CALLS")
+        _count(globals(), "PLAIN_CALLS")
         return sweep_fused_plain(
             ac, am, ap, uc, um, pc, cr, mr, crr, mrr, mask, counts,
             strict=strict,
@@ -360,7 +325,7 @@ def sweep_fused(
         )
     if rc != 0:
         raise RuntimeError(f"sweep_fit kernel launch failed: CUDA error {rc}")
-    _count("LAUNCHES")
+    _count(globals(), "LAUNCHES")
     return totals
 
 

@@ -28,7 +28,6 @@ label and the reason for the route (:mod:`..telemetry.routes`).
 from __future__ import annotations
 
 import ctypes
-import threading
 import time
 
 import numpy as np
@@ -38,11 +37,13 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
+    _count,
+    _ptr,
+    node_chunk,
     observed_fetch,
     sweep_grid_multi_staged,
 )
 from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
-    node_chunk,
     plain_epilogue,
     scenario_reciprocals,
 )
@@ -67,14 +68,6 @@ __all__ = [
 LAUNCHES = 0
 #: Calls of :func:`sweep_multi` that ran the plain version (CPU tensors).
 PLAIN_CALLS = 0
-#: Guards both counters against concurrent handler threads.
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(name: str) -> None:
-    # kccap: lint-ok[device-purity] the launch counter: one uncontended lock per launch, never per step
-    with _COUNT_LOCK:
-        globals()[name] += 1
 
 _I32_MAX = np.iinfo(np.int32).max
 _SCALES = (1, 1024, 1024**2, 1024**3)
@@ -296,10 +289,6 @@ def _multi_fn():
     return fn
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def sweep_multi(
     alloc, used, ap, pc, reqs, rcps=None, mask=None, *, strict: bool = True,
 ) -> torch.Tensor:
@@ -313,7 +302,7 @@ def sweep_multi(
     """
     device = _check_operands(alloc, used, ap, pc, reqs, rcps, mask)
     if device.type == "cpu":
-        _count("PLAIN_CALLS")
+        _count(globals(), "PLAIN_CALLS")
         return sweep_multi_plain(
             alloc, used, ap, pc, reqs, rcps, mask, strict=strict
         )
@@ -335,7 +324,7 @@ def sweep_multi(
         )
     if rc != 0:
         raise RuntimeError(f"sweep_multi kernel launch failed: CUDA error {rc}")
-    _count("LAUNCHES")
+    _count(globals(), "LAUNCHES")
     return totals
 
 

@@ -7,6 +7,12 @@ plus wrapped CPU requests, in both modes, masked and unmasked, grouped and
 ungrouped.  Tolerance: none — every result is an integer.
 """
 
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import exact_edges
 import numpy as np
 import pytest
 import torch
@@ -251,3 +257,242 @@ def test_unknown_mode_rejected():
     with pytest.raises(ValueError):
         t_fit.sweep_grid(*_torch(cols), *_torch([np.array([1])] * 3),
                          mode="bogus")
+
+
+# -- the exact sweep without per-node fits, which on CUDA tensors is the
+# exact kernel (``csrc/sweep_exact.cu``): on the CPU its plain version,
+# against the JAX package; the kernel's per-node and per-cell functions
+# compiled as host code, against ``fit_per_node`` and the JAX package.
+
+def _jax_totals(cols, cpu, mem, reps, mask, counts, mode):
+    if counts is None:
+        return j_fit.sweep_grid(*cols, cpu, mem, reps, mode=mode,
+                                node_mask=mask)
+    return j_fit.sweep_grid_grouped(*cols, counts, cpu, mem, reps, mode=mode)
+
+
+def _plain_totals(cols, cpu, mem, reps, mask, counts, mode):
+    """The exact sweep's totals through ``sweep_grid`` or
+    ``sweep_grid_grouped`` on CPU tensors: the kernel's plain version."""
+    scen = _torch([cpu, mem, reps])
+    if counts is None:
+        return t_fit.sweep_grid(
+            *_torch(cols), *scen, mode=mode,
+            node_mask=None if mask is None else torch.from_numpy(mask))
+    return t_fit.sweep_grid_grouped(*_torch(cols), torch.from_numpy(counts),
+                                    *scen, mode=mode)
+
+
+# The card tests' shapes small enough for the JAX package on the CPU: the
+# card tests hold the kernel against the plain version on these very inputs
+# (same generator, same seeds), so the kernel meets the JAX package through
+# it (the JAX package does not run on the card).
+_CARD_SHAPES = [(n, s) for n, s in exact_edges.KERNEL_SHAPES
+                if n * s <= 1 << 21]
+
+
+@pytest.mark.parametrize("n,s", [(257, 1), (257, 257), (64, 32_000),
+                                 (0, 5), (40, 0), *_CARD_SHAPES])
+@pytest.mark.parametrize("variant", exact_edges.VARIANTS)
+@pytest.mark.parametrize("mode", MODES)
+def test_exact_sweep_plain_version_matches_the_jax_package(mode, variant, n,
+                                                           s):
+    case = exact_edges.case(variant, n, s, n + s)
+    want = _jax_totals(*case, mode)
+    plain, launches = t_fit.EXACT_PLAIN_CALLS, t_fit.EXACT_LAUNCHES
+    got = _plain_totals(*case, mode)
+    assert t_fit.EXACT_PLAIN_CALLS == plain + 1
+    assert t_fit.EXACT_LAUNCHES == launches
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("program", ["grid", "grouped", "quantiles_grid",
+                                     "quantiles_grouped"])
+def test_totals_only_sweeps_on_cpu_tensors_count_the_plain_version(program):
+    """Every sweep without per-node fits is the kernel on the card, so on
+    the CPU each counts one plain call, the capacity-at-risk sweeps
+    too."""
+    cols, cpu, mem, reps, _, counts = exact_edges.case("grouped", 300, 40,
+                                                       5)
+    cols, scen = _torch(cols), _torch([cpu, mem, reps])
+    counts = torch.from_numpy(counts)
+    grouped = program.endswith("grouped")
+    args = (*cols, counts, *scen) if grouped else (*cols, *scen)
+    plain, launches = t_fit.EXACT_PLAIN_CALLS, t_fit.EXACT_LAUNCHES
+    if program.startswith("quantiles"):
+        q = (0, 20, 39)
+        fn = t_fit.sweep_quantiles_grouped if grouped else \
+            t_fit.sweep_quantiles_grid
+        got = fn(*args, mode="reference", q_indices=q)
+    else:
+        fn = t_fit.sweep_grid_grouped if grouped else t_fit.sweep_grid
+        got = fn(*args, mode="reference")
+    assert t_fit.EXACT_PLAIN_CALLS == plain + 1
+    assert t_fit.EXACT_LAUNCHES == launches
+    want = t_fit._sweep(cols, counts if grouped else None, *scen,
+                        mode="reference", node_mask=None, return_fits=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_staged_sweeps_on_cpu_tensors_take_the_plain_version():
+    jsnap = synthetic_snapshot(512, seed=8, shapes=6, kib_quantized=False)
+    tsnap = _snapshot_pair(jsnap)
+    cpu, mem, reps = exact_edges.requests(40, 9)
+    cols = [getattr(tsnap, f) for f in COLS]
+    for per_node in (False, True):
+        plain, launches = t_fit.EXACT_PLAIN_CALLS, t_fit.EXACT_LAUNCHES
+        flat = t_fit.sweep_grid_staged(
+            *cols, cpu, mem, reps, mode="reference", snapshot=tsnap,
+            return_per_node=per_node, device="cpu")
+        grouped = t_fit.sweep_grouped_staged(
+            tsnap.grouped(), cpu, mem, reps, mode="reference",
+            return_per_node=per_node, device="cpu")
+        # return_per_node needs the fits, so it runs the tensor program
+        # and leaves the kernel's counters alone on any device.
+        assert t_fit.EXACT_PLAIN_CALLS == plain + (0 if per_node else 2)
+        assert t_fit.EXACT_LAUNCHES == launches
+        want = j_fit.sweep_grid(*[getattr(jsnap, f) for f in COLS], cpu,
+                                mem, reps, return_per_node=per_node)
+        for out in (flat, grouped):
+            assert len(out) == len(want)
+            for g, w in zip(out, want):
+                np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("case", ["dtype", "healthy", "length", "scenarios",
+                                  "mask", "stride", "device"])
+def test_exact_kernel_operand_check_refuses_what_the_kernel_cannot_take(
+        case):
+    cols = _torch(exact_edges.columns(16, 1))
+    scen = _torch(list(exact_edges.requests(5, 2)))
+    mask = counts = None
+    error = ValueError
+    if case == "dtype":
+        cols[1], error = cols[1].to(torch.int32), TypeError
+    elif case == "healthy":
+        cols[6], error = cols[6].to(torch.int64), TypeError
+    elif case == "length":
+        cols[2] = cols[2][:15]
+    elif case == "scenarios":
+        scen[2] = scen[2][:4]
+    elif case == "mask":
+        mask = torch.ones(17, dtype=torch.bool)
+    elif case == "stride":
+        counts = torch.ones(32, dtype=torch.int64)[::2]
+    elif case == "device":
+        scen[0] = scen[0].to("meta")
+    with pytest.raises(error):
+        t_fit._check_exact_operands(cols, *scen, mask, counts)
+    t_fit._check_exact_operands(
+        _torch(exact_edges.columns(16, 1)),
+        *_torch(list(exact_edges.requests(5, 2))), None, None)
+
+
+_HOST_HARNESS = r"""
+#include "SWEEP_EXACT_CU"
+
+using namespace kccap_exact;
+
+template <bool STRICT>
+static void run(const i64* const* c, const unsigned char* healthy,
+                const unsigned char* mask, const i64* counts, const i64* cr,
+                const i64* mr, i64 n, i64 s, i64* fits, u64* totals) {
+  for (i64 j = 0; j < s; ++j) {
+    const Divisors d = stage_divisors(cr[j], mr[j]);
+    u64 acc = 0;
+    for (i64 i = 0; i < n; ++i) {
+      const Node r = stage_node<STRICT>(c[0][i], c[1][i], c[2][i], c[3][i],
+                                        c[4][i], c[5][i],
+                                        counts ? counts[i] : 1);
+      const bool live = (mask == nullptr || mask[i]) &&
+                        (!STRICT || healthy[i]);
+      const i64 f = live ? cell_fit<STRICT>(r, d) : 0;
+      fits[j * n + i] = f;
+      acc += static_cast<u64>(wmul(f, r.count));
+    }
+    totals[j] = acc;
+  }
+}
+
+extern "C" void kccap_exact_host(
+    const i64* ac, const i64* am, const i64* ap, const i64* uc,
+    const i64* um, const i64* pc, const unsigned char* healthy,
+    const unsigned char* mask, const i64* counts, const i64* cr,
+    const i64* mr, i64 n, i64 s, int strict, i64* fits, u64* totals) {
+  const i64* c[6] = {ac, am, ap, uc, um, pc};
+  if (strict) {
+    run<true>(c, healthy, mask, counts, cr, mr, n, s, fits, totals);
+  } else {
+    run<false>(c, healthy, mask, counts, cr, mr, n, s, fits, totals);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_cells(tmp_path_factory):
+    """``csrc/sweep_exact.cu``'s per-node and per-cell functions compiled
+    as host C++ with ``g++`` (no CUDA toolkit needed), behind a loop over
+    every cell."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the exact kernel's cell functions")
+    cu = Path(t_fit.__file__).resolve().parent.parent / "csrc" / \
+        "sweep_exact.cu"
+    tmp = tmp_path_factory.mktemp("sweep_exact_host")
+    src = tmp / "harness.cc"
+    src.write_text(_HOST_HARNESS.replace("SWEEP_EXACT_CU", str(cu)))
+    lib = tmp / "libharness.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-Wall", "-Wextra", "-Werror", "-shared",
+         "-fPIC", "-o", str(lib), str(src)],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    fn = ctypes.CDLL(str(lib)).kccap_exact_host
+    fn.argtypes = (ctypes.c_void_p,) * 11 + (
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p)
+    fn.restype = None
+    return fn
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data
+
+
+@pytest.mark.parametrize("n,s", [(257, 1), (257, 257), (1, 12),
+                                 *_CARD_SHAPES])
+@pytest.mark.parametrize("variant", exact_edges.VARIANTS)
+@pytest.mark.parametrize("mode", MODES)
+def test_exact_kernel_cells_as_host_code_match_fit_per_node(
+        host_cells, mode, variant, n, s):
+    """The kernel's cell code against ``fit_per_node`` and, through the
+    totals, the JAX package."""
+    cols, cpu, mem, reps, mask, counts = exact_edges.case(variant, n, s,
+                                                          n + s)
+    fits = np.empty((s, n), np.int64)
+    totals = np.empty(s, np.uint64)
+    # Every array handed over by address is held by a name for the call: a
+    # temporary's buffer could be freed before the call reads it.
+    cells = [np.ascontiguousarray(c) for c in cols[:6]]
+    healthy = cols[6].astype(np.uint8)
+    mask8 = None if mask is None else mask.astype(np.uint8)
+    host_cells(*(_ptr(c) for c in cells), _ptr(healthy), _ptr(mask8),
+               _ptr(counts), _ptr(cpu), _ptr(mem), n, s,
+               int(mode == "strict"), _ptr(fits), _ptr(totals))
+    want_fits = t_fit.fit_per_node(
+        *_torch(cols), torch.from_numpy(cpu)[:, None],
+        torch.from_numpy(mem)[:, None], mode=mode,
+        node_mask=None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_array_equal(fits, want_fits.numpy())
+    want = t_fit._sweep(
+        _torch(cols), None if counts is None else torch.from_numpy(counts),
+        torch.from_numpy(cpu), torch.from_numpy(mem), torch.from_numpy(reps),
+        mode=mode, node_mask=None if mask is None else torch.from_numpy(mask),
+        return_fits=False)
+    np.testing.assert_array_equal(totals.view(np.int64), want[0].numpy())
+    np.testing.assert_array_equal(
+        totals.view(np.int64),
+        np.asarray(_jax_totals(cols, cpu, mem, reps, mask, counts, mode)[0]))

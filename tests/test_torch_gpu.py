@@ -31,6 +31,7 @@ from kubernetesclustercapacity_tpu_torch import (
     CapacityModel,
     MultiResourceGrid,
     PodSpec,
+    ScenarioGrid,
     explain_snapshot,
     random_scenario_grid,
     snapshot_from_fixture,
@@ -46,6 +47,7 @@ from kubernetesclustercapacity_tpu_torch import stochastic as _stochastic
 from kubernetesclustercapacity_tpu_torch import topology as _topology
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as ff
 from kubernetesclustercapacity_tpu_torch.ops import fused_multi as fm
+from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 
 pytestmark = pytest.mark.gpu
 
@@ -124,6 +126,133 @@ def test_snapshot_sweep_on_card_matches_host(cuda):
     assert card[2] == "cuda_i32_rcp_fused" and host[2] == "plain_i32_rcp_fused"
     np.testing.assert_array_equal(card[0], host[0])
     np.testing.assert_array_equal(card[0], exact[0])
+
+
+# -- the exact int64 kernel (``csrc/sweep_exact.cu``, what ``sweep_grid``
+# and ``sweep_grid_grouped`` launch on CUDA tensors without per-node fits)
+# against its plain version, ``ops/fit.py::_sweep``, on the card, and on
+# the host where the case is small enough to run there too.  The inputs
+# are ``tests/exact_edges.py``'s; ``test_torch_fit.py`` holds the plain
+# version against the JAX package on the same ones.
+
+@pytest.mark.parametrize("n,s", [(4099, 1), (4099, 257), (600, 32_000),
+                                 (0, 7), (300, 0)])
+@pytest.mark.parametrize("variant", ["flat", "masked", "every-masked",
+                                     "grouped"])
+@pytest.mark.parametrize("mode", ["reference", "strict"])
+def test_exact_kernel_matches_plain(cuda, mode, variant, n, s):
+    import exact_edges
+
+    from kubernetesclustercapacity_tpu_torch.ops import fit
+
+    cols, cpu, mem, reps, mask, counts = exact_edges.case(variant, n, s,
+                                                          n + s)
+    host = [*cols, cpu, mem, reps, mask, counts]
+    want = []
+    for device in ("cuda", "cpu") if n * s <= 1 << 21 else ("cuda",):
+        ops = [None if a is None else torch.from_numpy(a).to(device)
+               for a in host]
+        want.append(fit._sweep(ops[:7], ops[11], *ops[7:10], mode=mode,
+                               node_mask=ops[10], return_fits=False))
+    ops = [None if a is None else torch.from_numpy(a).to(cuda) for a in host]
+    launches, plain = fit.EXACT_LAUNCHES, fit.EXACT_PLAIN_CALLS
+    if counts is None:
+        got = fit.sweep_grid(*ops[:10], mode=mode, node_mask=ops[10])
+    else:
+        got = fit.sweep_grid_grouped(*ops[:7], ops[11], *ops[7:10],
+                                     mode=mode)
+    torch.cuda.synchronize()
+    assert fit.EXACT_LAUNCHES == launches + (1 if n and s else 0)
+    assert fit.EXACT_PLAIN_CALLS == plain
+    for w in want:
+        for g, x in zip(got, w):
+            assert torch.equal(g.cpu(), x.cpu())
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_capacity_at_risk_sweeps_launch_the_exact_kernel(cuda, grouped):
+    """The sweep+quantile program reads totals only, so it launches the
+    exact kernel once and runs no plain version, and answers as the
+    host does."""
+    from kubernetesclustercapacity_tpu_torch.ops import fit
+
+    snap = synthetic_snapshot(4_096, seed=41, shapes=12 if grouped else None,
+                              kib_quantized=False)
+    rng = np.random.default_rng(42)
+    grid = ScenarioGrid(
+        cpu_request_milli=rng.integers(50, 4000, 300),
+        mem_request_bytes=rng.integers(64, 8192, 300) * 10**6,
+        replicas=rng.integers(1, 500, 300))
+    q = (0, 150, 299)
+    launches, plain = fit.EXACT_LAUNCHES, fit.EXACT_PLAIN_CALLS
+    assert (grouped_for_dispatch(snap) is not None) == grouped
+    card = fit.sweep_quantiles_snapshot(snap, grid, q_indices=q,
+                                        device=cuda)
+    assert fit.EXACT_LAUNCHES == launches + 1
+    assert fit.EXACT_PLAIN_CALLS == plain
+    assert card[-1] == ("torch_int64_sweep_qtile_grouped" if grouped
+                        else "torch_int64_sweep_qtile")
+    host = fit.sweep_quantiles_snapshot(snap, grid, q_indices=q,
+                                        device="cpu")
+    assert card[-1] == host[-1]
+    for c, h in zip(card[:-1], host[:-1]):
+        np.testing.assert_array_equal(c, h)
+
+
+def test_server_decimal_sweeps_launch_the_exact_kernel_once_a_dispatch(cuda):
+    import threading
+
+    from kubernetesclustercapacity_tpu_torch.ops import fit
+
+    snap = snapshot_from_fixture(
+        synthetic_fixture(5_000, seed=31, unhealthy_frac=0.05,
+                          unparseable_mem_frac=0.02),
+        semantics="reference")
+    rng = np.random.default_rng(32)
+
+    def decimal(s):
+        return {"op": "sweep",
+                "cpu_request_milli": rng.integers(50, 4000, s).tolist(),
+                "mem_request_bytes": (rng.integers(64, 8192, s)
+                                      * 10**6).tolist(),
+                "replicas": rng.integers(1, 500, s).tolist()}
+
+    msgs = [decimal(1_000)] + [decimal(125) for _ in range(8)]
+    host = _serve(snap, batch_window_ms=0, device="cpu")
+    solo = _serve(snap, batch_window_ms=0)
+    folded = _serve(snap, batch_window_ms=60_000, batch_max=8,
+                    max_inflight=8)
+    try:
+        want = [_ask(host, m) for m in msgs]
+        launches, plain = fit.EXACT_LAUNCHES, fit.EXACT_PLAIN_CALLS
+        got = [_ask(solo, m) for m in msgs]
+        assert fit.EXACT_LAUNCHES - launches == len(msgs)
+        assert fit.EXACT_PLAIN_CALLS == plain
+        assert got == want
+        assert {r["result"]["kernel"] for r in got} == {"torch_int64"}
+
+        got = [None] * 8
+
+        def run(i):
+            got[i] = _ask(folded, msgs[1 + i])
+
+        launches = fit.EXACT_LAUNCHES
+        dispatches = folded.batching_stats["dispatches"]
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert fit.EXACT_LAUNCHES - launches == \
+            folded.batching_stats["dispatches"] - dispatches == 1
+        assert fit.EXACT_PLAIN_CALLS == plain
+        assert got == want[1:]
+    finally:
+        host.shutdown()
+        solo.shutdown()
+        folded.shutdown()
 
 
 def _multi_operands(n, s, n_res, seed, device, rcp, mask):

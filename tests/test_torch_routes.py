@@ -294,3 +294,107 @@ def test_a_family_kept_out_of_the_scrape_is_in_the_snapshot():
     assert reg.counter("kccap_x_total", "x", ("k",), scrape=False) is hidden
     with pytest.raises(MetricsError):
         reg.counter("kccap_x_total", "x", ("k",))
+
+
+# -- the exact routes after the exact kernel: the labels and reasons are
+# the JAX package's, on the CPU each dispatch runs the kernel's plain
+# version once, and the totals are the JAX exact program's.
+
+def _exact_route_case(grouped, reason):
+    """``(snapshot, jax_snapshot, cpu, mem, reps, force_exact)`` that take
+    the exact route for ``reason``."""
+    from kubernetesclustercapacity_tpu.snapshot import (
+        synthetic_snapshot as j_synthetic,
+    )
+
+    n, shapes = (4096, 12) if grouped else (64, None)
+    snaps = [make(n, seed=9, shapes=shapes)
+             for make in (synthetic_snapshot, j_synthetic)]
+    rng = np.random.default_rng(17)
+    cpu = rng.integers(50, 4000, 24)
+    mem = rng.integers(64, 8192, 24) * MIB
+    reps = rng.integers(1, 500, 24)
+    for snap in snaps:
+        if reason == "int32_range":
+            snap.alloc_cpu_milli[5] = np.int64(1) << 40
+        elif reason == "total_bound":
+            snap.alloc_cpu_milli[:] = 1 << 30
+    if reason == "mem_not_kib":
+        mem = rng.integers(64, 8192, 24) * 10**6
+    elif reason == "zero_request":
+        cpu[3] = 0
+    elif reason == "total_bound":
+        cpu[0] = 1
+    return (*snaps, cpu, mem, reps, reason == "forced")
+
+
+@pytest.mark.parametrize("reason", ["mem_not_kib", "forced", "int32_range",
+                                    "zero_request", "total_bound"])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_every_exact_route_keeps_its_label_and_reason(grouped, reason):
+    from kubernetesclustercapacity_tpu.ops import fit as j_fit
+    from kubernetesclustercapacity_tpu.snapshot import (
+        grouped_for_dispatch as j_grouped_for_dispatch,
+    )
+    from kubernetesclustercapacity_tpu_torch.ops import fit as t_fit
+    from kubernetesclustercapacity_tpu_torch.snapshot import (
+        grouped_for_dispatch,
+    )
+
+    snap, jsnap, cpu, mem, reps, force = _exact_route_case(grouped, reason)
+    group = grouped_for_dispatch(snap)
+    assert (group is not None) == grouped
+    assert (j_grouped_for_dispatch(jsnap) is not None) == grouped
+    before = _routes()
+    plain, launches = t_fit.EXACT_PLAIN_CALLS, t_fit.EXACT_LAUNCHES
+    if grouped:
+        grid = ScenarioGrid(cpu_request_milli=cpu, mem_request_bytes=mem,
+                            replicas=reps)
+        totals, sched, kernel = tf._sweep_auto_grouped(
+            group, grid, mode="reference", force_exact=force, device="cpu")
+    else:
+        totals, sched, kernel = tf.sweep_auto(
+            snap, cpu, mem, reps, mode="reference", force_exact=force,
+            device="cpu")
+    label = "torch_int64_grouped" if grouped else "torch_int64"
+    assert kernel == label
+    assert _delta(before, _routes()) == {(label, reason): (1, len(cpu))}
+    assert t_fit.EXACT_PLAIN_CALLS == plain + 1
+    assert t_fit.EXACT_LAUNCHES == launches
+    assert tf.sweep_proof_failure(
+        snap.alloc_cpu_milli, snap.alloc_mem_bytes, snap.alloc_pods,
+        snap.used_cpu_req_milli, snap.used_mem_req_bytes, snap.pods_count,
+        cpu, mem) == (None if force else reason)
+    want = j_fit.sweep_grid(
+        *(getattr(jsnap, f) for f in (
+            "alloc_cpu_milli", "alloc_mem_bytes", "alloc_pods",
+            "used_cpu_req_milli", "used_mem_req_bytes", "pods_count",
+            "healthy")), cpu, mem, reps, mode="reference")
+    np.testing.assert_array_equal(np.asarray(totals), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(sched), np.asarray(want[1]))
+
+
+def test_a_folded_decimal_batch_runs_the_exact_plain_version_once(ref_snap):
+    from kubernetesclustercapacity_tpu_torch.ops import fit as t_fit
+
+    server = CapacityServer(ref_snap, device="cpu", port=0,
+                            batch_window_ms=WINDOW_MS, batch_max=3,
+                            max_inflight=3)
+    server.start()
+    try:
+        msgs = []
+        for i, s in enumerate((5, 8, 13)):
+            g = _grid(s, 10**6, seed=20 + i)
+            msgs.append({"op": "sweep",
+                         "cpu_request_milli": g.cpu_request_milli.tolist(),
+                         "mem_request_bytes": g.mem_request_bytes.tolist(),
+                         "replicas": g.replicas.tolist()})
+        plain, launches = t_fit.EXACT_PLAIN_CALLS, t_fit.EXACT_LAUNCHES
+        replies = _concurrently(server.address, msgs)
+        assert server.batching_stats["dispatches"] == 1
+        assert t_fit.EXACT_PLAIN_CALLS == plain + 1
+        assert t_fit.EXACT_LAUNCHES == launches
+    finally:
+        server.shutdown()
+    assert all(r["ok"] and r["result"]["kernel"] == "torch_int64"
+               for r in replies)
