@@ -554,6 +554,8 @@ def phase_exact_times(pkg, fit, device, identity: str,
     (``plain_ms``), each by :func:`device_ms`, the bound
     (:func:`exact_bound`) and its share, and the host time per call
     through the wrapper (``wrapper_host_ms``)."""
+    from kubernetesclustercapacity_tpu_torch.ops import _build
+
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
     for label, arrays, _ in exact_kernel_cases(pkg):
@@ -562,8 +564,8 @@ def phase_exact_times(pkg, fit, device, identity: str,
         ops = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                for a in arrays]
         n, s = int(ops[0].shape[0]), int(ops[7].shape[0])
-        _, launch = fit._exact_launch(ops[:7], None, *ops[7:],
-                                      mode="reference")
+        _, launch = _build.bind("sweep_exact", (*ops[:7], None, None,
+                                                *ops[7:9]), n, s, False)
         ms, hold_calls = device_ms(launch, clock_hz)
         plain_ms, plain_hold_calls = device_ms(
             lambda: fit._sweep(ops[:7], None, *ops[7:], mode="reference",
@@ -644,39 +646,41 @@ def host_call_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
     return (time.perf_counter() - t0) * 1e3 / launches
 
 
-def bare_launch(fn, ops, strict: bool, chunk: int):
-    """A callable that launches B1 through its C entry point ``fn`` with
-    every argument prepared once, so the timing sees the kernel and not
-    the wrapper's Python checks (``sweep_fused`` is timed on its own as
-    ``wrapper_host_ms``), and the totals it adds into.  The totals are not
-    re-zeroed between launches; the work per launch is the same."""
-    ac, am, ap, uc, um, pc, cr, mr, crr, mrr, mask, counts = ops
-    n, s = int(ac.shape[0]), int(cr.shape[0])
-    totals = torch.zeros(s, dtype=torch.int64, device=ac.device)
-    ptr = [None if t is None else t.data_ptr() for t in
-           (ac, am, ap, uc, um, pc, mask, counts, cr, mr, crr, mrr, totals)]
-    args = (*ptr, n, s, chunk, int(strict),
-            torch.cuda.current_stream().cuda_stream)
-
-    def launch():
-        rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f"sweep_fit launch failed: CUDA error {rc}")
-
-    return launch, totals
-
-
-def no_cell_ms(launcher, fn, ops, mask_at: int, strict: bool, chunk: int,
-               clock_hz: float) -> float | None:
+def no_cell_ms(bind, ops, mask_at: int, clock_hz: float) -> float | None:
     """For a masked variant, the bare kernel's time on the same operands
     with every mask 0: launch, scenario loads, staging and the end of the
-    block, and no cell.  None for a variant without a mask."""
+    block, and no cell.  None for a variant without a mask.  ``bind``
+    takes the operands and returns the kernel's ``(totals, launch)``."""
     if ops[mask_at] is None:
         return None
     dead = list(ops)
     dead[mask_at] = torch.zeros_like(ops[mask_at])
-    launch, _ = launcher(fn, tuple(dead), strict, chunk)
-    return device_ms(launch, clock_hz)[0]
+    return device_ms(bind(dead)[1], clock_hz)[0]
+
+
+def bind_b1(ops, strict: bool):
+    """B1 through the kernel seam (:func:`_build.bind`) on ``sweep_fused``'s
+    operands: the launch the timing sees, without the wrapper's Python
+    checks (``sweep_fused`` is timed on its own as ``wrapper_host_ms``).
+    The totals are not re-zeroed between launches; the work per launch is
+    the same."""
+    from kubernetesclustercapacity_tpu_torch.ops import _build
+
+    ac, am, ap, uc, um, pc, cr, mr, crr, mrr, mask, counts = ops
+    return _build.bind("sweep_fit",
+                       (ac, am, ap, uc, um, pc, mask, counts, cr, mr, crr,
+                        mrr), int(ac.shape[0]), int(cr.shape[0]), strict)
+
+
+def bind_b2(ops, strict: bool):
+    """B2 through the kernel seam on ``sweep_multi``'s operands, as
+    :func:`bind_b1`."""
+    from kubernetesclustercapacity_tpu_torch.ops import _build
+
+    alloc, used, ap, pc, reqs, rcps, mask = ops
+    r, n = (int(d) for d in alloc.shape)
+    return _build.bind("sweep_multi", (alloc, used, ap, pc, mask, reqs, rcps),
+                       n, int(reqs.shape[1]), strict, (r,))
 
 
 def launch_floor_ms(clock_hz: float) -> float:
@@ -723,11 +727,9 @@ def phase_times(pkg, ff, device, identity: str, clock_hz: float,
     for v, data, path in timed:
         ops = v.operands(data, device)
         n, s = int(ops[0].shape[0]), int(ops[6].shape[0])
-        chunk = ff.node_chunk(n, s, sms)
-        launch, _ = bare_launch(ff._sweep_fn(), ops, v.strict, chunk)
-        ms, hold_calls = device_ms(launch, clock_hz)
-        dead_ms = no_cell_ms(bare_launch, ff._sweep_fn(), ops, 10, v.strict,
-                             chunk, clock_hz)
+        ms, hold_calls = device_ms(bind_b1(ops, v.strict)[1], clock_hz)
+        dead_ms = no_cell_ms(lambda o: bind_b1(o, v.strict), ops, 10,
+                             clock_hz)
         plain_ms, plain_hold_calls = device_ms(
             lambda: ff.sweep_fused_plain(*ops, strict=v.strict), clock_hz)
         wrapper_host_ms = host_call_ms(
@@ -1181,27 +1183,7 @@ def phase_multi_paths(pkg, cli, ff, fm, tmp: str) -> dict:
     return out
 
 
-def bare_multi_launch(fn, ops, strict: bool, chunk: int):
-    """B2 through its C entry point ``fn`` with every argument prepared
-    once (the counterpart of :func:`bare_launch`)."""
-    alloc, used, ap, pc, reqs, rcps, mask = ops
-    r, n = (int(d) for d in alloc.shape)
-    s = int(reqs.shape[1])
-    totals = torch.zeros(s, dtype=torch.int64, device=alloc.device)
-    ptr = [None if t is None else t.data_ptr() for t in
-           (alloc, used, ap, pc, mask, reqs, rcps, totals)]
-    args = (*ptr, n, s, r, chunk, int(strict),
-            torch.cuda.current_stream().cuda_stream)
-
-    def launch():
-        rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f"sweep_multi launch failed: CUDA error {rc}")
-
-    return launch, totals
-
-
-def phase_multi_times(fm, ff, paths: dict, identity: str,
+def phase_multi_times(fm, paths: dict, identity: str,
                       clock_hz: float) -> list[dict]:
     """B2's variant on paths (e) and (f) (rcp, strict, mask at R = 4), and
     its int32-divide form on (f)'s operands, timed as
@@ -1216,11 +1198,9 @@ def phase_multi_times(fm, ff, paths: dict, identity: str,
     for var, ops, path in timed:
         r, n = (int(d) for d in ops[0].shape)
         s = int(ops[4].shape[1])
-        chunk = ff.node_chunk(n, s, sms)
-        launch, _ = bare_multi_launch(fm._multi_fn(), ops, var.strict, chunk)
-        ms, hold_calls = device_ms(launch, clock_hz)
-        dead_ms = no_cell_ms(bare_multi_launch, fm._multi_fn(), ops, 6,
-                             var.strict, chunk, clock_hz)
+        ms, hold_calls = device_ms(bind_b2(ops, var.strict)[1], clock_hz)
+        dead_ms = no_cell_ms(lambda o: bind_b2(o, var.strict), ops, 6,
+                             clock_hz)
         plain_ms, plain_hold_calls = device_ms(
             lambda: fm.sweep_multi_plain(*ops, strict=var.strict), clock_hz)
         wrapper_host_ms = host_call_ms(
@@ -6434,7 +6414,7 @@ def main() -> int:
     log(f"launch floor: a one-element fill times {floor:.6f} ms by the same "
         "method")
     e2e = phase_end_to_end(pkg, ff)
-    multi_rows_timed = phase_multi_times(fm, ff, multi_paths, identity,
+    multi_rows_timed = phase_multi_times(fm, multi_paths, identity,
                                          clock_hz)
     exact_rows = phase_exact_times(pkg, fit, device, identity, clock_hz)
     multi_e2e = phase_multi_end_to_end(fm, multi_paths["f_args"])

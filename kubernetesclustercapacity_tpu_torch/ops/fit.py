@@ -35,9 +35,9 @@ Modes: ``"reference"`` is bug-compatible; ``"strict"`` is the corrected
 
 from __future__ import annotations
 
-import ctypes
 import threading
 import time
+import weakref
 from contextlib import contextmanager
 
 import numpy as np
@@ -48,6 +48,9 @@ from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
 from kubernetesclustercapacity_tpu_torch.telemetry import (
     compilewatch as _compilewatch,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry import (
+    memledger as _memledger,
 )
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
@@ -92,46 +95,6 @@ EXACT_LAUNCHES = 0
 #: Totals-only exact sweeps that ran the kernel's plain version (tensors
 #: not on CUDA): the host twin of :data:`EXACT_LAUNCHES`.
 EXACT_PLAIN_CALLS = 0
-#: Guards the launch counters of every CUDA kernel of the port (these and
-#: ``fused_fit``'s and ``fused_multi``'s): the service's handler threads
-#: dispatch concurrently, and ``+=`` on a module global is not atomic.
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(counters: dict, name: str) -> None:
-    """Add one to the counter ``name`` of a module's ``globals()``."""
-    # kccap: lint-ok[device-purity] the launch counter: one uncontended lock per launch, never per step
-    with _COUNT_LOCK:
-        counters[name] += 1
-
-
-#: Threads per block of the CUDA kernels (``kThreads`` in the sources), and
-#: the scenarios each thread owns (``kSpt``): a block covers
-#: ``SCENARIOS_PER_BLOCK`` scenarios.  B2 above 8 resource rows takes one
-#: scenario per thread; its grid is sized in its C entry.
-THREADS_PER_BLOCK = 128
-SCENARIOS_PER_THREAD = 2
-SCENARIOS_PER_BLOCK = THREADS_PER_BLOCK * SCENARIOS_PER_THREAD
-#: Blocks the wrappers aim for on each SM, and the fewest nodes a block
-#: takes (so a block's staging is worth its launch); measured choices, see
-#: PERF.md.  At 10,000 nodes a block takes 76, so the minimum acts only on
-#: small node counts, such as the grouped sweep's 48 groups.
-BLOCKS_PER_SM = 4
-MIN_NODES_PER_BLOCK = 16
-
-
-def node_chunk(n: int, s: int, sm_count: int) -> int:
-    """Nodes per block along the CUDA kernels' grid's y axis: enough
-    blocks to give every SM ``BLOCKS_PER_SM`` of them, no block under
-    ``MIN_NODES_PER_BLOCK`` nodes, and at most 65535 chunks."""
-    scenario_blocks = -(-s // SCENARIOS_PER_BLOCK)
-    want_chunks = max(1, -(-BLOCKS_PER_SM * sm_count // scenario_blocks))
-    chunk = max(MIN_NODES_PER_BLOCK, -(-n // want_chunks))
-    return max(chunk, -(-n // 65535))
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
 
 
 def _u64_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -485,107 +448,38 @@ def sweep_grid_grouped(
                   node_mask=None, return_fits=True)
 
 
-_EXACT_ARGTYPES = (ctypes.c_void_p,) * 12 + (
-    ctypes.c_longlong,  # n
-    ctypes.c_int,  # s
-    ctypes.c_longlong,  # chunk
-    ctypes.c_int,  # strict
-    ctypes.c_void_p,  # stream
-)
-
-
-def _exact_fn():
-    """The bound C entry point of ``csrc/sweep_exact.cu``, built and
-    declared on first use (without ``argtypes`` ctypes would pass each
-    pointer as a 32-bit int)."""
-    fn = _build.library("sweep_exact").kccap_sweep_exact
-    if fn.argtypes != _EXACT_ARGTYPES:
-        fn.argtypes = _EXACT_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_exact_operands(cols, cpu_reqs, mem_reqs, replicas, node_mask,
-                          counts) -> None:
-    """Raise on what the exact kernel does not take: every operand 1-D,
-    contiguous and on the node columns' device, int64 but for the bool
-    ``healthy`` and ``node_mask``, the node operands ``[N]`` long and the
+def _exact_spec(cols, cpu_reqs, mem_reqs, replicas, node_mask,
+                counts) -> list:
+    """The exact kernel's operands, each with the dtype and shape it must
+    have (:func:`._build.check_operands`): int64 but for the bool
+    ``healthy`` and ``node_mask``, the node operands ``[N]`` and the
     scenario operands ``[S]``."""
-    n, s = int(cols[0].shape[-1]), int(cpu_reqs.shape[-1])
-    expected = [(t, torch.int64, n) for t in cols[:6]]
-    expected += [(cols[6], torch.bool, n), (cpu_reqs, torch.int64, s),
-                 (mem_reqs, torch.int64, s), (replicas, torch.int64, s)]
-    if node_mask is not None:
-        expected.append((node_mask, torch.bool, n))
-    if counts is not None:
-        expected.append((counts, torch.int64, n))
-    device = cols[0].device
-    for t, dtype, length in expected:
-        if t.device != device:
-            raise ValueError(
-                f"exact sweep operands span devices ({t.device} vs {device})"
-            )
-        if t.dtype != dtype:
-            raise TypeError(f"exact sweep operand is {t.dtype}, want {dtype}")
-        if t.dim() != 1 or t.shape[0] != length:
-            raise ValueError(
-                f"exact sweep operand has shape {tuple(t.shape)}, want "
-                f"({length},)"
-            )
-        if not t.is_contiguous():
-            raise ValueError("exact sweep operands must be contiguous")
-
-
-def _exact_launch(cols, counts, cpu_reqs, mem_reqs, replicas, *,
-                 mode: str, node_mask=None):
-    """The exact kernel bound to its operands, on CUDA tensors:
-    ``(totals, launch)``, ``totals`` a zeroed int64 ``[S]`` and
-    ``launch()`` one launch on the current stream (none where N or S is
-    0) that adds the sweep's totals into it and raises on a non-zero
-    launch code (the kernel
-    allocates nothing, and nothing falls back).  ``cols`` are
-    :func:`sweep_grid`'s seven node columns, ``counts`` an optional
-    ``[N]`` int64 node-shape multiplicity, ``node_mask`` an optional
-    ``[N]`` bool mask; every operand 1-D and contiguous on one device."""
-    if mode not in ("reference", "strict"):
-        raise ValueError(f"unknown mode {mode!r}")
-    _check_exact_operands(cols, cpu_reqs, mem_reqs, replicas, node_mask,
-                          counts)
-    device = cols[0].device
-    n, s = int(cols[0].shape[0]), int(cpu_reqs.shape[0])
-    totals = torch.zeros(s, dtype=torch.int64, device=device)
-    if n == 0 or s == 0:
-        return totals, lambda: None
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ptrs = (*(t.data_ptr() for t in cols), _ptr(node_mask), _ptr(counts),
-            cpu_reqs.data_ptr(), mem_reqs.data_ptr(), totals.data_ptr(),
-            n, s, node_chunk(n, s, sms), int(mode == "strict"))
-
-    def launch() -> None:
-        with torch.cuda.device(device):
-            # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
-            rc = _exact_fn()(*ptrs, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"sweep_exact kernel launch failed: CUDA error {rc}"
-            )
-        _count(globals(), "EXACT_LAUNCHES")
-
-    return totals, launch
+    n, s = (int(cols[0].shape[-1]),), (int(cpu_reqs.shape[-1]),)
+    return [*((t, torch.int64, n) for t in cols[:6]),
+            (cols[6], torch.bool, n), (cpu_reqs, torch.int64, s),
+            (mem_reqs, torch.int64, s), (replicas, torch.int64, s),
+            (node_mask, torch.bool, n), (counts, torch.int64, n)]
 
 
 def _sweep_totals(cols, counts, cpu_reqs, mem_reqs, replicas, *, mode,
                   node_mask):
     """``(totals[S], schedulable[S])`` of the exact sweep: one launch of
-    the exact kernel on CUDA tensors, its plain version (:func:`_sweep`)
-    on any other device.  The two give the same bits."""
+    the exact kernel (``csrc/sweep_exact.cu``) on CUDA tensors, its plain
+    version (:func:`_sweep`) on any other device.  The two give the same
+    bits."""
     if cols[0].device.type == "cuda":
-        totals, launch = _exact_launch(cols, counts, cpu_reqs, mem_reqs,
-                                      replicas, mode=mode,
-                                      node_mask=node_mask)
-        launch()
+        if mode not in ("reference", "strict"):
+            raise ValueError(f"unknown mode {mode!r}")
+        _build.check_operands(_exact_spec(cols, cpu_reqs, mem_reqs, replicas,
+                                          node_mask, counts), "exact sweep")
+        totals, launch = _build.bind(
+            "sweep_exact", (*cols, node_mask, counts, cpu_reqs, mem_reqs),
+            int(cols[0].shape[0]), int(cpu_reqs.shape[0]), mode == "strict",
+        )
+        if launch():
+            _build.count(globals(), "EXACT_LAUNCHES")
         return totals, totals >= replicas
-    _count(globals(), "EXACT_PLAIN_CALLS")
+    _build.count(globals(), "EXACT_PLAIN_CALLS")
     return _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, mode=mode,
                   node_mask=node_mask, return_fits=False)
 
@@ -709,6 +603,18 @@ def sweep_grouped_staged(
     return out[0], out[1], fits
 
 
+def _retire_booking(box: list) -> None:
+    """Finalizer body for an :class:`AsyncFetch` that dies unread: take
+    its packed buffer off the device-memory ledger's book.  Swallows
+    everything: it can run during interpreter shutdown."""
+    try:
+        booked, box[0] = box[0], None
+        if booked is not None:
+            _memledger.retire(booked)
+    except Exception:
+        pass
+
+
 class AsyncFetch:
     """Device results on their way to the host, without a wait.
 
@@ -720,6 +626,13 @@ class AsyncFetch:
     never on the whole device.  On the CPU the values are already there
     and nothing is waited on.  Thread-safe: the first reader pays the
     wait, later readers get the cached numpy arrays.
+
+    While the copy is pending its device buffer is booked in the
+    device-memory ledger under ``fold_fetch`` (the service's folded
+    sweeps are the one caller that fetches this way), so an abandoned
+    fetch shows up as booked bytes, not silent device memory: the first
+    :meth:`arrays` retires the booking, or a finalizer does if the fetch
+    dies unread.
     """
 
     def __init__(self, tensors) -> None:
@@ -728,9 +641,11 @@ class AsyncFetch:
         self._lock = threading.Lock()
         self._np: tuple | None = None
         self._event = None
-        #: The packed device buffer, held until the copy is read (the
-        #: service books it in the device-memory ledger meanwhile).
+        #: The packed device buffer, held until the copy is read.
         self.staged: torch.Tensor | None = None
+        #: The booked ``(staged,)``, in a box that the finalizer holds
+        #: (never ``self``).
+        self._booked: list = [None]
         device = tensors[0].device if tensors else torch.device("cpu")
         if device.type == "cuda":
             packed = torch.cat(
@@ -744,6 +659,9 @@ class AsyncFetch:
             self._event.record(torch.cuda.current_stream(device))
             self.staged = packed
             self._host = host
+            self._booked[0] = (packed,)
+            _memledger.register(self._booked[0], "fold_fetch")
+            weakref.finalize(self, _retire_booking, self._booked)
         else:
             self._host = tensors
 
@@ -765,6 +683,7 @@ class AsyncFetch:
                         lo += size
                     self._np = tuple(out)
                 self._event = self._host = self.staged = None
+                _retire_booking(self._booked)
             return self._np
 
 

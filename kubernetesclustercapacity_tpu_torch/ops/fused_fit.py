@@ -28,7 +28,6 @@ the proof's first failed condition on the exact one
 
 from __future__ import annotations
 
-import ctypes
 import time
 
 import numpy as np
@@ -38,9 +37,6 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
-    _count,
-    _ptr,
-    node_chunk,
     observed_fetch,
     sweep_grid_staged,
     sweep_grouped_staged,
@@ -233,54 +229,17 @@ def scenario_reciprocals(padded_requests: np.ndarray) -> np.ndarray:
     )
 
 
-def _check_operands(nodes, cr, mr, crr, mrr, mask, counts) -> torch.device:
-    """Validate the fused sweep's operands; returns their common device."""
+def _operand_spec(nodes, cr, mr, crr, mrr, mask, counts) -> list:
+    """The fused sweep's operands, each with the dtype and shape it must
+    have (:func:`._build.check_operands`)."""
     if (crr is None) != (mrr is None):
         raise ValueError("crr and mrr must be given together")
-    n = int(nodes[0].shape[0]) if nodes[0].dim() == 1 else -1
-    s = int(cr.shape[0]) if cr.dim() == 1 else -1
-    expected = [(t, torch.int32, n) for t in nodes]
-    expected += [(cr, torch.int32, s), (mr, torch.int32, s)]
-    if crr is not None:
-        expected += [(crr, torch.float32, s), (mrr, torch.float32, s)]
-    for t in (mask, counts):
-        if t is not None:
-            expected.append((t, torch.int32, n))
-    device = nodes[0].device
-    for t, dtype, length in expected:
-        if t.device != device:
-            raise ValueError(
-                f"fused sweep operands span devices ({t.device} vs {device})"
-            )
-        if t.dtype != dtype:
-            raise TypeError(f"fused sweep operand is {t.dtype}, want {dtype}")
-        if t.dim() != 1 or length < 0 or t.shape[0] != length:
-            raise ValueError(
-                f"fused sweep operand has shape {tuple(t.shape)}, want "
-                f"({length},)"
-            )
-        if not t.is_contiguous():
-            raise ValueError("fused sweep operands must be contiguous")
-    return device
-
-
-_SWEEP_ARGTYPES = (ctypes.c_void_p,) * 13 + (
-    ctypes.c_longlong,  # n
-    ctypes.c_int,  # s
-    ctypes.c_longlong,  # chunk
-    ctypes.c_int,  # strict
-    ctypes.c_void_p,  # stream
-)
-
-
-def _sweep_fn():
-    """The bound C entry point, built and declared on first use (without
-    ``argtypes`` ctypes would pass each pointer as a 32-bit int)."""
-    fn = _build.library("sweep_fit").kccap_sweep_fit
-    if fn.argtypes != _SWEEP_ARGTYPES:
-        fn.argtypes = _SWEEP_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    n = (int(nodes[0].shape[0]) if nodes[0].dim() == 1 else -1,)
+    s = (int(cr.shape[0]) if cr.dim() == 1 else -1,)
+    return [*((t, torch.int32, n) for t in nodes),
+            (cr, torch.int32, s), (mr, torch.int32, s),
+            (crr, torch.float32, s), (mrr, torch.float32, s),
+            (mask, torch.int32, n), (counts, torch.int32, n)]
 
 
 def sweep_fused(
@@ -298,34 +257,23 @@ def sweep_fused(
     ``csrc/sweep_fit.cu`` (and raises if it cannot); on CPU tensors it runs
     :func:`sweep_fused_plain`.
     """
-    device = _check_operands(
+    device = _build.check_operands(_operand_spec(
         (ac, am, ap, uc, um, pc), cr, mr, crr, mrr, mask, counts
-    )
+    ), "fused sweep")
     if device.type == "cpu":
-        _count(globals(), "PLAIN_CALLS")
+        _build.count(globals(), "PLAIN_CALLS")
         return sweep_fused_plain(
             ac, am, ap, uc, um, pc, cr, mr, crr, mrr, mask, counts,
             strict=strict,
         )
     if device.type != "cuda":
         raise ValueError(f"fused sweep runs on cuda or cpu, not {device}")
-    n, s = int(ac.shape[0]), int(cr.shape[0])
-    totals = torch.zeros(s, dtype=torch.int64, device=device)
-    if n == 0 or s == 0:
-        return totals
-    with torch.cuda.device(device):
-        sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-        # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
-        rc = _sweep_fn()(
-            _ptr(ac), _ptr(am), _ptr(ap), _ptr(uc), _ptr(um), _ptr(pc),
-            _ptr(mask), _ptr(counts), _ptr(cr), _ptr(mr), _ptr(crr),
-            _ptr(mrr), _ptr(totals),
-            n, s, node_chunk(n, s, sm_count), int(bool(strict)),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sweep_fit kernel launch failed: CUDA error {rc}")
-    _count(globals(), "LAUNCHES")
+    totals, launch = _build.bind(
+        "sweep_fit", (ac, am, ap, uc, um, pc, mask, counts, cr, mr, crr, mrr),
+        int(ac.shape[0]), int(cr.shape[0]), strict,
+    )
+    if launch():
+        _build.count(globals(), "LAUNCHES")
     return totals
 
 
@@ -434,6 +382,59 @@ def _fused_sweep(
                           sync=False, staged=staged)
 
 
+#: The node columns the eligibility proofs read, by their names on a
+#: snapshot and on its node-shape groups alike.
+_PROOF_COLUMNS = ("alloc_cpu_milli", "alloc_mem_bytes", "alloc_pods",
+                  "used_cpu_req_milli", "used_mem_req_bytes", "pods_count")
+
+
+def _lane_mask(mode: str, healthy, node_mask):
+    """The kernels' lane mask: strict mode ANDs ``healthy`` into
+    ``node_mask``; reference mode takes ``node_mask`` as it is (its
+    phantom nodes are zero rows from packing)."""
+    if mode != "strict":
+        return node_mask
+    healthy = np.asarray(healthy, dtype=bool)
+    if node_mask is None:
+        return healthy
+    return healthy & np.asarray(node_mask, dtype=bool)
+
+
+def _sweep_routed(nodes, kernel_tensors, counts, lane_mask, exact, suffix,
+                  cpu_reqs, mem_reqs, replicas, *, mode, force_exact, device,
+                  sync):
+    """The 2-resource router: the proof over the six ``nodes`` columns
+    (weighted by ``counts`` where rows are node groups), then the fused
+    kernel on ``kernel_tensors()`` with ``lane_mask``, or ``exact()``,
+    the exact program's ``(totals, schedulable)``.  The route is counted
+    under its label, which ends in ``suffix``, and the proof's first
+    failed condition (``forced`` under ``force_exact``)."""
+    use_rcp = None
+    reason = "forced"
+    if not force_exact:
+        with _phases.current().phase("proof"):
+            reason = sweep_proof_failure(*nodes, cpu_reqs, mem_reqs,
+                                         counts=counts)
+            if reason is None:
+                use_rcp = rcp_division_eligible(
+                    nodes[0], nodes[1], nodes[3], nodes[4], cpu_reqs,
+                    mem_reqs,
+                )
+    if use_rcp is not None:
+        label = _fused_label(device, use_rcp) + suffix
+        totals, schedulable = _fused_sweep(
+            kernel_tensors(), cpu_reqs, mem_reqs, replicas, lane_mask,
+            counts, use_rcp=use_rcp, strict=mode == "strict", device=device,
+            sync=sync, label=label,
+        )
+        observe_route(label, "eligible", len(cpu_reqs))
+        return totals, schedulable, label
+    label = "torch_int64" + suffix
+    totals, schedulable = exact()
+    observe_route(label, reason, len(cpu_reqs))
+    return totals, schedulable, label
+
+
 def sweep_auto(
     snapshot,
     cpu_reqs,
@@ -460,106 +461,18 @@ def sweep_auto(
     pending pinned copy (:func:`..fit.fetch`).
     """
     device = _devcache.resolve_device(device)
-    nodes = (
-        snapshot.alloc_cpu_milli, snapshot.alloc_mem_bytes,
-        snapshot.alloc_pods, snapshot.used_cpu_req_milli,
-        snapshot.used_mem_req_bytes, snapshot.pods_count,
+    nodes = tuple(getattr(snapshot, f) for f in _PROOF_COLUMNS)
+    return _sweep_routed(
+        nodes, lambda: _devcache.CACHE.kernel_tensors(snapshot, device),
+        None, _lane_mask(mode, snapshot.healthy, node_mask),
+        lambda: sweep_grid_staged(
+            *nodes, snapshot.healthy, cpu_reqs, mem_reqs, replicas,
+            mode=mode, node_mask=node_mask, snapshot=snapshot, device=device,
+            sync=sync,
+        ),
+        "", cpu_reqs, mem_reqs, replicas, mode=mode, force_exact=force_exact,
+        device=device, sync=sync,
     )
-    alloc_cpu, alloc_mem, _, used_cpu, used_mem, _ = nodes
-    if mode == "strict":
-        healthy_arr = np.asarray(snapshot.healthy, dtype=bool)
-        kernel_mask = (
-            healthy_arr
-            if node_mask is None
-            else healthy_arr & np.asarray(node_mask, dtype=bool)
-        )
-    else:
-        kernel_mask = node_mask
-    use_rcp = None
-    reason = "forced"
-    if not force_exact:
-        with _phases.current().phase("proof"):
-            reason = sweep_proof_failure(*nodes, cpu_reqs, mem_reqs)
-            if reason is None:
-                use_rcp = rcp_division_eligible(
-                    alloc_cpu, alloc_mem, used_cpu, used_mem, cpu_reqs,
-                    mem_reqs,
-                )
-    if use_rcp is not None:
-        label = _fused_label(device, use_rcp)
-        totals, schedulable = _fused_sweep(
-            _devcache.CACHE.kernel_tensors(snapshot, device), cpu_reqs,
-            mem_reqs, replicas, kernel_mask, None,
-            use_rcp=use_rcp, strict=mode == "strict", device=device,
-            sync=sync, label=label,
-        )
-        observe_route(label, "eligible", len(cpu_reqs))
-        return totals, schedulable, label
-    totals, schedulable = sweep_grid_staged(
-        *nodes, snapshot.healthy, cpu_reqs, mem_reqs, replicas, mode=mode,
-        node_mask=node_mask, snapshot=snapshot, device=device, sync=sync,
-    )
-    observe_route("torch_int64", reason, len(cpu_reqs))
-    return totals, schedulable, "torch_int64"
-
-
-def _sweep_auto_grouped(
-    grouped,
-    grid,
-    *,
-    mode: str = "reference",
-    node_mask=None,
-    force_exact: bool = False,
-    device="cuda",
-    sync: bool = True,
-):
-    """:func:`sweep_auto` over node-shape groups with count weighting.
-
-    ``node_mask`` folds into the per-group effective counts (a masked
-    node's fit is zero in every mode, so removing it from its group's
-    multiplicity is the identical sum); strict mode's ``healthy`` rides as
-    the kernel lane mask.  Kernel names carry a ``_grouped`` suffix.
-    """
-    device = _devcache.resolve_device(device)
-    counts = grouped.effective_counts(node_mask)
-    cpu_reqs = grid.cpu_request_milli
-    mem_reqs = grid.mem_request_bytes
-    use_rcp = None
-    reason = "forced"
-    if not force_exact:
-        with _phases.current().phase("proof"):
-            reason = sweep_proof_failure(
-                grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
-                grouped.alloc_pods, grouped.used_cpu_req_milli,
-                grouped.used_mem_req_bytes, grouped.pods_count,
-                cpu_reqs, mem_reqs, counts=counts,
-            )
-            if reason is None:
-                use_rcp = rcp_division_eligible(
-                    grouped.alloc_cpu_milli, grouped.alloc_mem_bytes,
-                    grouped.used_cpu_req_milli, grouped.used_mem_req_bytes,
-                    cpu_reqs, mem_reqs,
-                )
-    if use_rcp is not None:
-        kernel_mask = (
-            np.asarray(grouped.healthy, dtype=bool)
-            if mode == "strict" else None
-        )
-        label = _fused_label(device, use_rcp) + "_grouped"
-        totals, schedulable = _fused_sweep(
-            _devcache.CACHE.grouped_kernel_tensors(grouped, device),
-            cpu_reqs, mem_reqs, grid.replicas, kernel_mask, counts,
-            use_rcp=use_rcp, strict=mode == "strict", device=device,
-            sync=sync, label=label,
-        )
-        observe_route(label, "eligible", len(cpu_reqs))
-        return totals, schedulable, label
-    totals, schedulable = sweep_grouped_staged(
-        grouped, cpu_reqs, mem_reqs, grid.replicas,
-        mode=mode, node_mask=node_mask, device=device, sync=sync,
-    )
-    observe_route("torch_int64_grouped", reason, len(cpu_reqs))
-    return totals, schedulable, "torch_int64_grouped"
 
 
 def sweep_snapshot_auto(
@@ -577,7 +490,8 @@ def sweep_snapshot_auto(
     The dispatch the CLI ``-grid`` path uses (the reference evaluates its
     one scenario with the loop at ``ClusterCapacity.go:105-140``; a sweep
     is that loop over S what-if specs).  Degenerate fleets
-    (:func:`..snapshot.grouped_for_dispatch`) sweep node-shape groups.
+    (:func:`..snapshot.grouped_for_dispatch`) sweep node-shape groups
+    (labels ending in ``_grouped``).
     ``node_mask`` (``[N]`` bool) zeroes constraint-infeasible nodes, e.g.
     the implicit hard-taint mask of strict surfaces.  ``kernel="exact"``
     forces the int64 program.  ``device`` defaults to ``"cuda"`` and
@@ -601,9 +515,22 @@ def sweep_snapshot_auto(
     grid.validate()
     grouped = grouped_for_dispatch(snapshot)
     if grouped is not None:
-        return _sweep_auto_grouped(
-            grouped, grid, mode=mode, node_mask=node_mask,
-            force_exact=(kernel == "exact"), device=device, sync=sync,
+        # ``node_mask`` folds into the per-group effective counts (a masked
+        # node's fit is zero in every mode, so removing it from its group's
+        # multiplicity is the identical sum); strict mode's ``healthy``
+        # rides as the kernel's lane mask.
+        cpu_reqs, mem_reqs = grid.cpu_request_milli, grid.mem_request_bytes
+        return _sweep_routed(
+            tuple(getattr(grouped, f) for f in _PROOF_COLUMNS),
+            lambda: _devcache.CACHE.grouped_kernel_tensors(grouped, device),
+            grouped.effective_counts(node_mask),
+            _lane_mask(mode, grouped.healthy, None),
+            lambda: sweep_grouped_staged(
+                grouped, cpu_reqs, mem_reqs, grid.replicas, mode=mode,
+                node_mask=node_mask, device=device, sync=sync,
+            ),
+            "_grouped", cpu_reqs, mem_reqs, grid.replicas, mode=mode,
+            force_exact=kernel == "exact", device=device, sync=sync,
         )
     return sweep_auto(
         snapshot,

@@ -27,7 +27,6 @@ label and the reason for the route (:mod:`..telemetry.routes`).
 
 from __future__ import annotations
 
-import ctypes
 import time
 
 import numpy as np
@@ -37,13 +36,11 @@ from kubernetesclustercapacity_tpu_torch import devcache as _devcache
 from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     BLOCK_CELLS,
-    _count,
-    _ptr,
-    node_chunk,
     observed_fetch,
     sweep_grid_multi_staged,
 )
 from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
+    _lane_mask,
     plain_epilogue,
     scenario_reciprocals,
 )
@@ -235,8 +232,9 @@ def stage_multi_operands(
     )
 
 
-def _check_operands(alloc, used, ap, pc, reqs, rcps, mask) -> torch.device:
-    """Validate the R-resource sweep's operands; returns their device."""
+def _operand_spec(alloc, used, ap, pc, reqs, rcps, mask) -> list:
+    """The R-resource sweep's operands, each with the dtype and shape it
+    must have (:func:`._build.check_operands`)."""
     if alloc.dim() != 2 or reqs.dim() != 2:
         raise ValueError("alloc, used and reqs must be 2-D ([R, N], [R, S])")
     r, n = (int(d) for d in alloc.shape)
@@ -245,48 +243,10 @@ def _check_operands(alloc, used, ap, pc, reqs, rcps, mask) -> torch.device:
         raise ValueError(
             f"reqs has {int(reqs.shape[0])} rows for {r} resource rows"
         )
-    expected = [(alloc, torch.int32, (r, n)), (used, torch.int32, (r, n)),
-                (ap, torch.int32, (n,)), (pc, torch.int32, (n,)),
-                (reqs, torch.int32, (r, s))]
-    if rcps is not None:
-        expected.append((rcps, torch.float32, (r, s)))
-    if mask is not None:
-        expected.append((mask, torch.int32, (n,)))
-    device = alloc.device
-    for t, dtype, shape in expected:
-        if t.device != device:
-            raise ValueError(
-                f"multi sweep operands span devices ({t.device} vs {device})"
-            )
-        if t.dtype != dtype:
-            raise TypeError(f"multi sweep operand is {t.dtype}, want {dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(
-                f"multi sweep operand has shape {tuple(t.shape)}, want {shape}"
-            )
-        if not t.is_contiguous():
-            raise ValueError("multi sweep operands must be contiguous")
-    return device
-
-
-_MULTI_ARGTYPES = (ctypes.c_void_p,) * 8 + (
-    ctypes.c_longlong,  # n
-    ctypes.c_int,  # s
-    ctypes.c_int,  # r
-    ctypes.c_longlong,  # chunk
-    ctypes.c_int,  # strict
-    ctypes.c_void_p,  # stream
-)
-
-
-def _multi_fn():
-    """The bound C entry point, built and declared on first use (without
-    ``argtypes`` ctypes would pass each pointer as a 32-bit int)."""
-    fn = _build.library("sweep_multi").kccap_sweep_multi
-    if fn.argtypes != _MULTI_ARGTYPES:
-        fn.argtypes = _MULTI_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    return [(alloc, torch.int32, (r, n)), (used, torch.int32, (r, n)),
+            (ap, torch.int32, (n,)), (pc, torch.int32, (n,)),
+            (reqs, torch.int32, (r, s)), (rcps, torch.float32, (r, s)),
+            (mask, torch.int32, (n,))]
 
 
 def sweep_multi(
@@ -300,31 +260,23 @@ def sweep_multi(
     launches ``csrc/sweep_multi.cu`` (and raises if it cannot); on CPU
     tensors it runs :func:`sweep_multi_plain`.
     """
-    device = _check_operands(alloc, used, ap, pc, reqs, rcps, mask)
+    device = _build.check_operands(
+        _operand_spec(alloc, used, ap, pc, reqs, rcps, mask), "multi sweep"
+    )
     if device.type == "cpu":
-        _count(globals(), "PLAIN_CALLS")
+        _build.count(globals(), "PLAIN_CALLS")
         return sweep_multi_plain(
             alloc, used, ap, pc, reqs, rcps, mask, strict=strict
         )
     if device.type != "cuda":
         raise ValueError(f"multi sweep runs on cuda or cpu, not {device}")
     r, n = (int(d) for d in alloc.shape)
-    s = int(reqs.shape[1])
-    totals = torch.zeros(s, dtype=torch.int64, device=device)
-    if n == 0 or s == 0:
-        return totals
-    with torch.cuda.device(device):
-        sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-        # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
-        rc = _multi_fn()(
-            _ptr(alloc), _ptr(used), _ptr(ap), _ptr(pc), _ptr(mask),
-            _ptr(reqs), _ptr(rcps), _ptr(totals),
-            n, s, r, node_chunk(n, s, sm_count), int(bool(strict)),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sweep_multi kernel launch failed: CUDA error {rc}")
-    _count(globals(), "LAUNCHES")
+    totals, launch = _build.bind(
+        "sweep_multi", (alloc, used, ap, pc, mask, reqs, rcps), n,
+        int(reqs.shape[1]), strict, (r,),
+    )
+    if launch():
+        _build.count(globals(), "LAUNCHES")
     return totals
 
 
@@ -422,14 +374,7 @@ def sweep_multi_auto(
                     alloc_rn, used_rn, reqs_sr, scales
                 )
         if reason is None:
-            if mode == "strict":
-                healthy_arr = np.asarray(healthy, dtype=bool)
-                kernel_mask = (
-                    healthy_arr if shared_mask is None
-                    else healthy_arr & shared_mask
-                )
-            else:
-                kernel_mask = shared_mask
+            kernel_mask = _lane_mask(mode, healthy, shared_mask)
             label = _multi_label(device, use_rcp)
             t0 = time.perf_counter()
             with clk.live("stage"):

@@ -54,7 +54,6 @@ import os
 import socketserver
 import threading
 import time
-import weakref
 from contextlib import ExitStack, contextmanager, nullcontext
 
 import numpy as np
@@ -191,70 +190,6 @@ class _ThreadingServer(socketserver.ThreadingTCPServer):
                 sock.close()
             except OSError:
                 pass
-
-
-def _retire_fold_box(box: list) -> None:
-    """Finalizer body for a dying :class:`_FoldedFetch` that never
-    materialized: un-book its staged buffer so the ledger stays honest.
-    Swallows everything — it can run during interpreter shutdown."""
-    try:
-        staged = box[0]
-        box[0] = None
-        if staged is not None:
-            _memledger.retire(staged)
-    except Exception:
-        pass
-
-
-class _FoldedFetch:
-    """Shared device→host materialization for one async folded dispatch.
-
-    The whole batch rides ONE :class:`..ops.fit.AsyncFetch`: one packed
-    device buffer, one pinned host copy, one CUDA event.  The first member
-    to build its response waits on that event; everyone after slices the
-    cached host arrays.  While the copy is pending its device buffer is
-    booked in the device-memory ledger under ``fold_fetch``, so an
-    abandoned fold shows up as booked bytes, not silent device memory.
-    """
-
-    def __init__(self, pending) -> None:
-        self._pending = pending
-        self._lock = threading.Lock()
-        staged = pending.staged
-        self._staged: tuple | None = None if staged is None else (staged,)
-        if self._staged is not None:
-            _memledger.register(self._staged, "fold_fetch")
-        # The box — never ``self`` — rides in the finalizer.
-        self._staged_box: list = [self._staged]
-        weakref.finalize(self, _retire_fold_box, self._staged_box)
-
-    def arrays(self) -> tuple:
-        out = self._pending.arrays()
-        with self._lock:
-            if self._staged is not None:
-                _memledger.retire(self._staged)
-                self._staged = None
-                self._staged_box[0] = None
-        return out
-
-
-class _FoldedSlice:
-    """One member's ``[offset:end]`` view of a :class:`_FoldedFetch`.
-
-    Materializes through the numpy ``__array__`` protocol, so the
-    response path's ``np.asarray`` is the (timed) sync point.
-    """
-
-    def __init__(self, fetch: _FoldedFetch, which: int, offset: int,
-                 end: int) -> None:
-        self._fetch = fetch
-        self._which = which
-        self._offset = offset
-        self._end = end
-
-    def __array__(self, dtype=None, copy=None):
-        view = self._fetch.arrays()[self._which][self._offset:self._end]
-        return np.asarray(view) if dtype is None else np.asarray(view, dtype)
 
 
 #: :func:`_lock_wait` with no clock: nothing to time.
@@ -2534,11 +2469,13 @@ class CapacityServer:
         * all-sweep batches dispatch with ``sync=False``: one launch of
           B1 (or the exact program) on the concatenated grid, one pinned
           device→host copy and one event, shared by every member through
-          :class:`_FoldedFetch`; each member slices the host array;
+          one :class:`..ops.fit.AsyncFetch`; each member slices the host
+          array;
         * batches containing an explain ride the fused sweep+explain
           program, which brings to the host only the explain members'
           per-node rows.
         """
+        from kubernetesclustercapacity_tpu_torch.ops.fit import _AsyncView
         from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
             sweep_explain_snapshot_auto,
             sweep_snapshot_auto,
@@ -2589,7 +2526,7 @@ class CapacityServer:
                 node_mask=mask, device=self._device, sync=False,
             )
             if not isinstance(totals, np.ndarray):
-                fetch = _FoldedFetch(totals.fetch)
+                fetch = totals.fetch
         out, explain_at = [], 0
         for i, (op, _, _, g) in enumerate(items):
             offset, end = int(bounds[i]), int(bounds[i + 1])
@@ -2618,8 +2555,8 @@ class CapacityServer:
                 ))
             elif fetch is not None:
                 out.append((
-                    _FoldedSlice(fetch, 0, offset, end),
-                    _FoldedSlice(fetch, 1, offset, end),
+                    _AsyncView(fetch, 0, slice(offset, end)),
+                    _AsyncView(fetch, 1, slice(offset, end)),
                     kernel,
                 ))
             else:

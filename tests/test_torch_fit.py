@@ -23,6 +23,7 @@ from kubernetesclustercapacity_tpu.snapshot import (
     snapshot_from_fixture,
     synthetic_snapshot,
 )
+from kubernetesclustercapacity_tpu_torch.ops import _build
 from kubernetesclustercapacity_tpu_torch.ops import fit as t_fit
 from kubernetesclustercapacity_tpu_torch.snapshot import ClusterSnapshot
 
@@ -384,10 +385,12 @@ def test_exact_kernel_operand_check_refuses_what_the_kernel_cannot_take(
     elif case == "device":
         scen[0] = scen[0].to("meta")
     with pytest.raises(error):
-        t_fit._check_exact_operands(cols, *scen, mask, counts)
-    t_fit._check_exact_operands(
+        _build.check_operands(t_fit._exact_spec(cols, *scen, mask, counts),
+                              "exact sweep")
+    _build.check_operands(t_fit._exact_spec(
         _torch(exact_edges.columns(16, 1)),
-        *_torch(list(exact_edges.requests(5, 2))), None, None)
+        *_torch(list(exact_edges.requests(5, 2))), None, None),
+        "exact sweep")
 
 
 _HOST_HARNESS = r"""

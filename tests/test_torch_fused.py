@@ -31,7 +31,7 @@ from kubernetesclustercapacity_tpu_torch import devcache as t_devcache
 from kubernetesclustercapacity_tpu_torch import masks as t_masks
 from kubernetesclustercapacity_tpu_torch import scenario as t_scenario
 from kubernetesclustercapacity_tpu_torch import snapshot as t_snapshot
-from kubernetesclustercapacity_tpu_torch.ops import fit as t_fit
+from kubernetesclustercapacity_tpu_torch.ops import _build as t_build
 from kubernetesclustercapacity_tpu_torch.ops import fused_fit as tf
 
 MIB = 1024 * 1024
@@ -358,12 +358,12 @@ def test_wrapper_rejects_bad_operands(mutate):
                 (10**8, 1, 132), (100_000, 100_000, 132)],
 )
 def test_node_chunk_grid(n, s, sms):
-    chunk = t_fit.node_chunk(n, s, sms)
+    chunk = t_build.node_chunk(n, s, sms)
     chunks = -(-n // chunk)
-    assert chunk >= t_fit.MIN_NODES_PER_BLOCK and chunks <= 65535
-    scenario_blocks = -(-s // t_fit.SCENARIOS_PER_BLOCK)
-    if n >= t_fit.MIN_NODES_PER_BLOCK * t_fit.BLOCKS_PER_SM * sms:
-        assert chunks * scenario_blocks >= t_fit.BLOCKS_PER_SM * sms or \
+    assert chunk >= t_build.MIN_NODES_PER_BLOCK and chunks <= 65535
+    scenario_blocks = -(-s // t_build.SCENARIOS_PER_BLOCK)
+    if n >= t_build.MIN_NODES_PER_BLOCK * t_build.BLOCKS_PER_SM * sms:
+        assert chunks * scenario_blocks >= t_build.BLOCKS_PER_SM * sms or \
             chunks == 65535
 
 
@@ -372,11 +372,9 @@ def test_node_chunk_grid(n, s, sms):
 def test_grid_constants_match_the_kernel_sources(source):
     """node_chunk sizes the grid from the kernels' threads per block and
     scenarios per thread; each source declares the same two numbers."""
-    from kubernetesclustercapacity_tpu_torch.ops import _build
-
-    text = (_build.CSRC / source).read_text()
-    assert f"constexpr int kThreads = {t_fit.THREADS_PER_BLOCK};" in text
-    assert f"constexpr int kSpt = {t_fit.SCENARIOS_PER_THREAD};" in text
+    text = (t_build.CSRC / source).read_text()
+    assert f"constexpr int kThreads = {t_build.THREADS_PER_BLOCK};" in text
+    assert f"constexpr int kSpt = {t_build.SCENARIOS_PER_THREAD};" in text
 
 
 @pytest.mark.parametrize("mode", ["reference", "strict"])

@@ -561,6 +561,41 @@ def test_async_sweep_on_card_equals_sync(cuda, kernel):
     assert pending[0].fetch.staged is None
 
 
+def test_folded_fetch_is_booked_until_a_member_reads_it(cuda):
+    """A folded dispatch's pending copy (one packed int64 buffer of every
+    member's totals and flags) is booked under ``fold_fetch`` until the
+    first member reads its slice, and off the book after."""
+    from kubernetesclustercapacity_tpu_torch.service.server import (
+        CapacityServer,
+    )
+    from kubernetesclustercapacity_tpu_torch.telemetry import memledger
+
+    def booked():
+        return memledger.LEDGER.stats()["by_form"].get("fold_fetch", 0)
+
+    assert memledger.enabled()
+    snap = synthetic_snapshot(5_000, seed=29)
+    grids = [random_scenario_grid(100 + 20 * i, seed=31 + i)
+             for i in range(3)]
+    server = CapacityServer(snap, device="cuda", port=0)
+    try:
+        before = booked()
+        out = server._dispatch_sweep_batch(
+            (0, snap.semantics, "auto"),
+            [("sweep", snap, None, g) for g in grids])
+        assert [o[2] for o in out] == ["cuda_i32_rcp_fused"] * 3
+        assert booked() - before == 2 * 360 * 8
+        got = np.asarray(out[1][0])
+        assert booked() == before
+        for (totals, sched, _), g in zip(out, grids):
+            want = sweep_snapshot_auto(snap, g)
+            np.testing.assert_array_equal(np.asarray(totals), want[0])
+            np.testing.assert_array_equal(np.asarray(sched), want[1])
+        np.testing.assert_array_equal(got, np.asarray(out[1][0]))
+    finally:
+        server.shutdown()
+
+
 def test_stage_replace_copies_in_place_on_the_card(cuda):
     import dataclasses
 

@@ -331,7 +331,8 @@ def _exact_route_case(grouped, reason):
 @pytest.mark.parametrize("reason", ["mem_not_kib", "forced", "int32_range",
                                     "zero_request", "total_bound"])
 @pytest.mark.parametrize("grouped", [False, True])
-def test_every_exact_route_keeps_its_label_and_reason(grouped, reason):
+def test_every_exact_route_keeps_its_label_and_reason(grouped, reason,
+                                                      monkeypatch):
     from kubernetesclustercapacity_tpu.ops import fit as j_fit
     from kubernetesclustercapacity_tpu.snapshot import (
         grouped_for_dispatch as j_grouped_for_dispatch,
@@ -350,8 +351,13 @@ def test_every_exact_route_keeps_its_label_and_reason(grouped, reason):
     if grouped:
         grid = ScenarioGrid(cpu_request_milli=cpu, mem_request_bytes=mem,
                             replicas=reps)
-        totals, sched, kernel = tf._sweep_auto_grouped(
-            group, grid, mode="reference", force_exact=force, device="cpu")
+        if reason == "zero_request":
+            # The grid's own check refuses a zero request before any route
+            # is chosen; the router's proof is what this case holds.
+            monkeypatch.setattr(ScenarioGrid, "validate", lambda self: None)
+        totals, sched, kernel = tf.sweep_snapshot_auto(
+            snap, grid, mode="reference", kernel="exact" if force else "auto",
+            device="cpu")
     else:
         totals, sched, kernel = tf.sweep_auto(
             snap, cpu, mem, reps, mode="reference", force_exact=force,
