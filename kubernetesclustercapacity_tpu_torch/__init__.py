@@ -129,3 +129,8 @@ from kubernetesclustercapacity_tpu_torch.stochastic import (  # noqa: F401
     extract_usage_history,
     load_stochastic_spec,
 )
+from kubernetesclustercapacity_tpu_torch.telemetry import hostmem as _hostmem
+
+# Last, so that the reading holds every module the import loads: the
+# host-memory floor (``telemetry/hostmem.py``'s ``at="import"``).
+_hostmem.note_import()

@@ -42,6 +42,7 @@ from kubernetesclustercapacity_tpu_torch.ops.fit import (
     sweep_grouped_staged,
 )
 from kubernetesclustercapacity_tpu_torch.snapshot import grouped_for_dispatch
+from kubernetesclustercapacity_tpu_torch.telemetry import hostmem as _hostmem
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 from kubernetesclustercapacity_tpu_torch.telemetry.routes import observe_route
 
@@ -422,15 +423,19 @@ def _sweep_routed(nodes, kernel_tensors, counts, lane_mask, exact, suffix,
                 )
     if use_rcp is not None:
         label = _fused_label(device, use_rcp) + suffix
+        rss0 = _hostmem.dispatch_start(label)
         totals, schedulable = _fused_sweep(
             kernel_tensors(), cpu_reqs, mem_reqs, replicas, lane_mask,
             counts, use_rcp=use_rcp, strict=mode == "strict", device=device,
             sync=sync, label=label,
         )
+        _hostmem.dispatch_end(label, rss0)
         observe_route(label, "eligible", len(cpu_reqs))
         return totals, schedulable, label
     label = "torch_int64" + suffix
+    rss0 = _hostmem.dispatch_start(label)
     totals, schedulable = exact()
+    _hostmem.dispatch_end(label, rss0)
     observe_route(label, reason, len(cpu_reqs))
     return totals, schedulable, label
 

@@ -44,6 +44,7 @@ from kubernetesclustercapacity_tpu_torch.ops.fused_fit import (
     plain_epilogue,
     scenario_reciprocals,
 )
+from kubernetesclustercapacity_tpu_torch.telemetry import hostmem as _hostmem
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
 from kubernetesclustercapacity_tpu_torch.telemetry.routes import observe_route
 
@@ -376,6 +377,7 @@ def sweep_multi_auto(
         if reason is None:
             kernel_mask = _lane_mask(mode, healthy, shared_mask)
             label = _multi_label(device, use_rcp)
+            rss0 = _hostmem.dispatch_start(label)
             t0 = time.perf_counter()
             with clk.live("stage"):
                 ops = stage_multi_operands(
@@ -386,13 +388,16 @@ def sweep_multi_auto(
             with clk.live("device_exec"):
                 totals = sweep_multi(*ops, strict=mode == "strict")
             (totals,) = observed_fetch(label, t0, (totals,), staged=staged)
+            _hostmem.dispatch_end(label, rss0)
             schedulable = totals >= np.asarray(replicas, dtype=np.int64)
             observe_route(label, "eligible", len(replicas))
             return totals, schedulable, label
+    rss0 = _hostmem.dispatch_start("torch_int64_multi")
     totals, schedulable = sweep_grid_multi_staged(
         alloc_rn, used_rn, alloc_pods, pods_count, healthy, reqs_sr,
         replicas, mode=mode, node_masks=node_masks,
         max_per_node=max_per_node, device=device,
     )
+    _hostmem.dispatch_end("torch_int64_multi", rss0)
     observe_route("torch_int64_multi", reason, len(replicas))
     return totals, schedulable, "torch_int64_multi"

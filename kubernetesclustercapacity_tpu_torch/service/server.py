@@ -87,6 +87,9 @@ from kubernetesclustercapacity_tpu_torch.snapshot import (
 )
 from kubernetesclustercapacity_tpu_torch.sources import resolve_source
 from kubernetesclustercapacity_tpu_torch.telemetry import (
+    hostmem as _hostmem,
+)
+from kubernetesclustercapacity_tpu_torch.telemetry import (
     memledger as _memledger,
 )
 from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
@@ -741,10 +744,12 @@ class CapacityServer:
             target=self._tcp.serve_forever, daemon=True
         )
         self._thread.start()
+        _hostmem.milestone("served")
 
     def serve_forever(self) -> None:
         _process.annotate_collections()
         self._serving = True
+        _hostmem.milestone("served")
         self._tcp.serve_forever()
 
     def shutdown(self) -> None:
@@ -2780,11 +2785,13 @@ class CapacityServer:
                         "update needs a fixture-backed source (.json); "
                         ".npz checkpoints carry no raw objects to update"
                     )
+                _hostmem.milestone("store_start")
                 self._store = ClusterStore(
                     self.fixture,
                     semantics=self.snapshot.semantics,
                     extended_resources=tuple(sorted(self.snapshot.extended)),
                 )
+                _hostmem.milestone("store_built")
             old = self.snapshot
             try:
                 with clk.phase("apply"):

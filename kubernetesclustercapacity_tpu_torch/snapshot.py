@@ -535,11 +535,19 @@ def snapshot_from_fixture(
             "extended resources require strict semantics (reference "
             "semantics has no extended-column concept)"
         )
+    if semantics not in ("reference", "strict"):
+        raise ValueError(
+            f"unknown semantics {semantics!r} (want 'reference'|'strict')"
+        )
+    from kubernetesclustercapacity_tpu_torch.telemetry import hostmem
+
+    hostmem.milestone("pack_start")
     if semantics == "reference":
-        return _pack_reference(fixture)
-    if semantics == "strict":
-        return _pack_strict(fixture, extended_resources)
-    raise ValueError(f"unknown semantics {semantics!r} (want 'reference'|'strict')")
+        snap = _pack_reference(fixture)
+    else:
+        snap = _pack_strict(fixture, extended_resources)
+    hostmem.milestone("pack_end")
+    return snap
 
 
 def _pack_reference(fixture: dict) -> ClusterSnapshot:

@@ -12,8 +12,10 @@ named phases; :mod:`.memledger` books the device tensors the service
 keeps resident; :mod:`.compilewatch` splits each kernel label's first
 dispatch (its build or load) from the steady state; :mod:`.exposition`
 serves the registry as Prometheus text with ``/healthz``;
-:mod:`.process` adds the process gauges; :mod:`.slo` turns the request
-metrics into error-budget burn rates; :mod:`.profiler` samples every
+:mod:`.process` adds the process gauges; :mod:`.hostmem` attributes the
+process's resident memory to its set-up milestones and to each route's
+first dispatch; :mod:`.slo` turns the request metrics into error-budget
+burn rates; :mod:`.profiler` samples every
 thread's stack joined to the live phase table; :mod:`.traceview` stitches
 per-process span logs into one trace tree and its critical path.
 

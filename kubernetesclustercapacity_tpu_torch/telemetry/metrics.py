@@ -402,8 +402,10 @@ class MetricsRegistry:
         the families the JAX server serves."""
         return self._register(Counter, name, help, labelnames, scrape)
 
-    def gauge(self, name: str, help: str = "", labelnames=()) -> Gauge:
-        return self._register(Gauge, name, help, labelnames)
+    def gauge(self, name: str, help: str = "", labelnames=(), *,
+              scrape: bool = True) -> Gauge:
+        """``scrape`` as for :meth:`counter`."""
+        return self._register(Gauge, name, help, labelnames, scrape)
 
     def histogram(
         self,

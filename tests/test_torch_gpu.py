@@ -1442,3 +1442,24 @@ def test_device_loops_do_not_sync_once_per_step(cuda, program):
         for steps in (small, large):
             counts[steps].append(_count_syncs(run(steps)))
     assert min(counts[large]) <= min(counts[small]), counts
+
+
+def test_b1_and_the_exact_route_each_file_a_first_dispatch_reading(cuda):
+    import math
+
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import REGISTRY
+
+    snap = synthetic_snapshot(2000, seed=4)
+    grid = random_scenario_grid(256, seed=4)
+    _, _, b1 = sweep_snapshot_auto(snap, grid, mode=snap.semantics,
+                                   device="cuda")
+    _, _, exact = sweep_snapshot_auto(snap, grid, mode=snap.semantics,
+                                      kernel="exact", device="cuda")
+    assert b1 in ("cuda_i32_rcp_fused", "cuda_i32_fused")
+    assert exact == "torch_int64"
+    # Set by this test or by an earlier first dispatch of the label in
+    # this process; either way once, and a finite number of bytes.
+    values = REGISTRY.snapshot()[
+        "kccap_hostmem_first_dispatch_bytes"]["values"]
+    for label in (b1, exact):
+        assert math.isfinite(values[f'kernel="{label}"'])
