@@ -56,6 +56,9 @@ from kubernetesclustercapacity_tpu_torch.snapshot import (
     _strict_parse,
     snapshot_from_fixture,
 )
+from kubernetesclustercapacity_tpu_torch.telemetry import hostmem as _hostmem
+from kubernetesclustercapacity_tpu_torch.telemetry import phases as _phases
+from kubernetesclustercapacity_tpu_torch.telemetry.routes import observe_route
 from kubernetesclustercapacity_tpu_torch.topology.model import label_codes
 from kubernetesclustercapacity_tpu_torch.utils.quantity import int64_bits
 
@@ -1004,6 +1007,12 @@ class CapacityModel:
         ``[S, Z]`` zone capacities there, then the skew clamp is row math.
         Shared constraints compose like :meth:`sweep`.  Returns numpy
         ``(totals[S], schedulable[S])``.
+
+        The request's phase clock gets the masks and the domain discovery
+        as ``domains``, the program and the fold as ``device_exec`` and
+        the copy of the totals as ``fetch``; each dispatch counts as one
+        of route ``torch_int64_per_node`` (reason ``topology_spread``),
+        whose first dispatch files its host-memory reading.
         """
         self._require_strict("topology spread")
         self._check_spread_args(max_skew, node_taints_policy)
@@ -1016,10 +1025,14 @@ class CapacityModel:
             node_selector=node_selector or {},
         )
         self._check_extensions(shared_spec.constrained)
-        full_mask, domain_mask = self._spread_masks(
-            shared_spec, node_taints_policy
-        )
-        zone_ids, member, _ = self._zone_membership(topology_key, domain_mask)
+        clk = _phases.current()
+        with clk.phase("domains"):
+            full_mask, domain_mask = self._spread_masks(
+                shared_spec, node_taints_policy
+            )
+            zone_ids, member, _ = self._zone_membership(
+                topology_key, domain_mask
+            )
         n_zones = len(zone_ids)
         if n_zones == 0:
             return (
@@ -1027,22 +1040,30 @@ class CapacityModel:
                 grid.replicas.astype(np.int64) <= 0,
             )
         device, put = _devcache.int64_putter(self.device)
-        _, _, fits = sweep_grid(
-            *_devcache.CACHE.exact_tensors(snap, device),
-            put(grid.cpu_request_milli),
-            put(grid.mem_request_bytes),
-            put(grid.replicas),
-            mode="strict",
-            node_mask=(None if full_mask is None
-                       else put(full_mask, torch.bool)),
-            return_per_node=True,
-        )
-        # Column 0 absorbs the nodes of no domain.
-        c = torch.zeros(
-            (grid.size, n_zones + 1), dtype=torch.int64, device=device
-        ).index_add_(1, put(member), fits)[:, 1:]
-        floor = c.min(dim=1, keepdim=True).values
-        totals = torch.minimum(c, floor + max_skew).sum(dim=1).cpu().numpy()
+        label = "torch_int64_per_node"
+        rss0 = _hostmem.dispatch_start(label)
+        cols = _devcache.CACHE.exact_tensors(snap, device)
+        with clk.phase("device_exec"):
+            _, _, fits = sweep_grid(
+                *cols,
+                put(grid.cpu_request_milli),
+                put(grid.mem_request_bytes),
+                put(grid.replicas),
+                mode="strict",
+                node_mask=(None if full_mask is None
+                           else put(full_mask, torch.bool)),
+                return_per_node=True,
+            )
+            # Column 0 absorbs the nodes of no domain.
+            c = torch.zeros(
+                (grid.size, n_zones + 1), dtype=torch.int64, device=device
+            ).index_add_(1, put(member), fits)[:, 1:]
+            floor = c.min(dim=1, keepdim=True).values
+            totals = torch.minimum(c, floor + max_skew).sum(dim=1)
+        with clk.phase("fetch"):
+            totals = totals.cpu().numpy()
+        _hostmem.dispatch_end(label, rss0)
+        observe_route(label, "topology_spread", grid.size)
         return totals, totals >= grid.replicas.astype(np.int64)
 
     def _template_model(self, node_template: dict) -> "CapacityModel":

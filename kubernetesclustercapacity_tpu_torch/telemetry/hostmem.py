@@ -19,7 +19,9 @@ families of the process registry keep the parts apart:
     the resident set's growth across the first dispatch of each route
     label (from once the proof has chosen the label to once the launch
     has its fetch queued): the module images and kernel libraries that
-    route pulls in (CUDA loads each lazily, on first use);
+    route pulls in (CUDA loads each lazily, on first use), the grid
+    ``topology_spread``'s per-node route (``torch_int64_per_node``) among
+    them;
 ``kccap_hostmem_malloc_bytes{kind}``
     glibc's ``mallinfo2()``, read whenever the registry is: ``arena``
     (heap taken from the system), ``mmap`` (chunks mapped on their own),

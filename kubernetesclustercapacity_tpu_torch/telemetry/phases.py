@@ -3,7 +3,7 @@
 The JAX package's ``telemetry/phases.py`` for the PyTorch port's server,
 extended.  Every answering request is split into a FIXED phase
 vocabulary (:data:`PHASES`): the JAX package's nine, so the two servers'
-``kccap_phase_seconds`` series line up, and then the port's own seven.
+``kccap_phase_seconds`` series line up, and then the port's own eight.
 Each phase is a named sub-interval of the request:
 
 ``admission``
@@ -59,7 +59,11 @@ The port's own:
 ``apply``
     ``update``'s ``ClusterStore.apply`` of the request's events;
 ``repack``
-    ``update``'s ``ClusterStore.snapshot()`` and implicit taint mask.
+    ``update``'s ``ClusterStore.snapshot()`` and implicit taint mask;
+``domains``
+    the grid ``topology_spread``'s masks and topology-domain discovery
+    on the host (``CapacityModel.topology_spread_grid``), before its
+    per-node program.
 
 ``decode`` and ``reply`` happen outside the dispatch: the handler times
 them on a clock of its own and files them under the dispatch's op label,
@@ -132,6 +136,7 @@ PHASES = (
     "stage",
     "apply",
     "repack",
+    "domains",
 )
 
 _PHASE_SET = frozenset(PHASES)

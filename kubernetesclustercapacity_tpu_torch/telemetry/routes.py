@@ -4,7 +4,10 @@ The sweep dispatchers (:func:`..ops.fused_fit.sweep_auto`, its grouped
 form, :func:`..ops.fused_multi.sweep_multi_auto`) choose between a fused
 int32 kernel and the exact int64 program by proof.  The reply carries only
 the kernel label; these two families of the process registry keep the
-label and the reason together:
+label and the reason together.  The grid form of ``topology_spread``
+(:meth:`..models.capacity.CapacityModel.topology_spread_grid`) needs
+per-node fits, so it always takes the exact program's per-node form: it
+counts as ``kernel="torch_int64_per_node"``, ``reason="topology_spread"``.
 
 ``kccap_route_dispatches_total{kernel, reason}``
     dispatches (a folded batch is one);
