@@ -588,6 +588,73 @@ def phase_exact_times(pkg, fit, device, identity: str,
     return rows
 
 
+def phase_spread_times(pkg, fit, device, identity: str,
+                       clock_hz: float) -> dict:
+    """The zone-spread kernel (``csrc/sweep_spread.cu``) at the benchmark's
+    zonal shape: a strict 5,000-node cluster over three zones round-robin
+    with 10% tainted NoSchedule (``k5k-zonal``'s shape, seed 26) x 1,000
+    specs of the cell's ranges, ``max_skew`` 1.  Checks the kernel against
+    its plain version (``fit._spread_plain``), then the bare launch's
+    device time (``ms``) and the plain version's (``plain_ms``), each by
+    :func:`device_ms`, the bound of ``kccap_bench/spread_bound.py`` and
+    its share, the host time per call through ``fit.sweep_spread``, and
+    the library's ``ptxas`` lines."""
+    from kccap_bench.spread_bound import spread_bound_s
+    from kubernetesclustercapacity_tpu_torch.ops import _build
+
+    n, s, zones = 5_000, 1_000, 3
+    fixture = pkg.synthetic_fixture(n, seed=26, taint_frac=0.1,
+                                    unhealthy_frac=0.05, topology=(3, 1))
+    snap = pkg.snapshot_from_fixture(fixture, semantics="strict")
+    model = pkg.CapacityModel(snap, mode="strict", fixture=fixture,
+                              device=device)
+    _, member, _ = model._zone_membership("topology.kubernetes.io/zone",
+                                          None)
+    mask = np.asarray(pkg.implicit_taint_mask(snap), dtype=bool)
+    rng = np.random.default_rng(27)
+    scen = (rng.integers(50, 4000, s), rng.integers(64, 8192, s) * MIB,
+            rng.integers(1, 500, s))
+    cols = fit.snapshot_device_arrays(snap, device)
+    cpu, mem, reps, zone = (torch.from_numpy(np.asarray(a, np.int64))
+                            .to(device) for a in (*scen, member))
+    node_mask = torch.from_numpy(mask).to(device)
+
+    def kernel():
+        return fit.sweep_spread(*cols, cpu, mem, reps, zone, zones, 1,
+                                node_mask=node_mask)
+
+    def plain():
+        return fit._spread_plain(cols, cpu, mem, reps, zone, zones, 1,
+                                 node_mask)
+
+    before = fit.SPREAD_LAUNCHES
+    got = kernel()
+    if fit.SPREAD_LAUNCHES - before != 1 or \
+            not torch.equal(got.cpu(), plain().cpu()):
+        raise AssertionError("sweep_spread at 5000x1000x3: kernel differs "
+                             "from plain, or did not launch once")
+    _, launch = _build.bind("sweep_spread", (*cols, node_mask, zone, cpu,
+                                             mem), n, s, True, (zones,),
+                            (1,), rows=zones + 1)
+    ms, hold_calls = device_ms(launch, clock_hz)
+    plain_ms, plain_hold_calls = device_ms(plain, clock_hz)
+    live = int((np.asarray(snap.healthy, bool) & mask & (member > 0)).sum())
+    bound_ms = spread_bound_s(n, live, s) * 1e3
+    ptxas = [line.strip() for line in
+             _build.ptxas_report("sweep_spread").splitlines()
+             if any(k in line for k in ("Compiling entry", "registers",
+                                        "spill"))]
+    row = {"kernel": "sweep_spread[strict, mask, 3 zones]",
+           "shape": f"{n}x{s}", "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "share": bound_ms / ms, "live_nodes": live,
+           "wrapper_host_ms": host_call_ms(kernel),
+           "calls_per_hold": {"kernel": hold_calls,
+                              "plain": plain_hold_calls},
+           "ptxas": ptxas, "gpu": identity}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def device_ms(fn, clock_hz: float,
               launches: int = TIMED_LAUNCHES) -> tuple[float, int]:
     """Median device time of one of ``launches`` calls, each bracketed by
@@ -2593,8 +2660,8 @@ def phase_scheduling(pkg, cli, fit, ff, fm, tmp: str, identity: str,
     ``-device cpu`` text byte for byte.  (n4) ``evaluate(priority=1000)``
     and ``sweep_preemption`` of 1,000 equal a numpy loop over the
     scenarios on the same tables.  (n5) ``topology_spread(_grid)`` and
-    ``nodes_needed(_grid)`` of 1,000 (B1 launches counted) equal the exact
-    program and the host.  (n6) a server on the fixture answers ``place``,
+    ``nodes_needed(_grid)`` of 1,000 (B1 and the spread kernel's launches
+    counted) equal the exact program and the host.  (n6) a server on the fixture answers ``place``,
     ``drain``, ``topology_spread``, ``plan``, ``fit`` with ``priority`` and
     ``sweep`` with ``priorities`` as the library does, 20 warm requests of
     each."""
@@ -2609,7 +2676,8 @@ def phase_scheduling(pkg, cli, fit, ff, fm, tmp: str, identity: str,
         label_codes,
     )
 
-    out = {"ms": {}, "launches": {"sweep_fit": {}, "sweep_multi": {}}}
+    out = {"ms": {}, "launches": {"sweep_fit": {}, "sweep_multi": {},
+                                  "sweep_spread": {}}}
     card = device != "cpu"
 
     def timed(name, fn, runs=5, warmup=1):
@@ -2802,9 +2870,15 @@ def phase_scheduling(pkg, cli, fit, ff, fm, tmp: str, identity: str,
     if ts.zones != host.topology_spread(spec, topology_key="zone").zones:
         raise AssertionError("(n5) topology_spread: card != host")
     ff.LAUNCHES = fm.LAUNCHES = 0
+    spread = fit.SPREAD_LAUNCHES
     tg = model.topology_spread_grid(grid, topology_key="zone")
     if (ff.LAUNCHES, fm.LAUNCHES) != (0, 0):
-        raise AssertionError("(n5) topology_spread_grid launched a kernel")
+        raise AssertionError("(n5) topology_spread_grid launched B1 or B2")
+    spread = fit.SPREAD_LAUNCHES - spread
+    out["launches"]["sweep_spread"] = {"(n5) topology_spread_grid": spread}
+    if card and spread != 1:
+        raise AssertionError(f"(n5) topology_spread_grid: {spread} spread "
+                             "kernel launches, want 1 (3 zones)")
     hg = host.topology_spread_grid(grid, topology_key="zone")
     for s in (0, 499, 999):
         one = host.topology_spread(pkg.PodSpec(
@@ -5745,7 +5819,7 @@ def phase_native_parallel(pkg, cli, fit, ff, tmp: str, identity: str,
     return out
 
 
-KERNELS = ("sweep_fit", "sweep_multi", "sweep_exact")
+KERNELS = ("sweep_fit", "sweep_multi", "sweep_exact", "sweep_spread")
 # A kernel's name and template arguments in its mangled symbol.
 KERNEL_NAME = re.compile(r"(sweep_(?:fit|multi|exact)_kernel\w*?)I((?:L[ib]\d+E)+)E")
 # The kernels of the main paths' rcp variants: B1 <rcp, strict, counts> and
@@ -6417,6 +6491,7 @@ def main() -> int:
     multi_rows_timed = phase_multi_times(fm, multi_paths, identity,
                                          clock_hz)
     exact_rows = phase_exact_times(pkg, fit, device, identity, clock_hz)
+    spread_row = phase_spread_times(pkg, fit, device, identity, clock_hz)
     multi_e2e = phase_multi_end_to_end(fm, multi_paths["f_args"])
 
     print(json.dumps({"paths": {
@@ -6569,6 +6644,25 @@ def main() -> int:
         "shape": exact_rows[0]["shape"],
         "checked_calls": exact_calls,
         "variants": exact_rows,
+        "launch_floor_ms": floor,
+        "gpu": identity,
+    }, {
+        "name": "sweep_spread",
+        "route": "cuda",
+        "source": "kubernetesclustercapacity_tpu_torch/csrc/sweep_spread.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the grid topology spread's "
+                         "per-node program and zone fold, XLA's "
+                         "elementwise ops in the JAX package",
+        # Path (n5)'s grid spread.
+        "launches": sum(sched["launches"]["sweep_spread"].values()),
+        "ms": spread_row["ms"],
+        "plain_ms": spread_row["plain_ms"],
+        "bound_ms": spread_row["bound_ms"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "shape": spread_row["shape"],
+        "variants": [spread_row],
         "launch_floor_ms": floor,
         "gpu": identity,
     }]}

@@ -37,8 +37,8 @@ from kubernetesclustercapacity_tpu_torch.ops import placement as _placement
 from kubernetesclustercapacity_tpu_torch.ops import preemption as _preemption
 from kubernetesclustercapacity_tpu_torch.ops.fit import (
     fit_snapshot,
-    sweep_grid,
     sweep_grid_multi_staged,
+    sweep_spread,
 )
 from kubernetesclustercapacity_tpu_torch.ops.fused_fit import sweep_auto
 from kubernetesclustercapacity_tpu_torch.ops.fused_multi import (
@@ -1002,17 +1002,20 @@ class CapacityModel:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Vectorized :meth:`topology_spread` over a scenario grid.
 
-        One exact per-node sweep on the model's device gives ``fits[S,
-        N]``; an int64 ``index_add_`` over the node axis groups it into
-        ``[S, Z]`` zone capacities there, then the skew clamp is row math.
-        Shared constraints compose like :meth:`sweep`.  Returns numpy
-        ``(totals[S], schedulable[S])``.
+        One zone-spread sweep on the model's device
+        (:func:`..ops.fit.sweep_spread`: on the card one launch of
+        ``csrc/sweep_spread.cu``, which sums each scenario's strict fits
+        by zone and clamps them there; elsewhere, or past its zone cap,
+        the per-node program, an int64 ``index_add_`` into ``[S, Z]`` zone
+        capacities and the clamp as row math).  Shared constraints compose
+        like :meth:`sweep`.  Returns numpy ``(totals[S], schedulable[S])``.
 
         The request's phase clock gets the masks and the domain discovery
         as ``domains``, the program and the fold as ``device_exec`` and
         the copy of the totals as ``fetch``; each dispatch counts as one
-        of route ``torch_int64_per_node`` (reason ``topology_spread``),
-        whose first dispatch files its host-memory reading.
+        of route ``torch_int64_per_node`` (reason ``topology_spread``) on
+        either program, and its first dispatch files its host-memory
+        reading.
         """
         self._require_strict("topology spread")
         self._check_spread_args(max_skew, node_taints_policy)
@@ -1044,22 +1047,17 @@ class CapacityModel:
         rss0 = _hostmem.dispatch_start(label)
         cols = _devcache.CACHE.exact_tensors(snap, device)
         with clk.phase("device_exec"):
-            _, _, fits = sweep_grid(
+            totals = sweep_spread(
                 *cols,
                 put(grid.cpu_request_milli),
                 put(grid.mem_request_bytes),
                 put(grid.replicas),
-                mode="strict",
+                put(member),
+                n_zones,
+                max_skew,
                 node_mask=(None if full_mask is None
                            else put(full_mask, torch.bool)),
-                return_per_node=True,
             )
-            # Column 0 absorbs the nodes of no domain.
-            c = torch.zeros(
-                (grid.size, n_zones + 1), dtype=torch.int64, device=device
-            ).index_add_(1, put(member), fits)[:, 1:]
-            floor = c.min(dim=1, keepdim=True).values
-            totals = torch.minimum(c, floor + max_skew).sum(dim=1)
         with clk.phase("fetch"):
             totals = totals.cpu().numpy()
         _hostmem.dispatch_end(label, rss0)

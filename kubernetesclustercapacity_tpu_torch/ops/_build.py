@@ -15,11 +15,13 @@ kernel's reciprocal-division proof needs correctly rounded f32 steps.
 ``.ptxas.txt`` report beside the library.
 
 Every C entry ``kccap_<name>`` takes its operand pointers, the int64
-totals it adds into, then ``n``, ``s``, any further int scalars, the
-nodes per block (:func:`node_chunk`), ``strict`` and the stream;
-:func:`bind` is the one place that calls one.  The wrappers above
-(``fused_fit.sweep_fused``, ``fused_multi.sweep_multi`` and the exact
-sweep in ``fit``) keep their own launch counters (:func:`count`).
+totals it adds into, then ``n``, ``s``, any further int and then int64
+scalars, the nodes per block (:func:`node_chunk`), ``strict`` and the
+stream; :func:`bind` is the one place that calls one.  The wrappers
+above (``fused_fit.sweep_fused``, ``fused_multi.sweep_multi`` and the
+exact and zone-spread sweeps in ``fit``) keep their own launch counters
+(:func:`count`).  A ``csrc/*.cuh`` header holds code that several
+kernels share.
 """
 
 from __future__ import annotations
@@ -190,30 +192,33 @@ def _entry(name: str, argtypes: tuple):
 
 
 def bind(name: str, operands: tuple, n: int, s: int, strict: bool,
-         extra: tuple = ()):
+         extra: tuple = (), extra64: tuple = (), rows: int = 1):
     """The kernel of ``csrc/<name>.cu`` bound to its operands, on CUDA
     tensors: ``(totals, launch)``.
 
     ``operands`` are the tensors before the totals in the C entry's order
     (None for an optional one left out), ``n`` and ``s`` the node and
-    scenario counts, ``extra`` the int scalars the entry takes after
-    them.  ``totals`` is a zeroed int64 ``[S]`` on the operands' device;
-    each ``launch()`` makes one launch on the current stream that adds
-    the sweep's totals into it, raises on a non-zero launch code (the
+    scenario counts, ``extra`` the int scalars and ``extra64`` the int64
+    scalars the entry takes after them.  ``totals`` is a zeroed int64
+    ``[rows * S]`` on the operands' device, ``rows`` above 1 for a kernel
+    that keeps partial sums beside its totals (the first ``S``); each
+    ``launch()`` makes one launch on the current stream that adds the
+    sweep's totals into it, raises on a non-zero launch code (the
     kernels allocate nothing, and nothing falls back) and returns True.
     Where N or S is 0 there is nothing to launch, and ``launch()``
     returns False."""
     device = operands[0].device
-    totals = torch.zeros(s, dtype=torch.int64, device=device)
+    totals = torch.zeros(rows * s, dtype=torch.int64, device=device)
     if n == 0 or s == 0:
         return totals, lambda: False
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     args = (*(None if t is None else t.data_ptr() for t in operands),
-            totals.data_ptr(), n, s, *extra, node_chunk(n, s, sms),
-            int(bool(strict)))
+            totals.data_ptr(), n, s, *extra, *extra64,
+            node_chunk(n, s, sms), int(bool(strict)))
     argtypes = ((ctypes.c_void_p,) * (len(operands) + 1)
                 + (ctypes.c_longlong, ctypes.c_int)
                 + (ctypes.c_int,) * len(extra)
+                + (ctypes.c_longlong,) * len(extra64)
                 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p))
     # kccap: lint-ok[device-purity] cached build: nvcc runs once per process, at first use, never per launch
     fn = _entry(name, argtypes)

@@ -25,9 +25,10 @@ Bit-exactness notes:
 * Sums wrap mod 2^64, as in Go and XLA.
 
 On CUDA tensors, :func:`sweep_grid` and :func:`sweep_grid_grouped`
-without per-node fits are one launch of ``csrc/sweep_exact.cu``; the
-tensor program here is that kernel's plain version, and the program of
-every sweep that returns per-node fits.
+without per-node fits are one launch of ``csrc/sweep_exact.cu``, and the
+zone spread's totals (:func:`sweep_spread`) one of ``csrc/sweep_spread.cu``;
+the tensor program here is those kernels' plain version, and the program
+of every sweep that returns per-node fits.
 
 Modes: ``"reference"`` is bug-compatible; ``"strict"`` is the corrected
 3-way min with remaining pod slots, clamped at 0, unhealthy nodes zeroed.
@@ -60,6 +61,9 @@ from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
 __all__ = [
     "EXACT_LAUNCHES",
     "EXACT_PLAIN_CALLS",
+    "SPREAD_LAUNCHES",
+    "SPREAD_PLAIN_CALLS",
+    "SPREAD_ZONE_CAP",
     "AsyncFetch",
     "fetch",
     "observed_fetch",
@@ -79,6 +83,7 @@ __all__ = [
     "sweep_grid_staged",
     "sweep_grouped_staged",
     "sweep_snapshot",
+    "sweep_spread",
     "snapshot_device_arrays",
 ]
 
@@ -95,6 +100,16 @@ EXACT_LAUNCHES = 0
 #: Totals-only exact sweeps that ran the kernel's plain version (tensors
 #: not on CUDA): the host twin of :data:`EXACT_LAUNCHES`.
 EXACT_PLAIN_CALLS = 0
+#: Launches of the zone-spread kernel (``csrc/sweep_spread.cu``, its sweep
+#: and its clamp) in this process, and the zone spreads that ran its plain
+#: version instead (:func:`sweep_spread`).
+SPREAD_LAUNCHES = 0
+SPREAD_PLAIN_CALLS = 0
+#: Topology domains the zone-spread kernel sums at most (``kZoneCap`` in
+#: ``csrc/sweep_spread.cu``): cloud regions offer 3-6 zones; a key with
+#: more domains, such as ``kubernetes.io/hostname``, takes the plain
+#: version.
+SPREAD_ZONE_CAP = 16
 
 
 def _u64_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -482,6 +497,58 @@ def _sweep_totals(cols, counts, cpu_reqs, mem_reqs, replicas, *, mode,
     _build.count(globals(), "EXACT_PLAIN_CALLS")
     return _sweep(cols, counts, cpu_reqs, mem_reqs, replicas, mode=mode,
                   node_mask=node_mask, return_fits=False)
+
+
+def _spread_plain(cols, cpu_reqs, mem_reqs, replicas, member, n_zones: int,
+                  max_skew: int, node_mask):
+    """:func:`sweep_spread`'s plain version: the per-node program's
+    ``fits[S, N]``, an int64 ``index_add_`` into ``[S, Z+1]`` zone sums
+    (column 0 absorbs the nodes of no domain), then the clamp as row
+    math."""
+    _, _, fits = _sweep(cols, None, cpu_reqs, mem_reqs, replicas,
+                        mode="strict", node_mask=node_mask, return_fits=True)
+    c = torch.zeros(
+        (int(cpu_reqs.shape[0]), n_zones + 1), dtype=torch.int64,
+        device=cols[0].device,
+    ).index_add_(1, member, fits)[:, 1:]
+    floor = c.min(dim=1, keepdim=True).values
+    return torch.minimum(c, floor + max_skew).sum(dim=1)
+
+
+def sweep_spread(
+    alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count, healthy,
+    cpu_reqs, mem_reqs, replicas, member, n_zones: int, max_skew: int, *,
+    node_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The strict zone spread's ``totals[S]``: each scenario's strict fits
+    summed by topology domain (``member[N]`` int64, the node's domain
+    1..``n_zones``, 0 for none), each domain clamped at the smallest sum
+    plus ``max_skew``, and the clamped sums added (all mod 2^64).
+
+    One launch of ``csrc/sweep_spread.cu`` on CUDA tensors with at least
+    one node, 1 to :data:`SPREAD_ZONE_CAP` domains and an int64
+    ``max_skew``; its plain version (:func:`_spread_plain`, the per-node
+    program) anywhere else, where ``replicas`` feeds the program's unread
+    flags.  The two give the same bits."""
+    cols = (alloc_cpu, alloc_mem, alloc_pods, used_cpu, used_mem, pods_count,
+            healthy)
+    n, s = int(alloc_cpu.shape[0]), int(cpu_reqs.shape[0])
+    if (alloc_cpu.device.type == "cuda" and n > 0
+            and 1 <= n_zones <= SPREAD_ZONE_CAP
+            and _INT64_MIN <= max_skew <= _INT64_MAX):
+        # The exact kernel's operands, the zone codes in the counts' place.
+        _build.check_operands(_exact_spec(cols, cpu_reqs, mem_reqs, None,
+                                          node_mask, member), "spread sweep")
+        out, launch = _build.bind(
+            "sweep_spread", (*cols, node_mask, member, cpu_reqs, mem_reqs),
+            n, s, True, (n_zones,), (max_skew,), rows=n_zones + 1,
+        )
+        if launch():
+            _build.count(globals(), "SPREAD_LAUNCHES")
+        return out[:s]
+    _build.count(globals(), "SPREAD_PLAIN_CALLS")
+    return _spread_plain(cols, cpu_reqs, mem_reqs, replicas, member, n_zones,
+                         max_skew, node_mask)
 
 
 def snapshot_device_arrays(snapshot, device="cuda") -> tuple:

@@ -104,6 +104,24 @@ def mask(n: int, seed: int, *, every_masked: bool = False) -> np.ndarray:
     return np.random.default_rng(seed).random(n) < 0.7
 
 
+def zones(n: int, n_zones: int, seed: int, *,
+          empty_zone: bool = False) -> np.ndarray:
+    """Int64 topology-domain codes of ``n`` nodes for the zone spread:
+    ``1..n_zones`` round-robin as a zoned cluster labels them, and about
+    one node in eight in no domain (0); with ``empty_zone`` the last
+    domain keeps no node."""
+    rng = np.random.default_rng(seed)
+    out = np.arange(n, dtype=np.int64) % n_zones + 1
+    out[rng.random(n) < 0.125] = 0
+    if empty_zone:
+        out[out == n_zones] = 0
+    return out
+
+
+#: ``max_skew`` values of the zone spread: the usual 1 and 2, and one
+#: whose add to a domain's sum wraps.
+SKEWS = (1, 2, 2**62)
+
 #: The sweep's variants: no mask, a mask, every node masked, and counts.
 VARIANTS = ("flat", "masked", "every-masked", "grouped")
 #: ``(N, S)`` of the card tests: a scenario alone, a block and one more,

@@ -368,7 +368,7 @@ def test_node_chunk_grid(n, s, sms):
 
 
 @pytest.mark.parametrize("source", ["sweep_fit.cu", "sweep_multi.cu",
-                                    "sweep_exact.cu"])
+                                    "sweep_exact.cu", "sweep_spread.cu"])
 def test_grid_constants_match_the_kernel_sources(source):
     """node_chunk sizes the grid from the kernels' threads per block and
     scenarios per thread; each source declares the same two numbers."""

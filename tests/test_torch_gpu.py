@@ -169,6 +169,113 @@ def test_exact_kernel_matches_plain(cuda, mode, variant, n, s):
             assert torch.equal(g.cpu(), x.cpu())
 
 
+# -- the zone-spread kernel (``csrc/sweep_spread.cu``, what
+# ``fit.sweep_spread`` launches on CUDA tensors with 1 to SPREAD_ZONE_CAP
+# domains) against its plain version, ``fit._spread_plain``, on the card
+# and on the host; ``test_torch_spread_kernel.py`` holds its host twins
+# against numpy on the same inputs.
+
+def _spread_case(variant, n, s, n_zones, empty_zone):
+    import exact_edges
+
+    seed = n + s + n_zones
+    cols, cpu, mem, reps, mask, _ = exact_edges.case(variant, n, s, seed)
+    member = exact_edges.zones(n, n_zones, seed + 4, empty_zone=empty_zone)
+    return [*cols, cpu, mem, reps, member, mask]
+
+
+def _spread_on(host, device, n_zones, max_skew, plain):
+    from kubernetesclustercapacity_tpu_torch.ops import fit
+
+    ops = [None if a is None else torch.from_numpy(a).to(device)
+           for a in host]
+    if plain:
+        return fit._spread_plain(ops[:7], *ops[7:11], n_zones, max_skew,
+                                 ops[11])
+    return fit.sweep_spread(*ops[:11], n_zones, max_skew, node_mask=ops[11])
+
+
+@pytest.mark.parametrize("n,s", [(4099, 1), (4099, 257), (5000, 1000),
+                                 (1, 1), (0, 7), (300, 0)])
+@pytest.mark.parametrize("max_skew", [1, 2, 2**62])
+@pytest.mark.parametrize("n_zones,empty_zone", [
+    (1, False), (3, False), (3, True), (16, False), (16, True), (17, False)])
+@pytest.mark.parametrize("variant", ["flat", "masked", "every-masked"])
+def test_spread_kernel_matches_plain(cuda, variant, n_zones, empty_zone,
+                                     max_skew, n, s):
+    """Bit-equal to the plain version on the card and on the host; one
+    launch where there are nodes, scenarios and at most SPREAD_ZONE_CAP
+    domains, the plain version where there are no nodes or more
+    domains."""
+    from kubernetesclustercapacity_tpu_torch.ops import fit
+
+    assert fit.SPREAD_ZONE_CAP == 16
+    host = _spread_case(variant, n, s, n_zones, empty_zone)
+    want = [_spread_on(host, device, n_zones, max_skew, True)
+            for device in ("cuda", "cpu")]
+    launches, plain = fit.SPREAD_LAUNCHES, fit.SPREAD_PLAIN_CALLS
+    got = _spread_on(host, cuda, n_zones, max_skew, False)
+    torch.cuda.synchronize()
+    kernel = n > 0 and n_zones <= fit.SPREAD_ZONE_CAP
+    assert fit.SPREAD_LAUNCHES == launches + int(kernel and s > 0)
+    assert fit.SPREAD_PLAIN_CALLS == plain + int(not kernel)
+    assert got.device.type == "cuda" and tuple(got.shape) == (s,)
+    for w in want:
+        assert torch.equal(got.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("skew", [1, 2])
+def test_server_grid_spread_launches_the_spread_kernel_once_a_request(
+        cuda, skew):
+    """Each served grid ``topology_spread`` launches the spread kernel
+    once, runs no plain version, counts one dispatch of route
+    ``torch_int64_per_node`` / ``topology_spread``, and answers as a host
+    server does."""
+    from kubernetesclustercapacity_tpu_torch.ops import fit
+    from kubernetesclustercapacity_tpu_torch.service import CapacityClient
+    from kubernetesclustercapacity_tpu_torch.telemetry.metrics import (
+        REGISTRY,
+    )
+
+    key = "topology.kubernetes.io/zone"
+    route = 'kernel="torch_int64_per_node",reason="topology_spread"'
+    fixture = synthetic_fixture(5_000, seed=51, taint_frac=0.1,
+                                unhealthy_frac=0.05, topology=(3, 1))
+    snap = snapshot_from_fixture(fixture, semantics="strict")
+    rng = np.random.default_rng(52)
+
+    def grid(s):
+        return {"cpu_request_milli": rng.integers(50, 4000, s).tolist(),
+                "mem_request_bytes": (rng.integers(64, 8192, s)
+                                      << 20).tolist(),
+                "replicas": rng.integers(1, 500, s).tolist(),
+                "max_skew": skew}
+
+    def dispatches():
+        return REGISTRY.snapshot().get("kccap_route_dispatches_total",
+                                       {}).get("values", {}).get(route, 0.0)
+
+    grids = [grid(1_000), grid(257), grid(1)]
+    card = _serve(snap, fixture=fixture, port=0)
+    host = _serve(snap, fixture=fixture, port=0, device="cpu")
+    try:
+        with CapacityClient(*host.address, timeout_s=300, retry=None) as c:
+            want = [c.topology_spread(key, **g) for g in grids]
+        with CapacityClient(*card.address, timeout_s=300, retry=None) as c:
+            for g, w in zip(grids, want):
+                launches, plain = fit.SPREAD_LAUNCHES, fit.SPREAD_PLAIN_CALLS
+                before = dispatches()
+                got = c.topology_spread(key, **g)
+                assert fit.SPREAD_LAUNCHES == launches + 1
+                assert fit.SPREAD_PLAIN_CALLS == plain
+                assert dispatches() == before + 1
+                assert got["totals"] == w["totals"]
+                assert got["schedulable"] == w["schedulable"]
+    finally:
+        card.shutdown()
+        host.shutdown()
+
+
 @pytest.mark.parametrize("grouped", [False, True])
 def test_capacity_at_risk_sweeps_launch_the_exact_kernel(cuda, grouped):
     """The sweep+quantile program reads totals only, so it launches the
